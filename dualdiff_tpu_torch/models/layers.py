@@ -1,0 +1,234 @@
+"""Building blocks of the SD v1.5 UNet / ControlNet family, in PyTorch.
+
+Port of ``dualdiff_tpu/models/layers.py`` (inference parts).  Parameter
+names follow the diffusers names that the JAX package's weight exporter
+emits, so ``runner/weights.py`` output loads with ``strict=True``.
+
+* Convolutions run NCHW; transformer blocks take ``(B', L, C)`` tokens.
+* The compute dtype is the parameters' dtype.  ``Linear`` and ``Conv2d``
+  cast their input to it, as flax's ``Dense``/``Conv`` with ``dtype`` do.
+* Heads default to 8 with head_dim = channels // 8 (diffusers SD v1.5:
+  ``attention_head_dim=8`` is the head count).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.attention import attention_packed, attention_packed_neighbors
+from ..ops.fourier import timestep_embedding
+from .norms import GroupNorm, LayerNorm
+
+__all__ = ["Linear", "Conv2d", "zero_module", "TimestepEmbedding",
+           "ResnetBlock2D", "Downsample2D", "Upsample2D", "Attention",
+           "GEGLUFeedForward", "BasicTransformerBlock", "Transformer2DModel",
+           "get_timestep_embedding", "is_camera_ring"]
+
+
+class Linear(nn.Linear):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+
+
+class Conv2d(nn.Conv2d):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.to(self.weight.dtype))
+
+
+def zero_module(m: nn.Module) -> nn.Module:
+    """Zero-initialise every parameter (the JAX package's zero-init leaves:
+    attn4 connector, ControlNet zero convs, conditioning ``conv_out``)."""
+    for p in m.parameters():
+        nn.init.zeros_(p)
+    return m
+
+
+class TimestepEmbedding(nn.Module):
+    """linear -> silu -> linear (diffusers ``TimestepEmbedding``)."""
+
+    def __init__(self, in_dim: int, time_embed_dim: int):
+        super().__init__()
+        self.linear_1 = Linear(in_dim, time_embed_dim)
+        self.linear_2 = Linear(time_embed_dim, time_embed_dim)
+
+    def forward(self, t_emb: torch.Tensor) -> torch.Tensor:
+        return self.linear_2(F.silu(self.linear_1(t_emb)))
+
+
+class ResnetBlock2D(nn.Module):
+    def __init__(self, in_channels: int, out_channels: int, temb_dim: int,
+                 groups: int = 32, eps: float = 1e-5):
+        super().__init__()
+        self.norm1 = GroupNorm(min(groups, in_channels), in_channels, eps)
+        self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1)
+        self.time_emb_proj = Linear(temb_dim, out_channels)
+        self.norm2 = GroupNorm(min(groups, out_channels), out_channels, eps)
+        self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1)
+        self.conv_shortcut = (Conv2d(in_channels, out_channels, 1)
+                              if in_channels != out_channels else None)
+
+    def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
+        dtype = self.conv1.weight.dtype
+        h = self.conv1(F.silu(self.norm1(x)).to(dtype))
+        t = self.time_emb_proj(F.silu(temb.to(dtype)))
+        h = self.norm2(h + t[:, :, None, None])
+        h = self.conv2(F.silu(h).to(dtype))
+        if self.conv_shortcut is not None:
+            x = self.conv_shortcut(x)
+        return x + h
+
+
+class Downsample2D(nn.Module):
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = Conv2d(channels, channels, 3, stride=2, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x)
+
+
+class Upsample2D(nn.Module):
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = Conv2d(channels, channels, 3, padding=1)
+
+    def forward(self, x: torch.Tensor,
+                target_hw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        """Nearest 2x, or to ``target_hw`` when the encoder produced odd
+        sizes.  ``nearest-exact`` (half-pixel centres) is what
+        ``jax.image.resize(..., "nearest")`` computes; torch's ``nearest``
+        differs at the 4->7 and 7->14 resizes of the 224x400 UNet."""
+        h, w = x.shape[2:]
+        size = tuple(target_hw) if target_hw is not None else (2 * h, 2 * w)
+        return self.conv(F.interpolate(x, size=size, mode="nearest-exact"))
+
+
+class Attention(nn.Module):
+    """Multi-head attention with separate q / kv dims (diffusers
+    ``Attention``), channel-packed."""
+
+    def __init__(self, query_dim: int, heads: int = 8,
+                 kv_dim: Optional[int] = None):
+        super().__init__()
+        self.heads = heads
+        kv_dim = kv_dim or query_dim
+        self.to_q = Linear(query_dim, query_dim, bias=False)
+        self.to_k = Linear(kv_dim, query_dim, bias=False)
+        self.to_v = Linear(kv_dim, query_dim, bias=False)
+        self.to_out = nn.ModuleList([Linear(query_dim, query_dim)])
+
+    def forward(self, hidden_states: torch.Tensor,
+                encoder_hidden_states: Optional[torch.Tensor] = None,
+                ring_views: int = 0) -> torch.Tensor:
+        """``ring_views=N``: attn4 camera-ring mode.  The leading dim folds
+        (batch, view); each view attends to its left and right neighbors
+        with neighbor selection inside the kernel, so K/V projections run
+        once per view."""
+        kv = hidden_states if encoder_hidden_states is None \
+            else encoder_hidden_states
+        q = self.to_q(hidden_states)
+        k = self.to_k(kv)
+        v = self.to_v(kv)
+        if ring_views:
+            out = attention_packed_neighbors(q, k, v, self.heads, ring_views)
+        else:
+            out = attention_packed(q, k, v, self.heads)
+        return self.to_out[0](out)
+
+
+class GEGLU(nn.Module):
+    def __init__(self, dim: int, inner: int):
+        super().__init__()
+        self.proj = Linear(dim, inner * 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h, gate = self.proj(x).chunk(2, dim=-1)
+        # flax nn.gelu defaults to the tanh approximation
+        return h * F.gelu(gate.float(), approximate="tanh").to(h.dtype)
+
+
+class GEGLUFeedForward(nn.Module):
+    def __init__(self, dim: int, mult: int = 4):
+        super().__init__()
+        # diffusers layout: net.0 = GEGLU, net.1 = dropout, net.2 = out
+        self.net = nn.ModuleList([GEGLU(dim, dim * mult), nn.Identity(),
+                                  Linear(dim * mult, dim)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.net[2](self.net[0](x))
+
+
+def is_camera_ring(pairs: Optional[Sequence[Sequence[int]]],
+                   n_cam: int) -> bool:
+    return pairs is not None and len(pairs) == n_cam and all(
+        tuple(pairs[i]) == ((i - 1) % n_cam, (i + 1) % n_cam)
+        for i in range(n_cam))
+
+
+class BasicTransformerBlock(nn.Module):
+    """self-attn -> cross-attn -> (multiview attn4 + connector) -> FF.
+
+    attn4 runs each camera against its two ring neighbors and sums the
+    outputs ('add'), gated through a zero-init linear connector."""
+
+    def __init__(self, dim: int, heads: int = 8,
+                 cross_attention_dim: int = 768, multiview: bool = False):
+        super().__init__()
+        self.multiview = multiview
+        self.norm1 = LayerNorm(dim)
+        self.attn1 = Attention(dim, heads)
+        self.norm2 = LayerNorm(dim)
+        self.attn2 = Attention(dim, heads, kv_dim=cross_attention_dim)
+        if multiview:
+            self.norm4 = LayerNorm(dim)
+            self.attn4 = Attention(dim, heads)
+            self.connector = zero_module(Linear(dim, dim))
+        self.norm3 = LayerNorm(dim)
+        self.ff = GEGLUFeedForward(dim)
+
+    def forward(self, hidden_states: torch.Tensor,
+                encoder_hidden_states: torch.Tensor,
+                n_cam: int = 1) -> torch.Tensor:
+        h = hidden_states
+        h = h + self.attn1(self.norm1(h))
+        h = h + self.attn2(self.norm2(h), encoder_hidden_states)
+        if self.multiview:
+            h = h + self.connector(
+                self.attn4(self.norm4(h), ring_views=n_cam))
+        return h + self.ff(self.norm3(h))
+
+
+class Transformer2DModel(nn.Module):
+    """GroupNorm -> 1x1 conv in -> transformer block(s) -> 1x1 conv out,
+    plus the residual.  NCHW in and out."""
+
+    def __init__(self, channels: int, heads: int = 8,
+                 cross_attention_dim: int = 768, num_layers: int = 1,
+                 multiview: bool = False):
+        super().__init__()
+        self.norm = GroupNorm(min(32, channels), channels, eps=1e-6)
+        self.proj_in = Conv2d(channels, channels, 1)
+        self.transformer_blocks = nn.ModuleList([
+            BasicTransformerBlock(channels, heads, cross_attention_dim,
+                                  multiview)
+            for _ in range(num_layers)])
+        self.proj_out = Conv2d(channels, channels, 1)
+
+    def forward(self, x: torch.Tensor, encoder_hidden_states: torch.Tensor,
+                n_cam: int = 1) -> torch.Tensor:
+        b, c, h, w = x.shape
+        hs = self.proj_in(self.norm(x))
+        hs = hs.permute(0, 2, 3, 1).reshape(b, h * w, c)
+        for block in self.transformer_blocks:
+            hs = block(hs, encoder_hidden_states, n_cam)
+        hs = hs.reshape(b, h, w, c).permute(0, 3, 1, 2)
+        return self.proj_out(hs) + x
+
+
+def get_timestep_embedding(timesteps: torch.Tensor, dim: int) -> torch.Tensor:
+    """SD v1.5 sinusoidal projection (flip_sin_to_cos=True, shift=0)."""
+    return timestep_embedding(timesteps, dim, flip_sin_to_cos=True)

@@ -1,0 +1,200 @@
+"""SD v1.5 conditional UNet with camera-ring multiview attention, PyTorch.
+
+Port of ``dualdiff_tpu/models/unet.py`` for inference (no remat).  Every
+transformer block carries the attn4 camera-ring path; ControlNet residuals
+are added to the skip connections and the mid block.  NCHW; the leading
+batch dim folds (batch, camera).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .layers import (Conv2d, Downsample2D, ResnetBlock2D, TimestepEmbedding,
+                     Transformer2DModel, Upsample2D, get_timestep_embedding,
+                     is_camera_ring)
+from .norms import GroupNorm
+
+__all__ = ["UNet2DConditionMultiview", "CrossAttnDownBlock2D", "DownBlock2D",
+           "UNetMidBlock2DCrossAttn"]
+
+
+class CrossAttnDownBlock2D(nn.Module):
+    def __init__(self, in_channels: int, out_channels: int, temb_dim: int,
+                 num_layers: int = 2, add_downsample: bool = True,
+                 heads: int = 8, cross_attention_dim: int = 768,
+                 multiview: bool = False):
+        super().__init__()
+        self.resnets = nn.ModuleList([
+            ResnetBlock2D(in_channels if i == 0 else out_channels,
+                          out_channels, temb_dim) for i in range(num_layers)])
+        self.attentions = nn.ModuleList([
+            Transformer2DModel(out_channels, heads, cross_attention_dim,
+                               multiview=multiview)
+            for _ in range(num_layers)])
+        self.downsamplers = (nn.ModuleList([Downsample2D(out_channels)])
+                             if add_downsample else None)
+
+    def forward(self, x, temb, encoder_hidden_states, n_cam: int = 1):
+        res = []
+        for resnet, attn in zip(self.resnets, self.attentions):
+            x = attn(resnet(x, temb), encoder_hidden_states, n_cam)
+            res.append(x)
+        if self.downsamplers is not None:
+            x = self.downsamplers[0](x)
+            res.append(x)
+        return x, res
+
+
+class DownBlock2D(nn.Module):
+    def __init__(self, in_channels: int, out_channels: int, temb_dim: int,
+                 num_layers: int = 2):
+        super().__init__()
+        self.resnets = nn.ModuleList([
+            ResnetBlock2D(in_channels if i == 0 else out_channels,
+                          out_channels, temb_dim) for i in range(num_layers)])
+
+    def forward(self, x, temb):
+        res = []
+        for resnet in self.resnets:
+            x = resnet(x, temb)
+            res.append(x)
+        return x, res
+
+
+class UNetMidBlock2DCrossAttn(nn.Module):
+    def __init__(self, channels: int, temb_dim: int, heads: int = 8,
+                 cross_attention_dim: int = 768, multiview: bool = False):
+        super().__init__()
+        self.resnets = nn.ModuleList([
+            ResnetBlock2D(channels, channels, temb_dim) for _ in range(2)])
+        self.attentions = nn.ModuleList([
+            Transformer2DModel(channels, heads, cross_attention_dim,
+                               multiview=multiview)])
+
+    def forward(self, x, temb, encoder_hidden_states, n_cam: int = 1):
+        x = self.resnets[0](x, temb)
+        x = self.attentions[0](x, encoder_hidden_states, n_cam)
+        return self.resnets[1](x, temb)
+
+
+class UpBlock(nn.Module):
+    """``UpBlock2D`` (no attentions) and ``CrossAttnUpBlock2D``."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 skip_channels: Sequence[int], temb_dim: int,
+                 add_upsample: bool, cross_attn: bool, heads: int = 8,
+                 cross_attention_dim: int = 768, multiview: bool = False):
+        super().__init__()
+        chans = [in_channels] + [out_channels] * (len(skip_channels) - 1)
+        self.resnets = nn.ModuleList([
+            ResnetBlock2D(c + s, out_channels, temb_dim)
+            for c, s in zip(chans, skip_channels)])
+        self.attentions = nn.ModuleList([
+            Transformer2DModel(out_channels, heads, cross_attention_dim,
+                               multiview=multiview)
+            for _ in skip_channels]) if cross_attn else None
+        self.upsamplers = (nn.ModuleList([Upsample2D(out_channels)])
+                           if add_upsample else None)
+
+    def forward(self, x, skips, temb, encoder_hidden_states=None,
+                n_cam: int = 1, upsample_target=None):
+        for i, skip in enumerate(skips):
+            x = self.resnets[i](torch.cat([x, skip], dim=1), temb)
+            if self.attentions is not None:
+                x = self.attentions[i](x, encoder_hidden_states, n_cam)
+        if self.upsamplers is not None:
+            x = self.upsamplers[0](x, upsample_target)
+        return x
+
+
+class UNet2DConditionMultiview(nn.Module):
+    def __init__(self, in_channels: int = 4, out_channels: int = 4,
+                 block_out_channels: Sequence[int] = (320, 640, 1280, 1280),
+                 layers_per_block: int = 2, heads: int = 8,
+                 cross_attention_dim: int = 768, multiview: bool = True,
+                 neighboring_view_pair: Optional[Sequence[Sequence[int]]] = (
+                     (5, 1), (0, 2), (1, 3), (2, 4), (3, 5), (4, 0))):
+        """attn4 is the 'add' type with a zero_linear connector (the only
+        ones ported)."""
+        super().__init__()
+        chs = list(block_out_channels)
+        self.block_out_channels = tuple(chs)
+        self.neighboring_view_pair = neighboring_view_pair
+        self.multiview = multiview
+        temb = chs[0] * 4
+        tx = dict(heads=heads, cross_attention_dim=cross_attention_dim,
+                  multiview=multiview)
+
+        self.time_embedding = TimestepEmbedding(chs[0], temb)
+        self.conv_in = Conv2d(in_channels, chs[0], 3, padding=1)
+
+        self.down_blocks = nn.ModuleList()
+        skip_chs = [chs[0]]
+        prev = chs[0]
+        for i, ch in enumerate(chs):
+            if i < len(chs) - 1:
+                self.down_blocks.append(CrossAttnDownBlock2D(
+                    prev, ch, temb, layers_per_block, True, **tx))
+                skip_chs += [ch] * (layers_per_block + 1)
+            else:
+                self.down_blocks.append(DownBlock2D(
+                    prev, ch, temb, layers_per_block))
+                skip_chs += [ch] * layers_per_block
+            prev = ch
+        self.mid_block = UNetMidBlock2DCrossAttn(chs[-1], temb, **tx)
+
+        self.up_blocks = nn.ModuleList()
+        n_lay = layers_per_block + 1
+        for i, ch in enumerate(reversed(chs)):
+            skips = skip_chs[-n_lay:][::-1]
+            del skip_chs[-n_lay:]
+            self.up_blocks.append(UpBlock(
+                prev, ch, skips, temb, add_upsample=i < len(chs) - 1,
+                cross_attn=i > 0, **tx))
+            prev = ch
+        self.conv_norm_out = GroupNorm(min(32, chs[0]), chs[0], eps=1e-5)
+        self.conv_out = Conv2d(chs[0], out_channels, 3, padding=1)
+
+    def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
+                encoder_hidden_states: torch.Tensor,
+                down_block_additional_residuals: Optional[
+                    List[torch.Tensor]] = None,
+                mid_block_additional_residual: Optional[torch.Tensor] = None,
+                n_cam: int = 6) -> torch.Tensor:
+        """sample (B', 4, h, w), timesteps (B',), encoder_hidden_states
+        (B', L, D) -> eps (B', 4, h, w) in the compute dtype."""
+        if self.multiview and not is_camera_ring(self.neighboring_view_pair,
+                                                 n_cam):
+            raise NotImplementedError(
+                "only camera-ring neighbor pairs are ported for attn4")
+        chs = self.block_out_channels
+        temb = self.time_embedding(get_timestep_embedding(timesteps, chs[0]))
+        x = self.conv_in(sample)
+        res_stack = [x]
+        for block in self.down_blocks:
+            if isinstance(block, CrossAttnDownBlock2D):
+                x, res = block(x, temb, encoder_hidden_states, n_cam)
+            else:
+                x, res = block(x, temb)
+            res_stack += res
+        if down_block_additional_residuals is not None:
+            res_stack = [r + a.to(r.dtype) for r, a in
+                         zip(res_stack, down_block_additional_residuals)]
+        x = self.mid_block(x, temb, encoder_hidden_states, n_cam)
+        if mid_block_additional_residual is not None:
+            x = x + mid_block_additional_residual.to(x.dtype)
+
+        n_lay = len(self.up_blocks[0].resnets)
+        for block in self.up_blocks:
+            skips = res_stack[-n_lay:][::-1]
+            del res_stack[-n_lay:]
+            target: Optional[Tuple[int, int]] = (
+                tuple(res_stack[-1].shape[2:]) if res_stack else None)
+            x = block(x, skips, temb, encoder_hidden_states, n_cam, target)
+        x = F.silu(self.conv_norm_out(x)).to(self.conv_out.weight.dtype)
+        return self.conv_out(x)

@@ -1,0 +1,53 @@
+"""Batch tensors and per-branch conditioning for generation.
+
+Port of ``prepare_batch`` and ``compute_branch_conds`` from
+``dualdiff_tpu/runner/trainer.py``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..ops.ors import filter_fg_bg, occupancy_ray_sample
+
+__all__ = ["prepare_batch", "compute_branch_conds"]
+
+_KEYS = ("pixel_values", "bev_map", "camera_param", "input_ids",
+         "uncond_ids", "occ_labels", "occ_cam_K", "occ_cam_T")
+
+
+def prepare_batch(batch: Dict, device) -> Dict:
+    """Collate output -> flat dict of tensors on ``device`` (drops meta)."""
+    to = lambda a: torch.as_tensor(np.asarray(a), device=device)
+    out = {k: to(batch[k]) for k in _KEYS if k in batch}
+    for i, br in enumerate(batch["branches"]):
+        if br["cond"] is not None:
+            out[f"cond_{i}"] = to(br["cond"])
+        if br["bboxes_3d"] is not None:
+            out[f"boxes_{i}"] = {k: to(v) for k, v in br["bboxes_3d"].items()}
+    return out
+
+
+def compute_branch_conds(models: Dict, batch: Dict,
+                         latent_hw: Tuple[int, int],
+                         image_hw: Tuple[int, int]) -> List[Optional[torch.Tensor]]:
+    """Each branch's conditioning tensor.  ORS branches (``occ_3d``) sample
+    their ray tensor on the device; its depth axis doubles as the
+    conditioning channels, so sample_point == block_out_channels[0]."""
+    conds = []
+    rays = None
+    sample_point = int(models["unet"].block_out_channels[0])
+    for i, spec in enumerate(models["specs"]):
+        cond = batch.get(f"cond_{i}")
+        if spec.cond_kind == "occ_3d":
+            if rays is None:
+                rays = occupancy_ray_sample(
+                    batch["occ_labels"], batch["occ_cam_K"],
+                    batch["occ_cam_T"], latent_hw, image_hw,
+                    sample_point=sample_point)
+            cond = filter_fg_bg(rays, spec.occ_fg, spec.occ_bg)
+        conds.append(cond)
+    return conds

@@ -1,0 +1,72 @@
+"""Composed experiment configs as JSON, with attribute access.
+
+The JAX package composes its YAML configs at run time, which needs PyYAML.
+The port instead ships each composed config it runs as a JSON file under
+``dualdiff_tpu_torch/configs/`` (the ``to_dict`` of the JAX loader's output;
+a test keeps the two equal) and reads it with the standard library.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Any, Iterable
+
+__all__ = ["ConfigNode", "load_config", "FLAGSHIP"]
+
+CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)),
+                          "configs")
+# +exp=dual_branch_augloss_fusion dataset=Nuscenes_synthetic
+# runner.pipeline_param.bbox_max_length=80
+FLAGSHIP = "dual_branch_augloss_fusion_224x400"
+
+
+class ConfigNode(dict):
+    """dict with attribute access; nested dicts are wrapped on the way in."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__()
+        for k, v in dict(*args, **kwargs).items():
+            self[k] = v
+
+    def __getattr__(self, name: str) -> Any:
+        try:
+            return self[name]
+        except KeyError as e:
+            raise AttributeError(name) from e
+
+    def __setitem__(self, key, value):
+        super().__setitem__(key, _wrap(value))
+
+
+def _wrap(value: Any) -> Any:
+    if isinstance(value, dict) and not isinstance(value, ConfigNode):
+        return ConfigNode(value)
+    if isinstance(value, list):
+        return [_wrap(v) for v in value]
+    return value
+
+
+def _parse_value(text: str) -> Any:
+    try:
+        return json.loads(text)
+    except json.JSONDecodeError:
+        return text
+
+
+def load_config(name: str = FLAGSHIP,
+                overrides: Iterable[str] = ()) -> ConfigNode:
+    """Load ``configs/<name>.json`` and apply dotted ``a.b.c=value``
+    overrides (values parsed as JSON, else kept as strings)."""
+    with open(os.path.join(CONFIG_DIR, name + ".json")) as f:
+        cfg = ConfigNode(json.load(f))
+    for ov in overrides:
+        if "=" not in ov:
+            raise ValueError(f"bad override (need key=value): {ov}")
+        key, value = ov.split("=", 1)
+        *parents, leaf = key.split(".")
+        node = cfg
+        for p in parents:
+            node = node[p]
+        node[leaf] = _parse_value(value)
+    return cfg

@@ -22,3 +22,9 @@ def rng():
     import jax
 
     return jax.random.PRNGKey(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA GPU (run on the card); skipped "
+        "elsewhere")

@@ -1,0 +1,64 @@
+"""The port's copies of the JAX package's numpy-only modules, and its JSON
+config, against the originals."""
+
+import json
+
+import numpy as np
+
+from tests import torch_parity as tp
+from dualdiff_tpu.data.collate import collate_fn as jax_collate
+from dualdiff_tpu.data.synthetic import SyntheticNuScenes as JaxSynthetic
+from dualdiff_tpu.data.tokenizer import HashTokenizer as JaxTok
+from dualdiff_tpu.utils.config import to_dict
+from dualdiff_tpu_torch.data.collate import collate_fn
+from dualdiff_tpu_torch.data.synthetic import SyntheticNuScenes
+from dualdiff_tpu_torch.data.tokenizer import HashTokenizer
+from dualdiff_tpu_torch.utils.config import load_config
+
+
+def test_json_config_equals_composed_yaml():
+    """dualdiff_tpu_torch/configs/<flagship>.json is the JAX loader's
+    composition of the flagship overrides, as JSON."""
+    want = json.loads(json.dumps(to_dict(tp.jax_config())))
+    assert dict(load_config()) == want
+
+
+def test_config_overrides():
+    cfg = load_config(overrides=["runner.mixed_precision=fp32",
+                                 "dataset.image_size=[256, 128]"])
+    assert cfg.runner.mixed_precision == "fp32"
+    assert cfg.dataset.image_size == [256, 128]
+    assert cfg.runner.pipeline_param.bbox_max_length == 80
+
+
+def _assert_tree_equal(a, b, path=""):
+    if isinstance(a, dict):
+        assert set(a) == set(b), path
+        for k in a:
+            _assert_tree_equal(a[k], b[k], f"{path}/{k}")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            _assert_tree_equal(x, y, f"{path}/{i}")
+    elif isinstance(a, np.ndarray):
+        assert a.dtype == b.dtype, path
+        np.testing.assert_array_equal(a, b, err_msg=path)
+    elif hasattr(a, "__dataclass_fields__"):
+        assert vars(a) == vars(b), path
+    else:
+        assert a == b, path
+
+
+def test_synthetic_samples_and_collate_equal():
+    cfg = tp.jax_config()
+    h, w = cfg.dataset.image_size
+    jds = JaxSynthetic(num_samples=2, image_size=(h, w), seed=int(cfg.seed))
+    pds = SyntheticNuScenes(num_samples=2, image_size=(h, w),
+                            seed=int(cfg.seed))
+    for i in range(2):
+        _assert_tree_equal(pds[i], jds[i], f"sample {i}")
+    want = jax_collate([jds[0], jds[1]], cfg, JaxTok(), is_train=False,
+                       rng=np.random.default_rng(0))
+    got = collate_fn([pds[0], pds[1]], load_config(), HashTokenizer(),
+                     is_train=False, rng=np.random.default_rng(0))
+    _assert_tree_equal(got, want)

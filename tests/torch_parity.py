@@ -1,0 +1,138 @@
+"""Shared set-up of the PyTorch-port parity tests (``test_torch_*.py``).
+
+The JAX package is the reference.  Both sides get the same inputs, made with
+numpy from a seed, and the same weights, exported with ``from_jax`` and
+loaded with ``strict=True``.  Everything runs in float32
+(``runner.mixed_precision=fp32``), so the comparisons are of the algorithm.
+
+Weights: the JAX init's param tree, traced abstractly for its shapes (running
+the tiny init itself compiles for 85 s on a CPU), with every leaf drawn from
+a seeded numpy generator.  No leaf is zero, so the attn4 connector, the
+ControlNet zero convs and the conditioning ``conv_out`` all contribute.
+"""
+
+from __future__ import annotations
+
+import functools
+import os
+
+import numpy as np
+import torch
+
+CONFIG_DIR = os.path.join(os.path.dirname(__file__), "..", "configs")
+FLAGSHIP = ["+exp=dual_branch_augloss_fusion", "dataset=Nuscenes_synthetic",
+            "runner.pipeline_param.bbox_max_length=80"]
+# 256x128 -> a 32x16 = 512-token top latent level: the smallest image whose
+# attention reaches the port's kernel wrappers (PACKED_MIN_LQ = 512)
+TINY_OVERRIDES = ["runner.mixed_precision=fp32", "dataset.image_size=[256, 128]",
+                  "runner.pipeline_param.num_inference_steps=3"]
+
+# the port's test modules run 6 to a machine under xdist
+torch.set_num_threads(2)
+
+
+def jax_config(extra=()):
+    from dualdiff_tpu.utils.config import load_config
+
+    return load_config(CONFIG_DIR, overrides=FLAGSHIP + list(extra))
+
+
+def port_config(extra=()):
+    from dualdiff_tpu_torch.utils.config import load_config
+
+    return load_config(overrides=list(extra))
+
+
+def random_params(tree, seed: int = 0, scale=None):
+    """Seeded values for every leaf of a flax param tree (arrays or
+    ShapeDtypeStructs): kernels and tables ~ N(0, 1/fan_in), norm scales
+    1 + N(0, 0.1^2), other vectors N(0, 0.05^2).  ``scale`` maps a path
+    fragment to a factor applied to the leaves under it."""
+    import flax
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for path, leaf in flax.traverse_util.flatten_dict(tree).items():
+        shape = tuple(leaf.shape)
+        if len(shape) >= 2:
+            v = rng.normal(0.0, float(np.prod(shape[:-1])) ** -0.5, shape)
+        elif path[-1] == "scale":
+            v = 1.0 + rng.normal(0.0, 0.1, shape)
+        else:
+            v = rng.normal(0.0, 0.05, shape)
+        for frag, factor in (scale or {}).items():
+            if frag in path:
+                v = v * factor
+        out[path] = v.astype(np.float32)
+    return flax.traverse_util.unflatten_dict(out)
+
+
+def flat(params):
+    """flax tree -> {"a/b/c": numpy leaf}."""
+    import flax
+
+    return {"/".join(k): np.asarray(v)
+            for k, v in flax.traverse_util.flatten_dict(params).items()}
+
+
+def load_port(module: torch.nn.Module, params, kind: str) -> torch.nn.Module:
+    from dualdiff_tpu_torch.runner.weights import from_jax
+
+    module.load_state_dict(from_jax(flat(params), kind), strict=True)
+    return module
+
+
+@functools.lru_cache(maxsize=1)
+def tiny_setup():
+    """Tiny JAX and port model sets with equal weights, the seed-0 synthetic
+    batch of 1 sample at 256x128, and the tokenizer."""
+    from dualdiff_tpu.data.collate import collate_fn
+    from dualdiff_tpu.data.synthetic import SyntheticNuScenes
+    from dualdiff_tpu.data.tokenizer import HashTokenizer
+    from dualdiff_tpu.runner.factory import build_models
+    from dualdiff_tpu.runner.trainer import init_full_params, prepare_batch
+    from dualdiff_tpu_torch.runner.factory import build_models as port_build
+
+    jcfg = jax_config(TINY_OVERRIDES)
+    pcfg = port_config(TINY_OVERRIDES)
+    h, w = jcfg.dataset.image_size
+    tok = HashTokenizer()
+    ds = SyntheticNuScenes(num_samples=2, image_size=(h, w), seed=0)
+    batch = collate_fn([ds[0]], jcfg, tok, is_train=False,
+                       rng=np.random.default_rng(0))
+    jmodels = build_models(jcfg, tiny=True)
+    tensors = prepare_batch(batch)
+    shapes = init_full_params(
+        jcfg, jmodels, tensors, (h // 8, w // 8),
+        tuple(jcfg.model.get("ors_frame_hw", (896, 1600))), tok,
+        abstract=True)
+    # cam2token reads raw intrinsics (fx ~ 1266): an unscaled random kernel
+    # makes the camera token ~400, the cross-attention softmax one-hot, and
+    # float rounding alone then flips its winner on either side
+    params = random_params(shapes, scale={"cam2token": 0.01})
+
+    pmodels = port_build(pcfg, tiny=True, device="cpu")
+    load_port(pmodels["unet"], params["unet"], "unet")
+    for i, cn in enumerate(pmodels["controlnets"]):
+        load_port(cn, params[f"controlnet_{i}"], "controlnet")
+    load_port(pmodels["vae"], params["vae"], "vae")
+    load_port(pmodels["text_encoder"], params["text_encoder"], "clip")
+    return {"jcfg": jcfg, "pcfg": pcfg, "jmodels": jmodels,
+            "params": params, "pmodels": pmodels, "batch": batch,
+            "tokenizer": tok}
+
+
+def t(x) -> torch.Tensor:
+    """numpy / jax array -> CPU torch tensor."""
+    return torch.from_numpy(np.array(x))
+
+
+def nhwc_to_nchw(x) -> torch.Tensor:
+    return t(x).permute(0, 3, 1, 2).contiguous()
+
+
+def assert_close(got, want, rtol, atol, what=""):
+    got = got.detach().float().numpy() if isinstance(got, torch.Tensor) \
+        else np.asarray(got, np.float32)
+    np.testing.assert_allclose(got, np.asarray(want, np.float32), rtol=rtol,
+                               atol=atol, err_msg=what)
