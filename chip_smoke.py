@@ -2,16 +2,18 @@
 """GPU smoke run of the PyTorch port (``dualdiff_tpu_torch``) on one card.
 
     python3 chip_smoke.py                # the default run; one CUDA card
-    python3 chip_smoke.py --profile DIR  # also writes a kernel-time
-                                         # breakdown of one generation to
-                                         # DIR/profile_generation.txt
+    python3 chip_smoke.py --profile DIR  # also writes kernel-time
+                                         # breakdowns of one generation and
+                                         # one training step to
+                                         # DIR/profile_generation.txt and
+                                         # DIR/profile_train_step.txt
 
 Phases, in order; any failure exits non-zero:
 
 1. device   requires CUDA; prints the card's name and power limit.
 2. build    compiles every CUDA kernel from ``dualdiff_tpu_torch/csrc``.
 3. kernels  each kernel against its plain PyTorch version at the shapes the
-            flagship path gives it (bf16 inputs; plain version in float32,
+            flagship paths give it (bf16 inputs; plain version in float32,
             rounded once), with times of the kernel, the plain version, one
             PyTorch library call where one computes the same function, and
             the least time the card could take (bound).
@@ -21,6 +23,12 @@ Phases, in order; any failure exits non-zero:
             shape, finiteness, range and the kernels' launch counts per call.
 5. reference the tiny model set at 256x128, 3 steps, on the card in bf16
             against the same weights on the CPU in float32 (plain path).
+6. train    the flagship training step at full width (B=1 x 6 views, bf16,
+            remat, AdamW): one warm-up and timed steps; checks finite loss
+            and grad_norm, launches per step, trainables moved and frozen
+            parameters unchanged.
+7. train_reference  one tiny loss + gradient at 256x128 on the card in bf16
+            against the CPU in float32.
 
 The line before the last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -41,17 +49,71 @@ H100_BF16_FLOPS = 989e12  # dense tensor-core peak, NVIDIA data sheet (SXM)
 H100_BYTES_PER_S = 3.35e12
 SEED = 0
 TIMED_GENERATIONS = 3
+TIMED_TRAIN_STEPS = 5
+# Training reference (phase 7), bf16 card against float32 CPU; readings on
+# an H100 80GB HBM3 at 700 W.  Loss: 3.75e-4 relative apart; the limit is
+# about 5x that.  Gradients, per trainable leaf (``leaf_grad_errors``): the
+# worst sound leaf reads 0.048 with the floor at 3e-3 of the network's
+# largest leaf; planted faults (tests/test_torch_grad_gate_cuda.py) read
+# 0.098 (one call's dq scaled by 0.9) to 1.0 (one call's dq or dk/dv
+# zeroed: 0.149 and up).  The limit sits between 0.048 and 0.098.
+LOSS_REL_TOL = 2e-3
+LEAF_FLOOR = 3e-3
+LEAF_TOL = 0.07
 
 # main-path kernel shapes: CFG batch 2*B*N = 24 rows, the 28x50 = 1400-token
 # latent level at C = 320 with 8 heads (d = 40); cross-attention KV
 # 1 camera + 77 text + 80 box tokens = 158 in the UNet and both ControlNets
 B, N_CAM, L, C, HEADS = 2, 6, 1400, 320, 8
 KV_CROSS = 1 + 77 + 80
-# the TPU kernel each CUDA kernel replaces
+# training: train_batch_size 1 x 6 views; attn4 stacks both neighbours
+B_TRAIN = 1
+# the TPU kernel each CUDA kernel replaces, and its source here
 REPLACES = {
     "packed_attention_fwd": "dualdiff_tpu/ops/attention.py:468",      # _fwd_kernel_t
     "packed_attention_nbr_fwd": "dualdiff_tpu/ops/attention.py:671",  # _fwd_kernel_t_nbr
+    "packed_attention_lse_fwd": "dualdiff_tpu/ops/attention.py:701",  # _fwd_kernel_t_lse
+    "packed_attention_bwd_dq": "dualdiff_tpu/ops/attention.py:719",   # _bwd_dq_kernel_t
+    "packed_attention_bwd_dkv": "dualdiff_tpu/ops/attention.py:751",  # _bwd_dkv_kernel_t
 }
+SOURCE = {
+    "packed_attention_fwd": "dualdiff_tpu_torch/csrc/attention.cu",
+    "packed_attention_nbr_fwd": "dualdiff_tpu_torch/csrc/attention.cu",
+    "packed_attention_lse_fwd": "dualdiff_tpu_torch/csrc/attention.cu",
+    "packed_attention_bwd_dq": "dualdiff_tpu_torch/csrc/attention_train.cu",
+    "packed_attention_bwd_dkv": "dualdiff_tpu_torch/csrc/attention_train.cu",
+}
+
+
+def train_launches_per_step(layers: int, n_controlnets: int,
+                            remat: bool) -> dict:
+    """Kernel launches of one training step, derived from the code.  Only
+    the top latent level reaches the kernels (28x50 = 1400 tokens at
+    224x400; 32x16 = 512 for the tiny 256x128 models).  There:
+
+    * UNet ``down_blocks_0``: ``layers`` transformer blocks of attn1, attn2
+      and attn4.  Its first block's attn1 sees only frozen inputs (the noisy
+      latents through frozen layers): no input needs a gradient, so it
+      takes the inference kernel.  That block's attn2 (K/V from the
+      ControlNet's context tokens) and attn4 (trainable norm4 and
+      projections) are differentiated, as is everything after them.
+    * UNet ``up_blocks_3``: ``layers + 1`` blocks, 3 differentiated each.
+    * each ControlNet's ``down_blocks_0``: ``layers`` blocks of attn1 and
+      attn2 (no attn4), all trainable.
+    * attn4 under grad is one stacked ``PackedAttention`` call per block;
+      the ring kernel never runs.
+
+    A differentiated call is one forward with lse, one dq and one dk/dv;
+    remat replays every block's forward in the backward, so the forward
+    kernels run twice."""
+    train = 2 + 3 * (layers - 1) + 3 * (layers + 1) \
+        + 2 * n_controlnets * layers
+    replay = 2 if remat else 1
+    return {"packed_attention_fwd": replay,
+            "packed_attention_nbr_fwd": 0,
+            "packed_attention_lse_fwd": train * replay,
+            "packed_attention_bwd_dq": train,
+            "packed_attention_bwd_dkv": train}
 
 
 def log(msg: str) -> None:
@@ -121,11 +183,161 @@ def kernel_cases():
     ]
 
 
+def train_kernel_cases():
+    """(label, b, lq, lk, c, heads) of every compared training shape: the
+    flagship step's 1400-token attentions (6 view rows; attn4 stacks the
+    left and right neighbours on the batch axis, 12 rows) plus ragged
+    ones."""
+    rows = B_TRAIN * N_CAM
+    return [
+        ("attn1 self", rows, L, L, C, HEADS),
+        ("attn4 stacked neighbours", 2 * rows, L, L, C, HEADS),
+        ("attn2 cross", rows, L, KV_CROSS, C, HEADS),
+        ("ragged, d=80", 3, 777, 333, 320, 4),
+        ("d=160", 2, 513, 65, 1280, 8),
+    ]
+
+
+def _tol(want) -> float:
+    """bf16 output: one rounding is 2^-8 relative; the kernels also round
+    one MMA operand to bf16 (P in the forward and dv, dS in dq and dk:
+    2^-9 relative per term, averaging out over the summed keys or
+    queries)."""
+    return 2.0 ** -7 * want.float().abs().max().item() + 1e-3
+
+
+def _max_err(got, want) -> float:
+    return (got.float() - want.float()).abs().max().item()
+
+
+def _sdpa_backend(q, k, v):
+    """The first SDPA backend that takes these (B, H, L, D) inputs."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+               SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([be]):
+                torch.nn.functional.scaled_dot_product_attention(q, k, v)
+            return be
+        except RuntimeError:
+            continue
+    raise RuntimeError("no SDPA backend takes these inputs")
+
+
+def train_kernel_rows(A, g, label, b, lq, lk, c, heads):
+    """The three training kernels on one shape against their plain
+    versions; each backward kernel gets the forward kernel's lse and the
+    delta of its bf16 output, as ``PackedAttention.backward`` does.
+    Library yardsticks: ``aten._scaled_dot_product_flash_attention`` (it
+    returns the logsumexp) for the forward, the backward of
+    ``F.scaled_dot_product_attention`` for dq and dk/dv together."""
+    from torch.nn.attention import sdpa_kernel
+
+    q, k, v = (torch.randn(b, n, c, generator=g, device="cuda").bfloat16()
+               for n in (lq, lk, lk))
+    do = torch.randn(b, lq, c, generator=g, device="cuda").bfloat16()
+    d = c // heads
+    scale = d ** -0.5
+    shape = {"b": b, "lq": lq, "lk": lk, "c": c, "heads": heads,
+             "head_dim": d}
+    o, lse = A.packed_attention_lse_fwd(q, k, v, heads)
+    delta = A.attention_delta(o, do, heads)
+    dq = A.packed_attention_bwd_dq(q, k, v, do, lse, delta, heads)
+    dk, dv = A.packed_attention_bwd_dkv(q, k, v, do, lse, delta, heads)
+    torch.cuda.synchronize()
+    o_want, lse_want = A.attention_packed_lse_plain(q, k, v, heads)
+    dq_want = A.attention_packed_bwd_dq_plain(q, k, v, do, lse, delta, heads)
+    dk_want, dv_want = A.attention_packed_bwd_dkv_plain(q, k, v, do, lse,
+                                                         delta, heads)
+    # lse is float32 on both sides; online softmax with exp2f and another
+    # order of sums: 1e-3 absolute on values of about log(Lk) + max logit
+    checks = {
+        "packed_attention_lse_fwd": [
+            ("o", _max_err(o, o_want), _tol(o_want)),
+            ("lse", _max_err(lse, lse_want), 1e-3)],
+        "packed_attention_bwd_dq": [
+            ("dq", _max_err(dq, dq_want), _tol(dq_want))],
+        "packed_attention_bwd_dkv": [
+            ("dk", _max_err(dk, dk_want), _tol(dk_want)),
+            ("dv", _max_err(dv, dv_want), _tol(dv_want))],
+    }
+    del o_want, lse_want, dq_want, dk_want, dv_want
+
+    split = lambda t: t.view(b, t.shape[1], heads, d).transpose(1, 2)
+    be = _sdpa_backend(split(q), split(k), split(v))
+    qr, kr, vr = (split(t).detach().requires_grad_() for t in (q, k, v))
+    with sdpa_kernel([be]):
+        lib_out = torch.nn.functional.scaled_dot_product_attention(qr, kr, vr)
+    lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        lib_out, (qr, kr, vr), split(do), retain_graph=True), 10)
+    lib_fwd = lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+        split(q), split(k), split(v), scale=scale)
+    try:
+        lib_fwd_ms = cuda_ms(lib_fwd, 20)
+    except RuntimeError:  # flash does not take this head_dim
+        lib_fwd_ms = None
+
+    nq, nk = b * lq * c, b * lk * c
+    rows_lse = b * heads * lq * 4  # one float32 per query and head
+    work = {  # bytes: each input read once, each output written once
+        "packed_attention_lse_fwd": (2 * (2 * nq + 2 * nk) + rows_lse,
+                                     4 * b * lq * lk * c),
+        "packed_attention_bwd_dq": (2 * (3 * nq + 2 * nk) + 2 * rows_lse,
+                                    6 * b * lq * lk * c),
+        "packed_attention_bwd_dkv": (2 * (2 * nq + 4 * nk) + 2 * rows_lse,
+                                     8 * b * lq * lk * c),
+    }
+    runs = {
+        "packed_attention_lse_fwd": (
+            lambda: A.packed_attention_lse_fwd(q, k, v, heads),
+            lambda: A.attention_packed_lse_plain(q, k, v, heads), lib_fwd_ms),
+        "packed_attention_bwd_dq": (
+            lambda: A.packed_attention_bwd_dq(q, k, v, do, lse, delta, heads),
+            lambda: A.attention_packed_bwd_dq_plain(q, k, v, do, lse, delta,
+                                                    heads), lib_bwd_ms),
+        "packed_attention_bwd_dkv": (
+            lambda: A.packed_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                               heads),
+            lambda: A.attention_packed_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                                     heads), lib_bwd_ms),
+    }
+    out = {}
+    for kern, (run, plain, lib_ms) in runs.items():
+        nbytes, flops = work[kern]
+        bound_ms, bound_by = bound(nbytes, flops)
+        errs = checks[kern]
+        row = {
+            "kernel": kern, "replaces": REPLACES[kern], "case": label,
+            "shape": shape,
+            "max_abs_err": max(e for _, e, _ in errs),
+            "checks": {n: {"max_abs_err": e, "tol": t} for n, e, t in errs},
+            "kernel_ms": cuda_ms(run, 20), "plain_ms": cuda_ms(plain, 3),
+            "library_ms": lib_ms, "library": (
+                "aten._scaled_dot_product_flash_attention"
+                if kern == "packed_attention_lse_fwd" else
+                f"SDPA backward ({be.name}), dq and dk/dv together"),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+        log(json.dumps(row))
+        for n, e, t in errs:
+            if not (e <= t and math.isfinite(e)):
+                raise AssertionError(
+                    f"{kern} [{label}] {n} disagrees with its plain version: "
+                    f"max abs err {e} > {t}")
+        out[kern] = row
+    return out
+
+
 def phase_kernels():
     from dualdiff_tpu_torch.ops import attention as A
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
     results = {}
+    for case in train_kernel_cases():
+        for kern, row in train_kernel_rows(A, g, *case).items():
+            results.setdefault(kern, []).append(row)
+        torch.cuda.empty_cache()
     for kern, label, b, lq, lk, c, heads, n_cam in kernel_cases():
         q = torch.randn(b, lq, c, generator=g, device="cuda").bfloat16()
         k = torch.randn(b, lk, c, generator=g, device="cuda").bfloat16()
@@ -217,9 +429,12 @@ def phase_generate(profile_dir):
     lh, lw = h // 8, w // 8
     # from the code: per model evaluation the UNet's 5 transformer blocks at
     # 1400 tokens (down_blocks_0: 2, up_blocks_3: 3) and each ControlNet's 2
-    # (down_blocks_0) run attn1 + attn2 -> 18; attn4 runs in the UNet's 5
+    # (down_blocks_0) run attn1 + attn2 -> 18; attn4 runs in the UNet's 5;
+    # generation differentiates nothing, so the training kernels never run
     expect = {"packed_attention_fwd": 18 * steps,
-              "packed_attention_nbr_fwd": 5 * steps}
+              "packed_attention_nbr_fwd": 5 * steps,
+              "packed_attention_lse_fwd": 0, "packed_attention_bwd_dq": 0,
+              "packed_attention_bwd_dkv": 0}
     gen = torch.Generator(device="cuda")
     times, counts = [], None
     torch.cuda.reset_peak_memory_stats()
@@ -256,15 +471,20 @@ def phase_generate(profile_dir):
            "launches_per_generation": counts}
     log(json.dumps(row))
     if profile_dir:
-        profile_generation(pipe, batch, s, profile_dir)
+        gen.manual_seed(SEED)
+        profile_run(lambda: pipe(batch, generator=gen), s, profile_dir,
+                    "generation")
     del pipe
     torch.cuda.empty_cache()
     return counts
 
 
 _CATEGORIES = (  # kernel-name fragment -> category, first match wins
-    ("attention_kernel", "attention kernels (csrc/attention.cu)"),
-    ("fprop", "convolution (cuDNN)"), ("conv", "convolution (cuDNN)"),
+    ("attention_kernel", "attention kernels (csrc)"),
+    ("bwd_dq_kernel", "attention kernels (csrc)"),
+    ("bwd_dkv_kernel", "attention kernels (csrc)"),
+    ("fprop", "convolution (cuDNN)"), ("dgrad", "convolution (cuDNN)"),
+    ("wgrad", "convolution (cuDNN)"), ("conv", "convolution (cuDNN)"),
     ("gemm", "matmul (cuBLAS / CUTLASS)"), ("nvjet", "matmul (cuBLAS / CUTLASS)"),
     ("softmax", "softmax (einsum levels)"),
     ("layer_norm", "norm statistics"), ("reduce_kernel", "norm statistics"),
@@ -272,20 +492,20 @@ _CATEGORIES = (  # kernel-name fragment -> category, first match wins
 )
 
 
-def profile_generation(pipe, batch, wall_unprofiled: float,
-                       out_dir: str) -> None:
-    """Device time of one generation by kernel and by category
-    (torch.profiler); the idle share is taken against the unprofiled wall
-    time, since the profiler itself slows the host."""
+def profile_run(run, wall_unprofiled: float, out_dir: str,
+                name: str) -> dict:
+    """Device time of one ``run()`` by kernel and by category
+    (torch.profiler), written to ``out_dir/profile_<name>.txt``; the idle
+    share is taken against the unprofiled wall time, since the profiler
+    itself slows the host."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipe(batch, generator=gen)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = sorted(((e.self_device_time_total, e.count, e.key)
@@ -299,17 +519,20 @@ def profile_generation(pipe, batch, wall_unprofiled: float,
         ms, cnt = cats.get(cat, (0.0, 0))
         cats[cat] = (ms + us / 1e3, cnt + n)
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "profile_generation.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"profile_{name}.txt"), "w") as f:
         f.write(f"profiled wall {wall:.3f} s, unprofiled wall "
                 f"{wall_unprofiled:.3f} s, device busy {busy:.3f} s\n")
         for cat, (ms, n) in sorted(cats.items(), key=lambda x: -x[1][0]):
             f.write(f"{ms:10.2f} ms {n:7d}  [{cat}]\n")
         for us, n, key in rows[:40]:
             f.write(f"{us / 1e3:10.2f} ms {n:7d}  {key[:160]}\n")
-    log(json.dumps({"phase": "profile", "device_busy_s": busy,
-                    "wall_s": wall_unprofiled, "profiled_wall_s": wall,
-                    "idle_share": max(0.0, 1.0 - busy / wall_unprofiled),
-                    "by_category_ms": {c: v[0] for c, v in cats.items()}}))
+    row = {"phase": f"profile {name}", "device_busy_s": busy,
+           "wall_s": wall_unprofiled, "profiled_wall_s": wall,
+           "idle_share": max(0.0, 1.0 - busy / wall_unprofiled),
+           "by_category_ms": {c: v[0] for c, v in cats.items()},
+           "kernels_by_category": {c: v[1] for c, v in cats.items()}}
+    log(json.dumps(row))
+    return row
 
 
 def phase_reference():
@@ -345,14 +568,282 @@ def phase_reference():
                              "float32 CPU reference")
 
 
-def kernels_line(results, counts):
+def _train_batch(cfg, n: int):
+    """Seeded synthetic training dataset of ``n`` samples at the config's
+    image size."""
+    from dualdiff_tpu_torch.data.synthetic import SyntheticNuScenes
+
+    h, w = cfg.dataset.image_size
+    return SyntheticNuScenes(num_samples=n, image_size=(h, w),
+                             seed=int(cfg.seed))
+
+
+def phase_train(profile_dir):
+    """The flagship training step at full SD v1.5 width: seeded random
+    weights, B = 1 x 6 views, bf16, remat on, AdamW with a bf16 first
+    moment and the warmup-cosine schedule; one warm-up step, then timed
+    steps.  Checks finite loss and grad_norm > 0 every step, the kernels'
+    launches per step, and that the trainables (float32 master copies)
+    moved while every frozen parameter stayed as it was.  The learning rate
+    of step 0 is exactly 0 (warmup from 0), so the comparison starts after
+    step 1."""
+    from dualdiff_tpu_torch.ops import attention as A
+    from dualdiff_tpu_torch.runner.factory import (build_models,
+                                                   randomize_weights)
+    from dualdiff_tpu_torch.runner.trainer import MultiviewTrainer
+    from dualdiff_tpu_torch.utils.config import load_config
+
+    t0 = time.perf_counter()
+    cfg = load_config()
+    models = build_models(cfg, device="cuda")
+    for m in (models["unet"], models["vae"], models["text_encoder"],
+              *models["controlnets"]):
+        randomize_weights(m, SEED)
+    n_steps = 1 + TIMED_TRAIN_STEPS
+    trainer = MultiviewTrainer(cfg, _train_batch(cfg, n_steps + 2),
+                               models=models)
+    torch.cuda.synchronize()
+    log(f"# training models built and cast in {time.perf_counter() - t0:.1f}"
+        f" s; {sum(p.numel() for p in trainer.trainable.values()) / 1e6:.1f}"
+        f"M trainable, "
+        f"{sum(p.numel() for p in trainer.frozen.values()) / 1e6:.1f}M "
+        f"frozen parameters")
+    layers = int(cfg.model.unet.layers_per_block)
+    expect = train_launches_per_step(
+        layers, len(models["controlnets"]),
+        bool(cfg.runner.enable_unet_checkpointing)
+        and bool(cfg.runner.enable_controlnet_checkpointing))
+    steps, snap = [], {}
+    run_counts = {fn.__name__: 0 for fn in A.KERNEL_WRAPPERS}
+
+    def on_metrics(step, m):
+        counts = {fn.__name__: fn.launches for fn in A.KERNEL_WRAPPERS}
+        A.reset_launch_counts()
+        for k, v in counts.items():
+            run_counts[k] += v
+        log(f"# train step {step}: loss {m['loss']:.6f}, mse "
+            f"{m['mse']:.6f}, aug_loss {m['aug_loss']:.6f}, grad_norm "
+            f"{m['grad_norm']:.6f}, {m['step_time_s']:.3f} s (batch "
+            f"assembly {m['data_time_s']:.3f} s)")
+        if counts != expect:
+            raise AssertionError(f"kernel launches {counts} != {expect}")
+        if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+                and m["grad_norm"] > 0):
+            raise AssertionError(f"step {step}: loss {m['loss']}, grad_norm "
+                                 f"{m['grad_norm']}")
+        steps.append(dict(m, step=step))
+        if step == 1:  # snapshot after the lr = 0 step, on the host
+            snap["frozen"] = {k: p.detach().to("cpu", copy=True)
+                              for k, p in trainer.frozen.items()}
+            snap["master"] = {k: v.to("cpu", copy=True)
+                              for k, v in trainer.optimizer.master.items()}
+            torch.cuda.reset_peak_memory_stats()
+
+    A.reset_launch_counts()
+    trainer.run(n_steps, on_metrics)
+    if len(steps) != n_steps:
+        raise AssertionError(f"{len(steps)} steps ran, not {n_steps}")
+    frozen_changed = [k for k, p in trainer.frozen.items()
+                      if not torch.equal(p.detach().cpu(), snap["frozen"][k])]
+    opt = trainer.optimizer
+    # warmup lr is peak * step / 3000, about 1e-8 per step: an element moves
+    # only where that exceeds half a float32 ulp, which holds below 0.25 in
+    # magnitude (ulp <= 3e-8) but not for norm scales near 1.  So every
+    # trainable that got a gradient and holds a value below 0.25 must move.
+    got_grad = {k for k, v in opt.nu.items() if bool(v.any())}
+    must_move = {k for k in got_grad
+                 if bool((snap["master"][k].abs() < 0.25).any())}
+    moved = {k for k, v in opt.master.items()
+             if not torch.equal(v.cpu(), snap["master"][k])}
+    times = [m["step_time_s"] for m in steps[1:]]
+    s = sorted(times)[len(times) // 2]
+    data = sorted(m["data_time_s"] for m in steps[1:])[len(times) // 2]
+    row = {"phase": "train", "config": "dual_branch_augloss_fusion 224x400",
+           "batch": B_TRAIN, "views": N_CAM, "steps": n_steps,
+           "s_per_step": s, "s_per_step_all": times,
+           "batch_assembly_s": data,
+           "images_per_s": B_TRAIN * N_CAM / s,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "loss": [m["loss"] for m in steps],
+           "grad_norm": [m["grad_norm"] for m in steps],
+           "trainable_tensors": len(opt.master),
+           "trainable_tensors_with_grad": len(got_grad),
+           "trainable_tensors_moved": len(moved),
+           "trainable_tensors_required_to_move": len(must_move),
+           "trainable_tensors_without_grad": sorted(set(opt.master)
+                                                    - got_grad),
+           "frozen_tensors_changed": len(frozen_changed),
+           "launches_per_step": expect, "launches_run": run_counts}
+    log(json.dumps(row))
+    if frozen_changed:
+        raise AssertionError(f"frozen parameters changed: "
+                             f"{frozen_changed[:5]}")
+    if must_move - moved:
+        raise AssertionError(f"trainables that did not move: "
+                             f"{sorted(must_move - moved)[:5]}")
+    # a few trainables see a gradient only in some steps (the learned
+    # uncond camera only when the CFG switch drops a sample); 844 of 844
+    # did in this seeded run on an H100 80GB HBM3 at 700 W
+    if len(got_grad) < 0.9 * len(opt.master):
+        raise AssertionError(f"only {len(got_grad)} of {len(opt.master)} "
+                             "trainable tensors got a gradient")
+    if profile_dir:
+        batch = trainer._build_batch(next(trainer._batch_plan(0)))
+        profile_run(lambda: trainer.train_step(batch), s, profile_dir,
+                    "train_step")
+    del trainer, models, snap
+    torch.cuda.empty_cache()
+    return run_counts, expect
+
+
+def _trainable_grads(models) -> dict:
+    """{"root/name": float32 gradient on the host, or None} of every
+    trainable leaf."""
+    from dualdiff_tpu_torch.runner.train_state import named_roots
+
+    return {f"{root}/{n}": None if p.grad is None else p.grad.float().cpu()
+            for root, m in named_roots(models)
+            for n, p in m.named_parameters() if p.requires_grad}
+
+
+def leaf_grad_errors(want: dict, got: dict) -> dict:
+    """Per trainable leaf, ``||got - want|| / (||want|| + floor)``, with
+    ``floor = LEAF_FLOOR * max ||want||`` over the leaves of the leaf's
+    network.  The floor covers leaves whose exact gradient is zero (a conv
+    bias before a GroupNorm of one channel per group cancels), where both
+    sides hold rounding noise.  A leaf that is trainable, or has a
+    gradient, on one side only reads inf."""
+    top = {}
+    for k, w in want.items():
+        r = k.split("/")[0]
+        top[r] = max(top.get(r, 0.0), 0.0 if w is None else w.norm().item())
+    out = {}
+    for k in sorted(set(want) | set(got)):
+        w, g = want.get(k), got.get(k)
+        if w is None and g is None and k in want and k in got:
+            out[k] = 0.0  # no gradient on either side this run
+        elif w is None or g is None:
+            out[k] = math.inf
+        else:
+            den = w.norm().item() + LEAF_FLOOR * top[k.split("/")[0]]
+            diff = (g - w).norm().item()
+            out[k] = diff / den if den > 0 else (math.inf if diff else 0.0)
+    return out
+
+
+def train_reference_readings(device: str = "cuda") -> dict:
+    """One tiny loss + gradient on ``device`` in bf16 and on the CPU in
+    float32: the loss of each, and each trainable leaf's relative gradient
+    error (``leaf_grad_errors``)."""
+    import numpy as np
+
+    from dualdiff_tpu_torch.data.collate import collate_fn
+    from dualdiff_tpu_torch.data.tokenizer import HashTokenizer
+    from dualdiff_tpu_torch.diffusion.schedule import DiffusionSchedule
+    from dualdiff_tpu_torch.ops import attention as A
+    from dualdiff_tpu_torch.runner.conds import prepare_batch
+    from dualdiff_tpu_torch.runner.factory import (build_models,
+                                                   randomize_weights)
+    from dualdiff_tpu_torch.runner.train_state import (named_roots,
+                                                       partition_params,
+                                                       trainable_predicate)
+    from dualdiff_tpu_torch.runner.trainer import make_draws, make_loss_fn
+    from dualdiff_tpu_torch.utils.config import load_config
+
+    extra = ["dataset.image_size=[256, 128]"]
+    results = []  # (loss, grads by leaf, launches): CPU, then the device
+    cpu_models = None
+    for dev, cfg in (("cpu", load_config(
+            overrides=extra + ["runner.mixed_precision=fp32"])),
+            (device, load_config(overrides=extra))):
+        models = build_models(cfg, tiny=True, device=dev)
+        for root, m in named_roots(models):
+            if cpu_models is None:
+                randomize_weights(m, SEED)
+            else:
+                m.load_state_dict(dict(named_roots(cpu_models))[root]
+                                  .state_dict(), strict=True)
+            m.to(dev, models["dtype"])
+        if cpu_models is None:
+            with torch.no_grad():  # see phase_reference
+                for cn in models["controlnets"]:
+                    cn.cam2token.weight.mul_(0.01)
+            cpu_models = models
+        partition_params(models, trainable_predicate())
+        h, w = cfg.dataset.image_size
+        ds = _train_batch(cfg, 1)
+        batch = prepare_batch(collate_fn(
+            [ds[0]], cfg, HashTokenizer(), rng=np.random.default_rng(SEED)),
+            dev)
+        draws = make_draws(torch.Generator().manual_seed(SEED), cfg, 1,
+                           N_CAM, (h // 8, w // 8), 1000)
+        draws = {k: None if v is None else v.to(dev)
+                 for k, v in draws.items()}
+        A.reset_launch_counts()
+        loss, _ = make_loss_fn(models, cfg, DiffusionSchedule.create(),
+                               (h // 8, w // 8),
+                               tuple(cfg.model.get("ors_frame_hw")))(
+            batch, draws)
+        loss.backward()
+        results.append((loss.detach().item(), _trainable_grads(models), {
+            fn.__name__: fn.launches for fn in A.KERNEL_WRAPPERS}))
+    (loss_cpu, g_cpu, _), (loss_gpu, g_gpu, launches) = results
+    errs = leaf_grad_errors(g_cpu, g_gpu)
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])
+    return {"phase": "train_reference", "loss_cpu_f32": loss_cpu,
+            "loss_gpu_bf16": loss_gpu,
+            "loss_rel_err": abs(loss_gpu - loss_cpu) / abs(loss_cpu),
+            "trainable_leaves": len(errs),
+            "leaves_without_grad": sum(g_cpu.get(k) is None for k in errs),
+            "worst_leaf_rel_err": dict(worst[:5]), "launches": launches,
+            "tol": {"loss_rel_err": LOSS_REL_TOL, "leaf_rel_err": LEAF_TOL,
+                    "leaf_floor": LEAF_FLOOR}, "leaf_rel_err": errs}
+
+
+def phase_train_reference():
+    """Tiny models at 256x128 (a 512-token top level, so the training
+    kernels run): one loss + gradient on the card in bf16 against the same
+    weights on the CPU in float32 (plain versions), with the same batch and
+    the same injected draws.  The loss within ``LOSS_REL_TOL`` relative,
+    and every trainable leaf's gradient within ``LEAF_TOL``
+    (``leaf_grad_errors``): a limit that one attention call's dq or dk/dv
+    spoiled exceeds while the sound run stays under it (see the limits'
+    readings at the top)."""
+    row = train_reference_readings()
+    errs = row.pop("leaf_rel_err")
+    log(json.dumps(row))
+    if not row["loss_rel_err"] <= LOSS_REL_TOL:
+        raise AssertionError("bf16 loss on the card disagrees with float32")
+    bad = [(k, e) for k, e in errs.items() if not e <= LEAF_TOL]
+    if bad:
+        raise AssertionError(f"bf16 gradients on the card disagree at "
+                             f"{len(bad)} leaves: {bad[:5]}")
+    if not all(row["launches"][k] > 0 for k in (
+            "packed_attention_lse_fwd", "packed_attention_bwd_dq",
+            "packed_attention_bwd_dkv")):
+        raise AssertionError(f"the training kernels did not run: "
+                             f"{row['launches']}")
+
+
+def kernels_line(results, path_counts, train_per_step):
+    """One entry per kernel: its main-path shape's times and the launches
+    of the path it serves, with their unit: one generation for the
+    inference kernels, the whole training run for the training kernels
+    (whose count per step, checked on every step, is beside it)."""
+    units = {"generate": "generation",
+             "train": f"training run of {1 + TIMED_TRAIN_STEPS} steps"}
     out = []
     for kern, rows in results.items():
         main = rows[0]  # the dominant main-path shape
+        path = "generate" if kern in ("packed_attention_fwd",
+                                      "packed_attention_nbr_fwd") else "train"
         out.append({
-            "name": kern, "route": "cuda",
-            "source": "dualdiff_tpu_torch/csrc/attention.cu",
-            "replaces": REPLACES[kern], "launches": counts[kern],
+            "name": kern, "route": "cuda", "source": SOURCE[kern],
+            "replaces": REPLACES[kern],
+            "launches": path_counts[path][kern], "launches_per": units[path],
+            "launches_by_path": {units[p]: c[kern]
+                                 for p, c in path_counts.items()},
+            "launches_per_train_step": train_per_step[kern],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -370,9 +861,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
     results = phase_kernels()
-    counts = phase_generate(profile_dir)
+    counts = {"generate": phase_generate(profile_dir)}
     phase_reference()
-    print(json.dumps(kernels_line(results, counts)))
+    counts["train"], train_per_step = phase_train(profile_dir)
+    phase_train_reference()
+    print(json.dumps(kernels_line(results, counts, train_per_step)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

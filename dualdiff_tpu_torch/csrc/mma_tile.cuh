@@ -1,0 +1,181 @@
+// Shared pieces of the attention kernels (attention.cu, attention_train.cu):
+// 16-byte cp.async staging, ldmatrix, mma.sync m16n8k16 bf16 -> f32, and the
+// tile geometry.  Four warps per block, one 16-row MMA tile per warp, 64-row
+// tiles staged in shared memory with a row stride of DP + 8 bf16 (DP = head
+// dim padded to the MMA depth 16), which keeps ldmatrix free of bank
+// conflicts.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace dd {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBlockQ = 16 * kWarps;  // one 16-row MMA tile per warp
+constexpr int kBlockK = 64;
+constexpr int kTile = 64;  // rows of every staged tile (kBlockQ == kBlockK)
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+static_assert(kBlockQ == kTile && kBlockK == kTile, "one tile loader");
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte async copy; zero-fills the destination when !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  int src_bytes = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// d (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Stage rows [row0, row0 + 64) of one head of a (rows, ld) bf16 matrix into
+// a shared tile of row stride S; rows >= nrows are zero-filled.
+template <int S>
+__device__ __forceinline__ void load_tile(bf16* tile, const bf16* g, int row0,
+                                          int nrows, int ld, int chunks) {
+  for (int c = threadIdx.x; c < kTile * chunks; c += kThreads) {
+    int r = c / chunks;
+    int ch = c - r * chunks;
+    int row = row0 + r;
+    bool valid = row < nrows;
+    const bf16* src = g + (size_t)(valid ? row : 0) * ld + ch * 8;
+    cp_async16(tile + r * S + ch * 8, src, valid);
+  }
+}
+
+// Columns [d, DP) of n_tiles consecutive tiles (row stride S) stay zero;
+// cp.async never writes them.
+template <int DP>
+__device__ __forceinline__ void zero_pad_columns(bf16* tiles, int n_tiles,
+                                                 int d) {
+  constexpr int S = DP + 8;
+  if (d < DP) {
+    const int pad = DP - d;
+    for (int i = threadIdx.x; i < n_tiles * kTile * pad; i += kThreads)
+      tiles[(i / pad) * S + d + i % pad] = __float2bfloat16(0.f);
+  }
+}
+
+// A operand (16 rows x 16 depth) of warp tile rows [16w, 16w + 16) at
+// depth step kt, from a row-major tile of stride S.
+template <int S>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile,
+                                       int warp, int kt, int lane) {
+  ldmatrix_x4(a, tile + (warp * 16 + (lane & 15)) * S + kt * 16 +
+                     (lane >> 4) * 8);
+}
+
+// B operand for X . Y^T with Y row-major (rows = output columns): output
+// columns [16 j2, 16 j2 + 16) at depth step kt -> b[0..1] for the first 8
+// columns, b[2..3] for the next 8.
+template <int S>
+__device__ __forceinline__ void load_b_rows(uint32_t (&b)[4], const bf16* tile,
+                                            int j2, int kt, int lane) {
+  ldmatrix_x4(b, tile + (j2 * 16 + (lane & 7) + ((lane >> 4) << 3)) * S +
+                     kt * 16 + ((lane >> 3) & 1) * 8);
+}
+
+// B operand for P . Y with Y row-major (rows = depth): depth step kk,
+// output columns [16 n2, 16 n2 + 16) -> b[0..1], b[2..3] as above.
+template <int S>
+__device__ __forceinline__ void load_b_cols(uint32_t (&b)[4], const bf16* tile,
+                                            int kk, int n2, int lane) {
+  ldmatrix_x4_trans(b, tile + (kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3)) *
+                                  S + n2 * 16 + ((lane >> 4) << 3));
+}
+
+// A operand (16 x 16) from accumulator fragments x[2kk], x[2kk + 1] of a
+// 16 x 64 product, rounded to bf16.
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
+                                         const float (&x)[kTile / 8][4],
+                                         int kk) {
+  a[0] = pack_bf16x2(x[2 * kk][0], x[2 * kk][1]);
+  a[1] = pack_bf16x2(x[2 * kk][2], x[2 * kk][3]);
+  a[2] = pack_bf16x2(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+  a[3] = pack_bf16x2(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+}
+
+// Write a warp's 16 x DP f32 accumulator times `mul` as bf16 rows r0 and
+// r0 + 8 of a (rows, ld) matrix; only rows < nrows and columns < d.
+template <int NT>
+__device__ __forceinline__ void store_rows(bf16* g, const float (&acc)[NT][4],
+                                           float mul, int r0, int nrows,
+                                           int ld, int d, int tq) {
+#pragma unroll
+  for (int i = 0; i < NT; ++i) {
+    const int col = i * 8 + 2 * tq;
+    if (col >= d) continue;
+    if (r0 < nrows)
+      *reinterpret_cast<uint32_t*>(g + (size_t)r0 * ld + col) =
+          pack_bf16x2(acc[i][0] * mul, acc[i][1] * mul);
+    if (r0 + 8 < nrows)
+      *reinterpret_cast<uint32_t*>(g + (size_t)(r0 + 8) * ld + col) =
+          pack_bf16x2(acc[i][2] * mul, acc[i][3] * mul);
+  }
+}
+
+// head_dim -> padded DP dispatch over the 10 instances d in 8..160.
+#define DD_DISPATCH_DP(d, CALL)                      \
+  switch (((d) + 15) / 16 * 16) {                    \
+    case 16: return CALL(16);                        \
+    case 32: return CALL(32);                        \
+    case 48: return CALL(48);                        \
+    case 64: return CALL(64);                        \
+    case 80: return CALL(80);                        \
+    case 96: return CALL(96);                        \
+    case 112: return CALL(112);                      \
+    case 128: return CALL(128);                      \
+    case 144: return CALL(144);                      \
+    case 160: return CALL(160);                      \
+  }
+
+}  // namespace dd

@@ -1,9 +1,11 @@
 """BEV ControlNet branch, PyTorch.
 
-Port of ``dualdiff_tpu/models/controlnet.py`` for inference: a copy of the
-SD UNet encoder with zero-conv output heads, plus the camera token, the
+Port of ``dualdiff_tpu/models/controlnet.py``: a copy of the SD UNet
+encoder with zero-conv output heads, plus the camera token, the
 ``[cam | text | boxes]`` context assembly, the CFG uncond switch, the
-occupancy-image or raw ORS-ray conditioning and SFA fusion.
+occupancy-image or raw ORS-ray conditioning and SFA fusion.  With ``remat``
+the encoder's down and mid blocks are rematerialised in the backward as in
+the UNet (``enable_controlnet_checkpointing``).
 
 ``precompute_only=True`` returns the step-constant tensors (conditioning
 feature map and context tokens); passing them back as ``precomputed`` runs
@@ -21,7 +23,7 @@ from torch import nn
 from .embedders import (BBoxEmbedder, OccImageConditionEmbedder, SFATxtCon,
                         embed_camera_param)
 from .layers import (Conv2d, Linear, TimestepEmbedding,
-                     get_timestep_embedding, zero_module)
+                     get_timestep_embedding, remat_call, zero_module)
 from .unet import CrossAttnDownBlock2D, DownBlock2D, UNetMidBlock2DCrossAttn
 
 __all__ = ["BEVControlNet"]
@@ -41,8 +43,11 @@ class BEVControlNet(nn.Module):
                  bbox_num_points: Optional[int] = None,
                  bbox_n_classes: int = 10,
                  bbox_proj_dims: Sequence[int] = (768, 512, 512, 768),
-                 bbox_class_token_dim: int = 768):
+                 bbox_class_token_dim: int = 768, remat: bool = False,
+                 remat_min_tokens: int = 0):
         super().__init__()
+        self.remat = remat
+        self.remat_min_tokens = remat_min_tokens
         if cond_embedder not in ("occ_image", "occ_3d"):
             raise NotImplementedError(
                 f"cond_embedder={cond_embedder!r} is not ported")
@@ -177,14 +182,16 @@ class BEVControlNet(nn.Module):
         if emb.shape[0] < B * N:
             emb = emb.repeat_interleave(N, dim=0)
         x = self.conv_in(sample.reshape(B * N, *sample.shape[2:])) + cond
+        run = lambda block, *a: remat_call(self.remat, self.remat_min_tokens,
+                                           block, *a)
         res_stack = [x]
         for block in self.down_blocks:
             if isinstance(block, CrossAttnDownBlock2D):
-                x, res = block(x, emb, kv)
+                x, res = run(block, x, emb, kv)
             else:
-                x, res = block(x, emb)
+                x, res = run(block, x, emb)
             res_stack += res
-        x = self.mid_block(x, emb, kv)
+        x = run(self.mid_block, x, emb, kv)
 
         downs = [conv(r) for conv, r in
                  zip(self.controlnet_down_blocks, res_stack)]

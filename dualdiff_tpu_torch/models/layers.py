@@ -18,6 +18,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention_packed, attention_packed_neighbors
 from ..ops.fourier import timestep_embedding
@@ -26,7 +27,7 @@ from .norms import GroupNorm, LayerNorm
 __all__ = ["Linear", "Conv2d", "zero_module", "TimestepEmbedding",
            "ResnetBlock2D", "Downsample2D", "Upsample2D", "Attention",
            "GEGLUFeedForward", "BasicTransformerBlock", "Transformer2DModel",
-           "get_timestep_embedding", "is_camera_ring"]
+           "get_timestep_embedding", "is_camera_ring", "remat_call"]
 
 
 class Linear(nn.Linear):
@@ -227,6 +228,18 @@ class Transformer2DModel(nn.Module):
             hs = block(hs, encoder_hidden_states, n_cam)
         hs = hs.reshape(b, h, w, c).permute(0, 3, 1, 2)
         return self.proj_out(hs) + x
+
+
+def remat_call(enabled: bool, min_tokens: int, block: nn.Module,
+               x: torch.Tensor, *args):
+    """``block(x, *args)``, rematerialised in the backward (gradient
+    checkpointing, the JAX package's per-block ``nn.remat``) when
+    ``enabled``, grad is on and the block's input has at least
+    ``min_tokens`` spatial tokens."""
+    if enabled and torch.is_grad_enabled() \
+            and x.shape[-2] * x.shape[-1] >= min_tokens:
+        return checkpoint(block, x, *args, use_reentrant=False)
+    return block(x, *args)
 
 
 def get_timestep_embedding(timesteps: torch.Tensor, dim: int) -> torch.Tensor:

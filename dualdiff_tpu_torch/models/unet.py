@@ -1,9 +1,11 @@
 """SD v1.5 conditional UNet with camera-ring multiview attention, PyTorch.
 
-Port of ``dualdiff_tpu/models/unet.py`` for inference (no remat).  Every
-transformer block carries the attn4 camera-ring path; ControlNet residuals
-are added to the skip connections and the mid block.  NCHW; the leading
-batch dim folds (batch, camera).
+Port of ``dualdiff_tpu/models/unet.py``.  Every transformer block carries
+the attn4 camera-ring path; ControlNet residuals are added to the skip
+connections and the mid block.  With ``remat`` each down, mid and up block
+whose input has at least ``remat_min_tokens`` spatial tokens is
+rematerialised in the backward (``enable_unet_checkpointing``).  NCHW; the
+leading batch dim folds (batch, camera).
 """
 
 from __future__ import annotations
@@ -16,11 +18,24 @@ from torch import nn
 
 from .layers import (Conv2d, Downsample2D, ResnetBlock2D, TimestepEmbedding,
                      Transformer2DModel, Upsample2D, get_timestep_embedding,
-                     is_camera_ring)
+                     is_camera_ring, remat_call)
 from .norms import GroupNorm
 
 __all__ = ["UNet2DConditionMultiview", "CrossAttnDownBlock2D", "DownBlock2D",
-           "UNetMidBlock2DCrossAttn"]
+           "UNetMidBlock2DCrossAttn", "NEW_PARAM_MARKERS",
+           "is_new_multiview_param"]
+
+# parameter-name parts introduced by the multiview / video surgery: the UNet
+# leaves trained under trainable_state='only_new'
+NEW_PARAM_MARKERS = ("attn4", "norm4", "connector", "temporal",
+                     "attn_temporal", "lora")
+
+
+def is_new_multiview_param(name: str) -> bool:
+    """True for a UNet parameter (``state_dict`` name) of the multiview /
+    video surgery (the JAX package's ``is_new_multiview_param``)."""
+    return any(m in part for part in name.split(".")
+               for m in NEW_PARAM_MARKERS)
 
 
 class CrossAttnDownBlock2D(nn.Module):
@@ -118,10 +133,13 @@ class UNet2DConditionMultiview(nn.Module):
                  layers_per_block: int = 2, heads: int = 8,
                  cross_attention_dim: int = 768, multiview: bool = True,
                  neighboring_view_pair: Optional[Sequence[Sequence[int]]] = (
-                     (5, 1), (0, 2), (1, 3), (2, 4), (3, 5), (4, 0))):
+                     (5, 1), (0, 2), (1, 3), (2, 4), (3, 5), (4, 0)),
+                 remat: bool = False, remat_min_tokens: int = 0):
         """attn4 is the 'add' type with a zero_linear connector (the only
         ones ported)."""
         super().__init__()
+        self.remat = remat
+        self.remat_min_tokens = remat_min_tokens
         chs = list(block_out_channels)
         self.block_out_channels = tuple(chs)
         self.neighboring_view_pair = neighboring_view_pair
@@ -175,17 +193,19 @@ class UNet2DConditionMultiview(nn.Module):
         chs = self.block_out_channels
         temb = self.time_embedding(get_timestep_embedding(timesteps, chs[0]))
         x = self.conv_in(sample)
+        run = lambda block, *a: remat_call(self.remat, self.remat_min_tokens,
+                                           block, *a)
         res_stack = [x]
         for block in self.down_blocks:
             if isinstance(block, CrossAttnDownBlock2D):
-                x, res = block(x, temb, encoder_hidden_states, n_cam)
+                x, res = run(block, x, temb, encoder_hidden_states, n_cam)
             else:
-                x, res = block(x, temb)
+                x, res = run(block, x, temb)
             res_stack += res
         if down_block_additional_residuals is not None:
             res_stack = [r + a.to(r.dtype) for r, a in
                          zip(res_stack, down_block_additional_residuals)]
-        x = self.mid_block(x, temb, encoder_hidden_states, n_cam)
+        x = run(self.mid_block, x, temb, encoder_hidden_states, n_cam)
         if mid_block_additional_residual is not None:
             x = x + mid_block_additional_residual.to(x.dtype)
 
@@ -195,6 +215,7 @@ class UNet2DConditionMultiview(nn.Module):
             del res_stack[-n_lay:]
             target: Optional[Tuple[int, int]] = (
                 tuple(res_stack[-1].shape[2:]) if res_stack else None)
-            x = block(x, skips, temb, encoder_hidden_states, n_cam, target)
+            x = run(block, x, skips, temb, encoder_hidden_states, n_cam,
+                    target)
         x = F.silu(self.conv_norm_out(x)).to(self.conv_out.weight.dtype)
         return self.conv_out(x)

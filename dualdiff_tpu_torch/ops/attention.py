@@ -1,7 +1,7 @@
 """Attention: einsum path, plain reference versions and the CUDA kernels.
 
-Port of the inference part of ``dualdiff_tpu/ops/attention.py``.  Tensors
-are channel-packed ``(B, L, C)`` with head ``h`` in columns
+Port of the channel-packed paths of ``dualdiff_tpu/ops/attention.py``.
+Tensors are channel-packed ``(B, L, C)`` with head ``h`` in columns
 ``[h*d, (h+1)*d)``, as in the JAX package, so no head split or merge copies
 are made around the kernels.
 
@@ -10,10 +10,21 @@ with ``d % 8 == 0`` go to the kernels, everything shorter to einsum.  On the
 flagship 224x400 path only the 28x50 = 1400-token level (C = 320, 8 heads,
 d = 40) reaches a kernel; the 350-, 91- and 28-token levels use einsum.
 
-Kernel wrappers (``packed_attention_fwd``, ``packed_attention_nbr_fwd``)
-take the plain PyTorch version for tensors on the CPU, which is what the CPU
-tests run.  A CUDA tensor either launches the kernel or raises; nothing
-falls back.  Each wrapper counts its launches in ``<wrapper>.launches``.
+A call that is not differentiated takes the inference kernels
+(``packed_attention_fwd``, ``packed_attention_nbr_fwd``), as the JAX
+package's custom-VJP primal does.  A differentiated call (grad enabled and
+an input that requires grad) goes through ``PackedAttention``: the forward
+with ``lse`` (``packed_attention_lse_fwd``), and a backward that launches
+``packed_attention_bwd_dq`` and ``packed_attention_bwd_dkv``.  Under grad
+the camera-ring attn4 takes the JAX training formulation (``_nbr_stacked``):
+the left and right neighbours' K/V gathered and stacked on the batch axis,
+one ``PackedAttention`` call, the two halves summed.
+
+Kernel wrappers take the plain PyTorch version for tensors on the CPU, which
+is what the CPU tests run.  A CUDA tensor either launches the kernel or
+raises; nothing falls back.  The inference wrappers raise under grad: their
+output has no ``grad_fn``.  Each wrapper counts its launches in
+``<wrapper>.launches``.
 """
 
 from __future__ import annotations
@@ -29,7 +40,11 @@ from .cuda_lib import library
 __all__ = ["PACKED_MIN_LQ", "mha_einsum", "multi_head_attention",
            "attention_packed", "attention_packed_neighbors",
            "attention_packed_plain", "attention_packed_neighbors_plain",
+           "attention_packed_lse_plain", "attention_packed_bwd_dq_plain",
+           "attention_packed_bwd_dkv_plain", "attention_delta",
            "packed_attention_fwd", "packed_attention_nbr_fwd",
+           "packed_attention_lse_fwd", "packed_attention_bwd_dq",
+           "packed_attention_bwd_dkv", "PackedAttention",
            "KERNEL_WRAPPERS", "reset_launch_counts"]
 
 # Queries at least this long take the kernels.  Carried over from the JAX
@@ -113,6 +128,69 @@ def attention_packed_neighbors_plain(q, k, v, heads: int, n_cam: int,
     return out.to(q.dtype)
 
 
+def _heads_f32(t, heads):
+    b, n, c = t.shape
+    return t.reshape(b, n, heads, c // heads).float()
+
+
+def attention_packed_lse_plain(q, k, v, heads: int,
+                               scale: Optional[float] = None):
+    """Plain version of ``packed_attention_lse_fwd``: -> (o (B, Lq, C) in
+    q's dtype, lse (B*H, Lq) float32), lse = log sum_k exp(s q.k), all in
+    float32, o rounded once."""
+    b, lq, c = q.shape
+    scale = _default_scale(scale, c // heads)
+    logits = torch.einsum("bqhd,bkhd->bhqk", _heads_f32(q, heads) * scale,
+                          _heads_f32(k, heads))
+    lse = torch.logsumexp(logits, dim=-1)  # (B, H, Lq)
+    probs = torch.exp(logits - lse[..., None])
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, _heads_f32(v, heads))
+    return out.reshape(b, lq, c).to(q.dtype), lse.reshape(b * heads, lq)
+
+
+def attention_delta(o: torch.Tensor, do: torch.Tensor,
+                    heads: int) -> torch.Tensor:
+    """delta = sum_d dO * O per (row, head, query), float32 (B*H, Lq), from
+    the output as it was returned (bf16 on the card), as the JAX package
+    takes it from ``out_t``."""
+    b, lq, _ = o.shape
+    prod = _heads_f32(do, heads) * _heads_f32(o, heads)
+    return prod.sum(-1).transpose(1, 2).reshape(b * heads, lq)
+
+
+def _probs_and_ds(q, k, v, do, lse, delta, heads, scale):
+    """float32 P = exp(s Q K^T - lse) and dS = P * (dO V^T - delta), each
+    (B, H, Lq, Lk)."""
+    b, lq, _ = q.shape
+    s = torch.einsum("bqhd,bkhd->bhqk", _heads_f32(q, heads),
+                     _heads_f32(k, heads)) * scale
+    p = torch.exp(s - lse.reshape(b, heads, lq, 1))
+    dp = torch.einsum("bqhd,bkhd->bhqk", _heads_f32(do, heads),
+                      _heads_f32(v, heads))
+    return p, p * (dp - delta.reshape(b, heads, lq, 1))
+
+
+def attention_packed_bwd_dq_plain(q, k, v, do, lse, delta, heads: int,
+                                  scale: Optional[float] = None):
+    """Plain version of ``packed_attention_bwd_dq``: dq = s dS K, float32,
+    rounded once to q's dtype."""
+    scale = _default_scale(scale, q.shape[-1] // heads)
+    _, ds = _probs_and_ds(q, k, v, do, lse, delta, heads, scale)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, _heads_f32(k, heads)) * scale
+    return dq.reshape(q.shape).to(q.dtype)
+
+
+def attention_packed_bwd_dkv_plain(q, k, v, do, lse, delta, heads: int,
+                                   scale: Optional[float] = None):
+    """Plain version of ``packed_attention_bwd_dkv``: dk = s dS^T Q and
+    dv = P^T dO, float32, rounded once to k's and v's dtype."""
+    scale = _default_scale(scale, q.shape[-1] // heads)
+    p, ds = _probs_and_ds(q, k, v, do, lse, delta, heads, scale)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, _heads_f32(q, heads)) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, _heads_f32(do, heads))
+    return dk.reshape(k.shape).to(k.dtype), dv.reshape(v.shape).to(v.dtype)
+
+
 # ------------------------------------------------------ kernel wrappers --
 
 def _check_kernel_args(q, k, v, heads):
@@ -145,6 +223,30 @@ def _check_kernel_args(q, k, v, heads):
     return d
 
 
+def _check_grad_args(q, do, lse, delta, heads):
+    """The backward kernels' extra inputs: dO like q, lse and delta float32
+    (B*H, Lq)."""
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device \
+            or not do.is_contiguous() or do.data_ptr() % 16:
+        raise ValueError("do must be a contiguous 16-byte aligned tensor of "
+                         "q's shape, dtype and device")
+    want = (q.shape[0] * heads, q.shape[1])
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.dtype != torch.float32 or tuple(t.shape) != want \
+                or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"{name} must be a contiguous float32 {want} "
+                             f"tensor on {q.device}")
+
+
+def _refuse_grad(*tensors) -> None:
+    """An inference kernel writes through raw pointers: its output has no
+    grad_fn, so a differentiated call would cut the gradient silently."""
+    if _differentiated(*tensors):
+        raise RuntimeError(
+            "the inference attention kernels are not differentiable; "
+            "differentiated calls go through PackedAttention")
+
+
 def _stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
@@ -164,6 +266,7 @@ def packed_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``attention_packed_plain``."""
     if q.device.type == "cpu":
         return attention_packed_plain(q, k, v, heads, scale)
+    _refuse_grad(q, k, v)
     d = _check_kernel_args(q, k, v, heads)
     scale = _default_scale(scale, d)
     out = torch.empty_like(q)
@@ -188,6 +291,7 @@ def packed_attention_nbr_fwd(q: torch.Tensor, k: torch.Tensor,
     ``attention_packed_neighbors_plain``."""
     if q.device.type == "cpu":
         return attention_packed_neighbors_plain(q, k, v, heads, n_cam, scale)
+    _refuse_grad(q, k, v)
     d = _check_kernel_args(q, k, v, heads)
     if q.shape != k.shape:
         raise ValueError("neighbor attention needs q, k, v of one shape")
@@ -205,9 +309,92 @@ def packed_attention_nbr_fwd(q: torch.Tensor, k: torch.Tensor,
     return out
 
 
-packed_attention_fwd.launches = 0
-packed_attention_nbr_fwd.launches = 0
-KERNEL_WRAPPERS = (packed_attention_fwd, packed_attention_nbr_fwd)
+def packed_attention_lse_fwd(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, heads: int,
+                             scale: Optional[float] = None):
+    """Training forward, q (B, Lq, C), k/v (B, Lk, C) -> (o (B, Lq, C),
+    lse (B*H, Lq) float32).
+
+    CUDA kernel ``packed_attention_lse_fwd`` (``csrc/attention.cu``), the
+    port of the TPU kernel ``_fwd_kernel_t_lse``.  CPU tensors take
+    ``attention_packed_lse_plain``."""
+    if q.device.type == "cpu":
+        return attention_packed_lse_plain(q, k, v, heads, scale)
+    d = _check_kernel_args(q, k, v, heads)
+    scale = _default_scale(scale, d)
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[0] * heads, q.shape[1], dtype=torch.float32,
+                      device=q.device)
+    with torch.cuda.device(q.device):
+        err = library("attention").dd_packed_attention_lse_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), q.shape[0], q.shape[1], k.shape[1], heads, d,
+            scale, _stream(q))
+    _raise_on(err, "packed_attention_lse_fwd")
+    packed_attention_lse_fwd.launches += 1
+    return out, lse
+
+
+def packed_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, do: torch.Tensor,
+                            lse: torch.Tensor, delta: torch.Tensor,
+                            heads: int,
+                            scale: Optional[float] = None) -> torch.Tensor:
+    """dq (B, Lq, C) of the attention whose forward gave ``lse``; ``do``
+    the output cotangent, ``delta`` from ``attention_delta``.
+
+    CUDA kernel ``packed_attention_bwd_dq`` (``csrc/attention_train.cu``),
+    the port of the TPU kernel ``_bwd_dq_kernel_t``.  CPU tensors take
+    ``attention_packed_bwd_dq_plain``."""
+    if q.device.type == "cpu":
+        return attention_packed_bwd_dq_plain(q, k, v, do, lse, delta, heads,
+                                             scale)
+    d = _check_kernel_args(q, k, v, heads)
+    _check_grad_args(q, do, lse, delta, heads)
+    scale = _default_scale(scale, d)
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = library("attention_train").dd_packed_attention_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), q.shape[0],
+            q.shape[1], k.shape[1], heads, d, scale, _stream(q))
+    _raise_on(err, "packed_attention_bwd_dq")
+    packed_attention_bwd_dq.launches += 1
+    return dq
+
+
+def packed_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, do: torch.Tensor,
+                             lse: torch.Tensor, delta: torch.Tensor,
+                             heads: int, scale: Optional[float] = None):
+    """(dk, dv), each (B, Lk, C), of the attention whose forward gave
+    ``lse``.
+
+    CUDA kernel ``packed_attention_bwd_dkv`` (``csrc/attention_train.cu``),
+    the port of the TPU kernel ``_bwd_dkv_kernel_t``.  CPU tensors take
+    ``attention_packed_bwd_dkv_plain``."""
+    if q.device.type == "cpu":
+        return attention_packed_bwd_dkv_plain(q, k, v, do, lse, delta, heads,
+                                              scale)
+    d = _check_kernel_args(q, k, v, heads)
+    _check_grad_args(q, do, lse, delta, heads)
+    scale = _default_scale(scale, d)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        err = library("attention_train").dd_packed_attention_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            q.shape[0], q.shape[1], k.shape[1], heads, d, scale, _stream(q))
+    _raise_on(err, "packed_attention_bwd_dkv")
+    packed_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+KERNEL_WRAPPERS = (packed_attention_fwd, packed_attention_nbr_fwd,
+                   packed_attention_lse_fwd, packed_attention_bwd_dq,
+                   packed_attention_bwd_dkv)
+for _fn in KERNEL_WRAPPERS:
+    _fn.launches = 0
 
 
 def reset_launch_counts() -> None:
@@ -215,10 +402,41 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
+class PackedAttention(torch.autograd.Function):
+    """Differentiable channel-packed attention over the training kernels
+    (the port of ``_flash_packed``'s VJP on its transposed-layout path).
+
+    forward: ``packed_attention_lse_fwd``; saves q, k, v, o, lse.
+    backward: delta from the returned o, then ``packed_attention_bwd_dq`` and
+    ``packed_attention_bwd_dkv``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, heads: int, scale: float):
+        out, lse = packed_attention_lse_fwd(q, k, v, heads, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.heads, ctx.scale = heads, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        do = do.contiguous()
+        delta = attention_delta(out, do, ctx.heads)
+        dq = packed_attention_bwd_dq(q, k, v, do, lse, delta, ctx.heads,
+                                     ctx.scale)
+        dk, dv = packed_attention_bwd_dkv(q, k, v, do, lse, delta, ctx.heads,
+                                          ctx.scale)
+        return dq, dk, dv, None, None
+
+
 # -------------------------------------------------------------- routing --
 
 def _takes_kernel(lq: int, d: int) -> bool:
     return lq >= PACKED_MIN_LQ and d % 8 == 0 and d <= MAX_KERNEL_HEAD_DIM
+
+
+def _differentiated(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -231,6 +449,8 @@ def attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     d = q.shape[-1] // heads
     scale = _default_scale(scale, d)
     if _takes_kernel(q.shape[1], d):
+        if _differentiated(q, k, v):
+            return PackedAttention.apply(q, k, v, heads, scale)
         return packed_attention_fwd(q, k, v, heads, scale)
     return _einsum_packed(q, k, v, scale, heads)
 
@@ -241,19 +461,28 @@ def attention_packed_neighbors(q: torch.Tensor, k: torch.Tensor,
     """Ring-neighbor multiview attention (attn4 'add'): q/k/v are the
     per-view projections (B*n_cam, L, C); returns, for each view, the sum
     over its left and right camera neighbors of attention(q, kv[nbr])."""
-    bn, lq, c = q.shape
-    d = c // heads
+    d = q.shape[-1] // heads
     scale = _default_scale(scale, d)
-    if _takes_kernel(lq, d):
-        return packed_attention_nbr_fwd(q, k, v, heads, n_cam, scale)
-    # short sequences: stack [left; right] on the batch dim, one einsum
+    if not _takes_kernel(q.shape[1], d):
+        return _nbr_stacked(q, k, v, n_cam, lambda *t: _einsum_packed(
+            *t, scale, heads))
+    if _differentiated(q, k, v):
+        return _nbr_stacked(q, k, v, n_cam, lambda *t: PackedAttention.apply(
+            *t, heads, scale))
+    return packed_attention_nbr_fwd(q, k, v, heads, n_cam, scale)
+
+
+def _nbr_stacked(q, k, v, n_cam: int, call):
+    """The JAX package's ``_nbr_stacked``: stack [left; right] neighbours'
+    K/V on the batch dim, one ``call(q2, k2, v2)``, sum the halves.  Under
+    autograd the gather's backward sums dK/dV back onto each view."""
+    bn, lq, c = q.shape
     b = bn // n_cam
 
     def take(t, idx):
         return t.reshape(b, n_cam, lq, c)[:, idx].reshape(bn, lq, c)
 
     left, right = _ring(n_cam, -1), _ring(n_cam, 1)
-    out2 = _einsum_packed(
-        torch.cat([q, q]), torch.cat([take(k, left), take(k, right)]),
-        torch.cat([take(v, left), take(v, right)]), scale, heads)
+    out2 = call(torch.cat([q, q]), torch.cat([take(k, left), take(k, right)]),
+                torch.cat([take(v, left), take(v, right)]))
     return out2[:bn] + out2[bn:]

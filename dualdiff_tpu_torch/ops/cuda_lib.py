@@ -3,9 +3,10 @@
 Each ``.cu`` source is compiled by ``nvcc`` into a shared library with a
 plain ``extern "C"`` interface and loaded with ``ctypes``.  Builds go to
 ``build/dualdiff_tpu_torch/`` at the repository root, named by a hash of the
-source and the flags, so an edited source rebuilds and an unchanged one is
-reused.  Nothing here runs at import time: the CPU tests import every module
-on machines that have no ``nvcc``.
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source rebuilds and an unchanged one is reused.  Nothing here runs at
+import time: the CPU tests import every module on machines that have no
+``nvcc``.
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "dualdiff_tpu_torch")
 
 # library name -> source file under csrc/
-SOURCES = {"attention": "attention.cu"}
+SOURCES = {"attention": "attention.cu",
+           "attention_train": "attention_train.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
@@ -40,6 +42,19 @@ _SIGNATURES = {
         # q, k, v, o, batch (B*N), l, heads, head_dim, n_cam, scale, stream
         "dd_packed_attention_nbr_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                         _F, _P],
+        # q, k, v, o, lse, batch, lq, lk, heads, head_dim, scale, stream
+        "dd_packed_attention_lse_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                        _I, _F, _P],
+    },
+    "attention_train": {
+        # q, k, v, do, lse, delta, dq, batch, lq, lk, heads, head_dim,
+        # scale, stream
+        "dd_packed_attention_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                       _I, _I, _I, _F, _P],
+        # q, k, v, do, lse, delta, dk, dv, batch, lq, lk, heads, head_dim,
+        # scale, stream
+        "dd_packed_attention_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                        _I, _I, _I, _I, _F, _P],
     },
 }
 
@@ -58,8 +73,11 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> str:
     """Path of the built library ``name`` (its compiler log: ``.log``)."""
-    with open(os.path.join(CSRC, SOURCES[name]), "rb") as f:
-        key = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    key = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(n for n in os.listdir(CSRC) if n.endswith(".cuh"))
+    for fname in [SOURCES[name], *headers]:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            key.update(f.read())
     return os.path.join(BUILD_DIR, f"{name}-{key.hexdigest()[:16]}.so")
 
 

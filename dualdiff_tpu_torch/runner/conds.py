@@ -1,4 +1,4 @@
-"""Batch tensors and per-branch conditioning for generation.
+"""Batch tensors and per-branch conditioning for generation and training.
 
 Port of ``prepare_batch`` and ``compute_branch_conds`` from
 ``dualdiff_tpu/runner/trainer.py``.
@@ -20,7 +20,9 @@ _KEYS = ("pixel_values", "bev_map", "camera_param", "input_ids",
 
 
 def prepare_batch(batch: Dict, device) -> Dict:
-    """Collate output -> flat dict of tensors on ``device`` (drops meta)."""
+    """Collate output -> flat dict of tensors on ``device`` (drops meta),
+    including the FGM aug-loss inputs ``fgm_bboxes``, ``fgm_masks`` and
+    ``fgm_lidar2image`` when the batch has them."""
     to = lambda a: torch.as_tensor(np.asarray(a), device=device)
     out = {k: to(batch[k]) for k in _KEYS if k in batch}
     for i, br in enumerate(batch["branches"]):
@@ -28,6 +30,9 @@ def prepare_batch(batch: Dict, device) -> Dict:
             out[f"cond_{i}"] = to(br["cond"])
         if br["bboxes_3d"] is not None:
             out[f"boxes_{i}"] = {k: to(v) for k, v in br["bboxes_3d"].items()}
+    if "fgm" in batch:
+        for k in ("bboxes", "masks", "lidar2image"):
+            out[f"fgm_{k}"] = to(batch["fgm"][k])
     return out
 
 

@@ -1,6 +1,6 @@
 """Model factory: build the module set from a composed config.
 
-Port of ``dualdiff_tpu/runner/factory.py`` (inference modules; no remat).
+Port of ``dualdiff_tpu/runner/factory.py``, remat settings included.
 ``tiny=True`` uses the JAX package's tiny sizes, which keep every
 architectural feature on.
 """
@@ -44,6 +44,16 @@ def _check_ported(cfg) -> None:
             "only attn4 'add' with the zero_linear connector is ported")
 
 
+def _remat_min_tokens(cfg, key: str) -> int:
+    """Per-network remat threshold (``unet_remat_min_tokens`` /
+    ``controlnet_remat_min_tokens``), falling back to the shared
+    ``remat_min_tokens`` when null."""
+    v = cfg.runner.get(key, None)
+    if v is None:
+        v = cfg.runner.get("remat_min_tokens", 0)
+    return int(v)
+
+
 def build_models(cfg, tiny: bool = False, device=None) -> Dict:
     """-> dict(unet, controlnets: list, vae, text_encoder, specs, dtype).
 
@@ -74,7 +84,9 @@ def build_models(cfg, tiny: bool = False, device=None) -> Dict:
         unet = UNet2DConditionMultiview(
             block_out_channels=chs, layers_per_block=layers, heads=heads,
             cross_attention_dim=xdim, multiview=True,
-            neighboring_view_pair=pairs)
+            neighboring_view_pair=pairs,
+            remat=bool(cfg.runner.get("enable_unet_checkpointing", False)),
+            remat_min_tokens=_remat_min_tokens(cfg, "unet_remat_min_tokens"))
         controlnets = [BEVControlNet(
             block_out_channels=chs, layers_per_block=layers, heads=heads,
             cross_attention_dim=xdim,
@@ -91,6 +103,10 @@ def build_models(cfg, tiny: bool = False, device=None) -> Dict:
             bbox_proj_dims=bbox_proj,
             bbox_class_token_dim=xdim if tiny else int(
                 c.bbox_embedder_param.class_token_dim),
+            remat=bool(cfg.runner.get("enable_controlnet_checkpointing",
+                                      False)),
+            remat_min_tokens=_remat_min_tokens(
+                cfg, "controlnet_remat_min_tokens"),
         ) for spec in specs]
         if tiny:
             vae = AutoencoderKL(block_out_channels=(8, 16, 16, 16),

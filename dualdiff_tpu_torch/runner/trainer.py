@@ -1,0 +1,311 @@
+"""Training step and loop for the image path.
+
+Port of ``dualdiff_tpu/runner/trainer.py``: the loss (VAE encode, noise,
+text encode, both ControlNet branches, residual sum, multiview UNet, MSE plus
+the FGM aug loss), one optimizer step over the trainable partition, and
+``MultiviewTrainer``, which builds the models, partitions them, and walks the
+seeded batch plan.
+
+Differences from the JAX package, by design:
+
+* Random draws (VAE posterior noise, training noise, noise offset,
+  timesteps, CFG uncond switch) come from an explicit ``torch.Generator``
+  (``make_draws``), and the loss takes them as an argument, so a test can
+  hand it the JAX package's own draws.  The two generators give different
+  numbers from one seed.
+* Every module runs in the compute dtype; the optimizer keeps float32
+  master copies of the trainables (``train_state.AdamW``).  The frozen VAE
+  encode and text encode run under ``torch.no_grad()``.
+* Latents are NCHW, ``(B, N, 4, h, w)``; the FGM weight broadcasts over the
+  channel axis and the means run over the same element count.
+
+Not ported (raise ``NotImplementedError``): tone guidance, the RGD reward,
+video, the conditioning cache, flip augmentation, gradient accumulation.
+Checkpoint save/load is not ported either.
+"""
+
+from __future__ import annotations
+
+import logging
+import math
+import time
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..data.collate import collate_fn
+from ..data.tokenizer import build_tokenizer
+from ..diffusion.schedule import DiffusionSchedule
+from ..ops.fgm import fgm_heatmap
+from .conds import compute_branch_conds, prepare_batch
+from .factory import build_models
+from .train_state import build_optimizer, partition_params, \
+    trainable_predicate
+
+__all__ = ["sample_uncond_switch", "make_draws", "make_loss_fn",
+           "train_step", "set_category_tokens", "MultiviewTrainer"]
+
+log = logging.getLogger(__name__)
+
+Draws = Dict[str, Optional[torch.Tensor]]
+
+
+def sample_uncond_switch(generator: torch.Generator, B: int, n_cam: int,
+                         drop_ratio: float, drop_num: int,
+                         device=None) -> torch.Tensor:
+    """(B, n_cam) 1.0 where the camera's condition is dropped: per sample,
+    with probability ``drop_ratio``, drop ``drop_num`` random cameras."""
+    row = (torch.rand(B, 1, generator=generator, device=device)
+           < drop_ratio).float()
+    scores = torch.rand(B, n_cam, generator=generator, device=device)
+    kth = scores.sort(dim=1).values[:, n_cam - drop_num][:, None]
+    return row * (scores >= kth).float()
+
+
+def make_draws(generator: torch.Generator, cfg, B: int, N: int,
+               latent_hw: Tuple[int, int], num_train_timesteps: int,
+               device=None) -> Draws:
+    """Every random draw of one loss evaluation, in the JAX package's
+    shapes transposed to NCHW: ``vae_noise`` (B*N, 4, h, w), ``noise``
+    (B, N, 4, h, w), ``noise_offset`` ((B, 1) or (B, N), None when the
+    offset is 0), ``timesteps`` ((B,) or (B, N)), ``uncond_switch``
+    (B, N)."""
+    h, w = latent_hw
+    rn = lambda *shape: torch.randn(*shape, generator=generator,
+                                    device=device)
+    offset = float(cfg.runner.noise_offset)
+    same_t = bool(cfg.model.train_with_same_t)
+    same_offset = bool(cfg.runner.train_with_same_offset)
+    c = cfg.model.controlnet
+    return {
+        "vae_noise": rn(B * N, 4, h, w),
+        "noise": rn(B, N, 4, h, w),
+        "noise_offset": (rn(B, 1 if same_offset else N) if offset > 0
+                         else None),
+        "timesteps": torch.randint(0, num_train_timesteps,
+                                   (B,) if same_t else (B, N),
+                                   generator=generator, device=device),
+        "uncond_switch": sample_uncond_switch(
+            generator, B, N, float(c.drop_cond_ratio), int(c.drop_cam_num),
+            device),
+    }
+
+
+def make_loss_fn(models: Dict, cfg, schedule: DiffusionSchedule,
+                 latent_hw: Tuple[int, int], occ_image_hw: Tuple[int, int]
+                 ) -> Callable[[Dict, Draws], Tuple[torch.Tensor, Dict]]:
+    """loss_fn(batch, draws) -> (loss, metrics) for the image path:
+    ``mse`` of the noise prediction plus, with ``use_aug_loss``, the FGM
+    heatmap-weighted ``aug_loss``.  ``batch`` is ``prepare_batch`` output."""
+    for flag, what in (("use_tone_guidance", "tone guidance (MSCN)"),
+                       ("use_video", "video training (and its RGD reward)")):
+        if cfg.get(flag):
+            raise NotImplementedError(f"{what} is not ported")
+    unet, controlnets = models["unet"], models["controlnets"]
+    vae, text_encoder = models["vae"], models["text_encoder"]
+    same_noise = bool(cfg.model.train_with_same_noise)
+    use_aug_loss = bool(cfg.use_aug_loss)
+    aug_text = bool(cfg.use_aug_text)
+    noise_offset = float(cfg.runner.noise_offset)
+
+    def loss_fn(batch: Dict, draws: Draws):
+        px = batch["pixel_values"]  # (B, N, H, W, 3) in [-1, 1]
+        B, N = px.shape[:2]
+        with torch.no_grad():
+            img = px.reshape(B * N, *px.shape[2:]).permute(0, 3, 1, 2)
+            latents = vae.encode(img, draws["vae_noise"])
+            text, _ = text_encoder(batch["input_ids"])
+            uncond, _ = text_encoder(batch["uncond_ids"])
+        latents = latents.reshape(B, N, *latents.shape[1:]).float()
+        if aug_text:  # (B*N, L, D) -> (B, N, L, D)
+            text = text.reshape(B, N, *text.shape[1:])
+
+        noise = draws["noise"].float()
+        if same_noise:
+            noise = noise[:, :1].expand_as(noise)
+        if noise_offset > 0:
+            noise = noise + noise_offset * draws["noise_offset"][
+                ..., None, None, None]
+        timesteps = draws["timesteps"]
+        noisy = schedule.add_noise(latents, noise, timesteps)
+
+        conds = compute_branch_conds(models, batch, latent_hw, occ_image_hw)
+        downs = mid = kv = None
+        for i, cn in enumerate(controlnets):
+            d, m, k = cn(noisy, timesteps, batch["camera_param"], text,
+                         conds[i], bboxes_3d=batch.get(f"boxes_{i}"),
+                         encoder_hidden_states_uncond=uncond,
+                         uncond_switch=draws["uncond_switch"])
+            if downs is None:
+                downs, mid, kv = d, m, k
+            else:  # dual-branch residual sum
+                downs = [a + b for a, b in zip(downs, d)]
+                mid = mid + m
+        t_flat = timesteps.reshape(-1)
+        if t_flat.shape[0] == B:
+            t_flat = t_flat.repeat_interleave(N)
+        eps = unet(noisy.reshape(B * N, *noisy.shape[2:]), t_flat, kv,
+                   down_block_additional_residuals=downs,
+                   mid_block_additional_residual=mid, n_cam=N)
+        eps = eps.float().reshape(B, N, *noisy.shape[2:])
+
+        sq = (eps - schedule.training_target(latents, noise, timesteps)) ** 2
+        loss = sq.mean()
+        metrics = {"mse": loss.detach()}
+        if use_aug_loss and "fgm_bboxes" in batch:
+            heat = fgm_heatmap(batch["fgm_bboxes"], batch["fgm_masks"],
+                               batch["fgm_lidar2image"],
+                               (latent_hw[1], latent_hw[0]))  # (w, h)
+            aug = (sq * heat[:, :, None]).mean()  # NCHW: over channels
+            loss = loss + aug
+            metrics["aug_loss"] = aug.detach()
+        metrics["loss"] = loss.detach()
+        return loss, metrics
+
+    return loss_fn
+
+
+def train_step(loss_fn, optimizer, batch: Dict, draws: Draws) -> Dict:
+    """One step: loss, gradients of the trainables, optimizer update.
+    -> metrics (device tensors), with ``grad_norm`` of the raw gradients."""
+    optimizer.zero_grad()
+    loss, metrics = loss_fn(batch, draws)
+    loss.backward()
+    metrics["grad_norm"] = optimizer.step()
+    return metrics
+
+
+@torch.no_grad()
+def set_category_tokens(models: Dict, tokenizer, class_names) -> None:
+    """Every ControlNet's box class tokens <- the pooled CLIP text embedding
+    of each class name (the JAX package's ``set_category_tokens``);
+    embedders whose class count differs (map vectors) are left as they
+    are."""
+    te = models["text_encoder"]
+    dev = next(te.parameters()).device
+    ids = torch.as_tensor(np.asarray(tokenizer(list(class_names)), np.int64),
+                          device=dev)
+    _, pooled = te(ids)
+    for cn in models["controlnets"]:
+        tok = cn.bbox_embedder._class_tokens
+        if tuple(tok.shape) == tuple(pooled.shape):
+            tok.copy_(pooled)
+
+
+class MultiviewTrainer:
+    """Config-driven training loop of the image path.
+
+    ``MultiviewTrainer(cfg, train_set).run(max_steps, on_metrics)`` trains
+    on the card; ``device="cpu"`` runs the plain path.  ``models`` (a
+    ``build_models`` dict with weights) replaces the fresh initialisation.
+    ``on_metrics(step, metrics)`` gets ``loss``, ``mse``, ``aug_loss``,
+    ``grad_norm``, ``step_time_s`` (host clock from batch assembly to the
+    metrics on the host, which synchronises the device) and
+    ``data_time_s`` (the batch assembly part of it)."""
+
+    def __init__(self, cfg, train_set, device=None,
+                 models: Optional[Dict] = None):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.train_set = train_set
+        r = cfg.runner
+        if bool(r.get("cache_conditioning", False)):
+            raise NotImplementedError("the conditioning cache is not ported")
+        if float((cfg.dataset.get("augment3d") or {}).get("flip_ratio")
+                 or 0.0) > 0:
+            raise NotImplementedError("flip augmentation is not ported")
+        self.tokenizer = build_tokenizer(
+            str(cfg.model.pretrained_model_name_or_path))
+        fresh = models is None
+        self.models = models or build_models(cfg, device=self.device)
+        if fresh and bool(cfg.model.controlnet.bbox_embedder_param.get(
+                "use_text_encoder_init", True)):
+            set_category_tokens(self.models, self.tokenizer,
+                                list(cfg.dataset.object_classes))
+        self.schedule = DiffusionSchedule.create()
+        h, w = cfg.dataset.image_size
+        self.latent_hw = (h // 8, w // 8)
+        self.image_hw = tuple(cfg.model.get("ors_frame_hw", (896, 1600)))
+        self._compute_steps()
+
+        pred = trainable_predicate(
+            str(cfg.model.unet.trainable_state),
+            bool(cfg.model.controlnet.bbox_embedder_param.get(
+                "trainable_class_token", False)))
+        # float32 master copies of the trainables before the cast
+        trainable, _ = partition_params(self.models, pred)
+        master = {k: p.detach().float().clone() for k, p in trainable.items()}
+        dtype = self.models["dtype"]
+        for m in (self.models["unet"], self.models["vae"],
+                  self.models["text_encoder"], *self.models["controlnets"]):
+            m.to(self.device, dtype)
+        self.trainable, self.frozen = partition_params(self.models, pred)
+        log.info("trainable params: %.1fM, frozen: %.1fM",
+                 sum(p.numel() for p in self.trainable.values()) / 1e6,
+                 sum(p.numel() for p in self.frozen.values()) / 1e6)
+        self.optimizer = build_optimizer(r, self.trainable,
+                                         self.max_train_steps, master)
+        self.loss_fn = make_loss_fn(self.models, cfg, self.schedule,
+                                    self.latent_hw, self.image_hw)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            int(cfg.seed))
+        self.step = 0
+
+    def _compute_steps(self) -> None:
+        bs = int(self.cfg.runner.train_batch_size)
+        self.steps_per_epoch = max(len(self.train_set) // bs, 1)
+        mts = self.cfg.runner.max_train_steps
+        if mts is None:
+            mts = self.steps_per_epoch * int(self.cfg.runner.num_train_epochs)
+        self.max_train_steps = int(mts)
+
+    def _batch_plan(self, epoch: int, skip: int = 0):
+        """(epoch, offset, indices) of each batch of one epoch: a seeded
+        permutation, a pure function of (seed, epoch)."""
+        bs = int(self.cfg.runner.train_batch_size)
+        rng = np.random.default_rng(int(self.cfg.seed) + epoch)
+        order = rng.permutation(len(self.train_set))
+        for n, i in enumerate(range(0, len(order) - bs + 1, bs)):
+            if n >= skip:
+                yield epoch, i, [int(j) for j in order[i:i + bs]]
+
+    def _build_batch(self, plan) -> Dict:
+        epoch, i, idxs = plan
+        rng = np.random.default_rng([int(self.cfg.seed), epoch, i])
+        items = [self.train_set[j] for j in idxs]
+        return prepare_batch(collate_fn(items, self.cfg, self.tokenizer,
+                                        rng=rng), self.device)
+
+    def train_step(self, batch: Dict) -> Dict[str, float]:
+        px = batch["pixel_values"]
+        draws = make_draws(self.generator, self.cfg, px.shape[0],
+                           px.shape[1], self.latent_hw,
+                           self.schedule.num_train_timesteps, self.device)
+        metrics = train_step(self.loss_fn, self.optimizer, batch, draws)
+        self.step += 1
+        return {k: float(v) for k, v in metrics.items()}
+
+    def run(self, max_steps: Optional[int] = None,
+            on_metrics=None) -> Dict[str, float]:
+        limit = min(self.max_train_steps, max_steps or self.max_train_steps)
+        last: Dict[str, float] = {}
+        while self.step < limit:
+            spe = self.steps_per_epoch
+            for plan in self._batch_plan(self.step // spe,
+                                         skip=self.step % spe):
+                t0 = time.perf_counter()
+                batch = self._build_batch(plan)
+                t1 = time.perf_counter()
+                last = self.train_step(batch)
+                last["step_time_s"] = time.perf_counter() - t0
+                last["data_time_s"] = t1 - t0
+                if not math.isfinite(last["loss"]):
+                    raise FloatingPointError(
+                        f"NaN/Inf loss at step {self.step}")
+                if on_metrics:
+                    on_metrics(self.step, last)
+                if self.step >= limit:
+                    break
+        return last

@@ -29,9 +29,9 @@ _LISTY = (
     "controlnet_down_blocks", "second_linear",
 )
 
-# leaves of the JAX trees that the port has no module for yet (the VAE
-# encoder is training-only); from_jax leaves them out
-NOT_PORTED = {"vae": ("encoder.", "quant_conv.")}
+# leaves of the JAX trees that the port has no module for yet, by kind;
+# from_jax leaves them out
+NOT_PORTED = {"vae": ()}
 
 
 def _torch_name(path: Tuple[str, ...], kind: str) -> str:

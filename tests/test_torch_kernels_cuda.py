@@ -2,10 +2,11 @@
 
 Mirrors the kernel phase of ``chip_smoke.py``: bf16 inputs at the flagship
 path's shapes plus ragged ones; the plain version computes in float32 and
-rounds once.  Tolerance 2^-7 of the output's magnitude + 1e-3: the kernel
-rounds the probabilities to bf16 for the P.V product and the output to
-bf16.  Every test is marked ``cuda`` and skips without a card; run them on
-the GPU machine with ``python -m pytest tests/test_torch_kernels_cuda.py``.
+rounds once.  Tolerance 2^-7 of the output's magnitude + 1e-3: the kernels
+round one MMA operand to bf16 (P for P.V and dV, dS for dQ and dK) and the
+output to bf16.  lse is float32 on both sides: 1e-3 absolute.  Every test is
+marked ``cuda`` and skips without a card; run them on the GPU machine with
+``python -m pytest tests/test_torch_kernels_cuda.py``.
 """
 
 import pytest
@@ -68,3 +69,61 @@ def test_kernel_refuses_float32(cuda):
     q, k, v = (t.float() for t in _qkv(1, 64, 64, 64, cuda))
     with pytest.raises(ValueError, match="bfloat16"):
         A.packed_attention_fwd(q, k, v, 8)
+
+
+TRAIN_SHAPES = [
+    (6, 1400, 1400, 320, 8),    # attn1, train_batch_size 1 x 6 views
+    (12, 1400, 1400, 320, 8),   # attn4: both neighbours stacked
+    (6, 1400, 158, 320, 8),     # attn2: 1 + 77 + 80 context tokens
+    (3, 777, 333, 320, 4),      # ragged, d = 80
+    (2, 513, 65, 1280, 8),      # d = 160
+]
+
+
+@pytest.mark.parametrize("b, lq, lk, c, heads", TRAIN_SHAPES)
+def test_training_kernels(cuda, b, lq, lk, c, heads):
+    q, k, v = _qkv(b, lq, lk, c, cuda, seed=2)
+    do = _qkv(b, lq, 1, c, cuda, seed=3)[0]
+    A.reset_launch_counts()
+    o, lse = A.packed_attention_lse_fwd(q, k, v, heads)
+    delta = A.attention_delta(o, do, heads)
+    dq = A.packed_attention_bwd_dq(q, k, v, do, lse, delta, heads)
+    dk, dv = A.packed_attention_bwd_dkv(q, k, v, do, lse, delta, heads)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in A.KERNEL_WRAPPERS] == [0, 0, 1, 1, 1]
+    o_want, lse_want = A.attention_packed_lse_plain(q, k, v, heads)
+    _check(o, o_want)
+    assert (lse - lse_want).abs().max().item() <= 1e-3
+    _check(dq, A.attention_packed_bwd_dq_plain(q, k, v, do, lse, delta,
+                                               heads))
+    dk_want, dv_want = A.attention_packed_bwd_dkv_plain(q, k, v, do, lse,
+                                                        delta, heads)
+    _check(dk, dk_want)
+    _check(dv, dv_want)
+
+
+def test_differentiated_attention_launches_the_training_kernels(cuda):
+    """Under grad ``attention_packed`` goes through ``PackedAttention``:
+    one forward with lse, then dq and dk/dv in the backward.  Its gradients
+    agree with autograd through the float32 einsum path."""
+    heads = 8
+    q, k, v = (t.requires_grad_() for t in _qkv(2, 600, 600, 320, cuda, 4))
+    w = _qkv(2, 600, 1, 320, cuda, seed=5)[0]
+    A.reset_launch_counts()
+    out = A.attention_packed(q, k, v, heads)
+    (out.float() * w.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in A.KERNEL_WRAPPERS] == [0, 0, 1, 1, 1]
+    ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    want = A._einsum_packed(*ref, 40 ** -0.5, heads)
+    (want * w.float()).sum().backward()
+    for got, r in zip((q, k, v), ref):
+        _check(got.grad, r.grad)
+
+
+def test_inference_kernels_raise_under_grad(cuda):
+    q, k, v = (t.requires_grad_() for t in _qkv(1, 64, 64, 64, cuda))
+    with pytest.raises(RuntimeError, match="PackedAttention"):
+        A.packed_attention_fwd(q, k, v, 8)
+    with pytest.raises(RuntimeError, match="PackedAttention"):
+        A.packed_attention_nbr_fwd(q, k, v, 8, n_cam=1)

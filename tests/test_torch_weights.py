@@ -3,9 +3,8 @@
 For the same param tree, every name and value ``from_jax`` produces equals
 what ``dualdiff_tpu.runner.weight_import.export_params`` produces (so a
 diffusers checkpoint, which carries those names, loads the same way), and
-each of the port's modules loads it with ``strict=True``.  The VAE encoder
-and ``quant_conv`` are the only leaves left out: the port has no encoder
-yet.
+each of the port's modules loads it with ``strict=True``.  No leaf is left
+out: the VAE carries its encoder and ``quant_conv`` too.
 """
 
 import numpy as np
@@ -33,9 +32,10 @@ def test_from_jax_equals_export_params(tiny, key, kind):
     got = from_jax(tp.flat(params), kind)
     skipped = {k for k in want if k.startswith(NOT_PORTED.get(kind, ()))}
     assert set(got) == set(want) - skipped
+    assert not skipped
     if kind == "vae":
-        assert skipped and all(k.split(".")[0] in ("encoder", "quant_conv")
-                               for k in skipped)
+        assert any(k.startswith("encoder.") for k in got)
+        assert "quant_conv.weight" in got
     for name, value in got.items():
         np.testing.assert_array_equal(value.numpy(), want[name],
                                       err_msg=name)
