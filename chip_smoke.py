@@ -3,20 +3,22 @@
 
     python3 chip_smoke.py                # the default run; one CUDA card
     python3 chip_smoke.py --profile DIR  # also writes kernel-time
-                                         # breakdowns of one generation and
-                                         # one training step to
-                                         # DIR/profile_generation.txt and
-                                         # DIR/profile_train_step.txt
+                                         # breakdowns of one generation, one
+                                         # training step and one clip to
+                                         # DIR/profile_generation.txt,
+                                         # DIR/profile_train_step.txt and
+                                         # DIR/profile_video_clip.txt
 
 Phases, in order; any failure exits non-zero:
 
 1. device   requires CUDA; prints the card's name and power limit.
 2. build    compiles every CUDA kernel from ``dualdiff_tpu_torch/csrc``.
 3. kernels  each kernel against its plain PyTorch version at the shapes the
-            flagship paths give it (bf16 inputs; plain version in float32,
-            rounded once), with times of the kernel, the plain version, one
-            PyTorch library call where one computes the same function, and
-            the least time the card could take (bound).
+            flagship and clip paths give it (bf16 inputs; plain version in
+            float32, rounded once), with times of the kernel, the plain
+            version, one PyTorch library call where one computes the same
+            function, and the least time the card could take (bound); the
+            capped kernel at 4 and at 8 warps per block.
 4. generate the flagship dual-branch 224x400 generation at full SD v1.5
             width (two ControlNets, seeded random weights, bf16), B=2 x 6
             views, UniPC-20, CFG 2: one warm-up call and timed calls; checks
@@ -29,6 +31,14 @@ Phases, in order; any failure exits non-zero:
             parameters unchanged.
 7. train_reference  one tiny loss + gradient at 256x128 on the card in bf16
             against the CPU in float32.
+8. video    DualDiff+ clip generation (``video_16f``: ST-Attn + temporal
+            attention, sequential CFG, VAE slicing 12) at full SD v1.5 width,
+            seeded random weights, bf16: clip 0 of the seed-0 synthetic clips,
+            16 frames x 6 views at 224x400, UniPC-20, CFG 2; one warm-up clip
+            and timed clips; checks shape, finiteness, range and the kernels'
+            launches per clip.
+9. video_reference  the tiny video model set at 256x128, 2 frames, 3 steps,
+            on the card in bf16 against the CPU in float32 (phase 5's gate).
 
 The line before the last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -36,6 +46,7 @@ The line before the last is the ``kernels`` JSON summary; the last line is
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -50,6 +61,7 @@ H100_BYTES_PER_S = 3.35e12
 SEED = 0
 TIMED_GENERATIONS = 3
 TIMED_TRAIN_STEPS = 5
+TIMED_CLIPS = 2
 # Training reference (phase 7), bf16 card against float32 CPU; readings on
 # an H100 80GB HBM3 at 700 W.  Loss: 3.75e-4 relative apart; the limit is
 # about 5x that.  Gradients, per trainable leaf (``leaf_grad_errors``): the
@@ -68,6 +80,9 @@ B, N_CAM, L, C, HEADS = 2, 6, 1400, 320, 8
 KV_CROSS = 1 + 77 + 80
 # training: train_batch_size 1 x 6 views; attn4 stacks both neighbours
 B_TRAIN = 1
+# video: one clip of 16 frames x 6 views per CFG half (sequential CFG); the
+# UNet's ST-Attn K/V are the first and the previous frame's 1400 tokens
+FRAMES = 16
 # the TPU kernel each CUDA kernel replaces, and its source here
 REPLACES = {
     "packed_attention_fwd": "dualdiff_tpu/ops/attention.py:468",      # _fwd_kernel_t
@@ -75,6 +90,7 @@ REPLACES = {
     "packed_attention_lse_fwd": "dualdiff_tpu/ops/attention.py:701",  # _fwd_kernel_t_lse
     "packed_attention_bwd_dq": "dualdiff_tpu/ops/attention.py:719",   # _bwd_dq_kernel_t
     "packed_attention_bwd_dkv": "dualdiff_tpu/ops/attention.py:751",  # _bwd_dkv_kernel_t
+    "packed_attention_capped_fwd": "dualdiff_tpu/ops/attention.py:484",  # _fwd_kernel_t_capped
 }
 SOURCE = {
     "packed_attention_fwd": "dualdiff_tpu_torch/csrc/attention.cu",
@@ -82,6 +98,7 @@ SOURCE = {
     "packed_attention_lse_fwd": "dualdiff_tpu_torch/csrc/attention.cu",
     "packed_attention_bwd_dq": "dualdiff_tpu_torch/csrc/attention_train.cu",
     "packed_attention_bwd_dkv": "dualdiff_tpu_torch/csrc/attention_train.cu",
+    "packed_attention_capped_fwd": "dualdiff_tpu_torch/csrc/attention.cu",
 }
 
 
@@ -113,7 +130,40 @@ def train_launches_per_step(layers: int, n_controlnets: int,
             "packed_attention_nbr_fwd": 0,
             "packed_attention_lse_fwd": train * replay,
             "packed_attention_bwd_dq": train,
-            "packed_attention_bwd_dkv": train}
+            "packed_attention_bwd_dkv": train,
+            "packed_attention_capped_fwd": 0}
+
+
+def video_launches_per_clip(layers: int, n_controlnets: int, steps: int,
+                            sequential_cfg: bool, tokens: int) -> dict:
+    """Kernel launches of one clip's generation, derived from the code.
+    Only the top latent level (``tokens`` = 28x50 = 1400 at 224x400; 32x16
+    = 512 for the tiny 256x128 models) reaches the kernels.  Per model
+    evaluation:
+
+    * UNet ``down_blocks_0`` (``layers`` transformer blocks) and
+      ``up_blocks_3`` (``layers + 1``): attn1 is ST-Attn, ``tokens``
+      queries against the first and the previous frame's ``2 * tokens``
+      keys, which takes the capped kernel when its padded score tile is over
+      ``T_SCORE_CAP`` (1408 x 2816 is) and ``packed_attention_fwd``
+      otherwise; attn2 (context tokens) takes ``packed_attention_fwd``;
+      attn4 the ring kernel.  The temporal attention (16 frames) is einsum.
+    * each ControlNet's ``down_blocks_0``: ``layers`` blocks of attn1 (self,
+      ``tokens`` keys) and attn2, both ``packed_attention_fwd``.
+
+    The sampler evaluates the model once per step; sequential CFG evaluates
+    the uncond and the cond half one after the other."""
+    from dualdiff_tpu_torch.ops.attention import over_score_cap
+
+    blocks = 2 * layers + 1
+    evals = steps * (2 if sequential_cfg else 1)
+    capped = over_score_cap(tokens, 2 * tokens)
+    per_eval_fwd = blocks * (1 if capped else 2) + 2 * n_controlnets * layers
+    return {"packed_attention_fwd": per_eval_fwd * evals,
+            "packed_attention_nbr_fwd": blocks * evals,
+            "packed_attention_lse_fwd": 0, "packed_attention_bwd_dq": 0,
+            "packed_attention_bwd_dkv": 0,
+            "packed_attention_capped_fwd": (blocks if capped else 0) * evals}
 
 
 def log(msg: str) -> None:
@@ -180,6 +230,13 @@ def kernel_cases():
          C, HEADS, N_CAM),
         ("packed_attention_nbr_fwd", "ragged ring, d=80", 2 * 3, 701, 701,
          320, 4, 3),
+        ("packed_attention_capped_fwd", "video ST-Attn, first + previous "
+         "frame", FRAMES * N_CAM, L, 2 * L, C, HEADS, 0),
+        ("packed_attention_capped_fwd", "ragged ST-Attn, lk = 2801",
+         FRAMES * N_CAM, L, 2 * L + 1, C, HEADS, 0),
+        # not on any path: is the 8-warp block also faster under the cap?
+        ("packed_attention_capped_fwd", "yardstick: attn1 self shape",
+         2 * B * N_CAM, L, L, C, HEADS, 0),
     ]
 
 
@@ -343,67 +400,101 @@ def phase_kernels():
         k = torch.randn(b, lk, c, generator=g, device="cuda").bfloat16()
         v = torch.randn(b, lk, c, generator=g, device="cuda").bfloat16()
         d = c // heads
+        split = lambda t: t.view(b, t.shape[1], heads, d).transpose(1, 2)
+        library = lambda: torch.nn.functional.scaled_dot_product_attention(
+            split(q), split(k), split(v))
+        flops = 4 * b * lq * lk * c
+        variants = {}  # label -> launch; the first is the one the path runs
         if n_cam:
-            run = lambda: A.packed_attention_nbr_fwd(q, k, v, heads, n_cam)
+            variants[""] = lambda: A.packed_attention_nbr_fwd(q, k, v, heads,
+                                                              n_cam)
             plain = lambda: A.attention_packed_neighbors_plain(
                 q, k, v, heads, n_cam)
             library = None  # no single PyTorch call computes the ring sum
-            flops = 8 * b * lq * lk * c
+            flops *= 2
+        elif kern == "packed_attention_capped_fwd":
+            for w in sorted((4, 8), key=lambda w: w != A.CAPPED_WARPS):
+                variants[f"{w} warps"] = functools.partial(
+                    A.packed_attention_capped_fwd, q, k, v, heads, warps=w)
+            plain = lambda: A.attention_packed_capped_plain(q, k, v, heads)
         else:
-            run = lambda: A.packed_attention_fwd(q, k, v, heads)
+            variants[""] = lambda: A.packed_attention_fwd(q, k, v, heads)
             plain = lambda: A.attention_packed_plain(q, k, v, heads)
-            split = lambda t: t.view(b, t.shape[1], heads, d).transpose(1, 2)
-            library = lambda: torch.nn.functional.scaled_dot_product_attention(
-                split(q), split(k), split(v))
-            flops = 4 * b * lq * lk * c
-        got = run()
-        torch.cuda.synchronize()
         want = plain()
-        err = (got.float() - want.float()).abs().max().item()
         # bf16 output: one rounding of |o| <= max|v| is 2^-8 relative; the
         # kernel also rounds P to bf16 for the P.V product (2^-9 relative
         # per term, averaging out over the keys)
         tol = 2.0 ** -7 * want.float().abs().max().item() + 1e-3
+        errs = {}
+        for name, run in variants.items():
+            got = run()
+            torch.cuda.synchronize()
+            errs[name] = (got.float() - want.float()).abs().max().item()
+            del got
+        del want
         nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
         bound_ms, bound_by = bound(nbytes, flops)
+        times = {name: cuda_ms(run, 20) for name, run in variants.items()}
         row = {
             "kernel": kern, "replaces": REPLACES[kern], "case": label,
             "shape": {
                 "b": b, "lq": lq, "lk": lk, "c": c, "heads": heads,
                 "head_dim": d, "n_cam": n_cam},
-            "max_abs_err": err, "tol": tol,
-            "kernel_ms": cuda_ms(run, 20), "plain_ms": cuda_ms(plain, 3),
+            "max_abs_err": max(errs.values()), "tol": tol,
+            "kernel_ms": next(iter(times.values())),
+            "plain_ms": cuda_ms(plain, 3),
             "library_ms": cuda_ms(library, 20) if library else None,
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
+        if len(variants) > 1:
+            row["kernel_ms_by_variant"] = times
+            row["max_abs_err_by_variant"] = errs
         log(json.dumps(row))
-        if not (err <= tol and math.isfinite(err)):
-            raise AssertionError(f"{kern} [{label}] disagrees with its plain "
-                                 f"version: max abs err {err} > {tol}")
+        for name, err in errs.items():
+            if not (err <= tol and math.isfinite(err)):
+                raise AssertionError(
+                    f"{kern} {name} [{label}] disagrees with its plain "
+                    f"version: max abs err {err} > {tol}")
         results.setdefault(kern, []).append(row)
+        del q, k, v
+        torch.cuda.empty_cache()
     return results
 
 
-def _flagship(device, tiny=False, extra=(), weights_from=None):
-    """(cfg, collated B=2 synthetic batch, pipeline) with seeded random
-    weights, or the weights of the models in ``weights_from``."""
+def _flagship(device, tiny=False, extra=(), weights_from=None,
+              video=False):
+    """(cfg, collated batch, pipeline) with seeded random weights, or the
+    weights of the models in ``weights_from``.  The batch: B=2 synthetic
+    samples; with ``video``, clip 0 of ``bench.py::main_video``'s seed-0
+    synthetic clips (``video.num_frames`` frames), collated as it collates
+    them."""
     import numpy as np
 
     from dualdiff_tpu_torch.data.collate import collate_fn
     from dualdiff_tpu_torch.data.synthetic import SyntheticNuScenes
     from dualdiff_tpu_torch.data.tokenizer import HashTokenizer
+    from dualdiff_tpu_torch.data.video import (SyntheticNuScenesVideo,
+                                               collate_video)
     from dualdiff_tpu_torch.pipeline.bev_controlnet import \
         BEVControlNetPipeline
     from dualdiff_tpu_torch.runner.factory import (build_models,
                                                    randomize_weights)
-    from dualdiff_tpu_torch.utils.config import load_config
+    from dualdiff_tpu_torch.utils.config import (FLAGSHIP, VIDEO_16F,
+                                                 load_config)
 
-    cfg = load_config(overrides=extra)
+    cfg = load_config(VIDEO_16F if video else FLAGSHIP, overrides=extra)
     h, w = cfg.dataset.image_size
-    ds = SyntheticNuScenes(num_samples=B, image_size=(h, w),
-                           seed=int(cfg.seed))
-    batch = collate_fn([ds[i] for i in range(B)], cfg, HashTokenizer(),
-                       is_train=False, rng=np.random.default_rng(SEED))
+    if video:
+        clips = SyntheticNuScenesVideo(
+            num_clips=2, num_frames=int(cfg.video.num_frames),
+            image_size=(h, w))
+        batch = collate_video([clips[0]], cfg, HashTokenizer(),
+                              rng=np.random.default_rng(SEED))
+    else:
+        ds = SyntheticNuScenes(num_samples=B, image_size=(h, w),
+                               seed=int(cfg.seed))
+        batch = collate_fn([ds[i] for i in range(B)], cfg, HashTokenizer(),
+                           is_train=False, rng=np.random.default_rng(SEED))
     models = build_models(cfg, tiny=tiny, device=device)
     names = ["unet", "vae", "text_encoder"]
     mods = [models[k] for k in names] + models["controlnets"]
@@ -434,7 +525,7 @@ def phase_generate(profile_dir):
     expect = {"packed_attention_fwd": 18 * steps,
               "packed_attention_nbr_fwd": 5 * steps,
               "packed_attention_lse_fwd": 0, "packed_attention_bwd_dq": 0,
-              "packed_attention_bwd_dkv": 0}
+              "packed_attention_bwd_dkv": 0, "packed_attention_capped_fwd": 0}
     gen = torch.Generator(device="cuda")
     times, counts = [], None
     torch.cuda.reset_peak_memory_stats()
@@ -535,16 +626,23 @@ def profile_run(run, wall_unprofiled: float, out_dir: str,
     return row
 
 
-def phase_reference():
+def phase_reference(video=False):
     """Tiny models, 256x128, 3 steps: bf16 on the card (kernels) against
     float32 on the CPU (plain versions), same weights and noise.  Mean
     absolute error on the [0, 1] images at most 1e-2: bf16 weights and
     activations through every layer and step (3.1e-3 measured on an
-    H100 80GB HBM3 at 700 W)."""
+    H100 80GB HBM3 at 700 W).  ``video``: the tiny video model set on a
+    2-frame clip (sequential CFG, VAE slicing 5 of its 12 images), the
+    ``video_reference`` phase."""
+    from dualdiff_tpu_torch.ops import attention as A
+
     extra = ["dataset.image_size=[256, 128]",
              "runner.pipeline_param.num_inference_steps=3"]
+    if video:
+        extra += ["video.num_frames=2", "runner.pipeline_param.vae_slicing=5"]
     _, batch, cpu_pipe = _flagship(
-        "cpu", tiny=True, extra=extra + ["runner.mixed_precision=fp32"])
+        "cpu", tiny=True, extra=extra + ["runner.mixed_precision=fp32"],
+        video=video)
     cpu_models = cpu_pipe.models
     with torch.no_grad():
         # cam2token reads raw intrinsics (fx ~ 1266): a random kernel makes
@@ -553,19 +651,91 @@ def phase_reference():
         for cn in cpu_models["controlnets"]:
             cn.cam2token.weight.mul_(0.01)
     cfg, _, gpu_pipe = _flagship("cuda", tiny=True, extra=extra,
-                                 weights_from=cpu_models)
+                                 weights_from=cpu_models, video=video)
     h, w = cfg.dataset.image_size
-    lat = torch.randn((B, 1, h // 8, w // 8, 4),
+    rows = len(batch["camera_param"])  # samples, or frames of the clip
+    lat = torch.randn((rows, 1, h // 8, w // 8, 4),
                       generator=torch.Generator().manual_seed(SEED))
     want = cpu_pipe(batch, latents=lat)
+    A.reset_launch_counts()
     got = gpu_pipe(batch, latents=lat).cpu()
     err = (got - want).abs()
-    row = {"phase": "reference", "max_abs_err": err.max().item(),
-           "mean_abs_err": err.mean().item(), "tol_mean": 1e-2}
+    row = {"phase": "video_reference" if video else "reference",
+           "shape": list(got.shape), "max_abs_err": err.max().item(),
+           "mean_abs_err": err.mean().item(), "tol_mean": 1e-2,
+           "launches": {fn.__name__: fn.launches
+                        for fn in A.KERNEL_WRAPPERS}}
     log(json.dumps(row))
     if not row["mean_abs_err"] <= row["tol_mean"]:
         raise AssertionError("bf16 generation on the card disagrees with the "
                              "float32 CPU reference")
+
+
+def phase_video(profile_dir):
+    """DualDiff+ clip generation at full width (phase 8): the ``video_16f``
+    config with sequential CFG and VAE slicing 12, seeded random weights in
+    bf16, clip 0 of ``SyntheticNuScenesVideo(num_clips=2, num_frames=16)``.
+    One warm-up clip, then timed clips; each is checked for shape,
+    finiteness, range and the kernels' launches per clip."""
+    from dualdiff_tpu_torch.ops import attention as A
+
+    t0 = time.perf_counter()
+    cfg, batch, pipe = _flagship("cuda", video=True)
+    torch.cuda.synchronize()
+    log(f"# video models built and cast in {time.perf_counter() - t0:.1f} s")
+    pp = cfg.runner.pipeline_param
+    steps = int(pp.num_inference_steps)
+    frames = int(cfg.video.num_frames)
+    h, w = cfg.dataset.image_size
+    expect = video_launches_per_clip(
+        len(pipe.models["unet"].down_blocks[0].resnets),
+        len(pipe.models["controlnets"]), steps, bool(pp.sequential_cfg),
+        (h // 8) * (w // 8))
+    gen = torch.Generator(device="cuda")
+    times, counts = [], None
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(1 + TIMED_CLIPS):
+        gen.manual_seed(SEED + i)
+        A.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pipe(batch, generator=gen)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = {fn.__name__: fn.launches for fn in A.KERNEL_WRAPPERS}
+        if counts != expect:
+            raise AssertionError(f"kernel launches {counts} != {expect}")
+        if tuple(out.shape) != (frames, N_CAM, h, w, 3):
+            raise AssertionError(f"output shape {tuple(out.shape)}")
+        if not torch.isfinite(out).all():
+            raise AssertionError("non-finite output")
+        if out.min().item() < 0.0 or out.max().item() > 1.0:
+            raise AssertionError("output outside [0, 1]")
+        log(f"# clip {i} ({'warm-up' if i == 0 else 'timed'}): {dt:.3f} s, "
+            f"mean {out.mean().item():.4f}, std {out.std().item():.4f}")
+        if i:
+            times.append(dt)
+    s = sorted(times)[len(times) // 2]
+    row = {"phase": "video", "config": "video_16f 224x400",
+           "frames": frames, "views": N_CAM, "steps": steps,
+           "cfg_scale": float(pp.guidance_scale),
+           "sequential_cfg": bool(pp.sequential_cfg),
+           "vae_slicing": int(pp.vae_slicing), "s_per_clip": s,
+           "s_per_clip_all": times, "frames_per_s": frames / s,
+           "images_per_s": frames * N_CAM / s,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches_per_clip": counts}
+    log(json.dumps(row))
+    log(f"s/clip: {s}")
+    log(f"frames/s: {frames / s}")
+    log(f"images/s: {frames * N_CAM / s}")
+    if profile_dir:
+        gen.manual_seed(SEED)
+        profile_run(lambda: pipe(batch, generator=gen), s, profile_dir,
+                    "video_clip")
+    del pipe
+    torch.cuda.empty_cache()
+    return counts
 
 
 def _train_batch(cfg, n: int):
@@ -825,18 +995,28 @@ def phase_train_reference():
                              f"{row['launches']}")
 
 
+# the path each kernel serves, whose launches the kernels line reports
+KERNEL_PATH = {"packed_attention_fwd": "generate",
+               "packed_attention_nbr_fwd": "generate",
+               "packed_attention_lse_fwd": "train",
+               "packed_attention_bwd_dq": "train",
+               "packed_attention_bwd_dkv": "train",
+               "packed_attention_capped_fwd": "video"}
+
+
 def kernels_line(results, path_counts, train_per_step):
     """One entry per kernel: its main-path shape's times and the launches
-    of the path it serves, with their unit: one generation for the
-    inference kernels, the whole training run for the training kernels
-    (whose count per step, checked on every step, is beside it)."""
+    of the path it serves, with their unit: one generation for the flagship
+    inference kernels, one clip for the capped kernel, the whole training
+    run for the training kernels (whose count per step, checked on every
+    step, is beside it)."""
     units = {"generate": "generation",
-             "train": f"training run of {1 + TIMED_TRAIN_STEPS} steps"}
+             "train": f"training run of {1 + TIMED_TRAIN_STEPS} steps",
+             "video": "clip"}
     out = []
     for kern, rows in results.items():
         main = rows[0]  # the dominant main-path shape
-        path = "generate" if kern in ("packed_attention_fwd",
-                                      "packed_attention_nbr_fwd") else "train"
+        path = KERNEL_PATH[kern]
         out.append({
             "name": kern, "route": "cuda", "source": SOURCE[kern],
             "replaces": REPLACES[kern],
@@ -849,6 +1029,8 @@ def kernels_line(results, path_counts, train_per_step):
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "shape": main["shape"],
         })
+        if "kernel_ms_by_variant" in main:
+            out[-1]["ms_by_variant"] = main["kernel_ms_by_variant"]
     return {"kernels": out}
 
 
@@ -856,15 +1038,27 @@ def main() -> int:
     args = sys.argv[1:]
     profile_dir = args[args.index("--profile") + 1] \
         if "--profile" in args else None
+    t_start = time.perf_counter()
     smi = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    phase_build()
-    results = phase_kernels()
-    counts = {"generate": phase_generate(profile_dir)}
-    phase_reference()
-    counts["train"], train_per_step = phase_train(profile_dir)
-    phase_train_reference()
+
+    def timed(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        log(f"# phase {name}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    timed("build", phase_build)
+    results = timed("kernels", phase_kernels)
+    counts = {"generate": timed("generate", phase_generate, profile_dir)}
+    timed("reference", phase_reference)
+    counts["train"], train_per_step = timed("train", phase_train,
+                                            profile_dir)
+    timed("train_reference", phase_train_reference)
+    counts["video"] = timed("video", phase_video, profile_dir)
+    timed("video_reference", phase_reference, video=True)
+    log(f"# all phases: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line(results, counts, train_per_step)))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,10 @@
 // (same file, called by _flash_packed_nbr).  packed_attention_lse_fwd
 // replaces _fwd_kernel_t_lse (called by _packed_train_t_fwd): the same
 // forward, also writing lse = m + log(l) per (row, head, query) in float32
-// for the backward kernels (attention_train.cu).
+// for the backward kernels (attention_train.cu).  packed_attention_capped_fwd
+// replaces _fwd_kernel_t_capped (called by _packed_infer_capped for shapes
+// whose padded score tile is over the TPU's VMEM cap, such as the video
+// ST-Attn 1400 queries x 2800 keys); see "Long K" below.
 //
 // Layout.  q (B, Lq, C), k/v (B, Lk, C), out (B, Lq, C), bf16, contiguous,
 // head h in columns [h*d, (h+1)*d); lse (B*H, Lq) float32.  The TPU kernels
@@ -40,6 +43,17 @@
 // same K/V loop over view n-1 and then view n+1, each with its own softmax;
 // the first normalized result waits in shared memory (float32) and the two
 // are summed in float32 and written once.
+//
+// Long K.  The TPU needed a second kernel (K/V blocked on the grid, m, l and
+// acc carried in VMEM scratch) only because a whole-sequence score tile did
+// not fit in VMEM.  The kernel above already walks K/V in tiles with an
+// online softmax, so the capped entry is an instance of it, with the warps
+// per block as its one parameter of its own.  At the ST-Attn shape (B = 96,
+// Lq = 1400, Lk = 2800, C = 320) a call is 4*B*Lq*Lk*C = 481.7 GFLOP, 0.487
+// ms at 989 TFLOP/s, against 0.52 GB of q/k/v/o (0.15 ms at 3.35 TB/s):
+// compute-bound, and 3.0 G exponentials.  Every query block reads all of its
+// head's K/V tiles, so 8 warps (128 queries per block) halve the K/V traffic
+// through L2 and shared memory against 4 warps (64 queries).
 // Simple first: no wgmma, TMA or warp specialisation yet.
 
 #include "mma_tile.cuh"
@@ -49,9 +63,10 @@ namespace {
 using namespace dd;
 
 // DP: head_dim padded to a multiple of 16.  NBR: camera-ring variant.
-// LSE: also write lse (B*H, Lq) float32 (not with NBR).
-template <int DP, bool NBR, bool LSE>
-__global__ void __launch_bounds__(kThreads)
+// LSE: also write lse (B*H, Lq) float32 (not with NBR).  WARPS: warps per
+// block, a multiple of 4; the block owns 16 * WARPS queries.
+template <int DP, bool NBR, bool LSE, int WARPS>
+__global__ void __launch_bounds__(32 * WARPS)
     attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ out,
                      float* __restrict__ lse, int lq, int lk, int ld, int d,
@@ -59,24 +74,32 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int S = DP + 8;   // shared row stride: ldmatrix conflict-free
   constexpr int KT = DP / 16;  // MMA depth steps of q.k
   constexpr int NT = DP / 8;   // 8-column tiles of the output
+  constexpr int THREADS = 32 * WARPS;
+  constexpr int BQ = 16 * WARPS;  // queries per block
   static_assert(!(NBR && LSE), "the ring kernel writes no lse");
+  static_assert(WARPS % 4 == 0, "the q tile is whole 64-row tiles");
 
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sq = reinterpret_cast<bf16*>(smem);  // kBlockQ x S
-  bf16* sk = sq + kBlockQ * S;               // 2 stages x kBlockK x S
+  bf16* sq = reinterpret_cast<bf16*>(smem);  // BQ x S
+  bf16* sk = sq + BQ * S;                    // 2 stages x kBlockK x S
   bf16* sv = sk + 2 * kBlockK * S;           // 2 stages x kBlockK x S
   float* stash = reinterpret_cast<float*>(sv + 2 * kBlockK * S);  // NBR
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int q0 = blockIdx.x * kBlockQ;
+  const int q0 = blockIdx.x * BQ;
   const int row = blockIdx.z;
   const size_t head_off = (size_t)blockIdx.y * d;
   const int chunks = d / 8;
 
-  zero_pad_columns<DP>(sq, 5, d);  // q tile + 2 K and 2 V stages
-  load_tile<S>(sq, q + (size_t)row * lq * ld + head_off, q0, lq, ld, chunks);
+  // q tile + 2 K and 2 V stages
+  zero_pad_columns<DP, THREADS>(sq, BQ / kTile + 4, d);
+#pragma unroll
+  for (int i = 0; i < BQ / kTile; ++i)
+    load_tile<S, THREADS>(sq + i * kTile * S,
+                          q + (size_t)row * lq * ld + head_off,
+                          q0 + i * kTile, lq, ld, chunks);
 
   uint32_t qf[KT][4];
   float acc[NT][4];
@@ -103,18 +126,18 @@ __global__ void __launch_bounds__(kThreads)
     m[0] = m[1] = -INFINITY;
     l[0] = l[1] = 0.f;
 
-    load_tile<S>(sk, kg, 0, lk, ld, chunks);
-    load_tile<S>(sv, vg, 0, lk, ld, chunks);
+    load_tile<S, THREADS>(sk, kg, 0, lk, ld, chunks);
+    load_tile<S, THREADS>(sv, vg, 0, lk, ld, chunks);
     cp_async_commit();  // (pass 0: this group also holds the q tile)
 
 #pragma unroll 1
     for (int t = 0; t < n_tiles; ++t) {
       const int st = t & 1;
       if (t + 1 < n_tiles) {
-        load_tile<S>(sk + (st ^ 1) * kBlockK * S, kg, (t + 1) * kBlockK, lk,
-                     ld, chunks);
-        load_tile<S>(sv + (st ^ 1) * kBlockK * S, vg, (t + 1) * kBlockK, lk,
-                     ld, chunks);
+        load_tile<S, THREADS>(sk + (st ^ 1) * kBlockK * S, kg,
+                              (t + 1) * kBlockK, lk, ld, chunks);
+        load_tile<S, THREADS>(sv + (st ^ 1) * kBlockK * S, vg,
+                              (t + 1) * kBlockK, lk, ld, chunks);
         cp_async_commit();
         cp_async_wait<1>();
       } else {
@@ -211,7 +234,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int e = 0; e < 4; ++e) {
         float o = acc[i][e] * inv[e >> 1];
         if (NBR) {
-          float* slot = stash + (i * 4 + e) * kThreads + tid;
+          float* slot = stash + (i * 4 + e) * THREADS + tid;
           if (pass == 0)
             *slot = o;
           else
@@ -233,33 +256,35 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int DP, bool NBR, bool LSE>
+template <int DP, bool NBR, bool LSE, int WARPS>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float* lse, int batch, int lq, int lk, int heads, int d,
                    int n_cam, float scale, cudaStream_t stream) {
-  const size_t smem = (size_t)(kBlockQ + 4 * kBlockK) * (DP + 8) * sizeof(bf16) +
-                      (NBR ? (size_t)kThreads * (DP / 2) * sizeof(float) : 0);
-  auto kernel = attention_kernel<DP, NBR, LSE>;
+  constexpr int BQ = 16 * WARPS;
+  constexpr int THREADS = 32 * WARPS;
+  const size_t smem = (size_t)(BQ + 4 * kBlockK) * (DP + 8) * sizeof(bf16) +
+                      (NBR ? (size_t)THREADS * (DP / 2) * sizeof(float) : 0);
+  auto kernel = attention_kernel<DP, NBR, LSE, WARPS>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((lq + kBlockQ - 1) / kBlockQ, heads, batch);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  dim3 grid((lq + BQ - 1) / BQ, heads, batch);
+  kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, lq, lk,
       heads * d, d, n_cam, scale * kLog2e);
   return cudaGetLastError();
 }
 
-template <bool NBR, bool LSE>
+template <bool NBR, bool LSE, int WARPS = kWarps>
 int dispatch(const void* q, const void* k, const void* v, void* out,
              float* lse, int batch, int lq, int lk, int heads, int d,
              int n_cam, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d <= 0 || d % 8 || d > 160) return (int)cudaErrorInvalidValue;
 #define DD_CALL(P)                                                          \
-  (int)launch<P, NBR, LSE>(q, k, v, out, lse, batch, lq, lk, heads, d,     \
-                           n_cam, scale, s)
+  (int)launch<P, NBR, LSE, WARPS>(q, k, v, out, lse, batch, lq, lk, heads, \
+                                  d, n_cam, scale, s)
   DD_DISPATCH_DP(d, DD_CALL)
 #undef DD_CALL
   return (int)cudaErrorInvalidValue;
@@ -292,4 +317,21 @@ extern "C" int dd_packed_attention_lse_fwd(const void* q, const void* k,
                                            float scale, void* stream) {
   return dispatch<false, true>(q, k, v, out, static_cast<float*>(lse), batch,
                                lq, lk, heads, head_dim, 1, scale, stream);
+}
+
+// warps: 4 (64 queries per block) or 8 (128 queries per block, half the
+// K/V traffic per query).
+extern "C" int dd_packed_attention_capped_fwd(const void* q, const void* k,
+                                              const void* v, void* out,
+                                              int batch, int lq, int lk,
+                                              int heads, int head_dim,
+                                              int warps, float scale,
+                                              void* stream) {
+  if (warps == 8)
+    return dispatch<false, false, 8>(q, k, v, out, nullptr, batch, lq, lk,
+                                     heads, head_dim, 1, scale, stream);
+  if (warps == 4)
+    return dispatch<false, false, 4>(q, k, v, out, nullptr, batch, lq, lk,
+                                     heads, head_dim, 1, scale, stream);
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,9 +1,10 @@
 // Shared pieces of the attention kernels (attention.cu, attention_train.cu):
 // 16-byte cp.async staging, ldmatrix, mma.sync m16n8k16 bf16 -> f32, and the
-// tile geometry.  Four warps per block, one 16-row MMA tile per warp, 64-row
-// tiles staged in shared memory with a row stride of DP + 8 bf16 (DP = head
-// dim padded to the MMA depth 16), which keeps ldmatrix free of bank
-// conflicts.
+// tile geometry.  Four warps per block by default (the staging helpers take
+// the block's thread count as a template parameter), one 16-row MMA tile per
+// warp, 64-row tiles staged in shared memory with a row stride of DP + 8
+// bf16 (DP = head dim padded to the MMA depth 16), which keeps ldmatrix free
+// of bank conflicts.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -78,11 +79,12 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 }
 
 // Stage rows [row0, row0 + 64) of one head of a (rows, ld) bf16 matrix into
-// a shared tile of row stride S; rows >= nrows are zero-filled.
-template <int S>
+// a shared tile of row stride S; rows >= nrows are zero-filled.  THREADS:
+// the block's thread count.
+template <int S, int THREADS = kThreads>
 __device__ __forceinline__ void load_tile(bf16* tile, const bf16* g, int row0,
                                           int nrows, int ld, int chunks) {
-  for (int c = threadIdx.x; c < kTile * chunks; c += kThreads) {
+  for (int c = threadIdx.x; c < kTile * chunks; c += THREADS) {
     int r = c / chunks;
     int ch = c - r * chunks;
     int row = row0 + r;
@@ -94,13 +96,13 @@ __device__ __forceinline__ void load_tile(bf16* tile, const bf16* g, int row0,
 
 // Columns [d, DP) of n_tiles consecutive tiles (row stride S) stay zero;
 // cp.async never writes them.
-template <int DP>
+template <int DP, int THREADS = kThreads>
 __device__ __forceinline__ void zero_pad_columns(bf16* tiles, int n_tiles,
                                                  int d) {
   constexpr int S = DP + 8;
   if (d < DP) {
     const int pad = DP - d;
-    for (int i = threadIdx.x; i < n_tiles * kTile * pad; i += kThreads)
+    for (int i = threadIdx.x; i < n_tiles * kTile * pad; i += THREADS)
       tiles[(i / pad) * S + d + i % pad] = __float2bfloat16(0.f);
   }
 }

@@ -171,15 +171,30 @@ def is_camera_ring(pairs: Optional[Sequence[Sequence[int]]],
 
 
 class BasicTransformerBlock(nn.Module):
-    """self-attn -> cross-attn -> (multiview attn4 + connector) -> FF.
+    """self-attn -> cross-attn -> (multiview attn4 + connector) ->
+    (temporal attn + connector) -> FF.
 
     attn4 runs each camera against its two ring neighbors and sums the
-    outputs ('add'), gated through a zero-init linear connector."""
+    outputs ('add'), gated through a zero-init linear connector.
+
+    Video hooks (DualDiff+), active when ``num_frames > 1``; the leading dim
+    then folds (clip, frame, camera), frame outer, camera inner:
+
+    * ``st_attn``: attn1's K/V are ``[first frame; previous frame]`` of
+      ``norm1``'s output, from the same view (frame 0 takes itself twice);
+    * ``temporal``: ``norm_temporal`` -> ``attn_temporal`` over the frame
+      axis, per (view, pixel) -> the zero-init ``temporal_connector`` ->
+      residual, after attn4 and before the feed-forward."""
 
     def __init__(self, dim: int, heads: int = 8,
-                 cross_attention_dim: int = 768, multiview: bool = False):
+                 cross_attention_dim: int = 768, multiview: bool = False,
+                 st_attn: bool = False, temporal: bool = False,
+                 num_frames: int = 1):
         super().__init__()
         self.multiview = multiview
+        self.st_attn = st_attn and num_frames > 1
+        self.temporal = temporal and num_frames > 1
+        self.num_frames = num_frames
         self.norm1 = LayerNorm(dim)
         self.attn1 = Attention(dim, heads)
         self.norm2 = LayerNorm(dim)
@@ -188,6 +203,10 @@ class BasicTransformerBlock(nn.Module):
             self.norm4 = LayerNorm(dim)
             self.attn4 = Attention(dim, heads)
             self.connector = zero_module(Linear(dim, dim))
+        if self.temporal:
+            self.norm_temporal = LayerNorm(dim)
+            self.attn_temporal = Attention(dim, heads)
+            self.temporal_connector = zero_module(Linear(dim, dim))
         self.norm3 = LayerNorm(dim)
         self.ff = GEGLUFeedForward(dim)
 
@@ -195,12 +214,38 @@ class BasicTransformerBlock(nn.Module):
                 encoder_hidden_states: torch.Tensor,
                 n_cam: int = 1) -> torch.Tensor:
         h = hidden_states
-        h = h + self.attn1(self.norm1(h))
+        norm_h = self.norm1(h)
+        kv = self._st_attn_kv(norm_h, n_cam) if self.st_attn else None
+        h = h + self.attn1(norm_h, kv)
         h = h + self.attn2(self.norm2(h), encoder_hidden_states)
         if self.multiview:
             h = h + self.connector(
                 self.attn4(self.norm4(h), ring_views=n_cam))
+        if self.temporal:
+            h = h + self.temporal_connector(
+                self._temporal_attn(self.norm_temporal(h), n_cam))
         return h + self.ff(self.norm3(h))
+
+    def _st_attn_kv(self, norm_h: torch.Tensor, n_cam: int) -> torch.Tensor:
+        """(B', L, C) -> (B', 2L, C): per row, the first frame's tokens then
+        the previous frame's, of the same view."""
+        bfn, l, c = norm_h.shape
+        f = self.num_frames
+        x = norm_h.reshape(bfn // (f * n_cam), f, n_cam, l, c)
+        first = x[:, :1].expand_as(x)
+        prev = torch.cat([x[:, :1], x[:, :-1]], dim=1)
+        return torch.cat([first, prev], dim=3).reshape(bfn, 2 * l, c)
+
+    def _temporal_attn(self, norm_h: torch.Tensor,
+                       n_cam: int) -> torch.Tensor:
+        """Self-attention over the frame axis, per (clip, view, token)."""
+        bfn, l, c = norm_h.shape
+        f = self.num_frames
+        b = bfn // (f * n_cam)
+        x = norm_h.reshape(b, f, n_cam, l, c).permute(0, 2, 3, 1, 4)
+        out = self.attn_temporal(x.reshape(-1, f, c))
+        out = out.reshape(b, n_cam, l, f, c).permute(0, 3, 1, 2, 4)
+        return out.reshape(bfn, l, c)
 
 
 class Transformer2DModel(nn.Module):
@@ -209,13 +254,14 @@ class Transformer2DModel(nn.Module):
 
     def __init__(self, channels: int, heads: int = 8,
                  cross_attention_dim: int = 768, num_layers: int = 1,
-                 multiview: bool = False):
+                 multiview: bool = False, st_attn: bool = False,
+                 temporal: bool = False, num_frames: int = 1):
         super().__init__()
         self.norm = GroupNorm(min(32, channels), channels, eps=1e-6)
         self.proj_in = Conv2d(channels, channels, 1)
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(channels, heads, cross_attention_dim,
-                                  multiview)
+                                  multiview, st_attn, temporal, num_frames)
             for _ in range(num_layers)])
         self.proj_out = Conv2d(channels, channels, 1)
 

@@ -5,7 +5,9 @@ the attn4 camera-ring path; ControlNet residuals are added to the skip
 connections and the mid block.  With ``remat`` each down, mid and up block
 whose input has at least ``remat_min_tokens`` spatial tokens is
 rematerialised in the backward (``enable_unet_checkpointing``).  NCHW; the
-leading batch dim folds (batch, camera).
+leading batch dim folds (batch, camera), or (clip, frame, camera) for the
+video UNet (DualDiff+: ST-Attn and temporal attention in every transformer
+block).
 """
 
 from __future__ import annotations
@@ -42,14 +44,16 @@ class CrossAttnDownBlock2D(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, temb_dim: int,
                  num_layers: int = 2, add_downsample: bool = True,
                  heads: int = 8, cross_attention_dim: int = 768,
-                 multiview: bool = False):
+                 multiview: bool = False, st_attn: bool = False,
+                 temporal: bool = False, num_frames: int = 1):
         super().__init__()
         self.resnets = nn.ModuleList([
             ResnetBlock2D(in_channels if i == 0 else out_channels,
                           out_channels, temb_dim) for i in range(num_layers)])
         self.attentions = nn.ModuleList([
             Transformer2DModel(out_channels, heads, cross_attention_dim,
-                               multiview=multiview)
+                               multiview=multiview, st_attn=st_attn,
+                               temporal=temporal, num_frames=num_frames)
             for _ in range(num_layers)])
         self.downsamplers = (nn.ModuleList([Downsample2D(out_channels)])
                              if add_downsample else None)
@@ -83,13 +87,16 @@ class DownBlock2D(nn.Module):
 
 class UNetMidBlock2DCrossAttn(nn.Module):
     def __init__(self, channels: int, temb_dim: int, heads: int = 8,
-                 cross_attention_dim: int = 768, multiview: bool = False):
+                 cross_attention_dim: int = 768, multiview: bool = False,
+                 st_attn: bool = False, temporal: bool = False,
+                 num_frames: int = 1):
         super().__init__()
         self.resnets = nn.ModuleList([
             ResnetBlock2D(channels, channels, temb_dim) for _ in range(2)])
         self.attentions = nn.ModuleList([
             Transformer2DModel(channels, heads, cross_attention_dim,
-                               multiview=multiview)])
+                               multiview=multiview, st_attn=st_attn,
+                               temporal=temporal, num_frames=num_frames)])
 
     def forward(self, x, temb, encoder_hidden_states, n_cam: int = 1):
         x = self.resnets[0](x, temb)
@@ -103,7 +110,9 @@ class UpBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
                  skip_channels: Sequence[int], temb_dim: int,
                  add_upsample: bool, cross_attn: bool, heads: int = 8,
-                 cross_attention_dim: int = 768, multiview: bool = False):
+                 cross_attention_dim: int = 768, multiview: bool = False,
+                 st_attn: bool = False, temporal: bool = False,
+                 num_frames: int = 1):
         super().__init__()
         chans = [in_channels] + [out_channels] * (len(skip_channels) - 1)
         self.resnets = nn.ModuleList([
@@ -111,7 +120,8 @@ class UpBlock(nn.Module):
             for c, s in zip(chans, skip_channels)])
         self.attentions = nn.ModuleList([
             Transformer2DModel(out_channels, heads, cross_attention_dim,
-                               multiview=multiview)
+                               multiview=multiview, st_attn=st_attn,
+                               temporal=temporal, num_frames=num_frames)
             for _ in skip_channels]) if cross_attn else None
         self.upsamplers = (nn.ModuleList([Upsample2D(out_channels)])
                            if add_upsample else None)
@@ -134,10 +144,15 @@ class UNet2DConditionMultiview(nn.Module):
                  cross_attention_dim: int = 768, multiview: bool = True,
                  neighboring_view_pair: Optional[Sequence[Sequence[int]]] = (
                      (5, 1), (0, 2), (1, 3), (2, 4), (3, 5), (4, 0)),
-                 remat: bool = False, remat_min_tokens: int = 0):
+                 st_attn: bool = False, temporal: bool = False,
+                 num_frames: int = 1, remat: bool = False,
+                 remat_min_tokens: int = 0):
         """attn4 is the 'add' type with a zero_linear connector (the only
-        ones ported)."""
+        ones ported).  ``st_attn``, ``temporal`` and ``num_frames``: the
+        video hooks of every transformer block (``BasicTransformerBlock``);
+        the batch then folds (clip, frame, camera), frame outer."""
         super().__init__()
+        self.num_frames = num_frames
         self.remat = remat
         self.remat_min_tokens = remat_min_tokens
         chs = list(block_out_channels)
@@ -146,7 +161,8 @@ class UNet2DConditionMultiview(nn.Module):
         self.multiview = multiview
         temb = chs[0] * 4
         tx = dict(heads=heads, cross_attention_dim=cross_attention_dim,
-                  multiview=multiview)
+                  multiview=multiview, st_attn=st_attn, temporal=temporal,
+                  num_frames=num_frames)
 
         self.time_embedding = TimestepEmbedding(chs[0], temb)
         self.conv_in = Conv2d(in_channels, chs[0], 3, padding=1)

@@ -12,7 +12,10 @@ d = 40) reaches a kernel; the 350-, 91- and 28-token levels use einsum.
 
 A call that is not differentiated takes the inference kernels
 (``packed_attention_fwd``, ``packed_attention_nbr_fwd``), as the JAX
-package's custom-VJP primal does.  A differentiated call (grad enabled and
+package's custom-VJP primal does; one whose padded score tile is over
+``T_SCORE_CAP`` (the video ST-Attn's 1400 queries x 2800 keys) takes
+``packed_attention_capped_fwd``, as ``_packed_infer`` sends it to
+``_packed_infer_capped``.  A differentiated call (grad enabled and
 an input that requires grad) goes through ``PackedAttention``: the forward
 with ``lse`` (``packed_attention_lse_fwd``), and a backward that launches
 ``packed_attention_bwd_dq`` and ``packed_attention_bwd_dkv``.  Under grad
@@ -42,15 +45,27 @@ __all__ = ["PACKED_MIN_LQ", "mha_einsum", "multi_head_attention",
            "attention_packed_plain", "attention_packed_neighbors_plain",
            "attention_packed_lse_plain", "attention_packed_bwd_dq_plain",
            "attention_packed_bwd_dkv_plain", "attention_delta",
-           "packed_attention_fwd", "packed_attention_nbr_fwd",
-           "packed_attention_lse_fwd", "packed_attention_bwd_dq",
-           "packed_attention_bwd_dkv", "PackedAttention",
+           "attention_packed_capped_plain", "packed_attention_fwd",
+           "packed_attention_nbr_fwd", "packed_attention_lse_fwd",
+           "packed_attention_bwd_dq", "packed_attention_bwd_dkv",
+           "packed_attention_capped_fwd", "PackedAttention",
+           "T_SCORE_CAP", "CAPPED_WARPS", "over_score_cap",
            "KERNEL_WRAPPERS", "reset_launch_counts"]
 
 # Queries at least this long take the kernels.  Carried over from the JAX
 # package's _PACKED_MIN_LQ (a TPU measurement); to be decided again on the
 # H100.
 PACKED_MIN_LQ = 512
+# Inference calls whose padded score tile up128(lq) * up128(lk) is over
+# this take packed_attention_capped_fwd.  Carried over from the JAX
+# package's _T_SCORE_CAP, the TPU's VMEM budget for a whole-sequence f32
+# score tile; the port's kernels keep no score tile, so the split is to be
+# decided again on the H100.
+T_SCORE_CAP = 2 * 1024 * 1024
+# Warps per block of packed_attention_capped_fwd (4 or 8), the faster of
+# the two at the video ST-Attn shape (chip_smoke.py phase 3; PERF.md,
+# kernel table row 3).
+CAPPED_WARPS = 8
 # Largest head_dim the CUDA kernels take (80 and 160 reach them at HD).
 MAX_KERNEL_HEAD_DIM = 160
 
@@ -104,6 +119,15 @@ def attention_packed_plain(q, k, v, heads: int,
     and products, rounded once to q's dtype."""
     scale = _default_scale(scale, q.shape[-1] // heads)
     return _attention_f32(q, k, v, heads, scale).to(q.dtype)
+
+
+def attention_packed_capped_plain(q, k, v, heads: int,
+                                  scale: Optional[float] = None):
+    """Plain version of ``packed_attention_capped_fwd``: exact softmax
+    attention, float32 logits, softmax and products, rounded once to q's
+    dtype.  The TPU kernel's K blocking with carried (m, l, acc) is an
+    online evaluation of this same softmax."""
+    return attention_packed_plain(q, k, v, heads, scale)
 
 
 def _ring(n_cam: int, offset: int):
@@ -390,9 +414,37 @@ def packed_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
     return dk, dv
 
 
+def packed_attention_capped_fwd(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, heads: int,
+                                scale: Optional[float] = None,
+                                warps: int = CAPPED_WARPS) -> torch.Tensor:
+    """Inference attention for long K, q (B, Lq, C), k/v (B, Lk, C) ->
+    (B, Lq, C); ``warps`` per block, 4 or 8.
+
+    CUDA kernel ``packed_attention_capped_fwd`` (``csrc/attention.cu``),
+    the port of the TPU kernel ``_fwd_kernel_t_capped``.  CPU tensors take
+    ``attention_packed_capped_plain``."""
+    if q.device.type == "cpu":
+        return attention_packed_capped_plain(q, k, v, heads, scale)
+    _refuse_grad(q, k, v)
+    d = _check_kernel_args(q, k, v, heads)
+    if warps not in (4, 8):
+        raise ValueError(f"warps={warps}: the kernel takes 4 or 8")
+    scale = _default_scale(scale, d)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = library("attention").dd_packed_attention_capped_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            q.shape[0], q.shape[1], k.shape[1], heads, d, warps, scale,
+            _stream(q))
+    _raise_on(err, "packed_attention_capped_fwd")
+    packed_attention_capped_fwd.launches += 1
+    return out
+
+
 KERNEL_WRAPPERS = (packed_attention_fwd, packed_attention_nbr_fwd,
                    packed_attention_lse_fwd, packed_attention_bwd_dq,
-                   packed_attention_bwd_dkv)
+                   packed_attention_bwd_dkv, packed_attention_capped_fwd)
 for _fn in KERNEL_WRAPPERS:
     _fn.launches = 0
 
@@ -439,18 +491,28 @@ def _differentiated(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
+def over_score_cap(lq: int, lk: int) -> bool:
+    """True when the padded score tile up128(lq) * up128(lk) is over
+    ``T_SCORE_CAP`` (the JAX package's ``_packed_infer`` test)."""
+    up128 = lambda x: -(-x // 128) * 128
+    return up128(lq) * up128(lk) > T_SCORE_CAP
+
+
 def attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      heads: int, scale: Optional[float] = None):
     """Channel-packed attention: q (B, Lq, C), k/v (B, Lk, C) -> (B, Lq, C).
 
-    The JAX package's frame-axis head-packed path (lq == lk <= 32) is the
-    same per-head math with a block-diagonal mask, so the port sends it to
-    einsum like every other short query."""
+    The JAX package's frame-axis head-packed path (lq == lk <= 32, the video
+    temporal attention) is the same per-head math with a block-diagonal
+    mask, so the port sends it to einsum like every other short query.
+    Under grad ``PackedAttention`` has no score cap."""
     d = q.shape[-1] // heads
     scale = _default_scale(scale, d)
     if _takes_kernel(q.shape[1], d):
         if _differentiated(q, k, v):
             return PackedAttention.apply(q, k, v, heads, scale)
+        if over_score_cap(q.shape[1], k.shape[1]):
+            return packed_attention_capped_fwd(q, k, v, heads, scale)
         return packed_attention_fwd(q, k, v, heads, scale)
     return _einsum_packed(q, k, v, scale, heads)
 

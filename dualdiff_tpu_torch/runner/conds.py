@@ -22,7 +22,9 @@ _KEYS = ("pixel_values", "bev_map", "camera_param", "input_ids",
 def prepare_batch(batch: Dict, device) -> Dict:
     """Collate output -> flat dict of tensors on ``device`` (drops meta),
     including the FGM aug-loss inputs ``fgm_bboxes``, ``fgm_masks`` and
-    ``fgm_lidar2image`` when the batch has them."""
+    ``fgm_lidar2image`` when the batch has them.  A ``collate_video``
+    batch is already flat (clips x frames on the batch dim); its
+    ``num_frames`` and ``clip_batch`` meta keys are dropped too."""
     to = lambda a: torch.as_tensor(np.asarray(a), device=device)
     out = {k: to(batch[k]) for k in _KEYS if k in batch}
     for i, br in enumerate(batch["branches"]):

@@ -2,7 +2,9 @@
 
 Port of ``dualdiff_tpu/runner/factory.py``, remat settings included.
 ``tiny=True`` uses the JAX package's tiny sizes, which keep every
-architectural feature on.
+architectural feature on.  A ``use_video`` config builds the DualDiff+ video
+UNet (ST-Attn and temporal attention, ``video.num_frames`` frames); its RGD
+stage (LoRA) is not ported.
 """
 
 from __future__ import annotations
@@ -33,8 +35,13 @@ def _check_ported(cfg) -> None:
     for flag in ("use_txt_con_fusionp", "use_cam_in_temb"):
         if c.get(flag):
             raise NotImplementedError(f"model.controlnet.{flag} is not ported")
-    if cfg.get("use_box_adapter") or cfg.get("use_video"):
-        raise NotImplementedError("box adapter and video are not ported")
+    if cfg.get("use_box_adapter"):
+        raise NotImplementedError("the box adapter is not ported")
+    # the JAX factory gives the UNet LoRA adapters (video.lora_rank) exactly
+    # when RGD is on
+    if cfg.get("use_video") and cfg.video.rgd.enable:
+        raise NotImplementedError(
+            "video RGD (stage 2) and its LoRA adapters are not ported")
     if c.bbox_embedder_param.get("minmax_normalize"):
         raise NotImplementedError("bbox minmax_normalize is not ported")
     u = cfg.model.unet
@@ -80,11 +87,15 @@ def build_models(cfg, tiny: bool = False, device=None) -> Dict:
     pairs = tuple(tuple(cfg.dataset.neighboring_view_pair[k])
                   for k in sorted(cfg.dataset.neighboring_view_pair,
                                   key=int))
+    video = bool(cfg.get("use_video", False))
     with torch.device(dev):
         unet = UNet2DConditionMultiview(
             block_out_channels=chs, layers_per_block=layers, heads=heads,
             cross_attention_dim=xdim, multiview=True,
             neighboring_view_pair=pairs,
+            st_attn=video and bool(cfg.video.use_st_attn),
+            temporal=video and bool(cfg.video.use_temporal_attn),
+            num_frames=int(cfg.video.num_frames) if video else 1,
             remat=bool(cfg.runner.get("enable_unet_checkpointing", False)),
             remat_min_tokens=_remat_min_tokens(cfg, "unet_remat_min_tokens"))
         controlnets = [BEVControlNet(

@@ -12,13 +12,18 @@ import json
 import os
 from typing import Any, Iterable
 
-__all__ = ["ConfigNode", "load_config", "FLAGSHIP"]
+__all__ = ["ConfigNode", "load_config", "FLAGSHIP", "VIDEO_16F"]
 
 CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)),
                           "configs")
 # +exp=dual_branch_augloss_fusion dataset=Nuscenes_synthetic
 # runner.pipeline_param.bbox_max_length=80
 FLAGSHIP = "dual_branch_augloss_fusion_224x400"
+# +exp=video_16f dataset=Nuscenes_synthetic
+# runner.pipeline_param.bbox_max_length=80
+# runner.pipeline_param.vae_slicing=12
+# runner.pipeline_param.sequential_cfg=true
+VIDEO_16F = "video_16f_224x400"
 
 
 class ConfigNode(dict):

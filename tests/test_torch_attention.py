@@ -1,11 +1,13 @@
 """The port's attention module against the JAX package's Pallas kernels.
 
 The port's kernel wrappers take their plain PyTorch versions on CPU tensors;
-those are held here against ``_packed_infer`` (``_fwd_kernel_t``) and
-``_flash_packed_nbr`` (``_fwd_kernel_t_nbr``) run in Pallas interpret mode,
-as ``tests/test_ops.py`` runs them.  Inputs are float32 from a seeded numpy
-generator; tolerance 2e-5 absolute on outputs of magnitude ~1: both sides
-compute in float32, and only the order of the sums differs.
+those are held here against ``_packed_infer`` (``_fwd_kernel_t``),
+``_flash_packed_nbr`` (``_fwd_kernel_t_nbr``) and ``_packed_infer_capped``
+(``_fwd_kernel_t_capped``) run in Pallas interpret mode, as
+``tests/test_ops.py`` runs them.  Inputs are float32 from a seeded numpy
+generator; tolerance 2e-5 absolute on outputs of magnitude ~1 (1e-5 for the
+capped kernel): both sides compute in float32, and only the order of the
+sums differs.
 """
 
 import math
@@ -17,7 +19,7 @@ import torch
 
 from tests import torch_parity as tp  # noqa: F401  (sets torch threads)
 from dualdiff_tpu.ops.attention import (_einsum_packed, _flash_packed_nbr,
-                                        _packed_infer)
+                                        _packed_infer, _packed_infer_capped)
 from dualdiff_tpu_torch.ops import attention as A
 
 ATOL = 2e-5
@@ -75,6 +77,52 @@ def test_padded_k_with_very_negative_logits_is_exact():
     want = _einsum_packed(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                           1.0 / math.sqrt(d), heads)
     got = A.attention_packed_plain(tp.t(q), tp.t(k), tp.t(v), heads)
+    tp.assert_close(got, want, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("logits", ["ordinary", "very negative"])
+def test_capped_plain_matches_fwd_kernel_t_capped(logits):
+    """``block_k=128`` carries (m, l, acc) over three K blocks, the last
+    one ragged (300 keys in 384).  The TPU capped kernel masks keys >= Lk to
+    -inf, so it stays exact also when every real logit is far below 0."""
+    heads, d, b, lq, lk = 2, 8, 2, 200, 300
+    c = heads * d
+    q, k, v = _qkv(b, lq, lk, c, seed=3)
+    if logits == "very negative":
+        q, k = 4.0 + 0.1 * q, -3.0 + 0.1 * k
+        assert np.einsum("bqhd,bkhd->bhqk", q.reshape(b, lq, heads, d),
+                         k.reshape(b, lk, heads, d)).max() / math.sqrt(d) \
+            <= -30.0
+    want = _packed_infer_capped(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), 1.0 / math.sqrt(d), heads,
+                                (lq, lk), block_k=128)
+    got = A.packed_attention_capped_fwd(tp.t(q), tp.t(k), tp.t(v), heads)
+    tp.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("lk, grad, route", [
+    (4096, False, "packed_attention_fwd"),          # 512 * 4096 == 2^21
+    (4097, False, "packed_attention_capped_fwd"),   # 512 * 4224 > 2^21
+    (4097, True, "packed_attention_lse_fwd"),       # no cap under grad
+])
+def test_capped_routing_matches_reference(lk, grad, route, monkeypatch):
+    """A non-differentiated call whose padded score tile is over
+    ``T_SCORE_CAP`` takes the capped wrapper, as ``_packed_infer`` sends it
+    to ``_packed_infer_capped``; a differentiated one ``PackedAttention``.
+    Either way the result equals the JAX einsum reference."""
+    heads, d = 2, 8
+    calls = []
+    for name in ("packed_attention_fwd", "packed_attention_capped_fwd",
+                 "packed_attention_lse_fwd"):
+        real = getattr(A, name)
+        monkeypatch.setattr(A, name, lambda *a, _r=real, _n=name, **kw:
+                            calls.append(_n) or _r(*a, **kw))
+    q, k, v = _qkv(1, 512, lk, heads * d, seed=lk)
+    qt, kt, vt = (tp.t(x).requires_grad_(grad) for x in (q, k, v))
+    got = A.attention_packed(qt, kt, vt, heads)
+    want = _einsum_packed(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          1.0 / math.sqrt(d), heads)
+    assert calls == [route]
     tp.assert_close(got, want, rtol=0, atol=ATOL)
 
 

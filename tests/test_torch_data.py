@@ -13,7 +13,9 @@ from dualdiff_tpu.utils.config import to_dict
 from dualdiff_tpu_torch.data.collate import collate_fn
 from dualdiff_tpu_torch.data.synthetic import SyntheticNuScenes
 from dualdiff_tpu_torch.data.tokenizer import HashTokenizer
-from dualdiff_tpu_torch.utils.config import load_config
+from dualdiff_tpu_torch.data.video import (SyntheticNuScenesVideo,
+                                           collate_video)
+from dualdiff_tpu_torch.utils.config import VIDEO_16F, load_config
 
 
 def test_json_config_equals_composed_yaml():
@@ -21,6 +23,17 @@ def test_json_config_equals_composed_yaml():
     composition of the flagship overrides, as JSON."""
     want = json.loads(json.dumps(to_dict(tp.jax_config())))
     assert dict(load_config()) == want
+
+
+def test_video_json_config_equals_composed_yaml():
+    """configs/video_16f_224x400.json is the JAX loader's composition of
+    ``bench.py::main_video``'s overrides (``tests/torch_parity.VIDEO``)."""
+    want = json.loads(json.dumps(to_dict(tp.jax_config(video=True))))
+    cfg = load_config(VIDEO_16F)
+    assert dict(cfg) == want
+    assert cfg.use_video and cfg.video.num_frames == 16
+    assert cfg.runner.pipeline_param.sequential_cfg
+    assert cfg.runner.pipeline_param.vae_slicing == 12
 
 
 def test_config_overrides():
@@ -61,4 +74,28 @@ def test_synthetic_samples_and_collate_equal():
                        rng=np.random.default_rng(0))
     got = collate_fn([pds[0], pds[1]], load_config(), HashTokenizer(),
                      is_train=False, rng=np.random.default_rng(0))
+    _assert_tree_equal(got, want)
+
+
+def test_synthetic_clips_and_collate_video_equal():
+    """Two clips of three frames: the same frames, frame-outer flattening
+    and ``num_frames`` / ``clip_batch`` keys as the JAX package's copies."""
+    from dualdiff_tpu.data.video import SyntheticNuScenesVideo as JaxVideo
+    from dualdiff_tpu.data.video import collate_video as jax_collate_video
+
+    cfg = tp.jax_config(["dataset.image_size=[256, 128]"], video=True)
+    jds = JaxVideo(num_clips=2, num_frames=3, image_size=(256, 128))
+    pds = SyntheticNuScenesVideo(num_clips=2, num_frames=3,
+                                 image_size=(256, 128))
+    assert len(pds) == len(jds) == 2
+    clips = [pds[0], pds[1]]
+    for i in range(2):
+        _assert_tree_equal(clips[i], jds[i], f"clip {i}")
+    want = jax_collate_video([jds[0], jds[1]], cfg, JaxTok(),
+                             rng=np.random.default_rng(0))
+    got = collate_video(clips, load_config(VIDEO_16F, [
+        "dataset.image_size=[256, 128]"]), HashTokenizer(),
+                        rng=np.random.default_rng(0))
+    assert got["num_frames"] == 3 and got["clip_batch"] == 2
+    assert got["pixel_values"].shape[0] == 6
     _assert_tree_equal(got, want)

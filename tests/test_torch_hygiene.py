@@ -69,4 +69,7 @@ def test_kernel_wrappers_refuse_what_the_kernel_cannot_take():
         A.packed_attention_fwd(q, q, q, heads=8)
     with pytest.raises(ValueError, match="CUDA"):
         A.packed_attention_nbr_fwd(q, q, q, heads=8, n_cam=2)
+    with pytest.raises(ValueError, match="CUDA"):
+        A.packed_attention_capped_fwd(q, q, q, heads=8)
     assert A.packed_attention_fwd.launches == 0
+    assert A.packed_attention_capped_fwd.launches == 0

@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
 Mirrors the kernel phase of ``chip_smoke.py``: bf16 inputs at the flagship
-path's shapes plus ragged ones; the plain version computes in float32 and
+and clip paths' shapes plus ragged ones; the plain version computes in float32 and
 rounds once.  Tolerance 2^-7 of the output's magnitude + 1e-3: the kernels
 round one MMA operand to bf16 (P for P.V and dV, dS for dQ and dK) and the
 output to bf16.  lse is float32 on both sides: 1e-3 absolute.  Every test is
@@ -65,6 +65,35 @@ def test_neighbor_attention_kernel(cuda, b, n_cam, l, c, heads):
     _check(got, A.attention_packed_neighbors_plain(q, k, v, heads, n_cam))
 
 
+@pytest.mark.parametrize("warps", [4, 8])
+@pytest.mark.parametrize("b, lq, lk, c, heads", [
+    (96, 1400, 2800, 320, 8),   # video ST-Attn: first + previous frame
+    (96, 1400, 2801, 320, 8),   # ragged lk
+])
+def test_capped_attention_kernel(cuda, b, lq, lk, c, heads, warps):
+    q, k, v = _qkv(b, lq, lk, c, cuda, seed=6)
+    A.reset_launch_counts()
+    got = A.packed_attention_capped_fwd(q, k, v, heads, warps=warps)
+    torch.cuda.synchronize()
+    assert A.packed_attention_capped_fwd.launches == 1
+    _check(got, A.attention_packed_capped_plain(q, k, v, heads))
+
+
+@pytest.mark.parametrize("lk, kernel", [
+    (2800, "packed_attention_capped_fwd"),  # 1408 * 2816 > 2^21
+    (1400, "packed_attention_fwd"),         # 1408 * 1408 <= 2^21
+])
+def test_router_sends_long_k_to_the_capped_kernel(cuda, lk, kernel):
+    q, k, v = _qkv(12, 1400, lk, 320, cuda, seed=7)
+    A.reset_launch_counts()
+    with torch.no_grad():
+        got = A.attention_packed(q, k, v, 8)
+    torch.cuda.synchronize()
+    launched = {fn.__name__: fn.launches for fn in A.KERNEL_WRAPPERS}
+    assert launched == {name: int(name == kernel) for name in launched}
+    _check(got, A.attention_packed_plain(q, k, v, 8))
+
+
 def test_kernel_refuses_float32(cuda):
     q, k, v = (t.float() for t in _qkv(1, 64, 64, 64, cuda))
     with pytest.raises(ValueError, match="bfloat16"):
@@ -90,7 +119,7 @@ def test_training_kernels(cuda, b, lq, lk, c, heads):
     dq = A.packed_attention_bwd_dq(q, k, v, do, lse, delta, heads)
     dk, dv = A.packed_attention_bwd_dkv(q, k, v, do, lse, delta, heads)
     torch.cuda.synchronize()
-    assert [fn.launches for fn in A.KERNEL_WRAPPERS] == [0, 0, 1, 1, 1]
+    assert [fn.launches for fn in A.KERNEL_WRAPPERS] == [0, 0, 1, 1, 1, 0]
     o_want, lse_want = A.attention_packed_lse_plain(q, k, v, heads)
     _check(o, o_want)
     assert (lse - lse_want).abs().max().item() <= 1e-3
@@ -113,7 +142,7 @@ def test_differentiated_attention_launches_the_training_kernels(cuda):
     out = A.attention_packed(q, k, v, heads)
     (out.float() * w.float()).sum().backward()
     torch.cuda.synchronize()
-    assert [fn.launches for fn in A.KERNEL_WRAPPERS] == [0, 0, 1, 1, 1]
+    assert [fn.launches for fn in A.KERNEL_WRAPPERS] == [0, 0, 1, 1, 1, 0]
     ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
     want = A._einsum_packed(*ref, 40 ** -0.5, heads)
     (want * w.float()).sum().backward()

@@ -112,7 +112,7 @@ def test_transformer_block_with_camera_ring(tokens):
                                   n_cam=6, multiview=True,
                                   neighboring_view_pair=RING)
     params = _init(jm, x, ctx)
-    want = jm.apply({"params": params}, x, ctx)
+    want = jax.jit(jm.apply)({"params": params}, x, ctx)
     pm = tp.load_port(PL.BasicTransformerBlock(32, 4, 96, multiview=True),
                       params, "unet")
     with torch.no_grad():
@@ -265,7 +265,8 @@ def test_ors_and_fg_bg_filter(tiny):
 def test_clip_text_encoder(tiny):
     jm, pm = tiny["jmodels"]["text_encoder"], tiny["pmodels"]["text_encoder"]
     ids = np.asarray(tiny["tokenizer"](["a rainy night in boston", ""]))
-    want_h, want_p = jm.apply({"params": tiny["params"]["text_encoder"]}, ids)
+    want_h, want_p = jax.jit(jm.apply)(
+        {"params": tiny["params"]["text_encoder"]}, ids)
     with torch.no_grad():
         got_h, got_p = pm(tp.t(ids))
     tp.assert_close(got_h, want_h, RTOL, 1e-4)
@@ -275,7 +276,8 @@ def test_clip_text_encoder(tiny):
 def test_vae_decode(tiny):
     jm, pm = tiny["jmodels"]["vae"], tiny["pmodels"]["vae"]
     z = _rng(70).normal(size=(2, 32, 16, 4)).astype(np.float32)
-    want = jm.apply({"params": tiny["params"]["vae"]}, z, method=jm.decode)
+    want = jax.jit(lambda p, z: jm.apply({"params": p}, z, method=jm.decode))(
+        tiny["params"]["vae"], z)
     with torch.no_grad():
         got = pm.decode(tp.nhwc_to_nchw(z))
     tp.assert_close(got, _nchw(want), 1e-4, 1e-4)

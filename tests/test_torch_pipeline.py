@@ -14,6 +14,8 @@ import numpy as np
 import torch
 
 from tests import torch_parity as tp
+from dualdiff_tpu.data.collate import collate_fn
+from dualdiff_tpu.data.synthetic import SyntheticNuScenes
 from dualdiff_tpu.diffusion.schedule import DiffusionSchedule as JSchedule
 from dualdiff_tpu.pipeline.bev_controlnet import \
     BEVControlNetPipeline as JaxPipeline
@@ -49,3 +51,27 @@ def test_seeded_generation_is_deterministic_and_in_range():
     b = pipe(s["batch"], generator=torch.Generator().manual_seed(5))
     torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert torch.isfinite(a).all() and a.min() >= 0 and a.max() <= 1
+
+
+def test_sequential_cfg_and_vae_slicing_equal_the_batched_path():
+    """Two samples, so that splitting the CFG batch by halves or by row
+    stride, not by (uncond, cond) pair, would hand a half another sample's
+    or view's conditioning; 5 does not divide the 12 images.  One UniPC
+    step: every step splits alike.  The same numbers, bit for bit."""
+    s = tp.tiny_setup()
+    h, w = s["jcfg"].dataset.image_size
+    ds = SyntheticNuScenes(num_samples=2, image_size=(h, w), seed=0)
+    batch = collate_fn([ds[0], ds[1]], s["jcfg"], s["tokenizer"],
+                       is_train=False, rng=np.random.default_rng(0))
+    lat = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(2, 1, h // 8, w // 8, 4)).astype(np.float32))
+    out = []
+    for seq, slicing in (("false", 0), ("true", 5)):
+        cfg = tp.port_config(tp.TINY_OVERRIDES + [
+            "runner.pipeline_param.num_inference_steps=1",
+            f"runner.pipeline_param.sequential_cfg={seq}",
+            f"runner.pipeline_param.vae_slicing={slicing}"])
+        out.append(BEVControlNetPipeline(cfg, s["pmodels"], device="cpu")(
+            batch, latents=lat))
+    assert out[0].shape == (2, 6, h, w, 3)
+    torch.testing.assert_close(out[1], out[0], rtol=0, atol=0)

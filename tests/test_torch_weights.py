@@ -4,7 +4,8 @@ For the same param tree, every name and value ``from_jax`` produces equals
 what ``dualdiff_tpu.runner.weight_import.export_params`` produces (so a
 diffusers checkpoint, which carries those names, loads the same way), and
 each of the port's modules loads it with ``strict=True``.  No leaf is left
-out: the VAE carries its encoder and ``quant_conv`` too.
+out: the VAE carries its encoder and ``quant_conv`` too, and the video UNet
+its ``norm_temporal``, ``attn_temporal`` and ``temporal_connector`` leaves.
 """
 
 import numpy as np
@@ -17,7 +18,8 @@ from dualdiff_tpu_torch.runner.weights import NOT_PORTED, from_jax
 
 KINDS = [("unet", "unet"), ("controlnet_0", "controlnet"),
          ("controlnet_1", "controlnet"), ("vae", "vae"),
-         ("text_encoder", "clip")]
+         ("text_encoder", "clip"), ("video_unet", "unet")]
+TEMPORAL = ("norm_temporal.", "attn_temporal.", "temporal_connector.")
 
 
 @pytest.fixture(scope="module")
@@ -25,9 +27,29 @@ def tiny():
     return tp.tiny_setup()
 
 
+def _params(tiny, key):
+    if key == "video_unet":
+        return tp.tiny_video_unet_params()
+    return tiny["params"][key]
+
+
+def _module(tiny, key):
+    if key == "video_unet":
+        from dualdiff_tpu_torch.runner.factory import build_models
+
+        return build_models(tp.port_config(tp.TINY_VIDEO_OVERRIDES,
+                                           video=True),
+                            tiny=True, device="cpu")["unet"]
+    models = tiny["pmodels"]
+    return {"unet": models["unet"], "vae": models["vae"],
+            "text_encoder": models["text_encoder"],
+            "controlnet_0": models["controlnets"][0],
+            "controlnet_1": models["controlnets"][1]}[key]
+
+
 @pytest.mark.parametrize("key, kind", KINDS)
 def test_from_jax_equals_export_params(tiny, key, kind):
-    params = tiny["params"][key]
+    params = _params(tiny, key)
     want = export_params(params, kind)
     got = from_jax(tp.flat(params), kind)
     skipped = {k for k in want if k.startswith(NOT_PORTED.get(kind, ()))}
@@ -36,6 +58,10 @@ def test_from_jax_equals_export_params(tiny, key, kind):
     if kind == "vae":
         assert any(k.startswith("encoder.") for k in got)
         assert "quant_conv.weight" in got
+    temporal = {k for k in got if any(p in k for p in TEMPORAL)}
+    # 10 transformer blocks in the tiny UNet, each with norm_temporal (2
+    # leaves), attn_temporal (q, k, v, out weight and bias) and the connector
+    assert len(temporal) == (10 * (2 + 5 + 2) if key == "video_unet" else 0)
     for name, value in got.items():
         np.testing.assert_array_equal(value.numpy(), want[name],
                                       err_msg=name)
@@ -43,12 +69,8 @@ def test_from_jax_equals_export_params(tiny, key, kind):
 
 @pytest.mark.parametrize("key, kind", KINDS)
 def test_strict_load_into_port_modules(tiny, key, kind):
-    models = tiny["pmodels"]
-    module = {"unet": models["unet"], "vae": models["vae"],
-              "text_encoder": models["text_encoder"],
-              "controlnet_0": models["controlnets"][0],
-              "controlnet_1": models["controlnets"][1]}[key]
-    sd = from_jax(tp.flat(tiny["params"][key]), kind)
+    module = _module(tiny, key)
+    sd = from_jax(tp.flat(_params(tiny, key)), kind)
     result = module.load_state_dict(sd, strict=True)
     assert not result.missing_keys and not result.unexpected_keys
     for name, p in module.state_dict().items():

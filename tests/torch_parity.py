@@ -27,20 +27,31 @@ FLAGSHIP = ["+exp=dual_branch_augloss_fusion", "dataset=Nuscenes_synthetic",
 TINY_OVERRIDES = ["runner.mixed_precision=fp32", "dataset.image_size=[256, 128]",
                   "runner.pipeline_param.num_inference_steps=3"]
 
+# the DualDiff+ clip operating point of bench.py::main_video
+VIDEO = ["+exp=video_16f", "dataset=Nuscenes_synthetic",
+         "runner.pipeline_param.bbox_max_length=80",
+         "runner.pipeline_param.vae_slicing=12",
+         "runner.pipeline_param.sequential_cfg=true"]
+# tiny clips: 2 frames, so ST-Attn at the 512-token level has 1024 keys
+TINY_VIDEO_OVERRIDES = TINY_OVERRIDES + ["video.num_frames=2"]
+
 # the port's test modules run 6 to a machine under xdist
 torch.set_num_threads(2)
 
 
-def jax_config(extra=()):
+def jax_config(extra=(), video: bool = False):
     from dualdiff_tpu.utils.config import load_config
 
-    return load_config(CONFIG_DIR, overrides=FLAGSHIP + list(extra))
+    base = VIDEO if video else FLAGSHIP
+    return load_config(CONFIG_DIR, overrides=base + list(extra))
 
 
-def port_config(extra=()):
-    from dualdiff_tpu_torch.utils.config import load_config
+def port_config(extra=(), video: bool = False):
+    from dualdiff_tpu_torch.utils.config import FLAGSHIP, VIDEO_16F, \
+        load_config
 
-    return load_config(overrides=list(extra))
+    return load_config(VIDEO_16F if video else FLAGSHIP,
+                       overrides=list(extra))
 
 
 def random_params(tree, seed: int = 0, scale=None):
@@ -112,11 +123,64 @@ def tiny_setup():
     params = random_params(shapes, scale={"cam2token": 0.01})
 
     pmodels = port_build(pcfg, tiny=True, device="cpu")
+    _load_port_models(pmodels, params)
+    return {"jcfg": jcfg, "pcfg": pcfg, "jmodels": jmodels,
+            "params": params, "pmodels": pmodels, "batch": batch,
+            "tokenizer": tok}
+
+
+def _load_port_models(pmodels, params):
     load_port(pmodels["unet"], params["unet"], "unet")
     for i, cn in enumerate(pmodels["controlnets"]):
         load_port(cn, params[f"controlnet_{i}"], "controlnet")
     load_port(pmodels["vae"], params["vae"], "vae")
     load_port(pmodels["text_encoder"], params["text_encoder"], "clip")
+
+
+@functools.lru_cache(maxsize=1)
+def tiny_video_unet_params():
+    """Seeded weights of the tiny video UNet alone (ST-Attn and temporal
+    attention, 2 frames), from its abstractly traced init."""
+    import jax
+    import jax.numpy as jnp
+
+    from dualdiff_tpu.runner.factory import build_models
+
+    unet = build_models(jax_config(TINY_VIDEO_OVERRIDES, video=True),
+                        tiny=True)["unet"]
+    rows = 2 * 6  # one clip: 2 frames x 6 views
+    shapes = jax.eval_shape(lambda: unet.init(
+        jax.random.PRNGKey(0), jnp.zeros((rows, 32, 16, 4)),
+        jnp.zeros((rows,), jnp.int32), jnp.zeros((rows, 158, 96)),
+        n_cam=6))["params"]
+    return random_params(shapes)
+
+
+@functools.lru_cache(maxsize=1)
+def tiny_video_setup():
+    """``tiny_setup`` for DualDiff+ clips: the tiny video model sets (ST-Attn
+    and temporal attention, 2 frames) with equal weights, clip 0 of the
+    seed-0 synthetic clips at 256x128 collated as ``bench.py::main_video``
+    collates it (``collate_video``, rng 0), and the tokenizer.  The
+    ControlNets, VAE and text encoder are those of ``tiny_setup`` (the
+    video config shares them), the UNet's weights ``tiny_video_unet_params``."""
+    from dualdiff_tpu.data.video import SyntheticNuScenesVideo, collate_video
+    from dualdiff_tpu.runner.factory import build_models
+    from dualdiff_tpu_torch.runner.factory import build_models as port_build
+
+    images = tiny_setup()
+    jcfg = jax_config(TINY_VIDEO_OVERRIDES, video=True)
+    pcfg = port_config(TINY_VIDEO_OVERRIDES, video=True)
+    h, w = jcfg.dataset.image_size
+    tok = images["tokenizer"]
+    clips = SyntheticNuScenesVideo(num_clips=1, num_frames=2,
+                                   image_size=(h, w))
+    batch = collate_video([clips[0]], jcfg, tok,
+                          rng=np.random.default_rng(0))
+    jmodels = build_models(jcfg, tiny=True)
+    params = dict(images["params"], unet=tiny_video_unet_params())
+    pmodels = port_build(pcfg, tiny=True, device="cpu")
+    _load_port_models(pmodels, params)
     return {"jcfg": jcfg, "pcfg": pcfg, "jmodels": jmodels,
             "params": params, "pmodels": pmodels, "batch": batch,
             "tokenizer": tok}
