@@ -4,21 +4,25 @@
     python3 chip_smoke.py                # the default run; one CUDA card
     python3 chip_smoke.py --profile DIR  # also writes kernel-time
                                          # breakdowns of one generation, one
-                                         # training step and one clip to
-                                         # DIR/profile_generation.txt,
-                                         # DIR/profile_train_step.txt and
-                                         # DIR/profile_video_clip.txt
+                                         # training step, one clip and one
+                                         # video training step of each stage
+                                         # to DIR/profile_generation.txt,
+                                         # DIR/profile_train_step.txt,
+                                         # DIR/profile_video_clip.txt,
+                                         # DIR/profile_video_train_step.txt
+                                         # and ..._video_train_step_rgd.txt
 
 Phases, in order; any failure exits non-zero:
 
 1. device   requires CUDA; prints the card's name and power limit.
 2. build    compiles every CUDA kernel from ``dualdiff_tpu_torch/csrc``.
 3. kernels  each kernel against its plain PyTorch version at the shapes the
-            flagship and clip paths give it (bf16 inputs; plain version in
-            float32, rounded once), with times of the kernel, the plain
-            version, one PyTorch library call where one computes the same
-            function, and the least time the card could take (bound); the
-            capped kernel at 4 and at 8 warps per block.
+            flagship, clip and video training paths give it (bf16 inputs;
+            plain version in float32, rounded once), with times of the
+            kernel, the plain version, one PyTorch library call where one
+            computes the same function, and the least time the card could
+            take (bound); the two capped kernels at 4 and at 8 warps per
+            block.
 4. generate the flagship dual-branch 224x400 generation at full SD v1.5
             width (two ControlNets, seeded random weights, bf16), B=2 x 6
             views, UniPC-20, CFG 2: one warm-up call and timed calls; checks
@@ -39,6 +43,22 @@ Phases, in order; any failure exits non-zero:
             launches per clip.
 9. video_reference  the tiny video model set at 256x128, 2 frames, 3 steps,
             on the card in bf16 against the CPU in float32 (phase 5's gate).
+10. video_train  DualDiff+ video training at full SD v1.5 width, seeded random
+            weights, bf16, remat, AdamW, on clip 0 of the seed-0 synthetic
+            2-frame clips (2 frames x 6 views at 224x400): stage 1
+            (``video_16f``: ST-Attn, temporal attention, ``only_new`` + both
+            ControlNets) and stage 2 (``rgd_stage2``: LoRA only, minus the
+            FGM foreground + temporal reward of the decoded prediction), one
+            warm-up and timed steps each; checks finite loss, grad_norm and
+            reward, launches per step, trainables moved and frozen
+            parameters unchanged, and that stage 2 trains only LoRA leaves.
+11. video_train_reference  phase 7's gate on the tiny stage-2 model set
+            (2-frame clip, reward included) with ST-Attn on the capped
+            training route.
+
+On the CPU, ``VideoTrainer(cfg, clips, device="cpu", models=...)`` runs the
+same training with the plain versions; README.md says how to rehearse
+phases 10 and 11 there at a tiny size.
 
 The line before the last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -62,6 +82,7 @@ SEED = 0
 TIMED_GENERATIONS = 3
 TIMED_TRAIN_STEPS = 5
 TIMED_CLIPS = 2
+TIMED_VIDEO_TRAIN_STEPS = 3
 # Training reference (phase 7), bf16 card against float32 CPU; readings on
 # an H100 80GB HBM3 at 700 W.  Loss: 3.75e-4 relative apart; the limit is
 # about 5x that.  Gradients, per trainable leaf (``leaf_grad_errors``): the
@@ -72,6 +93,13 @@ TIMED_CLIPS = 2
 LOSS_REL_TOL = 2e-3
 LEAF_FLOOR = 3e-3
 LEAF_TOL = 0.07
+# The stage-2 reference (phase 11) scales the random LoRA B down: at full
+# random scale B A is a second projection as large as W, which sharpens
+# every LoRA-carrying softmax until bf16 rounding decides it (the tiny model
+# in bf16 on the CPU read 0.12 against float32 at full scale, 0.06 at 0.1;
+# on an H100 80GB HBM3 at 700 W 0.055 at 0.1, planted lse fault 0.40; a
+# trained adapter starts at B = 0 and stays a small perturbation).
+LORA_B_SCALE = 0.1
 
 # main-path kernel shapes: CFG batch 2*B*N = 24 rows, the 28x50 = 1400-token
 # latent level at C = 320 with 8 heads (d = 40); cross-attention KV
@@ -83,6 +111,8 @@ B_TRAIN = 1
 # video: one clip of 16 frames x 6 views per CFG half (sequential CFG); the
 # UNet's ST-Attn K/V are the first and the previous frame's 1400 tokens
 FRAMES = 16
+# video training: one clip of 2 frames x 6 views per step
+TRAIN_FRAMES = 2
 # the TPU kernel each CUDA kernel replaces, and its source here
 REPLACES = {
     "packed_attention_fwd": "dualdiff_tpu/ops/attention.py:468",      # _fwd_kernel_t
@@ -91,6 +121,7 @@ REPLACES = {
     "packed_attention_bwd_dq": "dualdiff_tpu/ops/attention.py:719",   # _bwd_dq_kernel_t
     "packed_attention_bwd_dkv": "dualdiff_tpu/ops/attention.py:751",  # _bwd_dkv_kernel_t
     "packed_attention_capped_fwd": "dualdiff_tpu/ops/attention.py:484",  # _fwd_kernel_t_capped
+    "packed_attention_capped_lse_fwd": "dualdiff_tpu/ops/attention.py:789",  # _fwd_kernel_t_capped_lse
 }
 SOURCE = {
     "packed_attention_fwd": "dualdiff_tpu_torch/csrc/attention.cu",
@@ -99,6 +130,7 @@ SOURCE = {
     "packed_attention_bwd_dq": "dualdiff_tpu_torch/csrc/attention_train.cu",
     "packed_attention_bwd_dkv": "dualdiff_tpu_torch/csrc/attention_train.cu",
     "packed_attention_capped_fwd": "dualdiff_tpu_torch/csrc/attention.cu",
+    "packed_attention_capped_lse_fwd": "dualdiff_tpu_torch/csrc/attention.cu",
 }
 
 
@@ -131,7 +163,8 @@ def train_launches_per_step(layers: int, n_controlnets: int,
             "packed_attention_lse_fwd": train * replay,
             "packed_attention_bwd_dq": train,
             "packed_attention_bwd_dkv": train,
-            "packed_attention_capped_fwd": 0}
+            "packed_attention_capped_fwd": 0,
+            "packed_attention_capped_lse_fwd": 0}
 
 
 def video_launches_per_clip(layers: int, n_controlnets: int, steps: int,
@@ -163,7 +196,54 @@ def video_launches_per_clip(layers: int, n_controlnets: int, steps: int,
             "packed_attention_nbr_fwd": blocks * evals,
             "packed_attention_lse_fwd": 0, "packed_attention_bwd_dq": 0,
             "packed_attention_bwd_dkv": 0,
-            "packed_attention_capped_fwd": (blocks if capped else 0) * evals}
+            "packed_attention_capped_fwd": (blocks if capped else 0) * evals,
+            "packed_attention_capped_lse_fwd": 0}
+
+
+def video_train_launches_per_step(layers: int, n_controlnets: int,
+                                  remat: bool, lora: bool,
+                                  tokens: int) -> dict:
+    """Kernel launches of one video training step, derived from the code.
+    Only the top latent level (``tokens`` = 1400 at 224x400; 512 for the
+    tiny 256x128 models) reaches the kernels: the UNet's ``down_blocks_0``
+    (``layers`` transformer blocks) and ``up_blocks_3`` (``layers + 1``),
+    each with attn1 as ST-Attn (``tokens`` queries against ``2 * tokens``
+    keys), attn2 and attn4, and each ControlNet's ``down_blocks_0``
+    (``layers`` blocks of attn1 self and attn2).  The temporal attention
+    (2 frames) is einsum.
+
+    * Stage 1 (``lora=False``: ``only_new`` + ControlNets): the UNet's
+      first block's attn1 sees only frozen inputs and takes an inference
+      kernel (the capped one when 1408 x 2816 is over ``T_SCORE_CAP``);
+      its attn2 (the ControlNet's context tokens) and attn4 (trainable) and
+      everything after are differentiated, as are the ControlNets.
+    * Stage 2 (``lora=True``: LoRA on every UNet attn1 / attn2, ControlNets
+      frozen): every UNet attention is differentiated (attn4 through its
+      LoRA-carrying input); the ControlNets take the inference kernel once
+      each, since nothing of theirs is replayed or differentiated.
+
+    A differentiated call is one forward with lse (the capped one for
+    ST-Attn over the cap), one dq and one dk/dv; remat replays every
+    differentiated network's forward in the backward."""
+    from dualdiff_tpu_torch.ops.attention import over_score_cap
+
+    blocks = 2 * layers + 1
+    capped = over_score_cap(tokens, 2 * tokens)
+    replay = 2 if remat else 1
+    st_frozen = 0 if lora else 1  # ST-Attn calls taking inference kernels
+    st_train = blocks - st_frozen
+    cn = 2 * n_controlnets * layers  # ControlNet attention calls
+    whole = 2 * blocks + (0 if lora else cn) + (0 if capped else st_train)
+    return {
+        "packed_attention_fwd": (cn if lora else 0)
+        + (0 if capped else st_frozen * replay),
+        "packed_attention_nbr_fwd": 0,
+        "packed_attention_lse_fwd": whole * replay,
+        "packed_attention_bwd_dq": whole + (st_train if capped else 0),
+        "packed_attention_bwd_dkv": whole + (st_train if capped else 0),
+        "packed_attention_capped_fwd": st_frozen * replay if capped else 0,
+        "packed_attention_capped_lse_fwd": st_train * replay if capped else 0,
+    }
 
 
 def log(msg: str) -> None:
@@ -243,15 +323,22 @@ def kernel_cases():
 def train_kernel_cases():
     """(label, b, lq, lk, c, heads) of every compared training shape: the
     flagship step's 1400-token attentions (6 view rows; attn4 stacks the
-    left and right neighbours on the batch axis, 12 rows) plus ragged
-    ones."""
+    left and right neighbours on the batch axis, 12 rows), the video
+    training step's ST-Attn under grad (2 frames x 6 views against the first
+    and the previous frame's 2800 keys, over ``T_SCORE_CAP``: the capped
+    forward) plus ragged ones."""
     rows = B_TRAIN * N_CAM
+    video_rows = TRAIN_FRAMES * N_CAM
     return [
         ("attn1 self", rows, L, L, C, HEADS),
         ("attn4 stacked neighbours", 2 * rows, L, L, C, HEADS),
         ("attn2 cross", rows, L, KV_CROSS, C, HEADS),
         ("ragged, d=80", 3, 777, 333, 320, 4),
         ("d=160", 2, 513, 65, 1280, 8),
+        ("video ST-Attn under grad, first + previous frame", video_rows, L,
+         2 * L, C, HEADS),
+        ("ragged ST-Attn under grad, lk = 2801", video_rows, L, 2 * L + 1, C,
+         HEADS),
     ]
 
 
@@ -284,10 +371,12 @@ def _sdpa_backend(q, k, v):
 
 def train_kernel_rows(A, g, label, b, lq, lk, c, heads):
     """The three training kernels on one shape against their plain
-    versions; each backward kernel gets the forward kernel's lse and the
-    delta of its bf16 output, as ``PackedAttention.backward`` does.
-    Library yardsticks: ``aten._scaled_dot_product_flash_attention`` (it
-    returns the logsumexp) for the forward, the backward of
+    versions: the forward with lse (over ``T_SCORE_CAP`` the capped one, at
+    4 and at 8 warps, the path's count first), dq and dk/dv.  Each backward
+    kernel gets the path's forward kernel's lse and the delta of its bf16
+    output, as ``PackedAttention.backward`` does.  Library yardsticks:
+    ``aten._scaled_dot_product_flash_attention`` (it returns the
+    logsumexp) for the forward, the backward of
     ``F.scaled_dot_product_attention`` for dq and dk/dv together."""
     from torch.nn.attention import sdpa_kernel
 
@@ -298,21 +387,35 @@ def train_kernel_rows(A, g, label, b, lq, lk, c, heads):
     scale = d ** -0.5
     shape = {"b": b, "lq": lq, "lk": lk, "c": c, "heads": heads,
              "head_dim": d}
-    o, lse = A.packed_attention_lse_fwd(q, k, v, heads)
+    if A.over_score_cap(lq, lk):
+        fwd_kern = "packed_attention_capped_lse_fwd"
+        fwds = {f"{w} warps": functools.partial(
+            A.packed_attention_capped_lse_fwd, warps=w)
+            for w in sorted((4, 8), key=lambda w: w != A.CAPPED_LSE_WARPS)}
+    else:
+        fwd_kern = "packed_attention_lse_fwd"
+        fwds = {"": A.packed_attention_lse_fwd}
+    o_want, lse_want = A.attention_packed_lse_plain(q, k, v, heads)
+    # lse is float32 on both sides; online softmax with exp2f and another
+    # order of sums: 1e-3 absolute on values of about log(Lk) + max logit
+    fwd_checks = []
+    for name, fwd in fwds.items():
+        o, lse = fwd(q, k, v, heads)
+        torch.cuda.synchronize()
+        fwd_checks += [(f"o {name}".strip(), _max_err(o, o_want),
+                        _tol(o_want)),
+                       (f"lse {name}".strip(), _max_err(lse, lse_want), 1e-3)]
+    fwd = next(iter(fwds.values()))
+    o, lse = fwd(q, k, v, heads)
     delta = A.attention_delta(o, do, heads)
     dq = A.packed_attention_bwd_dq(q, k, v, do, lse, delta, heads)
     dk, dv = A.packed_attention_bwd_dkv(q, k, v, do, lse, delta, heads)
     torch.cuda.synchronize()
-    o_want, lse_want = A.attention_packed_lse_plain(q, k, v, heads)
     dq_want = A.attention_packed_bwd_dq_plain(q, k, v, do, lse, delta, heads)
     dk_want, dv_want = A.attention_packed_bwd_dkv_plain(q, k, v, do, lse,
                                                          delta, heads)
-    # lse is float32 on both sides; online softmax with exp2f and another
-    # order of sums: 1e-3 absolute on values of about log(Lk) + max logit
     checks = {
-        "packed_attention_lse_fwd": [
-            ("o", _max_err(o, o_want), _tol(o_want)),
-            ("lse", _max_err(lse, lse_want), 1e-3)],
+        fwd_kern: fwd_checks,
         "packed_attention_bwd_dq": [
             ("dq", _max_err(dq, dq_want), _tol(dq_want))],
         "packed_attention_bwd_dkv": [
@@ -328,6 +431,7 @@ def train_kernel_rows(A, g, label, b, lq, lk, c, heads):
         lib_out = torch.nn.functional.scaled_dot_product_attention(qr, kr, vr)
     lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
         lib_out, (qr, kr, vr), split(do), retain_graph=True), 10)
+    del lib_out, qr, kr, vr
     lib_fwd = lambda: torch.ops.aten._scaled_dot_product_flash_attention(
         split(q), split(k), split(v), scale=scale)
     try:
@@ -338,44 +442,49 @@ def train_kernel_rows(A, g, label, b, lq, lk, c, heads):
     nq, nk = b * lq * c, b * lk * c
     rows_lse = b * heads * lq * 4  # one float32 per query and head
     work = {  # bytes: each input read once, each output written once
-        "packed_attention_lse_fwd": (2 * (2 * nq + 2 * nk) + rows_lse,
-                                     4 * b * lq * lk * c),
+        fwd_kern: (2 * (2 * nq + 2 * nk) + rows_lse, 4 * b * lq * lk * c),
         "packed_attention_bwd_dq": (2 * (3 * nq + 2 * nk) + 2 * rows_lse,
                                     6 * b * lq * lk * c),
         "packed_attention_bwd_dkv": (2 * (2 * nq + 4 * nk) + 2 * rows_lse,
                                      8 * b * lq * lk * c),
     }
     runs = {
-        "packed_attention_lse_fwd": (
-            lambda: A.packed_attention_lse_fwd(q, k, v, heads),
-            lambda: A.attention_packed_lse_plain(q, k, v, heads), lib_fwd_ms),
+        fwd_kern: ({n: functools.partial(f, q, k, v, heads)
+                    for n, f in fwds.items()},
+                   lambda: A.attention_packed_lse_plain(q, k, v, heads),
+                   lib_fwd_ms),
         "packed_attention_bwd_dq": (
-            lambda: A.packed_attention_bwd_dq(q, k, v, do, lse, delta, heads),
+            {"": lambda: A.packed_attention_bwd_dq(q, k, v, do, lse, delta,
+                                                   heads)},
             lambda: A.attention_packed_bwd_dq_plain(q, k, v, do, lse, delta,
                                                     heads), lib_bwd_ms),
         "packed_attention_bwd_dkv": (
-            lambda: A.packed_attention_bwd_dkv(q, k, v, do, lse, delta,
-                                               heads),
+            {"": lambda: A.packed_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                    heads)},
             lambda: A.attention_packed_bwd_dkv_plain(q, k, v, do, lse, delta,
                                                      heads), lib_bwd_ms),
     }
     out = {}
-    for kern, (run, plain, lib_ms) in runs.items():
+    for kern, (variants, plain, lib_ms) in runs.items():
         nbytes, flops = work[kern]
         bound_ms, bound_by = bound(nbytes, flops)
         errs = checks[kern]
+        times = {n: cuda_ms(run, 20) for n, run in variants.items()}
         row = {
             "kernel": kern, "replaces": REPLACES[kern], "case": label,
             "shape": shape,
             "max_abs_err": max(e for _, e, _ in errs),
             "checks": {n: {"max_abs_err": e, "tol": t} for n, e, t in errs},
-            "kernel_ms": cuda_ms(run, 20), "plain_ms": cuda_ms(plain, 3),
+            "kernel_ms": next(iter(times.values())),
+            "plain_ms": cuda_ms(plain, 3),
             "library_ms": lib_ms, "library": (
-                "aten._scaled_dot_product_flash_attention"
-                if kern == "packed_attention_lse_fwd" else
-                f"SDPA backward ({be.name}), dq and dk/dv together"),
+                f"SDPA backward ({be.name}), dq and dk/dv together"
+                if "bwd" in kern else
+                "aten._scaled_dot_product_flash_attention"),
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
+        if len(times) > 1:
+            row["kernel_ms_by_variant"] = times
         log(json.dumps(row))
         for n, e, t in errs:
             if not (e <= t and math.isfinite(e)):
@@ -525,7 +634,8 @@ def phase_generate(profile_dir):
     expect = {"packed_attention_fwd": 18 * steps,
               "packed_attention_nbr_fwd": 5 * steps,
               "packed_attention_lse_fwd": 0, "packed_attention_bwd_dq": 0,
-              "packed_attention_bwd_dkv": 0, "packed_attention_capped_fwd": 0}
+              "packed_attention_bwd_dkv": 0, "packed_attention_capped_fwd": 0,
+              "packed_attention_capped_lse_fwd": 0}
     gen = torch.Generator(device="cuda")
     times, counts = [], None
     torch.cuda.reset_peak_memory_stats()
@@ -901,73 +1011,122 @@ def leaf_grad_errors(want: dict, got: dict) -> dict:
     return out
 
 
-def train_reference_readings(device: str = "cuda") -> dict:
+def train_reference_readings(device: str = "cuda",
+                             video: bool = False) -> dict:
     """One tiny loss + gradient on ``device`` in bf16 and on the CPU in
     float32: the loss of each, and each trainable leaf's relative gradient
-    error (``leaf_grad_errors``)."""
+    error (``leaf_grad_errors``).  ``video``: the tiny RGD stage-2 model
+    set (LoRA on the UNet's attn1 / attn2, the reward through the VAE
+    decode) on clip 0 of 2-frame synthetic clips, with ``T_SCORE_CAP``
+    lowered to 2^18 meanwhile, so that the tiny ST-Attn (512 queries x
+    1024 keys) takes the capped route as the full-width one (1400 x 2800)
+    does, while the 512 x 512 self-attention stays under the cap."""
     import numpy as np
 
     from dualdiff_tpu_torch.data.collate import collate_fn
     from dualdiff_tpu_torch.data.tokenizer import HashTokenizer
+    from dualdiff_tpu_torch.data.video import (SyntheticNuScenesVideo,
+                                               collate_video)
     from dualdiff_tpu_torch.diffusion.schedule import DiffusionSchedule
     from dualdiff_tpu_torch.ops import attention as A
     from dualdiff_tpu_torch.runner.conds import prepare_batch
     from dualdiff_tpu_torch.runner.factory import (build_models,
                                                    randomize_weights)
+    from dualdiff_tpu_torch.runner.rewards import make_rgd_reward
     from dualdiff_tpu_torch.runner.train_state import (named_roots,
                                                        partition_params,
                                                        trainable_predicate)
     from dualdiff_tpu_torch.runner.trainer import make_draws, make_loss_fn
-    from dualdiff_tpu_torch.utils.config import load_config
+    from dualdiff_tpu_torch.utils.config import (FLAGSHIP, RGD_STAGE2,
+                                                 load_config)
 
+    name = RGD_STAGE2 if video else FLAGSHIP
     extra = ["dataset.image_size=[256, 128]"]
+    frames = TRAIN_FRAMES if video else 1
+    if video:
+        extra.append(f"video.num_frames={frames}")
+    cap = A.T_SCORE_CAP
+    if video:
+        A.T_SCORE_CAP = 2 ** 18
     results = []  # (loss, grads by leaf, launches): CPU, then the device
     cpu_models = None
-    for dev, cfg in (("cpu", load_config(
-            overrides=extra + ["runner.mixed_precision=fp32"])),
-            (device, load_config(overrides=extra))):
-        models = build_models(cfg, tiny=True, device=dev)
-        for root, m in named_roots(models):
+    try:
+        for dev, cfg in (("cpu", load_config(
+                name, extra + ["runner.mixed_precision=fp32"])),
+                (device, load_config(name, extra))):
+            models = build_models(cfg, tiny=True, device=dev)
+            for root, m in named_roots(models):
+                if cpu_models is None:
+                    randomize_weights(m, SEED)
+                else:
+                    m.load_state_dict(dict(named_roots(cpu_models))[root]
+                                      .state_dict(), strict=True)
+                m.to(dev, models["dtype"])
             if cpu_models is None:
-                randomize_weights(m, SEED)
+                with torch.no_grad():  # see phase_reference
+                    for cn in models["controlnets"]:
+                        cn.cam2token.weight.mul_(0.01)
+                    for n, p in models["unet"].named_parameters():
+                        if "lora_b" in n:
+                            p.mul_(LORA_B_SCALE)
+                cpu_models = models
+            partition_params(models, trainable_predicate(
+                str(cfg.model.unet.trainable_state)))
+            h, w = cfg.dataset.image_size
+            rng = np.random.default_rng(SEED)
+            if video:
+                clips = SyntheticNuScenesVideo(num_clips=2, num_frames=frames,
+                                               image_size=(h, w))
+                collated = collate_video([clips[0]], cfg, HashTokenizer(),
+                                         rng=rng)
             else:
-                m.load_state_dict(dict(named_roots(cpu_models))[root]
-                                  .state_dict(), strict=True)
-            m.to(dev, models["dtype"])
-        if cpu_models is None:
-            with torch.no_grad():  # see phase_reference
-                for cn in models["controlnets"]:
-                    cn.cam2token.weight.mul_(0.01)
-            cpu_models = models
-        partition_params(models, trainable_predicate())
-        h, w = cfg.dataset.image_size
-        ds = _train_batch(cfg, 1)
-        batch = prepare_batch(collate_fn(
-            [ds[0]], cfg, HashTokenizer(), rng=np.random.default_rng(SEED)),
-            dev)
-        draws = make_draws(torch.Generator().manual_seed(SEED), cfg, 1,
-                           N_CAM, (h // 8, w // 8), 1000)
-        draws = {k: None if v is None else v.to(dev)
-                 for k, v in draws.items()}
-        A.reset_launch_counts()
-        loss, _ = make_loss_fn(models, cfg, DiffusionSchedule.create(),
-                               (h // 8, w // 8),
-                               tuple(cfg.model.get("ors_frame_hw")))(
-            batch, draws)
-        loss.backward()
-        results.append((loss.detach().item(), _trainable_grads(models), {
-            fn.__name__: fn.launches for fn in A.KERNEL_WRAPPERS}))
+                collated = collate_fn([_train_batch(cfg, 1)[0]], cfg,
+                                      HashTokenizer(), rng=rng)
+            batch = prepare_batch(collated, dev)
+            draws = make_draws(torch.Generator().manual_seed(SEED), cfg,
+                               frames, N_CAM, (h // 8, w // 8), 1000,
+                               frames=frames)
+            draws = {k: None if v is None else v.to(dev)
+                     for k, v in draws.items()}
+            reward = dict(reward_fn=make_rgd_reward(cfg), reward_weight=float(
+                cfg.video.rgd.reward_weight)) if video else {}
+            A.reset_launch_counts()
+            loss, _ = make_loss_fn(models, cfg, DiffusionSchedule.create(),
+                                   (h // 8, w // 8),
+                                   tuple(cfg.model.get("ors_frame_hw")),
+                                   frames=frames, **reward)(batch, draws)
+            loss.backward()
+            results.append((loss.detach().item(), _trainable_grads(models), {
+                fn.__name__: fn.launches for fn in A.KERNEL_WRAPPERS}))
+    finally:
+        A.T_SCORE_CAP = cap
     (loss_cpu, g_cpu, _), (loss_gpu, g_gpu, launches) = results
     errs = leaf_grad_errors(g_cpu, g_gpu)
     worst = sorted(errs.items(), key=lambda kv: -kv[1])
-    return {"phase": "train_reference", "loss_cpu_f32": loss_cpu,
-            "loss_gpu_bf16": loss_gpu,
+    return {"phase": "video_train_reference" if video else "train_reference",
+            "loss_cpu_f32": loss_cpu, "loss_gpu_bf16": loss_gpu,
             "loss_rel_err": abs(loss_gpu - loss_cpu) / abs(loss_cpu),
             "trainable_leaves": len(errs),
             "leaves_without_grad": sum(g_cpu.get(k) is None for k in errs),
             "worst_leaf_rel_err": dict(worst[:5]), "launches": launches,
             "tol": {"loss_rel_err": LOSS_REL_TOL, "leaf_rel_err": LEAF_TOL,
                     "leaf_floor": LEAF_FLOOR}, "leaf_rel_err": errs}
+
+
+def _reference_gate(row: dict, kernels) -> None:
+    """The loss within ``LOSS_REL_TOL`` relative, every trainable leaf's
+    gradient within ``LEAF_TOL`` and each of ``kernels`` launched."""
+    errs = row.pop("leaf_rel_err")
+    log(json.dumps(row))
+    if not row["loss_rel_err"] <= LOSS_REL_TOL:
+        raise AssertionError("bf16 loss on the card disagrees with float32")
+    bad = [(k, e) for k, e in errs.items() if not e <= LEAF_TOL]
+    if bad:
+        raise AssertionError(f"bf16 gradients on the card disagree at "
+                             f"{len(bad)} leaves: {bad[:5]}")
+    if not all(row["launches"][k] > 0 for k in kernels):
+        raise AssertionError(f"the training kernels did not run: "
+                             f"{row['launches']}")
 
 
 def phase_train_reference():
@@ -979,20 +1138,149 @@ def phase_train_reference():
     (``leaf_grad_errors``): a limit that one attention call's dq or dk/dv
     spoiled exceeds while the sound run stays under it (see the limits'
     readings at the top)."""
-    row = train_reference_readings()
-    errs = row.pop("leaf_rel_err")
+    _reference_gate(train_reference_readings(), (
+        "packed_attention_lse_fwd", "packed_attention_bwd_dq",
+        "packed_attention_bwd_dkv"))
+
+
+def phase_video_train(profile_dir):
+    """DualDiff+ video training at full SD v1.5 width (phase 10): stage 1
+    (``video_16f``) and stage 2 (``rgd_stage2``), each with
+    ``video.num_frames=2``, seeded random weights (every leaf, LoRA B and
+    the zero-init connectors included), bf16, remat, AdamW."""
+    from dualdiff_tpu_torch.utils.config import RGD_STAGE2, VIDEO_16F
+
+    counts, per_step = {}, {}
+    for stage, name in (("stage1", VIDEO_16F), ("stage2", RGD_STAGE2)):
+        counts[stage], per_step[stage] = _video_train_stage(stage, name,
+                                                            profile_dir)
+    return counts, per_step
+
+
+def _video_train_stage(stage: str, name: str, profile_dir):
+    """One stage of phase 10 on clip 0 of ``SyntheticNuScenesVideo(
+    num_clips=2, num_frames=2)``, collated as the trainer collates it: one
+    warm-up step (learning rate exactly 0), then timed steps.  Checks every
+    step's launches against ``video_train_launches_per_step``, a finite
+    loss, grad_norm (> 0) and reward (stage 2); that stage 2 trains exactly
+    the UNet's LoRA leaves; that the trainables moved and the frozen
+    parameters did not."""
+    from dualdiff_tpu_torch.data.video import SyntheticNuScenesVideo
+    from dualdiff_tpu_torch.ops import attention as A
+    from dualdiff_tpu_torch.runner.factory import (build_models,
+                                                   randomize_weights)
+    from dualdiff_tpu_torch.runner.train_state import named_roots
+    from dualdiff_tpu_torch.runner.video_trainer import VideoTrainer
+    from dualdiff_tpu_torch.utils.config import load_config
+
+    t0 = time.perf_counter()
+    cfg = load_config(name, [f"video.num_frames={TRAIN_FRAMES}"])
+    h, w = cfg.dataset.image_size
+    models = build_models(cfg, device="cuda")
+    for _, m in named_roots(models):
+        randomize_weights(m, SEED)
+    clips = SyntheticNuScenesVideo(num_clips=2, num_frames=TRAIN_FRAMES,
+                                   image_size=(h, w))
+    trainer = VideoTrainer(cfg, clips, models=models)
+    batch = trainer._build_batch((0, 0, [0]))
+    lora = bool(cfg.video.rgd.enable)
+    trainable = trainer.trainable
+    if lora:
+        unet_lora = {f"unet/{n}" for n, _ in models["unet"].named_parameters()
+                     if "lora" in n}
+        if set(trainable) != unet_lora or not unet_lora:
+            raise AssertionError(f"stage 2 trains {len(trainable)} tensors, "
+                                 f"not the {len(unet_lora)} LoRA leaves")
+    expect = video_train_launches_per_step(
+        len(models["unet"].down_blocks[0].resnets), len(models["controlnets"]),
+        bool(cfg.runner.enable_unet_checkpointing)
+        and bool(cfg.runner.enable_controlnet_checkpointing), lora,
+        (h // 8) * (w // 8))
+    torch.cuda.synchronize()
+    log(f"# video training {stage} built in {time.perf_counter() - t0:.1f} "
+        f"s; {sum(p.numel() for p in trainable.values()) / 1e6:.2f}M "
+        f"trainable, {sum(p.numel() for p in trainer.frozen.values()) / 1e6:.1f}"
+        f"M frozen parameters")
+    frozen0 = {k: p.detach().clone() for k, p in trainer.frozen.items()}
+    steps, snap = [], {}
+    run_counts = {fn.__name__: 0 for fn in A.KERNEL_WRAPPERS}
+    for i in range(1 + TIMED_VIDEO_TRAIN_STEPS):
+        A.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = trainer.train_step(batch)  # the metrics' float() synchronises
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = {fn.__name__: fn.launches for fn in A.KERNEL_WRAPPERS}
+        for k, v in counts.items():
+            run_counts[k] += v
+        log(f"# video train {stage} step {i} "
+            f"({'warm-up' if i == 0 else 'timed'}): "
+            + ", ".join(f"{k} {v:.6f}" for k, v in m.items())
+            + f", {dt:.3f} s")
+        if counts != expect:
+            raise AssertionError(f"kernel launches {counts} != {expect}")
+        finite = [m["loss"], m["grad_norm"]] + ([m["reward"]] if lora else [])
+        if not (all(map(math.isfinite, finite)) and m["grad_norm"] > 0):
+            raise AssertionError(f"{stage} step {i}: {m}")
+        steps.append(dict(m, s=dt))
+        if i == 0:  # after the lr = 0 step
+            snap = {k: v.clone() for k, v in trainer.optimizer.master.items()}
+            torch.cuda.reset_peak_memory_stats()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    frozen_changed = [k for k, p in trainer.frozen.items()
+                      if not torch.equal(p, frozen0[k])]
+    opt = trainer.optimizer
+    # see phase_train: a trainable with a gradient and a value under 0.25
+    # must move at the warmup learning rate
+    got_grad = {k for k, v in opt.nu.items() if bool(v.any())}
+    must_move = {k for k in got_grad if bool((snap[k].abs() < 0.25).any())}
+    moved = {k for k, v in opt.master.items() if not torch.equal(v, snap[k])}
+    times = [st["s"] for st in steps[1:]]
+    s = sorted(times)[len(times) // 2]
+    rows = TRAIN_FRAMES * N_CAM
+    row = {"phase": "video_train", "stage": stage, "config":
+           f"{cfg.task_id} 224x400, video.num_frames={TRAIN_FRAMES}",
+           "frames": TRAIN_FRAMES, "views": N_CAM,
+           "steps": 1 + TIMED_VIDEO_TRAIN_STEPS, "s_per_step": s,
+           "s_per_step_all": times, "warmup_s": steps[0]["s"],
+           "images_per_s": rows / s, "peak_mem_gib": peak,
+           **{k: [st[k] for st in steps] for k in steps[0]
+              if k in ("loss", "mse", "aug_loss", "reward", "grad_norm")},
+           "trainable_tensors": len(opt.master),
+           "trainable_params": sum(p.numel() for p in trainable.values()),
+           "trainable_tensors_with_grad": len(got_grad),
+           "trainable_tensors_moved": len(moved),
+           "trainable_tensors_required_to_move": len(must_move),
+           "frozen_tensors_changed": len(frozen_changed),
+           "launches_per_step": expect, "launches_run": run_counts}
     log(json.dumps(row))
-    if not row["loss_rel_err"] <= LOSS_REL_TOL:
-        raise AssertionError("bf16 loss on the card disagrees with float32")
-    bad = [(k, e) for k, e in errs.items() if not e <= LEAF_TOL]
-    if bad:
-        raise AssertionError(f"bf16 gradients on the card disagree at "
-                             f"{len(bad)} leaves: {bad[:5]}")
-    if not all(row["launches"][k] > 0 for k in (
-            "packed_attention_lse_fwd", "packed_attention_bwd_dq",
-            "packed_attention_bwd_dkv")):
-        raise AssertionError(f"the training kernels did not run: "
-                             f"{row['launches']}")
+    log(f"video train {stage} s/step: {s}")
+    log(f"video train {stage} images/s: {rows / s}")
+    if frozen_changed:
+        raise AssertionError(f"frozen parameters changed: "
+                             f"{frozen_changed[:5]}")
+    if must_move - moved:
+        raise AssertionError(f"trainables that did not move: "
+                             f"{sorted(must_move - moved)[:5]}")
+    if len(got_grad) < 0.9 * len(opt.master):
+        raise AssertionError(f"only {len(got_grad)} of {len(opt.master)} "
+                             "trainable tensors got a gradient")
+    if profile_dir:
+        profile_run(lambda: trainer.train_step(batch), s, profile_dir,
+                    "video_train_step" + ("_rgd" if lora else ""))
+    del trainer, models, frozen0, snap, opt
+    torch.cuda.empty_cache()
+    return run_counts, expect
+
+
+def phase_video_train_reference():
+    """Phase 7's gate on the tiny RGD stage-2 model set (2-frame clip,
+    LoRA, reward through the VAE decode), with ST-Attn on the capped
+    training route (``train_reference_readings(video=True)``)."""
+    _reference_gate(train_reference_readings(video=True), (
+        "packed_attention_capped_lse_fwd", "packed_attention_lse_fwd",
+        "packed_attention_bwd_dq", "packed_attention_bwd_dkv"))
 
 
 # the path each kernel serves, whose launches the kernels line reports
@@ -1001,18 +1289,27 @@ KERNEL_PATH = {"packed_attention_fwd": "generate",
                "packed_attention_lse_fwd": "train",
                "packed_attention_bwd_dq": "train",
                "packed_attention_bwd_dkv": "train",
-               "packed_attention_capped_fwd": "video"}
+               "packed_attention_capped_fwd": "video",
+               "packed_attention_capped_lse_fwd": "video_train"}
 
 
-def kernels_line(results, path_counts, train_per_step):
+def kernels_line(results, path_counts, train_per_step, video_per_step):
     """One entry per kernel: its main-path shape's times and the launches
     of the path it serves, with their unit: one generation for the flagship
     inference kernels, one clip for the capped kernel, the whole training
-    run for the training kernels (whose count per step, checked on every
-    step, is beside it)."""
+    run for the training kernels, both stages' video training runs for the
+    capped training forward (whose counts per step, checked on every step,
+    are beside them)."""
     units = {"generate": "generation",
              "train": f"training run of {1 + TIMED_TRAIN_STEPS} steps",
-             "video": "clip"}
+             "video": "clip",
+             "video_train": f"video training runs of "
+                            f"{1 + TIMED_VIDEO_TRAIN_STEPS} steps, stage 1 "
+                            f"and stage 2"}
+    counts = dict(path_counts)
+    stages = counts.pop("video_train")
+    counts["video_train"] = {k: sum(c[k] for c in stages.values())
+                             for k in next(iter(stages.values()))}
     out = []
     for kern, rows in results.items():
         main = rows[0]  # the dominant main-path shape
@@ -1020,10 +1317,12 @@ def kernels_line(results, path_counts, train_per_step):
         out.append({
             "name": kern, "route": "cuda", "source": SOURCE[kern],
             "replaces": REPLACES[kern],
-            "launches": path_counts[path][kern], "launches_per": units[path],
+            "launches": counts[path][kern], "launches_per": units[path],
             "launches_by_path": {units[p]: c[kern]
-                                 for p, c in path_counts.items()},
+                                 for p, c in counts.items()},
             "launches_per_train_step": train_per_step[kern],
+            "launches_per_video_train_step": {
+                st: c[kern] for st, c in video_per_step.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -1058,8 +1357,12 @@ def main() -> int:
     timed("train_reference", phase_train_reference)
     counts["video"] = timed("video", phase_video, profile_dir)
     timed("video_reference", phase_reference, video=True)
+    counts["video_train"], video_per_step = timed(
+        "video_train", phase_video_train, profile_dir)
+    timed("video_train_reference", phase_video_train_reference)
     log(f"# all phases: {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps(kernels_line(results, counts, train_per_step)))
+    print(json.dumps(kernels_line(results, counts, train_per_step,
+                                  video_per_step)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,6 +10,9 @@
 // replaces _fwd_kernel_t_capped (called by _packed_infer_capped for shapes
 // whose padded score tile is over the TPU's VMEM cap, such as the video
 // ST-Attn 1400 queries x 2800 keys); see "Long K" below.
+// packed_attention_capped_lse_fwd replaces _fwd_kernel_t_capped_lse (called
+// by _packed_train_t_fwd over the same cap): the long-K forward with the
+// lse epilogue, for ST-Attn under grad; see "Long K under grad" below.
 //
 // Layout.  q (B, Lq, C), k/v (B, Lk, C), out (B, Lq, C), bf16, contiguous,
 // head h in columns [h*d, (h+1)*d); lse (B*H, Lq) float32.  The TPU kernels
@@ -54,6 +57,16 @@
 // compute-bound, and 3.0 G exponentials.  Every query block reads all of its
 // head's K/V tiles, so 8 warps (128 queries per block) halve the K/V traffic
 // through L2 and shared memory against 4 warps (64 queries).
+//
+// Long K under grad.  The training forward over the cap is the same
+// long-K instance with the lse epilogue of packed_attention_lse_fwd.  Its
+// lse feeds the backward kernels of attention_train.cu, which already walk
+// the other axis in tiles at any length.  At the video training shape (B =
+// 12: one 2-frame clip x 6 views, Lq = 1400, Lk = 2800, C = 320) a call is
+// 60.2 GFLOP, 61 us at 989 TFLOP/s, against 65 MB of q/k/v/o/lse (19 us at
+// 3.35 TB/s): compute-bound like the inference instance, 376 M
+// exponentials.  The TPU kernel masked keys >= Lk to -inf too, so its lse is
+// the same exact function.
 // Simple first: no wgmma, TMA or warp specialisation yet.
 
 #include "mma_tile.cuh"
@@ -333,5 +346,20 @@ extern "C" int dd_packed_attention_capped_fwd(const void* q, const void* k,
   if (warps == 4)
     return dispatch<false, false, 4>(q, k, v, out, nullptr, batch, lq, lk,
                                      heads, head_dim, 1, scale, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// the long-K forward of capped_fwd with the lse epilogue; warps as there
+extern "C" int dd_packed_attention_capped_lse_fwd(
+    const void* q, const void* k, const void* v, void* out, void* lse,
+    int batch, int lq, int lk, int heads, int head_dim, int warps,
+    float scale, void* stream) {
+  float* l = static_cast<float*>(lse);
+  if (warps == 8)
+    return dispatch<false, true, 8>(q, k, v, out, l, batch, lq, lk, heads,
+                                    head_dim, 1, scale, stream);
+  if (warps == 4)
+    return dispatch<false, true, 4>(q, k, v, out, l, batch, lq, lk, heads,
+                                    head_dim, 1, scale, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,8 @@
 """DDPM noise schedule (SD v1.5: scaled_linear betas 0.00085..0.012, 1000
 steps).  Port of ``dualdiff_tpu/diffusion/schedule.py``; the constants are
 float32 numpy arrays, which the samplers read on the host.  The training
-forward process (``add_noise``, ``velocity``, ``training_target``) gathers
-them on the timesteps' device."""
+forward process (``add_noise``, ``velocity``, ``training_target``,
+``pred_x0_from_eps``) gathers them on the timesteps' device."""
 
 from __future__ import annotations
 
@@ -66,3 +66,10 @@ class DiffusionSchedule:
         if self.prediction_type == "v_prediction":
             return self.velocity(x0, noise, t)
         raise ValueError(f"Unknown prediction type {self.prediction_type}")
+
+    def pred_x0_from_eps(self, x_t: torch.Tensor, eps: torch.Tensor,
+                         t: torch.Tensor) -> torch.Tensor:
+        """The denoised prediction (x_t - sqrt(1 - abar_t) eps) /
+        sqrt(abar_t), in float32 (the RGD reward's input)."""
+        a, s = self._coefs(t, x_t.dim())
+        return (x_t.float() - s * eps.float()) / a

@@ -110,17 +110,41 @@ class Upsample2D(nn.Module):
 
 class Attention(nn.Module):
     """Multi-head attention with separate q / kv dims (diffusers
-    ``Attention``), channel-packed."""
+    ``Attention``), channel-packed.
+
+    ``lora_rank > 0`` (DualDiff+ RGD stage 2) adds a LoRA adapter to each
+    projection, as the JAX package's ``Attention._proj``: ``W x + B(A x)``
+    with bias-free ``<proj>_lora_a`` (rank x in) and ``<proj>_lora_b``
+    (out x rank, zero at init), no rank scale.  The output projection's
+    adapters are ``to_out_0_lora_a`` / ``to_out_0_lora_b`` (the JAX
+    exporter's ``to_out.0_lora_a`` is no path inside ``to_out``, a
+    ``ModuleList``)."""
 
     def __init__(self, query_dim: int, heads: int = 8,
-                 kv_dim: Optional[int] = None):
+                 kv_dim: Optional[int] = None, lora_rank: int = 0):
         super().__init__()
         self.heads = heads
+        self.lora_rank = lora_rank
         kv_dim = kv_dim or query_dim
         self.to_q = Linear(query_dim, query_dim, bias=False)
         self.to_k = Linear(kv_dim, query_dim, bias=False)
         self.to_v = Linear(kv_dim, query_dim, bias=False)
         self.to_out = nn.ModuleList([Linear(query_dim, query_dim)])
+        if lora_rank:
+            for proj, d_in in (("to_q", query_dim), ("to_k", kv_dim),
+                               ("to_v", kv_dim), ("to_out_0", query_dim)):
+                setattr(self, f"{proj}_lora_a",
+                        Linear(d_in, lora_rank, bias=False))
+                setattr(self, f"{proj}_lora_b", zero_module(
+                    Linear(lora_rank, query_dim, bias=False)))
+
+    def _proj(self, proj: str, layer: nn.Module,
+              x: torch.Tensor) -> torch.Tensor:
+        out = layer(x)
+        if self.lora_rank:
+            a = getattr(self, f"{proj}_lora_a")(x)
+            out = out + getattr(self, f"{proj}_lora_b")(a)
+        return out
 
     def forward(self, hidden_states: torch.Tensor,
                 encoder_hidden_states: Optional[torch.Tensor] = None,
@@ -131,14 +155,14 @@ class Attention(nn.Module):
         once per view."""
         kv = hidden_states if encoder_hidden_states is None \
             else encoder_hidden_states
-        q = self.to_q(hidden_states)
-        k = self.to_k(kv)
-        v = self.to_v(kv)
+        q = self._proj("to_q", self.to_q, hidden_states)
+        k = self._proj("to_k", self.to_k, kv)
+        v = self._proj("to_v", self.to_v, kv)
         if ring_views:
             out = attention_packed_neighbors(q, k, v, self.heads, ring_views)
         else:
             out = attention_packed(q, k, v, self.heads)
-        return self.to_out[0](out)
+        return self._proj("to_out_0", self.to_out[0], out)
 
 
 class GEGLU(nn.Module):
@@ -184,21 +208,24 @@ class BasicTransformerBlock(nn.Module):
       ``norm1``'s output, from the same view (frame 0 takes itself twice);
     * ``temporal``: ``norm_temporal`` -> ``attn_temporal`` over the frame
       axis, per (view, pixel) -> the zero-init ``temporal_connector`` ->
-      residual, after attn4 and before the feed-forward."""
+      residual, after attn4 and before the feed-forward.
+
+    ``lora_rank``: LoRA adapters on attn1 and attn2 only (RGD stage 2)."""
 
     def __init__(self, dim: int, heads: int = 8,
                  cross_attention_dim: int = 768, multiview: bool = False,
                  st_attn: bool = False, temporal: bool = False,
-                 num_frames: int = 1):
+                 num_frames: int = 1, lora_rank: int = 0):
         super().__init__()
         self.multiview = multiview
         self.st_attn = st_attn and num_frames > 1
         self.temporal = temporal and num_frames > 1
         self.num_frames = num_frames
         self.norm1 = LayerNorm(dim)
-        self.attn1 = Attention(dim, heads)
+        self.attn1 = Attention(dim, heads, lora_rank=lora_rank)
         self.norm2 = LayerNorm(dim)
-        self.attn2 = Attention(dim, heads, kv_dim=cross_attention_dim)
+        self.attn2 = Attention(dim, heads, kv_dim=cross_attention_dim,
+                               lora_rank=lora_rank)
         if multiview:
             self.norm4 = LayerNorm(dim)
             self.attn4 = Attention(dim, heads)
@@ -255,13 +282,15 @@ class Transformer2DModel(nn.Module):
     def __init__(self, channels: int, heads: int = 8,
                  cross_attention_dim: int = 768, num_layers: int = 1,
                  multiview: bool = False, st_attn: bool = False,
-                 temporal: bool = False, num_frames: int = 1):
+                 temporal: bool = False, num_frames: int = 1,
+                 lora_rank: int = 0):
         super().__init__()
         self.norm = GroupNorm(min(32, channels), channels, eps=1e-6)
         self.proj_in = Conv2d(channels, channels, 1)
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(channels, heads, cross_attention_dim,
-                                  multiview, st_attn, temporal, num_frames)
+                                  multiview, st_attn, temporal, num_frames,
+                                  lora_rank)
             for _ in range(num_layers)])
         self.proj_out = Conv2d(channels, channels, 1)
 

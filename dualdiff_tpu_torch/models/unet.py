@@ -45,7 +45,8 @@ class CrossAttnDownBlock2D(nn.Module):
                  num_layers: int = 2, add_downsample: bool = True,
                  heads: int = 8, cross_attention_dim: int = 768,
                  multiview: bool = False, st_attn: bool = False,
-                 temporal: bool = False, num_frames: int = 1):
+                 temporal: bool = False, num_frames: int = 1,
+                 lora_rank: int = 0):
         super().__init__()
         self.resnets = nn.ModuleList([
             ResnetBlock2D(in_channels if i == 0 else out_channels,
@@ -53,7 +54,8 @@ class CrossAttnDownBlock2D(nn.Module):
         self.attentions = nn.ModuleList([
             Transformer2DModel(out_channels, heads, cross_attention_dim,
                                multiview=multiview, st_attn=st_attn,
-                               temporal=temporal, num_frames=num_frames)
+                               temporal=temporal, num_frames=num_frames,
+                               lora_rank=lora_rank)
             for _ in range(num_layers)])
         self.downsamplers = (nn.ModuleList([Downsample2D(out_channels)])
                              if add_downsample else None)
@@ -89,14 +91,15 @@ class UNetMidBlock2DCrossAttn(nn.Module):
     def __init__(self, channels: int, temb_dim: int, heads: int = 8,
                  cross_attention_dim: int = 768, multiview: bool = False,
                  st_attn: bool = False, temporal: bool = False,
-                 num_frames: int = 1):
+                 num_frames: int = 1, lora_rank: int = 0):
         super().__init__()
         self.resnets = nn.ModuleList([
             ResnetBlock2D(channels, channels, temb_dim) for _ in range(2)])
         self.attentions = nn.ModuleList([
             Transformer2DModel(channels, heads, cross_attention_dim,
                                multiview=multiview, st_attn=st_attn,
-                               temporal=temporal, num_frames=num_frames)])
+                               temporal=temporal, num_frames=num_frames,
+                               lora_rank=lora_rank)])
 
     def forward(self, x, temb, encoder_hidden_states, n_cam: int = 1):
         x = self.resnets[0](x, temb)
@@ -112,7 +115,7 @@ class UpBlock(nn.Module):
                  add_upsample: bool, cross_attn: bool, heads: int = 8,
                  cross_attention_dim: int = 768, multiview: bool = False,
                  st_attn: bool = False, temporal: bool = False,
-                 num_frames: int = 1):
+                 num_frames: int = 1, lora_rank: int = 0):
         super().__init__()
         chans = [in_channels] + [out_channels] * (len(skip_channels) - 1)
         self.resnets = nn.ModuleList([
@@ -121,7 +124,8 @@ class UpBlock(nn.Module):
         self.attentions = nn.ModuleList([
             Transformer2DModel(out_channels, heads, cross_attention_dim,
                                multiview=multiview, st_attn=st_attn,
-                               temporal=temporal, num_frames=num_frames)
+                               temporal=temporal, num_frames=num_frames,
+                               lora_rank=lora_rank)
             for _ in skip_channels]) if cross_attn else None
         self.upsamplers = (nn.ModuleList([Upsample2D(out_channels)])
                            if add_upsample else None)
@@ -145,12 +149,14 @@ class UNet2DConditionMultiview(nn.Module):
                  neighboring_view_pair: Optional[Sequence[Sequence[int]]] = (
                      (5, 1), (0, 2), (1, 3), (2, 4), (3, 5), (4, 0)),
                  st_attn: bool = False, temporal: bool = False,
-                 num_frames: int = 1, remat: bool = False,
-                 remat_min_tokens: int = 0):
+                 num_frames: int = 1, lora_rank: int = 0,
+                 remat: bool = False, remat_min_tokens: int = 0):
         """attn4 is the 'add' type with a zero_linear connector (the only
         ones ported).  ``st_attn``, ``temporal`` and ``num_frames``: the
         video hooks of every transformer block (``BasicTransformerBlock``);
-        the batch then folds (clip, frame, camera), frame outer."""
+        the batch then folds (clip, frame, camera), frame outer.
+        ``lora_rank``: LoRA adapters on every block's attn1 and attn2 (RGD
+        stage 2)."""
         super().__init__()
         self.num_frames = num_frames
         self.remat = remat
@@ -162,7 +168,7 @@ class UNet2DConditionMultiview(nn.Module):
         temb = chs[0] * 4
         tx = dict(heads=heads, cross_attention_dim=cross_attention_dim,
                   multiview=multiview, st_attn=st_attn, temporal=temporal,
-                  num_frames=num_frames)
+                  num_frames=num_frames, lora_rank=lora_rank)
 
         self.time_embedding = TimestepEmbedding(chs[0], temb)
         self.conv_in = Conv2d(in_channels, chs[0], 3, padding=1)

@@ -17,11 +17,20 @@ package's custom-VJP primal does; one whose padded score tile is over
 ``packed_attention_capped_fwd``, as ``_packed_infer`` sends it to
 ``_packed_infer_capped``.  A differentiated call (grad enabled and
 an input that requires grad) goes through ``PackedAttention``: the forward
-with ``lse`` (``packed_attention_lse_fwd``), and a backward that launches
-``packed_attention_bwd_dq`` and ``packed_attention_bwd_dkv``.  Under grad
-the camera-ring attn4 takes the JAX training formulation (``_nbr_stacked``):
-the left and right neighbours' K/V gathered and stacked on the batch axis,
-one ``PackedAttention`` call, the two halves summed.
+with ``lse`` (``packed_attention_lse_fwd``, or over the cap
+``packed_attention_capped_lse_fwd``, as ``_packed_train_t_fwd`` picks
+``_fwd_kernel_t_lse`` or ``_fwd_kernel_t_capped_lse``), and a backward that
+launches ``packed_attention_bwd_dq`` and ``packed_attention_bwd_dkv`` at
+every length (the JAX package's backward kernels are K/V-blocked already).
+Under grad the camera-ring attn4 takes the JAX training formulation
+(``_nbr_stacked``): the left and right neighbours' K/V gathered and stacked
+on the batch axis, one ``PackedAttention`` call, the two halves summed.
+
+Frame-axis self-attention (lq == lk <= ``HEADPACK_MAX_LQ``, the video
+temporal attention) is einsum; under grad it runs inside
+``torch.utils.checkpoint``, so that only q, k and v are saved and the tiny
+per-head probabilities are recomputed in the backward, as the JAX
+package's ``_headpacked`` VJP does with ``jax.checkpoint``.
 
 Kernel wrappers take the plain PyTorch version for tensors on the CPU, which
 is what the CPU tests run.  A CUDA tensor either launches the kernel or
@@ -37,6 +46,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .cuda_lib import library
 
@@ -45,11 +55,13 @@ __all__ = ["PACKED_MIN_LQ", "mha_einsum", "multi_head_attention",
            "attention_packed_plain", "attention_packed_neighbors_plain",
            "attention_packed_lse_plain", "attention_packed_bwd_dq_plain",
            "attention_packed_bwd_dkv_plain", "attention_delta",
-           "attention_packed_capped_plain", "packed_attention_fwd",
+           "attention_packed_capped_plain",
+           "attention_packed_capped_lse_plain", "packed_attention_fwd",
            "packed_attention_nbr_fwd", "packed_attention_lse_fwd",
            "packed_attention_bwd_dq", "packed_attention_bwd_dkv",
-           "packed_attention_capped_fwd", "PackedAttention",
-           "T_SCORE_CAP", "CAPPED_WARPS", "over_score_cap",
+           "packed_attention_capped_fwd", "packed_attention_capped_lse_fwd",
+           "PackedAttention", "T_SCORE_CAP", "CAPPED_WARPS",
+           "CAPPED_LSE_WARPS", "HEADPACK_MAX_LQ", "over_score_cap",
            "KERNEL_WRAPPERS", "reset_launch_counts"]
 
 # Queries at least this long take the kernels.  Carried over from the JAX
@@ -66,6 +78,13 @@ T_SCORE_CAP = 2 * 1024 * 1024
 # the two at the video ST-Attn shape (chip_smoke.py phase 3; PERF.md,
 # kernel table row 3).
 CAPPED_WARPS = 8
+# Warps per block of packed_attention_capped_lse_fwd (4 or 8), the faster of
+# the two at the ST-Attn training shape (chip_smoke.py phase 3; PERF.md,
+# kernel table row 5).
+CAPPED_LSE_WARPS = 8
+# Self-attention this short (lq == lk, the video temporal attention over
+# the frame axis) is the JAX package's head-packed path (_HEADPACK_MAX_LQ).
+HEADPACK_MAX_LQ = 32
 # Largest head_dim the CUDA kernels take (80 and 160 reach them at HD).
 MAX_KERNEL_HEAD_DIM = 160
 
@@ -128,6 +147,15 @@ def attention_packed_capped_plain(q, k, v, heads: int,
     dtype.  The TPU kernel's K blocking with carried (m, l, acc) is an
     online evaluation of this same softmax."""
     return attention_packed_plain(q, k, v, heads, scale)
+
+
+def attention_packed_capped_lse_plain(q, k, v, heads: int,
+                                      scale: Optional[float] = None):
+    """Plain version of ``packed_attention_capped_lse_fwd``: exact softmax
+    attention and its logsumexp in float32, o rounded once to q's dtype;
+    the same function as ``attention_packed_lse_plain``.  The TPU kernel's
+    K blocking with carried (m, l, acc) is an online evaluation of it."""
+    return attention_packed_lse_plain(q, k, v, heads, scale)
 
 
 def _ring(n_cam: int, offset: int):
@@ -442,9 +470,39 @@ def packed_attention_capped_fwd(q: torch.Tensor, k: torch.Tensor,
     return out
 
 
+def packed_attention_capped_lse_fwd(q: torch.Tensor, k: torch.Tensor,
+                                    v: torch.Tensor, heads: int,
+                                    scale: Optional[float] = None,
+                                    warps: int = CAPPED_LSE_WARPS):
+    """Training forward for long K, q (B, Lq, C), k/v (B, Lk, C) -> (o
+    (B, Lq, C), lse (B*H, Lq) float32); ``warps`` per block, 4 or 8.
+
+    CUDA kernel ``packed_attention_capped_lse_fwd`` (``csrc/attention.cu``),
+    the port of the TPU kernel ``_fwd_kernel_t_capped_lse``.  CPU tensors
+    take ``attention_packed_capped_lse_plain``."""
+    if q.device.type == "cpu":
+        return attention_packed_capped_lse_plain(q, k, v, heads, scale)
+    d = _check_kernel_args(q, k, v, heads)
+    if warps not in (4, 8):
+        raise ValueError(f"warps={warps}: the kernel takes 4 or 8")
+    scale = _default_scale(scale, d)
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[0] * heads, q.shape[1], dtype=torch.float32,
+                      device=q.device)
+    with torch.cuda.device(q.device):
+        err = library("attention").dd_packed_attention_capped_lse_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), q.shape[0], q.shape[1], k.shape[1], heads, d,
+            warps, scale, _stream(q))
+    _raise_on(err, "packed_attention_capped_lse_fwd")
+    packed_attention_capped_lse_fwd.launches += 1
+    return out, lse
+
+
 KERNEL_WRAPPERS = (packed_attention_fwd, packed_attention_nbr_fwd,
                    packed_attention_lse_fwd, packed_attention_bwd_dq,
-                   packed_attention_bwd_dkv, packed_attention_capped_fwd)
+                   packed_attention_bwd_dkv, packed_attention_capped_fwd,
+                   packed_attention_capped_lse_fwd)
 for _fn in KERNEL_WRAPPERS:
     _fn.launches = 0
 
@@ -458,13 +516,17 @@ class PackedAttention(torch.autograd.Function):
     """Differentiable channel-packed attention over the training kernels
     (the port of ``_flash_packed``'s VJP on its transposed-layout path).
 
-    forward: ``packed_attention_lse_fwd``; saves q, k, v, o, lse.
-    backward: delta from the returned o, then ``packed_attention_bwd_dq`` and
-    ``packed_attention_bwd_dkv``."""
+    forward: ``packed_attention_lse_fwd``, or ``packed_attention_capped_lse_fwd``
+    when the padded score tile is over ``T_SCORE_CAP``; saves q, k, v, o,
+    lse.  backward: delta from the returned o, then
+    ``packed_attention_bwd_dq`` and ``packed_attention_bwd_dkv``."""
 
     @staticmethod
     def forward(ctx, q, k, v, heads: int, scale: float):
-        out, lse = packed_attention_lse_fwd(q, k, v, heads, scale)
+        fwd = packed_attention_capped_lse_fwd \
+            if over_score_cap(q.shape[1], k.shape[1]) \
+            else packed_attention_lse_fwd
+        out, lse = fwd(q, k, v, heads, scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.heads, ctx.scale = heads, scale
         return out
@@ -502,12 +564,16 @@ def attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      heads: int, scale: Optional[float] = None):
     """Channel-packed attention: q (B, Lq, C), k/v (B, Lk, C) -> (B, Lq, C).
 
-    The JAX package's frame-axis head-packed path (lq == lk <= 32, the video
-    temporal attention) is the same per-head math with a block-diagonal
-    mask, so the port sends it to einsum like every other short query.
-    Under grad ``PackedAttention`` has no score cap."""
+    The JAX package's frame-axis head-packed path (lq == lk <=
+    ``HEADPACK_MAX_LQ``, the video temporal attention) is the same per-head
+    math with a block-diagonal mask, so the port sends it to einsum like
+    every other short query, recomputed in the backward under grad."""
     d = q.shape[-1] // heads
     scale = _default_scale(scale, d)
+    if q.shape[1] == k.shape[1] <= HEADPACK_MAX_LQ \
+            and _differentiated(q, k, v):
+        return checkpoint(_einsum_packed, q, k, v, scale, heads,
+                          use_reentrant=False)
     if _takes_kernel(q.shape[1], d):
         if _differentiated(q, k, v):
             return PackedAttention.apply(q, k, v, heads, scale)

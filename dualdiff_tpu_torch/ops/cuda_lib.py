@@ -48,6 +48,10 @@ _SIGNATURES = {
         # q, k, v, o, batch, lq, lk, heads, head_dim, warps, scale, stream
         "dd_packed_attention_capped_fwd": [_P, _P, _P, _P, _I, _I, _I, _I,
                                            _I, _I, _F, _P],
+        # q, k, v, o, lse, batch, lq, lk, heads, head_dim, warps, scale,
+        # stream
+        "dd_packed_attention_capped_lse_fwd": [_P, _P, _P, _P, _P, _I, _I,
+                                               _I, _I, _I, _I, _F, _P],
     },
     "attention_train": {
         # q, k, v, do, lse, delta, dq, batch, lq, lk, heads, head_dim,

@@ -3,8 +3,9 @@
 Port of ``dualdiff_tpu/runner/factory.py``, remat settings included.
 ``tiny=True`` uses the JAX package's tiny sizes, which keep every
 architectural feature on.  A ``use_video`` config builds the DualDiff+ video
-UNet (ST-Attn and temporal attention, ``video.num_frames`` frames); its RGD
-stage (LoRA) is not ported.
+UNet (ST-Attn and temporal attention, ``video.num_frames`` frames), with
+LoRA adapters of rank ``video.lora_rank`` on its attn1 and attn2 exactly
+when ``video.rgd.enable`` (RGD stage 2), as the JAX factory builds it.
 """
 
 from __future__ import annotations
@@ -37,11 +38,6 @@ def _check_ported(cfg) -> None:
             raise NotImplementedError(f"model.controlnet.{flag} is not ported")
     if cfg.get("use_box_adapter"):
         raise NotImplementedError("the box adapter is not ported")
-    # the JAX factory gives the UNet LoRA adapters (video.lora_rank) exactly
-    # when RGD is on
-    if cfg.get("use_video") and cfg.video.rgd.enable:
-        raise NotImplementedError(
-            "video RGD (stage 2) and its LoRA adapters are not ported")
     if c.bbox_embedder_param.get("minmax_normalize"):
         raise NotImplementedError("bbox minmax_normalize is not ported")
     u = cfg.model.unet
@@ -96,6 +92,8 @@ def build_models(cfg, tiny: bool = False, device=None) -> Dict:
             st_attn=video and bool(cfg.video.use_st_attn),
             temporal=video and bool(cfg.video.use_temporal_attn),
             num_frames=int(cfg.video.num_frames) if video else 1,
+            lora_rank=int(cfg.video.lora_rank)
+            if video and cfg.video.rgd.enable else 0,
             remat=bool(cfg.runner.get("enable_unet_checkpointing", False)),
             remat_min_tokens=_remat_min_tokens(cfg, "unet_remat_min_tokens"))
         controlnets = [BEVControlNet(

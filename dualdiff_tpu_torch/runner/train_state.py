@@ -34,13 +34,18 @@ def trainable_predicate(unet_trainable_state: str = "only_new",
     """pred(root, name) -> trainable?  ``only_new``: every ControlNet
     parameter except the CLIP-initialised class tokens, plus the UNet's
     multiview (attn4 / norm4 / connector) parameters; VAE and text encoder
-    frozen.  ``all`` trains the whole UNet too.  ``lora_only`` raises: the
-    port has no LoRA modules."""
-    if unet_trainable_state not in ("only_new", "all"):
-        raise NotImplementedError(
-            f"unet trainable_state {unet_trainable_state!r} is not ported")
+    frozen.  ``all`` trains the whole UNet too.  ``lora_only`` (RGD stage
+    2) freezes every ControlNet and trains only the UNet parameters with
+    ``lora`` in a part of their name."""
+    if unet_trainable_state not in ("only_new", "all", "lora_only"):
+        raise ValueError(
+            f"unknown unet trainable_state {unet_trainable_state!r}")
+    lora_only = unet_trainable_state == "lora_only"
 
     def pred(root: str, name: str) -> bool:
+        if lora_only:
+            return root == "unet" and any("lora" in part
+                                          for part in name.split("."))
         if root.startswith("controlnet"):
             if name.split(".")[-1].strip("_") == "class_tokens":
                 return trainable_class_token

@@ -1,10 +1,12 @@
-"""Training step and loop for the image path.
+"""Training step and loop.
 
 Port of ``dualdiff_tpu/runner/trainer.py``: the loss (VAE encode, noise,
 text encode, both ControlNet branches, residual sum, multiview UNet, MSE plus
-the FGM aug loss), one optimizer step over the trainable partition, and
-``MultiviewTrainer``, which builds the models, partitions them, and walks the
-seeded batch plan.
+the FGM aug loss; for clips one timestep per clip and, in RGD stage 2, minus
+the reward of the decoded denoised prediction), one optimizer step over the
+trainable partition, and ``MultiviewTrainer``, which builds the models,
+partitions them, and walks the seeded batch plan.  ``VideoTrainer``
+(``video_trainer.py``) is its clip subclass.
 
 Differences from the JAX package, by design:
 
@@ -19,9 +21,14 @@ Differences from the JAX package, by design:
 * Latents are NCHW, ``(B, N, 4, h, w)``; the FGM weight broadcasts over the
   channel axis and the means run over the same element count.
 
-Not ported (raise ``NotImplementedError``): tone guidance, the RGD reward,
-video, the conditioning cache, flip augmentation, gradient accumulation.
-Checkpoint save/load is not ported either.
+As in the JAX package, the reward's VAE decode runs under grad inside a
+checkpoint (``torch.utils.checkpoint`` for ``jax.checkpoint``) as a whole:
+only its latent input is saved and the decode is replayed in the backward,
+so its image-size activations are not alive through the UNet's backward.
+
+Not ported (raise ``NotImplementedError``): tone guidance, the conditioning
+cache, flip augmentation, gradient accumulation.  Checkpoint save/load is
+not ported either.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..data.collate import collate_fn
@@ -66,12 +74,13 @@ def sample_uncond_switch(generator: torch.Generator, B: int, n_cam: int,
 
 def make_draws(generator: torch.Generator, cfg, B: int, N: int,
                latent_hw: Tuple[int, int], num_train_timesteps: int,
-               device=None) -> Draws:
+               device=None, frames: int = 1) -> Draws:
     """Every random draw of one loss evaluation, in the JAX package's
     shapes transposed to NCHW: ``vae_noise`` (B*N, 4, h, w), ``noise``
     (B, N, 4, h, w), ``noise_offset`` ((B, 1) or (B, N), None when the
-    offset is 0), ``timesteps`` ((B,) or (B, N)), ``uncond_switch``
-    (B, N)."""
+    offset is 0), ``timesteps`` ((B,) or (B, N); with ``frames > 1``, B
+    folds clips x frames and one timestep per clip is repeated over its
+    frames), ``uncond_switch`` (B, N)."""
     h, w = latent_hw
     rn = lambda *shape: torch.randn(*shape, generator=generator,
                                     device=device)
@@ -79,30 +88,43 @@ def make_draws(generator: torch.Generator, cfg, B: int, N: int,
     same_t = bool(cfg.model.train_with_same_t)
     same_offset = bool(cfg.runner.train_with_same_offset)
     c = cfg.model.controlnet
-    return {
+    draws = {
         "vae_noise": rn(B * N, 4, h, w),
         "noise": rn(B, N, 4, h, w),
         "noise_offset": (rn(B, 1 if same_offset else N) if offset > 0
                          else None),
-        "timesteps": torch.randint(0, num_train_timesteps,
-                                   (B,) if same_t else (B, N),
-                                   generator=generator, device=device),
-        "uncond_switch": sample_uncond_switch(
-            generator, B, N, float(c.drop_cond_ratio), int(c.drop_cam_num),
-            device),
     }
+    if frames > 1:
+        draws["timesteps"] = torch.randint(
+            0, num_train_timesteps, (B // frames,), generator=generator,
+            device=device).repeat_interleave(frames)
+    else:
+        draws["timesteps"] = torch.randint(
+            0, num_train_timesteps, (B,) if same_t else (B, N),
+            generator=generator, device=device)
+    draws["uncond_switch"] = sample_uncond_switch(
+        generator, B, N, float(c.drop_cond_ratio), int(c.drop_cam_num),
+        device)
+    return draws
 
 
 def make_loss_fn(models: Dict, cfg, schedule: DiffusionSchedule,
-                 latent_hw: Tuple[int, int], occ_image_hw: Tuple[int, int]
+                 latent_hw: Tuple[int, int], occ_image_hw: Tuple[int, int],
+                 frames: int = 1, reward_fn=None, reward_weight: float = 0.0,
+                 reward_frames: int = 0
                  ) -> Callable[[Dict, Draws], Tuple[torch.Tensor, Dict]]:
-    """loss_fn(batch, draws) -> (loss, metrics) for the image path:
-    ``mse`` of the noise prediction plus, with ``use_aug_loss``, the FGM
-    heatmap-weighted ``aug_loss``.  ``batch`` is ``prepare_batch`` output."""
-    for flag, what in (("use_tone_guidance", "tone guidance (MSCN)"),
-                       ("use_video", "video training (and its RGD reward)")):
-        if cfg.get(flag):
-            raise NotImplementedError(f"{what} is not ported")
+    """loss_fn(batch, draws) -> (loss, metrics): ``mse`` of the noise
+    prediction plus, with ``use_aug_loss``, the FGM heatmap-weighted
+    ``aug_loss``.  ``batch`` is ``prepare_batch`` output; for clips
+    (``frames > 1``) its batch dim folds clips x frames, frame outer.
+
+    With ``reward_fn`` and ``reward_weight > 0`` (RGD): the denoised
+    prediction x0 of the first ``reward_frames`` frames of each clip (all
+    when 0), decoded by the VAE under grad, gives ``reward =
+    mean(reward_fn(images, ground truth, batch))`` (NCHW images), and the
+    loss is ``mse + aug_loss - reward_weight * reward``."""
+    if cfg.get("use_tone_guidance"):
+        raise NotImplementedError("tone guidance (MSCN) is not ported")
     unet, controlnets = models["unet"], models["controlnets"]
     vae, text_encoder = models["vae"], models["text_encoder"]
     same_noise = bool(cfg.model.train_with_same_noise)
@@ -161,8 +183,33 @@ def make_loss_fn(models: Dict, cfg, schedule: DiffusionSchedule,
             aug = (sq * heat[:, :, None]).mean()  # NCHW: over channels
             loss = loss + aug
             metrics["aug_loss"] = aug.detach()
+        if reward_fn is not None and reward_weight > 0:
+            reward = _reward(noisy, eps, timesteps, px, batch)
+            loss = loss - reward_weight * reward
+            metrics["reward"] = reward.detach()
         metrics["loss"] = loss.detach()
         return loss, metrics
+
+    def _reward(noisy, eps, timesteps, px, batch):
+        x0 = schedule.pred_x0_from_eps(noisy, eps, timesteps)
+        rbatch = batch
+        if reward_frames and 1 < frames and reward_frames < frames:
+            # rows are frame-outer per clip: a prefix of each clip keeps
+            # the frames the temporal term differentiates in order
+            def take(t):
+                return (t.reshape(-1, frames, *t.shape[1:])[:, :reward_frames]
+                        .reshape(-1, *t.shape[1:]))
+
+            x0, px = take(x0), take(px)
+            rbatch = dict(batch)
+            for key in ("fgm_bboxes", "fgm_masks", "fgm_lidar2image"):
+                if key in rbatch:
+                    rbatch[key] = take(rbatch[key])
+        n = x0.shape[0] * x0.shape[1]
+        images = checkpoint(vae.decode, x0.reshape(n, *x0.shape[2:]),
+                            use_reentrant=False)
+        gt = px.reshape(n, *px.shape[2:]).permute(0, 3, 1, 2)
+        return reward_fn(images, gt, rbatch).mean()
 
     return loss_fn
 
@@ -204,6 +251,8 @@ class MultiviewTrainer:
     ``grad_norm``, ``step_time_s`` (host clock from batch assembly to the
     metrics on the host, which synchronises the device) and
     ``data_time_s`` (the batch assembly part of it)."""
+
+    frames = 1  # frames per clip; VideoTrainer sets video.num_frames
 
     def __init__(self, cfg, train_set, device=None,
                  models: Optional[Dict] = None):
@@ -247,11 +296,17 @@ class MultiviewTrainer:
                  sum(p.numel() for p in self.frozen.values()) / 1e6)
         self.optimizer = build_optimizer(r, self.trainable,
                                          self.max_train_steps, master)
-        self.loss_fn = make_loss_fn(self.models, cfg, self.schedule,
-                                    self.latent_hw, self.image_hw)
+        self.loss_fn = self._make_loss_fn()
         self.generator = torch.Generator(device=self.device).manual_seed(
             int(cfg.seed))
         self.step = 0
+
+    def _make_loss_fn(self):
+        return make_loss_fn(self.models, self.cfg, self.schedule,
+                            self.latent_hw, self.image_hw)
+
+    def _collate_items(self, items, rng) -> Dict:
+        return collate_fn(items, self.cfg, self.tokenizer, rng=rng)
 
     def _compute_steps(self) -> None:
         bs = int(self.cfg.runner.train_batch_size)
@@ -275,14 +330,14 @@ class MultiviewTrainer:
         epoch, i, idxs = plan
         rng = np.random.default_rng([int(self.cfg.seed), epoch, i])
         items = [self.train_set[j] for j in idxs]
-        return prepare_batch(collate_fn(items, self.cfg, self.tokenizer,
-                                        rng=rng), self.device)
+        return prepare_batch(self._collate_items(items, rng), self.device)
 
     def train_step(self, batch: Dict) -> Dict[str, float]:
         px = batch["pixel_values"]
         draws = make_draws(self.generator, self.cfg, px.shape[0],
                            px.shape[1], self.latent_hw,
-                           self.schedule.num_train_timesteps, self.device)
+                           self.schedule.num_train_timesteps, self.device,
+                           frames=self.frames)
         metrics = train_step(self.loss_fn, self.optimizer, batch, draws)
         self.step += 1
         return {k: float(v) for k, v in metrics.items()}

@@ -1,0 +1,56 @@
+"""DualDiff+ video training: stage 1 (ST-Attn / temporal) and stage 2 (RGD).
+
+Port of ``dualdiff_tpu/runner/video_trainer.py``.  A clip dataset's item is
+a list of frame samples; ``collate_video`` flattens clips x frames into the
+image path's batch dim, frame outer, so the conditioning stack runs per
+frame and only the UNet's video modules see the frames.  One timestep per
+clip.
+
+* Stage 1 (``video_16f``): ``only_new`` plus both ControlNets train, with
+  ST-Attn and temporal attention in every UNet transformer block.
+* Stage 2 (``rgd_stage2``, ``video.rgd.enable``): only the LoRA adapters of
+  the UNet's attn1 / attn2 train (``trainable_state=lora_only``), and the
+  loss subtracts ``video.rgd.reward_weight`` times the reward of the decoded
+  denoised prediction (``make_rgd_reward``: the FGM foreground reward plus
+  the temporal-consistency reward).
+
+Flip augmentation raises, as in ``MultiviewTrainer``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+from ..data.video import collate_video
+from .rewards import make_rgd_reward
+from .trainer import MultiviewTrainer, make_loss_fn
+
+__all__ = ["VideoTrainer"]
+
+
+class VideoTrainer(MultiviewTrainer):
+    """``VideoTrainer(cfg, clips).run(max_steps, on_metrics)`` trains on the
+    card; ``device="cpu"`` runs the plain path.  ``cfg.use_video`` must be
+    set, so that the factory builds the video UNet (with LoRA when
+    ``video.rgd.enable``).  Stage 2's metrics add ``reward``."""
+
+    def __init__(self, cfg, train_set, device=None,
+                 models: Optional[Dict] = None):
+        if not cfg.get("use_video"):
+            raise ValueError("VideoTrainer needs use_video=true")
+        self.frames = int(cfg.video.num_frames)
+        super().__init__(cfg, train_set, device=device, models=models)
+
+    def _make_loss_fn(self):
+        rgd = self.cfg.video.rgd
+        kw = {}
+        if bool(rgd.enable):
+            kw = dict(reward_fn=make_rgd_reward(self.cfg),
+                      reward_weight=float(rgd.reward_weight),
+                      reward_frames=int(rgd.get("reward_frames") or 0))
+        return make_loss_fn(self.models, self.cfg, self.schedule,
+                            self.latent_hw, self.image_hw, frames=self.frames,
+                            **kw)
+
+    def _collate_items(self, items, rng) -> Dict:
+        return collate_video(items, self.cfg, self.tokenizer, rng=rng)

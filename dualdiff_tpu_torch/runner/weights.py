@@ -9,6 +9,13 @@ of the layout transposes:
 * dense kernels (I, O) -> (O, I),
 * norm ``scale`` -> ``weight``, embedding tables unchanged.
 
+One rename departs from the exporter's names: the LoRA adapters of an
+attention's output projection, which the exporter names
+``to_out.0_lora_a`` / ``to_out.0_lora_b``, are ``to_out_0_lora_a`` /
+``to_out_0_lora_b`` here (``to_out`` is a ``ModuleList``; its ``0`` is the
+projection itself).  The adapters of ``to_q``, ``to_k`` and ``to_v`` keep
+the exporter's ``to_q_lora_a`` etc.
+
 A diffusers SD v1.5 checkpoint carries the same names, so it loads into the
 same modules.
 """
@@ -43,6 +50,7 @@ def _torch_name(path: Tuple[str, ...], kind: str) -> str:
     name = ".".join(parts)
     name = name.replace("net_0_proj", "net.0.proj").replace("net_2", "net.2")
     name = name.replace("to_out_0", "to_out.0")
+    name = name.replace("to_out.0_lora_", "to_out_0_lora_")  # see above
     name = re.sub(r"\.(kernel|scale|embedding)$", ".weight", name)
     if kind == "vae":
         name = name.replace("mid_attn", "mid_block.attentions.0")

@@ -12,7 +12,8 @@ import json
 import os
 from typing import Any, Iterable
 
-__all__ = ["ConfigNode", "load_config", "FLAGSHIP", "VIDEO_16F"]
+__all__ = ["ConfigNode", "load_config", "FLAGSHIP", "VIDEO_16F",
+           "RGD_STAGE2"]
 
 CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)),
                           "configs")
@@ -24,6 +25,9 @@ FLAGSHIP = "dual_branch_augloss_fusion_224x400"
 # runner.pipeline_param.vae_slicing=12
 # runner.pipeline_param.sequential_cfg=true
 VIDEO_16F = "video_16f_224x400"
+# +exp=rgd_stage2 with VIDEO_16F's other overrides (DualDiff+ stage 2: LoRA
+# on the UNet's attn1 / attn2, the RGD reward)
+RGD_STAGE2 = "rgd_stage2_224x400"
 
 
 class ConfigNode(dict):

@@ -103,17 +103,20 @@ def test_capped_plain_matches_fwd_kernel_t_capped(logits):
 @pytest.mark.parametrize("lk, grad, route", [
     (4096, False, "packed_attention_fwd"),          # 512 * 4096 == 2^21
     (4097, False, "packed_attention_capped_fwd"),   # 512 * 4224 > 2^21
-    (4097, True, "packed_attention_lse_fwd"),       # no cap under grad
+    (4097, True, "packed_attention_capped_lse_fwd"),  # the same under grad
 ])
 def test_capped_routing_matches_reference(lk, grad, route, monkeypatch):
     """A non-differentiated call whose padded score tile is over
     ``T_SCORE_CAP`` takes the capped wrapper, as ``_packed_infer`` sends it
-    to ``_packed_infer_capped``; a differentiated one ``PackedAttention``.
-    Either way the result equals the JAX einsum reference."""
+    to ``_packed_infer_capped``; a differentiated one ``PackedAttention``
+    with the capped forward, as ``_packed_train_t_fwd`` picks
+    ``_fwd_kernel_t_capped_lse``.  Either way the result equals the JAX
+    einsum reference."""
     heads, d = 2, 8
     calls = []
     for name in ("packed_attention_fwd", "packed_attention_capped_fwd",
-                 "packed_attention_lse_fwd"):
+                 "packed_attention_lse_fwd",
+                 "packed_attention_capped_lse_fwd"):
         real = getattr(A, name)
         monkeypatch.setattr(A, name, lambda *a, _r=real, _n=name, **kw:
                             calls.append(_n) or _r(*a, **kw))

@@ -5,7 +5,10 @@ wrappers) runs its plain PyTorch versions on CPU tensors; it is held here
 against ``jax.vjp`` of ``_flash_packed``, whose training VJP runs the three
 Pallas kernels ``_fwd_kernel_t_lse``, ``_bwd_dq_kernel_t`` and
 ``_bwd_dkv_kernel_t`` in interpret mode (as ``tests/test_ops.py`` runs
-them).  Inputs and the cotangent are float32 from a seeded numpy generator.
+them), and, over the score cap (512 queries x 4097 keys, as the capped
+routing test of ``test_torch_attention.py`` uses), ``_fwd_kernel_t_capped_lse``
+in place of the first.  Inputs and the cotangent are float32 from a seeded
+numpy generator.
 
 Tolerances: 2e-5 absolute on the output and lse (magnitude ~1, both sides
 float32, only the order of sums differs); 1e-4 absolute on dq/dk/dv, whose
@@ -148,3 +151,74 @@ def test_inference_wrappers_raise_under_grad():
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
         A.packed_attention_fwd(q, q, q, heads=8)
     assert all(fn.launches == 0 for fn in A.KERNEL_WRAPPERS)
+
+
+CAP_SHAPE = dict(heads=2, d=8, b=1, lq=512, lk=4097)  # 512 * 4224 > 2^21
+
+
+def _over_cap_inputs():
+    heads, d, b, lq, lk = CAP_SHAPE.values()
+    c = heads * d
+    return _arrays(7, (b, lq, c), (b, lk, c), (b, lk, c), (b, lq, c))
+
+
+def test_capped_lse_plain_matches_fwd_kernel_t_capped_lse():
+    """``attention_packed_capped_lse_plain`` (o and lse) against the
+    over-cap branch of ``_packed_train_t_fwd`` (K/V in blocks of
+    ``_capped_block_k(512)``, the last one ragged)."""
+    heads, d, _, lq, lk = CAP_SHAPE.values()
+    q, k, v, _ = _over_cap_inputs()
+    scale = 1.0 / math.sqrt(d)
+    assert A.over_score_cap(lq, lk)
+    want_out, res = _packed_train_t_fwd(*map(jnp.asarray, (q, k, v)), scale,
+                                        heads, (lq, lk))
+    want_lse = np.asarray(res[-1])[:, 0, :lq]
+    out, lse = A.packed_attention_capped_lse_fwd(tp.t(q), tp.t(k), tp.t(v),
+                                                 heads, scale)
+    tp.assert_close(out, want_out, rtol=0, atol=ATOL_OUT, what="out")
+    tp.assert_close(lse, want_lse, rtol=0, atol=ATOL_OUT, what="lse")
+
+
+def test_packed_attention_over_the_cap_matches_flash_packed_vjp(monkeypatch):
+    """Over the cap ``PackedAttention`` takes the capped forward and the
+    same dq and dk/dv wrappers, as the JAX VJP pairs
+    ``_fwd_kernel_t_capped_lse`` with its blocked backward kernels."""
+    heads, d, _, lq, lk = CAP_SHAPE.values()
+    q, k, v, g = _over_cap_inputs()
+    scale = 1.0 / math.sqrt(d)
+    want_out, vjp = jax.vjp(
+        lambda *a: _flash_packed(*a, scale, heads, (lq, lk)),
+        *map(jnp.asarray, (q, k, v)))
+    want_grads = vjp(jnp.asarray(g))
+    calls = _count_calls(monkeypatch, "packed_attention_lse_fwd",
+                         "packed_attention_capped_lse_fwd",
+                         "packed_attention_bwd_dq",
+                         "packed_attention_bwd_dkv")
+    out, *grads = _port_vjp(
+        lambda *a: A.attention_packed(*a, heads, scale), q, k, v, g)
+    assert calls == {"packed_attention_lse_fwd": 0,
+                     "packed_attention_capped_lse_fwd": 1,
+                     "packed_attention_bwd_dq": 1,
+                     "packed_attention_bwd_dkv": 1}
+    assert type(out.grad_fn).__name__ == "PackedAttentionBackward"
+    tp.assert_close(out, want_out, rtol=0, atol=ATOL_OUT, what="out")
+    for name, got, want in zip("qkv", grads, want_grads):
+        tp.assert_close(got, want, rtol=0, atol=ATOL_GRAD, what=f"d{name}")
+
+
+@pytest.mark.parametrize("lk, grad, route", [
+    (4096, True, "packed_attention_lse_fwd"),         # 512 * 4096 == 2^21
+    (4097, True, "packed_attention_capped_lse_fwd"),  # over the cap
+    (4097, False, "packed_attention_capped_fwd"),     # inference
+])
+def test_routing_of_long_k_under_grad(lk, grad, route, monkeypatch):
+    """The forward a call takes at and over ``T_SCORE_CAP``, with grad and
+    without: the inference wrappers only without, the capped ones only
+    over the cap."""
+    names = ("packed_attention_fwd", "packed_attention_capped_fwd",
+             "packed_attention_lse_fwd", "packed_attention_capped_lse_fwd")
+    calls = _count_calls(monkeypatch, *names)
+    q, k, v = (tp.t(x).requires_grad_(grad)
+               for x in _arrays(lk, (1, 512, 16), (1, lk, 16), (1, lk, 16)))
+    A.attention_packed(q, k, v, heads=2)
+    assert calls == {n: int(n == route) for n in names}

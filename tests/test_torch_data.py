@@ -15,7 +15,7 @@ from dualdiff_tpu_torch.data.synthetic import SyntheticNuScenes
 from dualdiff_tpu_torch.data.tokenizer import HashTokenizer
 from dualdiff_tpu_torch.data.video import (SyntheticNuScenesVideo,
                                            collate_video)
-from dualdiff_tpu_torch.utils.config import VIDEO_16F, load_config
+from dualdiff_tpu_torch.utils.config import RGD_STAGE2, VIDEO_16F, load_config
 
 
 def test_json_config_equals_composed_yaml():
@@ -34,6 +34,23 @@ def test_video_json_config_equals_composed_yaml():
     assert cfg.use_video and cfg.video.num_frames == 16
     assert cfg.runner.pipeline_param.sequential_cfg
     assert cfg.runner.pipeline_param.vae_slicing == 12
+
+
+def test_rgd_json_config_equals_composed_yaml():
+    """configs/rgd_stage2_224x400.json is the JAX loader's composition of
+    ``+exp=rgd_stage2`` with the clip operating point's other overrides
+    (``tests/torch_parity.RGD``); it differs from the stage-1 config only in
+    the task, the trainable state and RGD."""
+    want = json.loads(json.dumps(to_dict(tp.jax_config(video="rgd"))))
+    cfg = load_config(RGD_STAGE2)
+    assert dict(cfg) == want
+    assert cfg.video.rgd.enable and cfg.video.lora_rank == 16
+    assert cfg.model.unet.trainable_state == "lora_only"
+    stage1 = load_config(VIDEO_16F)
+    stage1["task_id"] = "rgd_stage2"
+    stage1.video.rgd["enable"] = True
+    stage1.model.unet["trainable_state"] = "lora_only"
+    assert stage1 == cfg
 
 
 def test_config_overrides():

@@ -13,6 +13,13 @@ The tiny step makes 12 differentiated attention calls.  Call 7 of the
 backward is the UNet's first attn2 (``down_blocks_0``): its queries come
 through frozen layers only, so its dq reaches no trainable and no gradient
 check can see it (its dk/dv can: case ``dkv_zero_7``).
+
+The video stage-2 gate (``train_reference_readings(video=True)``, phase 11)
+is held against one planted fault in the capped training forward: the tiny
+stage-2 step makes 6 capped calls (3 ST-Attn x 2 with remat); the last is
+the replay of the UNet's first ST-Attn, whose lse its backward reads, and
+it returns that lse shifted by 0.5 (P off by a factor e^-0.5 in dq and
+dk/dv).
 """
 
 import pytest
@@ -24,6 +31,7 @@ from dualdiff_tpu_torch.ops import attention as A
 pytestmark = pytest.mark.cuda
 
 CALLS = 12
+VIDEO_CAPPED_CALLS = 6
 
 
 @pytest.fixture
@@ -105,4 +113,30 @@ def test_planted_fault_fails_the_gate(cuda, monkeypatch, label, wrapper,
     err, leaf = _worst(chip_smoke.train_reference_readings())
     print(f"{label}: worst leaf {err:.4f} ({leaf})")
     assert calls[0] == CALLS
+    assert err > chip_smoke.LEAF_TOL
+
+
+def test_sound_video_gradients_pass_the_gate(cuda):
+    err, leaf = _worst(chip_smoke.train_reference_readings(video=True))
+    print(f"video sound: worst leaf {err:.4f} ({leaf})")
+    assert err <= chip_smoke.LEAF_TOL
+
+
+def test_planted_capped_lse_fault_fails_the_video_gate(cuda, monkeypatch):
+    orig = A.packed_attention_capped_lse_fwd
+    calls = [0]
+
+    def spoiled(*a, **kw):
+        out, lse = orig(*a, **kw)
+        if a[0].is_cuda:  # the float32 CPU side stays sound
+            calls[0] += 1
+            if calls[0] == VIDEO_CAPPED_CALLS:
+                lse = lse + 0.5
+        return out, lse
+
+    spoiled.launches = 0  # the wrapper counts through its module name
+    monkeypatch.setattr(A, "packed_attention_capped_lse_fwd", spoiled)
+    err, leaf = _worst(chip_smoke.train_reference_readings(video=True))
+    print(f"capped_lse_shift_0.5_last: worst leaf {err:.4f} ({leaf})")
+    assert calls[0] == VIDEO_CAPPED_CALLS
     assert err > chip_smoke.LEAF_TOL

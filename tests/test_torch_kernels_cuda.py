@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
 Mirrors the kernel phase of ``chip_smoke.py``: bf16 inputs at the flagship
-and clip paths' shapes plus ragged ones; the plain version computes in float32 and
-rounds once.  Tolerance 2^-7 of the output's magnitude + 1e-3: the kernels
+and clip paths' shapes plus ragged ones, the training kernels also at the
+video training step's ST-Attn (12 x 1400 x 2800, capped forward); the plain
+version computes in float32 and rounds once.  Tolerance 2^-7 of the output's magnitude + 1e-3: the kernels
 round one MMA operand to bf16 (P for P.V and dV, dS for dQ and dK) and the
 output to bf16.  lse is float32 on both sides: 1e-3 absolute.  Every test is
 marked ``cuda`` and skips without a card; run them on the GPU machine with
@@ -119,7 +120,7 @@ def test_training_kernels(cuda, b, lq, lk, c, heads):
     dq = A.packed_attention_bwd_dq(q, k, v, do, lse, delta, heads)
     dk, dv = A.packed_attention_bwd_dkv(q, k, v, do, lse, delta, heads)
     torch.cuda.synchronize()
-    assert [fn.launches for fn in A.KERNEL_WRAPPERS] == [0, 0, 1, 1, 1, 0]
+    assert [fn.launches for fn in A.KERNEL_WRAPPERS] == [0, 0, 1, 1, 1, 0, 0]
     o_want, lse_want = A.attention_packed_lse_plain(q, k, v, heads)
     _check(o, o_want)
     assert (lse - lse_want).abs().max().item() <= 1e-3
@@ -129,6 +130,55 @@ def test_training_kernels(cuda, b, lq, lk, c, heads):
                                                         delta, heads)
     _check(dk, dk_want)
     _check(dv, dv_want)
+
+
+@pytest.mark.parametrize("warps", [4, 8])
+@pytest.mark.parametrize("lk", [2800, 2801])
+def test_capped_training_kernels(cuda, lk, warps):
+    """The video training step's ST-Attn under grad (2 frames x 6 views,
+    1400 queries against the first and the previous frame's 2800 keys, and
+    a ragged 2801): the capped forward with lse, then dq and dk/dv fed its
+    lse."""
+    b, lq, c, heads = 12, 1400, 320, 8
+    q, k, v = _qkv(b, lq, lk, c, cuda, seed=8)
+    do = _qkv(b, lq, 1, c, cuda, seed=9)[0]
+    A.reset_launch_counts()
+    o, lse = A.packed_attention_capped_lse_fwd(q, k, v, heads, warps=warps)
+    delta = A.attention_delta(o, do, heads)
+    dq = A.packed_attention_bwd_dq(q, k, v, do, lse, delta, heads)
+    dk, dv = A.packed_attention_bwd_dkv(q, k, v, do, lse, delta, heads)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in A.KERNEL_WRAPPERS] == [0, 0, 0, 1, 1, 0, 1]
+    o_want, lse_want = A.attention_packed_capped_lse_plain(q, k, v, heads)
+    _check(o, o_want)
+    assert (lse - lse_want).abs().max().item() <= 1e-3
+    _check(dq, A.attention_packed_bwd_dq_plain(q, k, v, do, lse, delta,
+                                               heads))
+    dk_want, dv_want = A.attention_packed_bwd_dkv_plain(q, k, v, do, lse,
+                                                        delta, heads)
+    _check(dk, dk_want)
+    _check(dv, dv_want)
+
+
+def test_differentiated_long_k_takes_the_capped_training_forward(cuda):
+    """Under grad, ST-Attn over ``T_SCORE_CAP`` goes through
+    ``PackedAttention`` with the capped forward; its gradients agree with
+    autograd through the float32 einsum path."""
+    heads = 8
+    q = _qkv(12, 1400, 1, 320, cuda, seed=10)[0].requires_grad_()
+    k, v = (t.requires_grad_() for t in _qkv(12, 2800, 2800, 320, cuda,
+                                              seed=11)[1:])
+    w = _qkv(12, 1400, 1, 320, cuda, seed=12)[0]
+    A.reset_launch_counts()
+    out = A.attention_packed(q, k, v, heads)
+    (out.float() * w.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in A.KERNEL_WRAPPERS] == [0, 0, 0, 1, 1, 0, 1]
+    ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    want = A._einsum_packed(*ref, 40 ** -0.5, heads)
+    (want * w.float()).sum().backward()
+    for got, r in zip((q, k, v), ref):
+        _check(got.grad, r.grad)
 
 
 def test_differentiated_attention_launches_the_training_kernels(cuda):
@@ -142,7 +192,7 @@ def test_differentiated_attention_launches_the_training_kernels(cuda):
     out = A.attention_packed(q, k, v, heads)
     (out.float() * w.float()).sum().backward()
     torch.cuda.synchronize()
-    assert [fn.launches for fn in A.KERNEL_WRAPPERS] == [0, 0, 1, 1, 1, 0]
+    assert [fn.launches for fn in A.KERNEL_WRAPPERS] == [0, 0, 1, 1, 1, 0, 0]
     ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
     want = A._einsum_packed(*ref, 40 ** -0.5, heads)
     (want * w.float()).sum().backward()

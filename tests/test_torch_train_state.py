@@ -112,6 +112,16 @@ def test_gradient_accumulation_is_refused():
 
 
 def test_lora_only_is_refused():
-    """The port has no LoRA modules, so ``lora_only`` would train nothing."""
-    with pytest.raises(NotImplementedError, match="lora_only"):
-        trainable_predicate("lora_only")
+    """``lora_only`` (RGD stage 2) refuses every ControlNet parameter and
+    every UNet parameter without ``lora`` in its name; an unknown trainable
+    state is refused outright."""
+    pred = trainable_predicate("lora_only")
+    assert pred("unet", "down_blocks.0.attentions.0.transformer_blocks.0."
+                "attn1.to_out_0_lora_b.weight")
+    for root, name in (("unet", "down_blocks.0.attentions.0."
+                        "transformer_blocks.0.attn4.to_q.weight"),
+                       ("controlnet_0", "conv_in.weight"),
+                       ("vae", "decoder.conv_in.weight")):
+        assert not pred(root, name), (root, name)
+    with pytest.raises(ValueError, match="lora"):
+        trainable_predicate("lora")

@@ -164,11 +164,21 @@ def test_clip_kernel_calls_match_chip_smoke_derivation(runs):
 
 
 def test_factory_builds_the_video_unet_and_refuses_rgd():
+    """The video UNet has ST-Attn and temporal attention; with RGD on
+    (stage 2) its attn1 and attn2, and nothing else, carry LoRA adapters of
+    ``video.lora_rank``.  The box adapter is still refused."""
     cfg = tp.port_config(tp.TINY_VIDEO_OVERRIDES, video=True)
     unet = build_models(cfg, tiny=True, device="cpu")["unet"]
     block = unet.down_blocks[0].attentions[0].transformer_blocks[0]
     assert unet.num_frames == 2 and block.st_attn and block.temporal
-    for extra in (["video.rgd.enable=true"], ["use_box_adapter=true"]):
-        with pytest.raises(NotImplementedError):
-            build_models(tp.port_config(tp.TINY_VIDEO_OVERRIDES + extra,
-                                        video=True), tiny=True, device="cpu")
+    assert not any("lora" in n for n, _ in unet.named_parameters())
+    rgd = build_models(tp.port_config(
+        tp.TINY_VIDEO_OVERRIDES + ["video.rgd.enable=true"], video=True),
+        tiny=True, device="cpu")["unet"]
+    block = rgd.down_blocks[0].attentions[0].transformer_blocks[0]
+    assert block.attn1.lora_rank == block.attn2.lora_rank == 16
+    assert block.attn4.lora_rank == block.attn_temporal.lora_rank == 0
+    with pytest.raises(NotImplementedError):
+        build_models(tp.port_config(tp.TINY_VIDEO_OVERRIDES
+                                    + ["use_box_adapter=true"], video=True),
+                     tiny=True, device="cpu")

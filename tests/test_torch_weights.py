@@ -6,6 +6,9 @@ diffusers checkpoint, which carries those names, loads the same way), and
 each of the port's modules loads it with ``strict=True``.  No leaf is left
 out: the VAE carries its encoder and ``quant_conv`` too, and the video UNet
 its ``norm_temporal``, ``attn_temporal`` and ``temporal_connector`` leaves.
+The RGD stage-2 UNet carries its LoRA leaves, with the one rename
+``from_jax`` states: the exporter's ``to_out.0_lora_a`` / ``_b`` are
+``to_out_0_lora_a`` / ``_b`` in the port.
 """
 
 import numpy as np
@@ -18,8 +21,15 @@ from dualdiff_tpu_torch.runner.weights import NOT_PORTED, from_jax
 
 KINDS = [("unet", "unet"), ("controlnet_0", "controlnet"),
          ("controlnet_1", "controlnet"), ("vae", "vae"),
-         ("text_encoder", "clip"), ("video_unet", "unet")]
+         ("text_encoder", "clip"), ("video_unet", "unet"),
+         ("rgd_unet", "unet")]
 TEMPORAL = ("norm_temporal.", "attn_temporal.", "temporal_connector.")
+VIDEO = {"video_unet": True, "rgd_unet": "rgd"}
+
+
+def _renamed(name: str) -> str:
+    """The exporter's name -> the port's (the only rename)."""
+    return name.replace("to_out.0_lora_", "to_out_0_lora_")
 
 
 @pytest.fixture(scope="module")
@@ -28,17 +38,17 @@ def tiny():
 
 
 def _params(tiny, key):
-    if key == "video_unet":
-        return tp.tiny_video_unet_params()
+    if key in VIDEO:
+        return tp.tiny_video_unet_params(VIDEO[key])
     return tiny["params"][key]
 
 
 def _module(tiny, key):
-    if key == "video_unet":
+    if key in VIDEO:
         from dualdiff_tpu_torch.runner.factory import build_models
 
         return build_models(tp.port_config(tp.TINY_VIDEO_OVERRIDES,
-                                           video=True),
+                                           video=VIDEO[key]),
                             tiny=True, device="cpu")["unet"]
     models = tiny["pmodels"]
     return {"unet": models["unet"], "vae": models["vae"],
@@ -50,7 +60,8 @@ def _module(tiny, key):
 @pytest.mark.parametrize("key, kind", KINDS)
 def test_from_jax_equals_export_params(tiny, key, kind):
     params = _params(tiny, key)
-    want = export_params(params, kind)
+    exported = export_params(params, kind)
+    want = {_renamed(k): v for k, v in exported.items()}
     got = from_jax(tp.flat(params), kind)
     skipped = {k for k in want if k.startswith(NOT_PORTED.get(kind, ()))}
     assert set(got) == set(want) - skipped
@@ -61,7 +72,14 @@ def test_from_jax_equals_export_params(tiny, key, kind):
     temporal = {k for k in got if any(p in k for p in TEMPORAL)}
     # 10 transformer blocks in the tiny UNet, each with norm_temporal (2
     # leaves), attn_temporal (q, k, v, out weight and bias) and the connector
-    assert len(temporal) == (10 * (2 + 5 + 2) if key == "video_unet" else 0)
+    assert len(temporal) == (10 * (2 + 5 + 2) if key in VIDEO else 0)
+    # 10 blocks x attn1 / attn2 x 4 projections x A / B; the output
+    # projection's 40 are the renamed ones
+    lora = {k for k in got if "_lora_" in k}
+    assert len(lora) == (10 * 2 * 4 * 2 if key == "rgd_unet" else 0)
+    assert len(set(exported) - set(got)) == len(lora) // 4
+    assert all(k.endswith(("_lora_a.weight", "_lora_b.weight"))
+               for k in lora)
     for name, value in got.items():
         np.testing.assert_array_equal(value.numpy(), want[name],
                                       err_msg=name)

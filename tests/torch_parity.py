@@ -34,24 +34,31 @@ VIDEO = ["+exp=video_16f", "dataset=Nuscenes_synthetic",
          "runner.pipeline_param.sequential_cfg=true"]
 # tiny clips: 2 frames, so ST-Attn at the 512-token level has 1024 keys
 TINY_VIDEO_OVERRIDES = TINY_OVERRIDES + ["video.num_frames=2"]
+# DualDiff+ stage 2 (RGD, LoRA) with the clip operating point's overrides
+RGD = ["+exp=rgd_stage2"] + VIDEO[1:]
+# the LoRA B leaves of the tiny RGD UNet, drawn 10x smaller than a random
+# projection: a trained adapter is a small perturbation of the projection
+LORA_B = {f"{p}_lora_b": 0.1 for p in ("to_q", "to_k", "to_v", "to_out_0")}
 
 # the port's test modules run 6 to a machine under xdist
 torch.set_num_threads(2)
 
 
-def jax_config(extra=(), video: bool = False):
+def jax_config(extra=(), video=False):
+    """``video``: False (the flagship), True (``video_16f``) or ``"rgd"``
+    (``rgd_stage2``)."""
     from dualdiff_tpu.utils.config import load_config
 
-    base = VIDEO if video else FLAGSHIP
+    base = RGD if video == "rgd" else VIDEO if video else FLAGSHIP
     return load_config(CONFIG_DIR, overrides=base + list(extra))
 
 
-def port_config(extra=(), video: bool = False):
-    from dualdiff_tpu_torch.utils.config import FLAGSHIP, VIDEO_16F, \
-        load_config
+def port_config(extra=(), video=False):
+    from dualdiff_tpu_torch.utils.config import (FLAGSHIP, RGD_STAGE2,
+                                                 VIDEO_16F, load_config)
 
-    return load_config(VIDEO_16F if video else FLAGSHIP,
-                       overrides=list(extra))
+    name = RGD_STAGE2 if video == "rgd" else VIDEO_16F if video else FLAGSHIP
+    return load_config(name, overrides=list(extra))
 
 
 def random_params(tree, seed: int = 0, scale=None):
@@ -137,40 +144,42 @@ def _load_port_models(pmodels, params):
     load_port(pmodels["text_encoder"], params["text_encoder"], "clip")
 
 
-@functools.lru_cache(maxsize=1)
-def tiny_video_unet_params():
+@functools.lru_cache(maxsize=2)
+def tiny_video_unet_params(video=True):
     """Seeded weights of the tiny video UNet alone (ST-Attn and temporal
-    attention, 2 frames), from its abstractly traced init."""
+    attention, 2 frames), from its abstractly traced init; ``video="rgd"``:
+    the stage-2 UNet, with LoRA on attn1 / attn2 (B scaled by ``LORA_B``)."""
     import jax
     import jax.numpy as jnp
 
     from dualdiff_tpu.runner.factory import build_models
 
-    unet = build_models(jax_config(TINY_VIDEO_OVERRIDES, video=True),
+    unet = build_models(jax_config(TINY_VIDEO_OVERRIDES, video=video),
                         tiny=True)["unet"]
     rows = 2 * 6  # one clip: 2 frames x 6 views
     shapes = jax.eval_shape(lambda: unet.init(
         jax.random.PRNGKey(0), jnp.zeros((rows, 32, 16, 4)),
         jnp.zeros((rows,), jnp.int32), jnp.zeros((rows, 158, 96)),
         n_cam=6))["params"]
-    return random_params(shapes)
+    return random_params(shapes, scale=LORA_B)
 
 
-@functools.lru_cache(maxsize=1)
-def tiny_video_setup():
+@functools.lru_cache(maxsize=2)
+def tiny_video_setup(video=True):
     """``tiny_setup`` for DualDiff+ clips: the tiny video model sets (ST-Attn
     and temporal attention, 2 frames) with equal weights, clip 0 of the
     seed-0 synthetic clips at 256x128 collated as ``bench.py::main_video``
     collates it (``collate_video``, rng 0), and the tokenizer.  The
     ControlNets, VAE and text encoder are those of ``tiny_setup`` (the
-    video config shares them), the UNet's weights ``tiny_video_unet_params``."""
+    video config shares them), the UNet's weights ``tiny_video_unet_params``.
+    ``video="rgd"``: the RGD stage-2 set (LoRA on the UNet)."""
     from dualdiff_tpu.data.video import SyntheticNuScenesVideo, collate_video
     from dualdiff_tpu.runner.factory import build_models
     from dualdiff_tpu_torch.runner.factory import build_models as port_build
 
     images = tiny_setup()
-    jcfg = jax_config(TINY_VIDEO_OVERRIDES, video=True)
-    pcfg = port_config(TINY_VIDEO_OVERRIDES, video=True)
+    jcfg = jax_config(TINY_VIDEO_OVERRIDES, video=video)
+    pcfg = port_config(TINY_VIDEO_OVERRIDES, video=video)
     h, w = jcfg.dataset.image_size
     tok = images["tokenizer"]
     clips = SyntheticNuScenesVideo(num_clips=1, num_frames=2,
@@ -178,12 +187,53 @@ def tiny_video_setup():
     batch = collate_video([clips[0]], jcfg, tok,
                           rng=np.random.default_rng(0))
     jmodels = build_models(jcfg, tiny=True)
-    params = dict(images["params"], unet=tiny_video_unet_params())
+    params = dict(images["params"], unet=tiny_video_unet_params(video))
     pmodels = port_build(pcfg, tiny=True, device="cpu")
     _load_port_models(pmodels, params)
     return {"jcfg": jcfg, "pcfg": pcfg, "jmodels": jmodels,
             "params": params, "pmodels": pmodels, "batch": batch,
             "tokenizer": tok}
+
+
+FRAMES = 2  # frames per clip of the video training tests
+
+
+def jax_draws(key, cfg, rows, latent_hw, frames=FRAMES, n_cam=6):
+    """The draws the JAX ``make_loss_fn`` loss takes from ``key`` (its
+    ``jax.random.split(rng, 5)``) for ``rows`` = clips x frames, in the
+    port's NCHW layout: one timestep per clip, repeated over its frames
+    (``jnp.repeat``)."""
+    import jax
+
+    from dualdiff_tpu.runner.trainer import sample_uncond_switch
+
+    h, w = latent_hw
+    r_vae, r_noise, r_t, r_drop, _ = jax.random.split(key, 5)
+    c = cfg.model.controlnet
+    nchw = lambda x: t(x).permute(*range(x.ndim - 3), -1, -3, -2)
+    t_clip = jax.random.randint(r_t, (rows // frames,), 0, 1000)
+    return {
+        "vae_noise": nchw(jax.random.normal(r_vae, (rows * n_cam, h, w, 4))),
+        "noise": nchw(jax.random.normal(r_noise, (rows, n_cam, h, w, 4))),
+        "noise_offset": None,  # runner.noise_offset is 0
+        "timesteps": t(jax.numpy.repeat(t_clip, frames)),
+        "uncond_switch": t(sample_uncond_switch(
+            r_drop, rows, n_cam, float(c.drop_cond_ratio),
+            int(c.drop_cam_num))),
+    }
+
+
+def count_calls(mp, calls):
+    """Wrap every kernel wrapper of the port's attention module (through
+    the monkeypatch ``mp``) to count in ``calls`` what the routing calls; on
+    the CPU they launch nothing."""
+    from dualdiff_tpu_torch.ops import attention as A
+
+    for fn in A.KERNEL_WRAPPERS:
+        def counted(*a, _fn=fn, **kw):
+            calls[_fn.__name__] += 1
+            return _fn(*a, **kw)
+        mp.setattr(A, fn.__name__, counted)
 
 
 def t(x) -> torch.Tensor:
