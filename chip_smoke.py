@@ -4,13 +4,17 @@
     python3 chip_smoke.py                # the default run; one CUDA card
     python3 chip_smoke.py --profile DIR  # also writes kernel-time
                                          # breakdowns of one generation, one
-                                         # training step, one clip and one
+                                         # training step, one clip, one
                                          # video training step of each stage
-                                         # to DIR/profile_generation.txt,
+                                         # and one occ_bg_fusionp generation
+                                         # and training step to
+                                         # DIR/profile_generation.txt,
                                          # DIR/profile_train_step.txt,
                                          # DIR/profile_video_clip.txt,
-                                         # DIR/profile_video_train_step.txt
-                                         # and ..._video_train_step_rgd.txt
+                                         # DIR/profile_video_train_step.txt,
+                                         # ..._video_train_step_rgd.txt,
+                                         # DIR/profile_fusionp_generation.txt
+                                         # and ..._fusionp_train_step.txt
 
 Phases, in order; any failure exits non-zero:
 
@@ -22,7 +26,8 @@ Phases, in order; any failure exits non-zero:
             kernel, the plain version, one PyTorch library call where one
             computes the same function, and the least time the card could
             take (bound); the two capped kernels at 4 and at 8 warps per
-            block.
+            block; the split-layout kernels at the SFA+ stage-2 shapes and
+            at d = 20, with ``mha_einsum``'s time beside them.
 4. generate the flagship dual-branch 224x400 generation at full SD v1.5
             width (two ControlNets, seeded random weights, bf16), B=2 x 6
             views, UniPC-20, CFG 2: one warm-up call and timed calls; checks
@@ -55,6 +60,13 @@ Phases, in order; any failure exits non-zero:
 11. video_train_reference  phase 7's gate on the tiny stage-2 model set
             (2-frame clip, reward included) with ST-Attn on the capped
             training route.
+12. fusionp SFA+ (``occ_bg_fusionp``: one ControlNet, two-stage SFA+ whose
+            1400 x 1400 stage 2 runs on the split-layout kernels) at full
+            SD v1.5 width: phase 4's generation and phase 6's training step
+            on its config, with its own launch counts.
+13. fusionp_reference  the tiny ``occ_bg_fusionp`` set with SFA+ stage 2
+            at d = 4 on the split-layout kernels: phase 5's gate at 224x400,
+            phase 7's at 256x128 with ``FLASH_MIN_LEN`` lowered to 512.
 
 On the CPU, ``VideoTrainer(cfg, clips, device="cpu", models=...)`` runs the
 same training with the plain versions; README.md says how to rehearse
@@ -100,6 +112,14 @@ LEAF_TOL = 0.07
 # on an H100 80GB HBM3 at 700 W 0.055 at 0.1, planted lse fault 0.40; a
 # trained adapter starts at B = 0 and stays a small perturbation).
 LORA_B_SCALE = 0.1
+# The SFA+ reference (phase 13's training gate) scales the tiny conditioning
+# embedder's conv_out up: with random weights the [0, 1] occupancy panorama
+# leaves its convs at about 0.02 per element, where both SFA+ softmaxes are
+# uniform to 2e-3 and the query path carries no gradient a leaf could show
+# (tests/test_torch_grad_gate_cuda.py: the stage-2 dq zeroed reads as sound
+# without the scale).  At 100x the features are O(1), as a trained
+# embedder's grow from their zero init, and the planted SFA+ faults show.
+SFA_COND_SCALE = 100.0
 
 # main-path kernel shapes: CFG batch 2*B*N = 24 rows, the 28x50 = 1400-token
 # latent level at C = 320 with 8 heads (d = 40); cross-attention KV
@@ -122,6 +142,10 @@ REPLACES = {
     "packed_attention_bwd_dkv": "dualdiff_tpu/ops/attention.py:751",  # _bwd_dkv_kernel_t
     "packed_attention_capped_fwd": "dualdiff_tpu/ops/attention.py:484",  # _fwd_kernel_t_capped
     "packed_attention_capped_lse_fwd": "dualdiff_tpu/ops/attention.py:789",  # _fwd_kernel_t_capped_lse
+    "flash_attention_fwd": "dualdiff_tpu/ops/attention.py:267",       # _fwd_kernel_nolse
+    "flash_attention_lse_fwd": "dualdiff_tpu/ops/attention.py:126",   # _fwd_kernel
+    "flash_attention_bwd_dq": "dualdiff_tpu/ops/attention.py:160",    # _bwd_dq_kernel
+    "flash_attention_bwd_dkv": "dualdiff_tpu/ops/attention.py:184",   # _bwd_dkv_kernel
 }
 SOURCE = {
     "packed_attention_fwd": "dualdiff_tpu_torch/csrc/attention.cu",
@@ -131,11 +155,48 @@ SOURCE = {
     "packed_attention_bwd_dkv": "dualdiff_tpu_torch/csrc/attention_train.cu",
     "packed_attention_capped_fwd": "dualdiff_tpu_torch/csrc/attention.cu",
     "packed_attention_capped_lse_fwd": "dualdiff_tpu_torch/csrc/attention.cu",
+    "flash_attention_fwd": "dualdiff_tpu_torch/csrc/attention.cu",
+    "flash_attention_lse_fwd": "dualdiff_tpu_torch/csrc/attention.cu",
+    "flash_attention_bwd_dq": "dualdiff_tpu_torch/csrc/attention_train.cu",
+    "flash_attention_bwd_dkv": "dualdiff_tpu_torch/csrc/attention_train.cu",
 }
 
 
+def _launches(**counts) -> dict:
+    """Launches of every kernel wrapper, 0 where not given."""
+    return {name: counts.get(name, 0) for name in REPLACES}
+
+
+def _sfa_plus_on_kernels(fusionp: bool, tokens: int) -> bool:
+    """SFA+ stage 2 (``tokens`` x ``tokens``) reaches ``flash_attention``
+    when both lengths are at least ``FLASH_MIN_LEN``."""
+    from dualdiff_tpu_torch.ops.attention import FLASH_MIN_LEN
+
+    return fusionp and tokens >= FLASH_MIN_LEN
+
+
+def generate_launches_per_generation(layers: int, n_controlnets: int,
+                                     steps: int, fusionp: bool = False,
+                                     tokens: int = 1400) -> dict:
+    """Kernel launches of one image generation, derived from the code.  Per
+    model evaluation the UNet's ``2 * layers + 1`` transformer blocks at the
+    top latent level (``down_blocks_0``, ``up_blocks_3``) run attn1, attn2
+    (``packed_attention_fwd``) and attn4 (the ring kernel), and each
+    ControlNet's ``layers`` blocks attn1 and attn2; nothing is
+    differentiated.  With SFA+ (``fusionp``) its stage 2 runs once per
+    generation, in the ControlNet's step-constant precompute over the whole
+    CFG batch: one ``flash_attention_fwd`` when it reaches the kernels."""
+    blocks = 2 * layers + 1
+    return _launches(
+        packed_attention_fwd=(2 * blocks + 2 * n_controlnets * layers)
+        * steps,
+        packed_attention_nbr_fwd=blocks * steps,
+        flash_attention_fwd=int(_sfa_plus_on_kernels(fusionp, tokens)))
+
+
 def train_launches_per_step(layers: int, n_controlnets: int,
-                            remat: bool) -> dict:
+                            remat: bool, fusionp: bool = False,
+                            tokens: int = 1400) -> dict:
     """Kernel launches of one training step, derived from the code.  Only
     the top latent level reaches the kernels (28x50 = 1400 tokens at
     224x400; 32x16 = 512 for the tiny 256x128 models).  There:
@@ -152,19 +213,24 @@ def train_launches_per_step(layers: int, n_controlnets: int,
     * attn4 under grad is one stacked ``PackedAttention`` call per block;
       the ring kernel never runs.
 
+    * with SFA+ (``fusionp``), its stage 2 over the ``tokens`` of the
+      condition map runs once, outside the remat blocks, differentiated
+      (every ControlNet leaf trains): one ``FlashAttention`` when both
+      lengths reach ``FLASH_MIN_LEN``.
+
     A differentiated call is one forward with lse, one dq and one dk/dv;
     remat replays every block's forward in the backward, so the forward
     kernels run twice."""
     train = 2 + 3 * (layers - 1) + 3 * (layers + 1) \
         + 2 * n_controlnets * layers
     replay = 2 if remat else 1
-    return {"packed_attention_fwd": replay,
-            "packed_attention_nbr_fwd": 0,
-            "packed_attention_lse_fwd": train * replay,
-            "packed_attention_bwd_dq": train,
-            "packed_attention_bwd_dkv": train,
-            "packed_attention_capped_fwd": 0,
-            "packed_attention_capped_lse_fwd": 0}
+    sfa = int(_sfa_plus_on_kernels(fusionp, tokens))
+    return _launches(packed_attention_fwd=replay,
+                     packed_attention_lse_fwd=train * replay,
+                     packed_attention_bwd_dq=train,
+                     packed_attention_bwd_dkv=train,
+                     flash_attention_lse_fwd=sfa, flash_attention_bwd_dq=sfa,
+                     flash_attention_bwd_dkv=sfa)
 
 
 def video_launches_per_clip(layers: int, n_controlnets: int, steps: int,
@@ -192,12 +258,10 @@ def video_launches_per_clip(layers: int, n_controlnets: int, steps: int,
     evals = steps * (2 if sequential_cfg else 1)
     capped = over_score_cap(tokens, 2 * tokens)
     per_eval_fwd = blocks * (1 if capped else 2) + 2 * n_controlnets * layers
-    return {"packed_attention_fwd": per_eval_fwd * evals,
-            "packed_attention_nbr_fwd": blocks * evals,
-            "packed_attention_lse_fwd": 0, "packed_attention_bwd_dq": 0,
-            "packed_attention_bwd_dkv": 0,
-            "packed_attention_capped_fwd": (blocks if capped else 0) * evals,
-            "packed_attention_capped_lse_fwd": 0}
+    return _launches(
+        packed_attention_fwd=per_eval_fwd * evals,
+        packed_attention_nbr_fwd=blocks * evals,
+        packed_attention_capped_fwd=(blocks if capped else 0) * evals)
 
 
 def video_train_launches_per_step(layers: int, n_controlnets: int,
@@ -234,20 +298,26 @@ def video_train_launches_per_step(layers: int, n_controlnets: int,
     st_train = blocks - st_frozen
     cn = 2 * n_controlnets * layers  # ControlNet attention calls
     whole = 2 * blocks + (0 if lora else cn) + (0 if capped else st_train)
-    return {
-        "packed_attention_fwd": (cn if lora else 0)
+    return _launches(
+        packed_attention_fwd=(cn if lora else 0)
         + (0 if capped else st_frozen * replay),
-        "packed_attention_nbr_fwd": 0,
-        "packed_attention_lse_fwd": whole * replay,
-        "packed_attention_bwd_dq": whole + (st_train if capped else 0),
-        "packed_attention_bwd_dkv": whole + (st_train if capped else 0),
-        "packed_attention_capped_fwd": st_frozen * replay if capped else 0,
-        "packed_attention_capped_lse_fwd": st_train * replay if capped else 0,
-    }
+        packed_attention_lse_fwd=whole * replay,
+        packed_attention_bwd_dq=whole + (st_train if capped else 0),
+        packed_attention_bwd_dkv=whole + (st_train if capped else 0),
+        packed_attention_capped_fwd=st_frozen * replay if capped else 0,
+        packed_attention_capped_lse_fwd=st_train * replay if capped else 0)
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def timed(name, fn, *a, **kw):
+    """``fn(*a, **kw)``, logging its wall time as phase ``name``."""
+    t0 = time.perf_counter()
+    out = fn(*a, **kw)
+    log(f"# phase {name}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def phase_device() -> str:
@@ -317,20 +387,30 @@ def kernel_cases():
         # not on any path: is the 8-warp block also faster under the cap?
         ("packed_attention_capped_fwd", "yardstick: attn1 self shape",
          2 * B * N_CAM, L, L, C, HEADS, 0),
+        # SFA+ stage 2 in the ControlNet's precompute over the CFG batch
+        ("flash_attention_fwd", "SFA+ stage 2 (occ_bg_fusionp generation)",
+         2 * B * N_CAM, L, L, C, HEADS, 0),
+        ("flash_attention_fwd", "d=20 (d % 8 != 0), ragged", 3, 777, 1111,
+         160, 8, 0),
     ]
 
 
 def train_kernel_cases():
-    """(label, b, lq, lk, c, heads) of every compared training shape: the
-    flagship step's 1400-token attentions (6 view rows; attn4 stacks the
-    left and right neighbours on the batch axis, 12 rows), the video
-    training step's ST-Attn under grad (2 frames x 6 views against the first
-    and the previous frame's 2800 keys, over ``T_SCORE_CAP``: the capped
-    forward) plus ragged ones."""
+    """(label, b, lq, lk, c, heads[, split_layout]) of every compared
+    training shape: the flagship step's 1400-token attentions (6 view rows;
+    attn4 stacks the left and right neighbours on the batch axis, 12 rows),
+    the video training step's ST-Attn under grad (2 frames x 6 views
+    against the first and the previous frame's 2800 keys, over
+    ``T_SCORE_CAP``: the capped forward), the ``occ_bg_fusionp`` step's SFA+
+    stage 2 on the split-layout kernels (``split_layout``) plus ragged
+    ones."""
     rows = B_TRAIN * N_CAM
     video_rows = TRAIN_FRAMES * N_CAM
     return [
         ("attn1 self", rows, L, L, C, HEADS),
+        ("SFA+ stage 2 under grad (occ_bg_fusionp training)", rows, L, L, C,
+         HEADS, True),
+        ("d=20 (d % 8 != 0), ragged", 3, 777, 1111, 160, 8, True),
         ("attn4 stacked neighbours", 2 * rows, L, L, C, HEADS),
         ("attn2 cross", rows, L, KV_CROSS, C, HEADS),
         ("ragged, d=80", 3, 777, 333, 320, 4),
@@ -369,15 +449,47 @@ def _sdpa_backend(q, k, v):
     raise RuntimeError("no SDPA backend takes these inputs")
 
 
-def train_kernel_rows(A, g, label, b, lq, lk, c, heads):
+def split_on_packed(A):
+    """The split-layout wrappers and plain versions called like the packed
+    ones, on packed (B, L, C) tensors and ``heads``: each reads the
+    (B, L, H, D) view of the same memory, and its result is viewed back."""
+    sp = lambda t, h: t.view(t.shape[0], t.shape[1], h, -1)
+    pk = lambda t: t.reshape(t.shape[0], t.shape[1], -1)
+
+    def call(fn, n_split):
+        def run(*a):
+            heads = a[-1]
+            out = fn(*(sp(t, heads) for t in a[:n_split]),
+                     *a[n_split:-1])
+            if isinstance(out, tuple):
+                return tuple(pk(t) if t.dim() == 4 else t for t in out)
+            return pk(out)
+        return run
+
+    return {"fwd": call(A.flash_attention_fwd, 3),
+            "plain": call(A.flash_attention_plain, 3),
+            "lse_fwd": call(A.flash_attention_lse_fwd, 3),
+            "lse_plain": call(A.flash_attention_lse_plain, 3),
+            "bwd_dq": call(A.flash_attention_bwd_dq, 4),
+            "bwd_dq_plain": call(A.flash_attention_bwd_dq_plain, 4),
+            "bwd_dkv": call(A.flash_attention_bwd_dkv, 4),
+            "bwd_dkv_plain": call(A.flash_attention_bwd_dkv_plain, 4)}
+
+
+def train_kernel_rows(A, g, label, b, lq, lk, c, heads,
+                      split_layout=False):
     """The three training kernels on one shape against their plain
     versions: the forward with lse (over ``T_SCORE_CAP`` the capped one, at
-    4 and at 8 warps, the path's count first), dq and dk/dv.  Each backward
-    kernel gets the path's forward kernel's lse and the delta of its bf16
-    output, as ``PackedAttention.backward`` does.  Library yardsticks:
+    4 and at 8 warps, the path's count first), dq and dk/dv; with
+    ``split_layout`` the split-layout ones (``flash_attention_*``, any
+    head_dim).  Each backward kernel gets the path's forward kernel's lse
+    and the delta of its bf16 output, as ``PackedAttention.backward`` and
+    ``FlashAttention.backward`` do.  Library yardsticks:
     ``aten._scaled_dot_product_flash_attention`` (it returns the
     logsumexp) for the forward, the backward of
-    ``F.scaled_dot_product_attention`` for dq and dk/dv together."""
+    ``F.scaled_dot_product_attention`` for dq and dk/dv together.  With
+    ``split_layout`` also the forward and backward of ``mha_einsum``, the
+    route below ``FLASH_MIN_LEN``."""
     from torch.nn.attention import sdpa_kernel
 
     q, k, v = (torch.randn(b, n, c, generator=g, device="cuda").bfloat16()
@@ -387,7 +499,20 @@ def train_kernel_rows(A, g, label, b, lq, lk, c, heads):
     scale = d ** -0.5
     shape = {"b": b, "lq": lq, "lk": lk, "c": c, "heads": heads,
              "head_dim": d}
-    if A.over_score_cap(lq, lk):
+    names = {"dq": "packed_attention_bwd_dq",
+             "dkv": "packed_attention_bwd_dkv"}
+    fns = {"lse_plain": A.attention_packed_lse_plain,
+           "bwd_dq": A.packed_attention_bwd_dq,
+           "bwd_dq_plain": A.attention_packed_bwd_dq_plain,
+           "bwd_dkv": A.packed_attention_bwd_dkv,
+           "bwd_dkv_plain": A.attention_packed_bwd_dkv_plain}
+    if split_layout:
+        fns = split_on_packed(A)
+        fwd_kern = "flash_attention_lse_fwd"
+        fwds = {"": fns["lse_fwd"]}
+        names = {"dq": "flash_attention_bwd_dq",
+                 "dkv": "flash_attention_bwd_dkv"}
+    elif A.over_score_cap(lq, lk):
         fwd_kern = "packed_attention_capped_lse_fwd"
         fwds = {f"{w} warps": functools.partial(
             A.packed_attention_capped_lse_fwd, warps=w)
@@ -395,7 +520,7 @@ def train_kernel_rows(A, g, label, b, lq, lk, c, heads):
     else:
         fwd_kern = "packed_attention_lse_fwd"
         fwds = {"": A.packed_attention_lse_fwd}
-    o_want, lse_want = A.attention_packed_lse_plain(q, k, v, heads)
+    o_want, lse_want = fns["lse_plain"](q, k, v, heads)
     # lse is float32 on both sides; online softmax with exp2f and another
     # order of sums: 1e-3 absolute on values of about log(Lk) + max logit
     fwd_checks = []
@@ -408,19 +533,16 @@ def train_kernel_rows(A, g, label, b, lq, lk, c, heads):
     fwd = next(iter(fwds.values()))
     o, lse = fwd(q, k, v, heads)
     delta = A.attention_delta(o, do, heads)
-    dq = A.packed_attention_bwd_dq(q, k, v, do, lse, delta, heads)
-    dk, dv = A.packed_attention_bwd_dkv(q, k, v, do, lse, delta, heads)
+    dq = fns["bwd_dq"](q, k, v, do, lse, delta, heads)
+    dk, dv = fns["bwd_dkv"](q, k, v, do, lse, delta, heads)
     torch.cuda.synchronize()
-    dq_want = A.attention_packed_bwd_dq_plain(q, k, v, do, lse, delta, heads)
-    dk_want, dv_want = A.attention_packed_bwd_dkv_plain(q, k, v, do, lse,
-                                                         delta, heads)
+    dq_want = fns["bwd_dq_plain"](q, k, v, do, lse, delta, heads)
+    dk_want, dv_want = fns["bwd_dkv_plain"](q, k, v, do, lse, delta, heads)
     checks = {
         fwd_kern: fwd_checks,
-        "packed_attention_bwd_dq": [
-            ("dq", _max_err(dq, dq_want), _tol(dq_want))],
-        "packed_attention_bwd_dkv": [
-            ("dk", _max_err(dk, dk_want), _tol(dk_want)),
-            ("dv", _max_err(dv, dv_want), _tol(dv_want))],
+        names["dq"]: [("dq", _max_err(dq, dq_want), _tol(dq_want))],
+        names["dkv"]: [("dk", _max_err(dk, dk_want), _tol(dk_want)),
+                       ("dv", _max_err(dv, dv_want), _tol(dv_want))],
     }
     del o_want, lse_want, dq_want, dk_want, dv_want
 
@@ -438,31 +560,35 @@ def train_kernel_rows(A, g, label, b, lq, lk, c, heads):
         lib_fwd_ms = cuda_ms(lib_fwd, 20)
     except RuntimeError:  # flash does not take this head_dim
         lib_fwd_ms = None
+    einsum = {}
+    if split_layout:
+        sp = lambda t: t.view(b, t.shape[1], heads, d)
+        qr, kr, vr = (sp(t).detach().requires_grad_() for t in (q, k, v))
+        einsum["einsum_ms"] = cuda_ms(
+            lambda: A.mha_einsum(sp(q), sp(k), sp(v)), 5)
+        out_e = A.mha_einsum(qr, kr, vr)
+        einsum["einsum_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            out_e, (qr, kr, vr), sp(do), retain_graph=True), 5)
+        del out_e, qr, kr, vr
 
     nq, nk = b * lq * c, b * lk * c
     rows_lse = b * heads * lq * 4  # one float32 per query and head
     work = {  # bytes: each input read once, each output written once
         fwd_kern: (2 * (2 * nq + 2 * nk) + rows_lse, 4 * b * lq * lk * c),
-        "packed_attention_bwd_dq": (2 * (3 * nq + 2 * nk) + 2 * rows_lse,
-                                    6 * b * lq * lk * c),
-        "packed_attention_bwd_dkv": (2 * (2 * nq + 4 * nk) + 2 * rows_lse,
-                                     8 * b * lq * lk * c),
+        names["dq"]: (2 * (3 * nq + 2 * nk) + 2 * rows_lse,
+                      6 * b * lq * lk * c),
+        names["dkv"]: (2 * (2 * nq + 4 * nk) + 2 * rows_lse,
+                       8 * b * lq * lk * c),
     }
+    bwd_args = (q, k, v, do, lse, delta, heads)
     runs = {
         fwd_kern: ({n: functools.partial(f, q, k, v, heads)
                     for n, f in fwds.items()},
-                   lambda: A.attention_packed_lse_plain(q, k, v, heads),
-                   lib_fwd_ms),
-        "packed_attention_bwd_dq": (
-            {"": lambda: A.packed_attention_bwd_dq(q, k, v, do, lse, delta,
-                                                   heads)},
-            lambda: A.attention_packed_bwd_dq_plain(q, k, v, do, lse, delta,
-                                                    heads), lib_bwd_ms),
-        "packed_attention_bwd_dkv": (
-            {"": lambda: A.packed_attention_bwd_dkv(q, k, v, do, lse, delta,
-                                                    heads)},
-            lambda: A.attention_packed_bwd_dkv_plain(q, k, v, do, lse, delta,
-                                                     heads), lib_bwd_ms),
+                   lambda: fns["lse_plain"](q, k, v, heads), lib_fwd_ms),
+        names["dq"]: ({"": lambda: fns["bwd_dq"](*bwd_args)},
+                      lambda: fns["bwd_dq_plain"](*bwd_args), lib_bwd_ms),
+        names["dkv"]: ({"": lambda: fns["bwd_dkv"](*bwd_args)},
+                       lambda: fns["bwd_dkv_plain"](*bwd_args), lib_bwd_ms),
     }
     out = {}
     for kern, (variants, plain, lib_ms) in runs.items():
@@ -481,7 +607,7 @@ def train_kernel_rows(A, g, label, b, lq, lk, c, heads):
                 f"SDPA backward ({be.name}), dq and dk/dv together"
                 if "bwd" in kern else
                 "aten._scaled_dot_product_flash_attention"),
-            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms": bound_ms, "bound_by": bound_by, **einsum,
         }
         if len(times) > 1:
             row["kernel_ms_by_variant"] = times
@@ -514,6 +640,7 @@ def phase_kernels():
             split(q), split(k), split(v))
         flops = 4 * b * lq * lk * c
         variants = {}  # label -> launch; the first is the one the path runs
+        extra = {}  # further yardsticks
         if n_cam:
             variants[""] = lambda: A.packed_attention_nbr_fwd(q, k, v, heads,
                                                               n_cam)
@@ -521,6 +648,12 @@ def phase_kernels():
                 q, k, v, heads, n_cam)
             library = None  # no single PyTorch call computes the ring sum
             flops *= 2
+        elif kern == "flash_attention_fwd":
+            fl = split_on_packed(A)
+            variants[""] = lambda: fl["fwd"](q, k, v, heads)
+            plain = lambda: fl["plain"](q, k, v, heads)
+            extra["einsum_ms"] = cuda_ms(lambda: A.mha_einsum(
+                *(t.view(b, t.shape[1], heads, d) for t in (q, k, v))), 5)
         elif kern == "packed_attention_capped_fwd":
             for w in sorted((4, 8), key=lambda w: w != A.CAPPED_WARPS):
                 variants[f"{w} warps"] = functools.partial(
@@ -553,7 +686,7 @@ def phase_kernels():
             "kernel_ms": next(iter(times.values())),
             "plain_ms": cuda_ms(plain, 3),
             "library_ms": cuda_ms(library, 20) if library else None,
-            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms": bound_ms, "bound_by": bound_by, **extra,
         }
         if len(variants) > 1:
             row["kernel_ms_by_variant"] = times
@@ -571,12 +704,12 @@ def phase_kernels():
 
 
 def _flagship(device, tiny=False, extra=(), weights_from=None,
-              video=False):
+              video=False, name=None):
     """(cfg, collated batch, pipeline) with seeded random weights, or the
-    weights of the models in ``weights_from``.  The batch: B=2 synthetic
-    samples; with ``video``, clip 0 of ``bench.py::main_video``'s seed-0
-    synthetic clips (``video.num_frames`` frames), collated as it collates
-    them."""
+    weights of the models in ``weights_from``; the flagship config, or
+    ``name``.  The batch: B=2 synthetic samples; with ``video``, clip 0 of
+    ``bench.py::main_video``'s seed-0 synthetic clips (``video.num_frames``
+    frames), collated as it collates them."""
     import numpy as np
 
     from dualdiff_tpu_torch.data.collate import collate_fn
@@ -591,7 +724,8 @@ def _flagship(device, tiny=False, extra=(), weights_from=None,
     from dualdiff_tpu_torch.utils.config import (FLAGSHIP, VIDEO_16F,
                                                  load_config)
 
-    cfg = load_config(VIDEO_16F if video else FLAGSHIP, overrides=extra)
+    cfg = load_config(name or (VIDEO_16F if video else FLAGSHIP),
+                      overrides=extra)
     h, w = cfg.dataset.image_size
     if video:
         clips = SyntheticNuScenesVideo(
@@ -617,25 +751,26 @@ def _flagship(device, tiny=False, extra=(), weights_from=None,
     return cfg, batch, BEVControlNetPipeline(cfg, models, device=device)
 
 
-def phase_generate(profile_dir):
+def phase_generate(profile_dir, name=None):
+    """Image generation at full SD v1.5 width, B=2 x 6 views: the flagship
+    (phase 4), or the config ``name`` (``occ_bg_fusionp`` in phase
+    ``fusionp``).  One warm-up call, then timed calls, each checked for
+    shape, finiteness, range and the kernels' launches per generation
+    (``generate_launches_per_generation``)."""
     from dualdiff_tpu_torch.ops import attention as A
 
     t0 = time.perf_counter()
-    cfg, batch, pipe = _flagship("cuda")
+    cfg, batch, pipe = _flagship("cuda", name=name)
     torch.cuda.synchronize()
     log(f"# models built and cast in {time.perf_counter() - t0:.1f} s")
     steps = int(cfg.runner.pipeline_param.num_inference_steps)
     h, w = cfg.dataset.image_size
     lh, lw = h // 8, w // 8
-    # from the code: per model evaluation the UNet's 5 transformer blocks at
-    # 1400 tokens (down_blocks_0: 2, up_blocks_3: 3) and each ControlNet's 2
-    # (down_blocks_0) run attn1 + attn2 -> 18; attn4 runs in the UNet's 5;
-    # generation differentiates nothing, so the training kernels never run
-    expect = {"packed_attention_fwd": 18 * steps,
-              "packed_attention_nbr_fwd": 5 * steps,
-              "packed_attention_lse_fwd": 0, "packed_attention_bwd_dq": 0,
-              "packed_attention_bwd_dkv": 0, "packed_attention_capped_fwd": 0,
-              "packed_attention_capped_lse_fwd": 0}
+    models = pipe.models
+    fusionp = bool(cfg.model.controlnet.use_txt_con_fusionp)
+    expect = generate_launches_per_generation(
+        len(models["unet"].down_blocks[0].resnets), len(models["controlnets"]),
+        steps, fusionp, lh * lw)
     gen = torch.Generator(device="cuda")
     times, counts = [], None
     torch.cuda.reset_peak_memory_stats()
@@ -662,7 +797,8 @@ def phase_generate(profile_dir):
         if i:
             times.append(dt)
     s = sorted(times)[len(times) // 2]
-    row = {"phase": "generate", "config": "dual_branch_augloss_fusion 224x400",
+    row = {"phase": "fusionp generate" if fusionp else "generate",
+           "config": f"{cfg.task_id} {h}x{w}",
            "batch": B, "views": N_CAM, "steps": steps, "cfg_scale": float(
                cfg.runner.pipeline_param.guidance_scale),
            "latent_hw": [lh, lw], "s_per_generation": s,
@@ -671,10 +807,13 @@ def phase_generate(profile_dir):
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "launches_per_generation": counts}
     log(json.dumps(row))
+    if fusionp:
+        log(f"fusionp s/generation: {s}")
+        log(f"fusionp images/s: {B * N_CAM / s}")
     if profile_dir:
         gen.manual_seed(SEED)
         profile_run(lambda: pipe(batch, generator=gen), s, profile_dir,
-                    "generation")
+                    "fusionp_generation" if fusionp else "generation")
     del pipe
     torch.cuda.empty_cache()
     return counts
@@ -736,23 +875,30 @@ def profile_run(run, wall_unprofiled: float, out_dir: str,
     return row
 
 
-def phase_reference(video=False):
+def phase_reference(video=False, fusionp=False):
     """Tiny models, 256x128, 3 steps: bf16 on the card (kernels) against
     float32 on the CPU (plain versions), same weights and noise.  Mean
     absolute error on the [0, 1] images at most 1e-2: bf16 weights and
     activations through every layer and step (3.1e-3 measured on an
     H100 80GB HBM3 at 700 W).  ``video``: the tiny video model set on a
     2-frame clip (sequential CFG, VAE slicing 5 of its 12 images), the
-    ``video_reference`` phase."""
+    ``video_reference`` phase.  ``fusionp``: the tiny single-branch
+    ``occ_bg_fusionp`` set at 224x400 (28x50 latents), so that SFA+ stage 2
+    is 1400 x 1400 at d = 4 on ``flash_attention_fwd`` and the UNet's
+    1400-token attention (d = 8) on the packed kernels; each of those must
+    launch (phase ``fusionp_reference``)."""
     from dualdiff_tpu_torch.ops import attention as A
+    from dualdiff_tpu_torch.utils.config import FUSIONP
 
-    extra = ["dataset.image_size=[256, 128]",
-             "runner.pipeline_param.num_inference_steps=3"]
+    extra = ["runner.pipeline_param.num_inference_steps=3"]
+    if not fusionp:
+        extra.append("dataset.image_size=[256, 128]")
     if video:
         extra += ["video.num_frames=2", "runner.pipeline_param.vae_slicing=5"]
+    name = FUSIONP if fusionp else None
     _, batch, cpu_pipe = _flagship(
         "cpu", tiny=True, extra=extra + ["runner.mixed_precision=fp32"],
-        video=video)
+        video=video, name=name)
     cpu_models = cpu_pipe.models
     with torch.no_grad():
         # cam2token reads raw intrinsics (fx ~ 1266): a random kernel makes
@@ -761,7 +907,8 @@ def phase_reference(video=False):
         for cn in cpu_models["controlnets"]:
             cn.cam2token.weight.mul_(0.01)
     cfg, _, gpu_pipe = _flagship("cuda", tiny=True, extra=extra,
-                                 weights_from=cpu_models, video=video)
+                                 weights_from=cpu_models, video=video,
+                                 name=name)
     h, w = cfg.dataset.image_size
     rows = len(batch["camera_param"])  # samples, or frames of the clip
     lat = torch.randn((rows, 1, h // 8, w // 8, 4),
@@ -770,8 +917,10 @@ def phase_reference(video=False):
     A.reset_launch_counts()
     got = gpu_pipe(batch, latents=lat).cpu()
     err = (got - want).abs()
-    row = {"phase": "video_reference" if video else "reference",
-           "shape": list(got.shape), "max_abs_err": err.max().item(),
+    phase = "fusionp_reference" if fusionp else "video_reference" if video \
+        else "reference"
+    row = {"phase": phase, "shape": list(got.shape),
+           "max_abs_err": err.max().item(),
            "mean_abs_err": err.mean().item(), "tol_mean": 1e-2,
            "launches": {fn.__name__: fn.launches
                         for fn in A.KERNEL_WRAPPERS}}
@@ -779,6 +928,10 @@ def phase_reference(video=False):
     if not row["mean_abs_err"] <= row["tol_mean"]:
         raise AssertionError("bf16 generation on the card disagrees with the "
                              "float32 CPU reference")
+    must = ("packed_attention_fwd",) + (("flash_attention_fwd",) if fusionp
+                                         else ())
+    if not all(row["launches"][k] > 0 for k in must):
+        raise AssertionError(f"the kernels did not run: {row['launches']}")
 
 
 def phase_video(profile_dir):
@@ -858,11 +1011,12 @@ def _train_batch(cfg, n: int):
                              seed=int(cfg.seed))
 
 
-def phase_train(profile_dir):
-    """The flagship training step at full SD v1.5 width: seeded random
-    weights, B = 1 x 6 views, bf16, remat on, AdamW with a bf16 first
-    moment and the warmup-cosine schedule; one warm-up step, then timed
-    steps.  Checks finite loss and grad_norm > 0 every step, the kernels'
+def phase_train(profile_dir, name=None):
+    """The flagship training step (or that of the config ``name``:
+    ``occ_bg_fusionp`` in phase ``fusionp``) at full SD v1.5 width: seeded
+    random weights, B = 1 x 6 views, bf16, remat on, AdamW with a bf16
+    first moment and the warmup-cosine schedule; one warm-up step, then
+    timed steps.  Checks finite loss and grad_norm > 0 every step, the kernels'
     launches per step, and that the trainables (float32 master copies)
     moved while every frozen parameter stayed as it was.  The learning rate
     of step 0 is exactly 0 (warmup from 0), so the comparison starts after
@@ -874,7 +1028,7 @@ def phase_train(profile_dir):
     from dualdiff_tpu_torch.utils.config import load_config
 
     t0 = time.perf_counter()
-    cfg = load_config()
+    cfg = load_config(name) if name else load_config()
     models = build_models(cfg, device="cuda")
     for m in (models["unet"], models["vae"], models["text_encoder"],
               *models["controlnets"]):
@@ -888,11 +1042,14 @@ def phase_train(profile_dir):
         f"M trainable, "
         f"{sum(p.numel() for p in trainer.frozen.values()) / 1e6:.1f}M "
         f"frozen parameters")
-    layers = int(cfg.model.unet.layers_per_block)
+    layers = len(models["unet"].down_blocks[0].resnets)
+    h, w = cfg.dataset.image_size
+    fusionp = bool(cfg.model.controlnet.use_txt_con_fusionp)
     expect = train_launches_per_step(
         layers, len(models["controlnets"]),
         bool(cfg.runner.enable_unet_checkpointing)
-        and bool(cfg.runner.enable_controlnet_checkpointing))
+        and bool(cfg.runner.enable_controlnet_checkpointing), fusionp,
+        (h // 8) * (w // 8))
     steps, snap = [], {}
     run_counts = {fn.__name__: 0 for fn in A.KERNEL_WRAPPERS}
 
@@ -901,10 +1058,11 @@ def phase_train(profile_dir):
         A.reset_launch_counts()
         for k, v in counts.items():
             run_counts[k] += v
-        log(f"# train step {step}: loss {m['loss']:.6f}, mse "
-            f"{m['mse']:.6f}, aug_loss {m['aug_loss']:.6f}, grad_norm "
-            f"{m['grad_norm']:.6f}, {m['step_time_s']:.3f} s (batch "
-            f"assembly {m['data_time_s']:.3f} s)")
+        log(f"# train step {step}: " + ", ".join(
+            f"{k} {m[k]:.6f}" for k in ("loss", "mse", "aug_loss",
+                                        "grad_norm") if k in m)
+            + f", {m['step_time_s']:.3f} s (batch assembly "
+            f"{m['data_time_s']:.3f} s)")
         if counts != expect:
             raise AssertionError(f"kernel launches {counts} != {expect}")
         if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
@@ -938,7 +1096,8 @@ def phase_train(profile_dir):
     times = [m["step_time_s"] for m in steps[1:]]
     s = sorted(times)[len(times) // 2]
     data = sorted(m["data_time_s"] for m in steps[1:])[len(times) // 2]
-    row = {"phase": "train", "config": "dual_branch_augloss_fusion 224x400",
+    row = {"phase": "fusionp train" if fusionp else "train",
+           "config": f"{cfg.task_id} {h}x{w}",
            "batch": B_TRAIN, "views": N_CAM, "steps": n_steps,
            "s_per_step": s, "s_per_step_all": times,
            "batch_assembly_s": data,
@@ -955,6 +1114,9 @@ def phase_train(profile_dir):
            "frozen_tensors_changed": len(frozen_changed),
            "launches_per_step": expect, "launches_run": run_counts}
     log(json.dumps(row))
+    if fusionp:
+        log(f"fusionp s/step: {s}")
+        log(f"fusionp train images/s: {B_TRAIN * N_CAM / s}")
     if frozen_changed:
         raise AssertionError(f"frozen parameters changed: "
                              f"{frozen_changed[:5]}")
@@ -963,14 +1125,14 @@ def phase_train(profile_dir):
                              f"{sorted(must_move - moved)[:5]}")
     # a few trainables see a gradient only in some steps (the learned
     # uncond camera only when the CFG switch drops a sample); 844 of 844
-    # did in this seeded run on an H100 80GB HBM3 at 700 W
+    # did in the flagship's seeded run on an H100 80GB HBM3 at 700 W
     if len(got_grad) < 0.9 * len(opt.master):
         raise AssertionError(f"only {len(got_grad)} of {len(opt.master)} "
                              "trainable tensors got a gradient")
     if profile_dir:
         batch = trainer._build_batch(next(trainer._batch_plan(0)))
         profile_run(lambda: trainer.train_step(batch), s, profile_dir,
-                    "train_step")
+                    "fusionp_train_step" if fusionp else "train_step")
     del trainer, models, snap
     torch.cuda.empty_cache()
     return run_counts, expect
@@ -1011,8 +1173,8 @@ def leaf_grad_errors(want: dict, got: dict) -> dict:
     return out
 
 
-def train_reference_readings(device: str = "cuda",
-                             video: bool = False) -> dict:
+def train_reference_readings(device: str = "cuda", video: bool = False,
+                             fusionp: bool = False) -> dict:
     """One tiny loss + gradient on ``device`` in bf16 and on the CPU in
     float32: the loss of each, and each trainable leaf's relative gradient
     error (``leaf_grad_errors``).  ``video``: the tiny RGD stage-2 model
@@ -1020,7 +1182,17 @@ def train_reference_readings(device: str = "cuda",
     decode) on clip 0 of 2-frame synthetic clips, with ``T_SCORE_CAP``
     lowered to 2^18 meanwhile, so that the tiny ST-Attn (512 queries x
     1024 keys) takes the capped route as the full-width one (1400 x 2800)
-    does, while the 512 x 512 self-attention stays under the cap."""
+    does, while the 512 x 512 self-attention stays under the cap.
+    ``fusionp``: the tiny single-branch ``occ_bg_fusionp`` set, with
+    ``FLASH_MIN_LEN`` lowered to its 512-token condition map meanwhile, so
+    that SFA+ stage 2 (512 x 512, d = 4) trains through ``FlashAttention``
+    as the 1400 x 1400 one does at 224x400, and the conditioning embedder's
+    output scaled by ``SFA_COND_SCALE``.  At 224x400 itself the gate does
+    not hold, for the flagship either: leaves whose gradient sums over all
+    8400 latent positions in bf16 (the ControlNets' first
+    ``time_emb_proj``, SFA+'s projections) read over ``LEAF_TOL``
+    (``tests/test_torch_grad_gate_cuda.py::test_gate_readings_at_224x400``
+    prints the readings)."""
     import numpy as np
 
     from dualdiff_tpu_torch.data.collate import collate_fn
@@ -1037,17 +1209,19 @@ def train_reference_readings(device: str = "cuda",
                                                        partition_params,
                                                        trainable_predicate)
     from dualdiff_tpu_torch.runner.trainer import make_draws, make_loss_fn
-    from dualdiff_tpu_torch.utils.config import (FLAGSHIP, RGD_STAGE2,
-                                                 load_config)
+    from dualdiff_tpu_torch.utils.config import (FLAGSHIP, FUSIONP,
+                                                 RGD_STAGE2, load_config)
 
-    name = RGD_STAGE2 if video else FLAGSHIP
+    name = RGD_STAGE2 if video else FUSIONP if fusionp else FLAGSHIP
     extra = ["dataset.image_size=[256, 128]"]
     frames = TRAIN_FRAMES if video else 1
     if video:
         extra.append(f"video.num_frames={frames}")
-    cap = A.T_SCORE_CAP
+    cap, flash_min = A.T_SCORE_CAP, A.FLASH_MIN_LEN
     if video:
         A.T_SCORE_CAP = 2 ** 18
+    if fusionp:
+        A.FLASH_MIN_LEN = 512
     results = []  # (loss, grads by leaf, launches): CPU, then the device
     cpu_models = None
     try:
@@ -1066,6 +1240,10 @@ def train_reference_readings(device: str = "cuda",
                 with torch.no_grad():  # see phase_reference
                     for cn in models["controlnets"]:
                         cn.cam2token.weight.mul_(0.01)
+                        if fusionp:  # see SFA_COND_SCALE
+                            conv = cn.controlnet_cond_embedding.conv_out
+                            conv.weight.mul_(SFA_COND_SCALE)
+                            conv.bias.mul_(SFA_COND_SCALE)
                     for n, p in models["unet"].named_parameters():
                         if "lora_b" in n:
                             p.mul_(LORA_B_SCALE)
@@ -1099,11 +1277,13 @@ def train_reference_readings(device: str = "cuda",
             results.append((loss.detach().item(), _trainable_grads(models), {
                 fn.__name__: fn.launches for fn in A.KERNEL_WRAPPERS}))
     finally:
-        A.T_SCORE_CAP = cap
+        A.T_SCORE_CAP, A.FLASH_MIN_LEN = cap, flash_min
     (loss_cpu, g_cpu, _), (loss_gpu, g_gpu, launches) = results
     errs = leaf_grad_errors(g_cpu, g_gpu)
     worst = sorted(errs.items(), key=lambda kv: -kv[1])
-    return {"phase": "video_train_reference" if video else "train_reference",
+    phase = "video_train_reference" if video else \
+        "fusionp_train_reference" if fusionp else "train_reference"
+    return {"phase": phase,
             "loss_cpu_f32": loss_cpu, "loss_gpu_bf16": loss_gpu,
             "loss_rel_err": abs(loss_gpu - loss_cpu) / abs(loss_cpu),
             "trainable_leaves": len(errs),
@@ -1141,6 +1321,33 @@ def phase_train_reference():
     _reference_gate(train_reference_readings(), (
         "packed_attention_lse_fwd", "packed_attention_bwd_dq",
         "packed_attention_bwd_dkv"))
+
+
+def phase_fusionp(profile_dir):
+    """SFA+ (``occ_bg_fusionp``: one ControlNet on the occupancy image with
+    per-view boxes and two-stage SFA+) at full SD v1.5 width and 224x400:
+    phase 4's generation and phase 6's training step on its config, each
+    with its own derived launch counts (SFA+ stage 2 on
+    ``flash_attention_fwd`` once per generation, on ``FlashAttention`` once
+    per step)."""
+    from dualdiff_tpu_torch.utils.config import FUSIONP
+
+    counts = {"fusionp": timed("fusionp generate", phase_generate,
+                               profile_dir, FUSIONP)}
+    counts["fusionp_train"], per_step = timed("fusionp train", phase_train,
+                                              profile_dir, FUSIONP)
+    return counts, per_step
+
+
+def phase_fusionp_reference():
+    """The tiny ``occ_bg_fusionp`` set with SFA+ stage 2 at d = 4 on the
+    split-layout kernels: phase 5's generation gate at 224x400 (1400 x
+    1400) and phase 7's training gate, the SFA+ leaves included, at 256x128
+    with ``FLASH_MIN_LEN`` lowered to 512 (``train_reference_readings``)."""
+    phase_reference(fusionp=True)
+    _reference_gate(train_reference_readings(fusionp=True), (
+        "flash_attention_lse_fwd", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkv", "packed_attention_lse_fwd"))
 
 
 def phase_video_train(profile_dir):
@@ -1290,22 +1497,31 @@ KERNEL_PATH = {"packed_attention_fwd": "generate",
                "packed_attention_bwd_dq": "train",
                "packed_attention_bwd_dkv": "train",
                "packed_attention_capped_fwd": "video",
-               "packed_attention_capped_lse_fwd": "video_train"}
+               "packed_attention_capped_lse_fwd": "video_train",
+               "flash_attention_fwd": "fusionp",
+               "flash_attention_lse_fwd": "fusionp_train",
+               "flash_attention_bwd_dq": "fusionp_train",
+               "flash_attention_bwd_dkv": "fusionp_train"}
 
 
-def kernels_line(results, path_counts, train_per_step, video_per_step):
+def kernels_line(results, path_counts, train_per_step, video_per_step,
+                 fusionp_per_step):
     """One entry per kernel: its main-path shape's times and the launches
     of the path it serves, with their unit: one generation for the flagship
     inference kernels, one clip for the capped kernel, the whole training
     run for the training kernels, both stages' video training runs for the
     capped training forward (whose counts per step, checked on every step,
-    are beside them)."""
+    are beside them), one ``occ_bg_fusionp`` generation for the split-layout
+    forward and its training run for the split-layout training kernels."""
     units = {"generate": "generation",
              "train": f"training run of {1 + TIMED_TRAIN_STEPS} steps",
              "video": "clip",
              "video_train": f"video training runs of "
                             f"{1 + TIMED_VIDEO_TRAIN_STEPS} steps, stage 1 "
-                            f"and stage 2"}
+                            f"and stage 2",
+             "fusionp": "occ_bg_fusionp generation",
+             "fusionp_train": f"occ_bg_fusionp training run of "
+                              f"{1 + TIMED_TRAIN_STEPS} steps"}
     counts = dict(path_counts)
     stages = counts.pop("video_train")
     counts["video_train"] = {k: sum(c[k] for c in stages.values())
@@ -1323,6 +1539,7 @@ def kernels_line(results, path_counts, train_per_step, video_per_step):
             "launches_per_train_step": train_per_step[kern],
             "launches_per_video_train_step": {
                 st: c[kern] for st, c in video_per_step.items()},
+            "launches_per_fusionp_train_step": fusionp_per_step[kern],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -1342,12 +1559,6 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    def timed(name, fn, *a, **kw):
-        t0 = time.perf_counter()
-        out = fn(*a, **kw)
-        log(f"# phase {name}: {time.perf_counter() - t0:.1f} s")
-        return out
-
     timed("build", phase_build)
     results = timed("kernels", phase_kernels)
     counts = {"generate": timed("generate", phase_generate, profile_dir)}
@@ -1360,9 +1571,13 @@ def main() -> int:
     counts["video_train"], video_per_step = timed(
         "video_train", phase_video_train, profile_dir)
     timed("video_train_reference", phase_video_train_reference)
+    fusionp_counts, fusionp_per_step = timed("fusionp", phase_fusionp,
+                                             profile_dir)
+    counts.update(fusionp_counts)
+    timed("fusionp_reference", phase_fusionp_reference)
     log(f"# all phases: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line(results, counts, train_per_step,
-                                  video_per_step)))
+                                  video_per_step, fusionp_per_step)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -67,6 +67,24 @@
 // 3.35 TB/s): compute-bound like the inference instance, 376 M
 // exponentials.  The TPU kernel masked keys >= Lk to -inf too, so its lse is
 // the same exact function.
+//
+// Split layout.  flash_attention_fwd replaces _fwd_kernel_nolse and
+// flash_attention_lse_fwd replaces _fwd_kernel (called by _fwd_core for
+// _flash_padded, the JAX package's flash_attention): the split-layout
+// (B*H, L, D) online-softmax forward with the kv_len mask and optional lse.
+// Its caller here is multi_head_attention with both lengths >= 1024, the
+// SFA+ stage-2 self-attention of the 28x50 = 1400-token condition map
+// (generation: B = 24 rows, C = 320, 8 heads, d = 40, 60.2 GFLOP, 61 us at
+// 989 TFLOP/s against 86 MB, 26 us: compute-bound, and 376 M
+// exponentials; training: 6 rows, a quarter of that).  A contiguous
+// (B, L, H, D) tensor is the packed (B, L, C) memory, so both entries are
+// this kernel on the same layout; what they add is the contract: any
+// head_dim from 1 to 160.  Where d % 8 != 0, or a row does not start
+// 16-byte aligned, rows cannot be staged with 16-byte cp.async: the VEC =
+// false instances stage them with 2-byte loads and write the output one
+// element at a time, still padding d to the MMA depth in shared memory
+// only.  The TPU's sequence padding to its blocks is not carried over:
+// keys >= Lk are masked exactly, as above.
 // Simple first: no wgmma, TMA or warp specialisation yet.
 
 #include "mma_tile.cuh"
@@ -77,8 +95,10 @@ using namespace dd;
 
 // DP: head_dim padded to a multiple of 16.  NBR: camera-ring variant.
 // LSE: also write lse (B*H, Lq) float32 (not with NBR).  WARPS: warps per
-// block, a multiple of 4; the block owns 16 * WARPS queries.
-template <int DP, bool NBR, bool LSE, int WARPS>
+// block, a multiple of 4; the block owns 16 * WARPS queries.  VEC: stage
+// and store with 16- and 4-byte accesses (d % 8 == 0, aligned rows); else
+// element by element, for any head_dim.
+template <int DP, bool NBR, bool LSE, int WARPS, bool VEC>
 __global__ void __launch_bounds__(32 * WARPS)
     attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ out,
@@ -104,15 +124,14 @@ __global__ void __launch_bounds__(32 * WARPS)
   const int q0 = blockIdx.x * BQ;
   const int row = blockIdx.z;
   const size_t head_off = (size_t)blockIdx.y * d;
-  const int chunks = d / 8;
 
   // q tile + 2 K and 2 V stages
   zero_pad_columns<DP, THREADS>(sq, BQ / kTile + 4, d);
 #pragma unroll
   for (int i = 0; i < BQ / kTile; ++i)
-    load_tile<S, THREADS>(sq + i * kTile * S,
-                          q + (size_t)row * lq * ld + head_off,
-                          q0 + i * kTile, lq, ld, chunks);
+    stage_tile<S, DP, VEC, THREADS>(sq + i * kTile * S,
+                                    q + (size_t)row * lq * ld + head_off,
+                                    q0 + i * kTile, lq, ld, d);
 
   uint32_t qf[KT][4];
   float acc[NT][4];
@@ -139,18 +158,18 @@ __global__ void __launch_bounds__(32 * WARPS)
     m[0] = m[1] = -INFINITY;
     l[0] = l[1] = 0.f;
 
-    load_tile<S, THREADS>(sk, kg, 0, lk, ld, chunks);
-    load_tile<S, THREADS>(sv, vg, 0, lk, ld, chunks);
+    stage_tile<S, DP, VEC, THREADS>(sk, kg, 0, lk, ld, d);
+    stage_tile<S, DP, VEC, THREADS>(sv, vg, 0, lk, ld, d);
     cp_async_commit();  // (pass 0: this group also holds the q tile)
 
 #pragma unroll 1
     for (int t = 0; t < n_tiles; ++t) {
       const int st = t & 1;
       if (t + 1 < n_tiles) {
-        load_tile<S, THREADS>(sk + (st ^ 1) * kBlockK * S, kg,
-                              (t + 1) * kBlockK, lk, ld, chunks);
-        load_tile<S, THREADS>(sv + (st ^ 1) * kBlockK * S, vg,
-                              (t + 1) * kBlockK, lk, ld, chunks);
+        stage_tile<S, DP, VEC, THREADS>(sk + (st ^ 1) * kBlockK * S, kg,
+                                        (t + 1) * kBlockK, lk, ld, d);
+        stage_tile<S, DP, VEC, THREADS>(sv + (st ^ 1) * kBlockK * S, vg,
+                                        (t + 1) * kBlockK, lk, ld, d);
         cp_async_commit();
         cp_async_wait<1>();
       } else {
@@ -259,8 +278,8 @@ __global__ void __launch_bounds__(32 * WARPS)
 
   // write rows g and g + 8 of this warp's tile, real columns only
   const int r0 = q0 + warp * 16 + g;
-  store_rows<NT>(out + (size_t)row * lq * ld + head_off, acc, 1.f, r0, lq,
-                 ld, d, tq);
+  store_rows<NT, VEC>(out + (size_t)row * lq * ld + head_off, acc, 1.f, r0,
+                      lq, ld, d, tq);
   if (LSE && tq == 0) {
     // natural-log lse of the scaled logits: m is in the log2 domain
     float* lg = lse + ((size_t)row * gridDim.y + blockIdx.y) * lq;
@@ -269,7 +288,7 @@ __global__ void __launch_bounds__(32 * WARPS)
   }
 }
 
-template <int DP, bool NBR, bool LSE, int WARPS>
+template <int DP, bool NBR, bool LSE, int WARPS, bool VEC>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float* lse, int batch, int lq, int lk, int heads, int d,
                    int n_cam, float scale, cudaStream_t stream) {
@@ -277,7 +296,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   constexpr int THREADS = 32 * WARPS;
   const size_t smem = (size_t)(BQ + 4 * kBlockK) * (DP + 8) * sizeof(bf16) +
                       (NBR ? (size_t)THREADS * (DP / 2) * sizeof(float) : 0);
-  auto kernel = attention_kernel<DP, NBR, LSE, WARPS>;
+  auto kernel = attention_kernel<DP, NBR, LSE, WARPS, VEC>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -289,15 +308,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
-template <bool NBR, bool LSE, int WARPS = kWarps>
+template <bool NBR, bool LSE, int WARPS = kWarps, bool VEC = true>
 int dispatch(const void* q, const void* k, const void* v, void* out,
              float* lse, int batch, int lq, int lk, int heads, int d,
              int n_cam, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d <= 0 || d % 8 || d > 160) return (int)cudaErrorInvalidValue;
-#define DD_CALL(P)                                                          \
-  (int)launch<P, NBR, LSE, WARPS>(q, k, v, out, lse, batch, lq, lk, heads, \
-                                  d, n_cam, scale, s)
+  if (d <= 0 || (VEC && d % 8) || d > 160) return (int)cudaErrorInvalidValue;
+#define DD_CALL(P)                                                         \
+  (int)launch<P, NBR, LSE, WARPS, VEC>(q, k, v, out, lse, batch, lq, lk, \
+                                       heads, d, n_cam, scale, s)
   DD_DISPATCH_DP(d, DD_CALL)
 #undef DD_CALL
   return (int)cudaErrorInvalidValue;
@@ -362,4 +381,33 @@ extern "C" int dd_packed_attention_capped_lse_fwd(
     return dispatch<false, true, 4>(q, k, v, out, l, batch, lq, lk, heads,
                                     head_dim, 1, scale, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+// Split layout (B, L, H, D), the JAX package's flash_attention: any
+// head_dim from 1 to 160; 16-byte staging where d % 8 == 0 and the rows are
+// aligned, element loads otherwise.
+extern "C" int dd_flash_attention_fwd(const void* q, const void* k,
+                                      const void* v, void* out, int batch,
+                                      int lq, int lk, int heads, int head_dim,
+                                      float scale, void* stream) {
+  if (dd::vec_ok(head_dim, q, k, v, out))
+    return dispatch<false, false>(q, k, v, out, nullptr, batch, lq, lk,
+                                  heads, head_dim, 1, scale, stream);
+  return dispatch<false, false, dd::kWarps, false>(
+      q, k, v, out, nullptr, batch, lq, lk, heads, head_dim, 1, scale,
+      stream);
+}
+
+// flash_attention_fwd with the lse epilogue
+extern "C" int dd_flash_attention_lse_fwd(const void* q, const void* k,
+                                          const void* v, void* out, void* lse,
+                                          int batch, int lq, int lk,
+                                          int heads, int head_dim,
+                                          float scale, void* stream) {
+  float* l = static_cast<float*>(lse);
+  if (dd::vec_ok(head_dim, q, k, v, out))
+    return dispatch<false, true>(q, k, v, out, l, batch, lq, lk, heads,
+                                 head_dim, 1, scale, stream);
+  return dispatch<false, true, dd::kWarps, false>(
+      q, k, v, out, l, batch, lq, lk, heads, head_dim, 1, scale, stream);
 }

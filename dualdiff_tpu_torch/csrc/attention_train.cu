@@ -42,8 +42,21 @@
 // never produce such rows).  Products are mma.sync m16n8k16 bf16 -> f32;
 // P and dS are rounded to bf16 as MMA operands, as the forward does with P,
 // while every accumulator stays float32.  d is zero-padded to a multiple of
-// 16 in shared memory only.  Simple first: no wgmma, TMA or warp
-// specialisation yet.
+// 16 in shared memory only.
+//
+// Split layout.  flash_attention_bwd_dq replaces _bwd_dq_kernel and
+// flash_attention_bwd_dkv replaces _bwd_dkv_kernel (both called by
+// _flash_padded_bwd, the VJP of the JAX package's flash_attention).  The
+// math is the same (the scale applied after the q.k product, keys >= Lk and
+// queries >= Lq contributing nothing), on the same memory: a contiguous
+// (B, L, H, D) tensor is the packed (B, L, C).  Their entries take any
+// head_dim from 1 to 160: where d % 8 != 0 or a row is not 16-byte aligned
+// the VEC = false instances stage with 2-byte loads and store one element
+// at a time.  On the SFA+ training path (6 rows, 1400 x 1400, C = 320,
+// d = 40) dq is 22.6 GFLOP (23 us at 989 TFLOP/s) and dk/dv 30.1 GFLOP
+// (30 us) against 27 and 33 MB (8 and 10 us at 3.35 TB/s): compute-bound,
+// like the packed instances.
+// Simple first: no wgmma, TMA or warp specialisation yet.
 
 #include "mma_tile.cuh"
 
@@ -51,7 +64,9 @@ namespace {
 
 using namespace dd;
 
-template <int DP>
+// VEC: 16-byte staging and 4-byte stores (d % 8 == 0, aligned rows); else
+// element by element, for any head_dim (the split-layout entries).
+template <int DP, bool VEC>
 __global__ void __launch_bounds__(kThreads)
     bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -75,16 +90,16 @@ __global__ void __launch_bounds__(kThreads)
   const int q0 = blockIdx.x * kBlockQ;
   const int row = blockIdx.z;
   const size_t head_off = (size_t)blockIdx.y * d;
-  const int chunks = d / 8;
   const bf16* kg = k + (size_t)row * lk * ld + head_off;
   const bf16* vg = v + (size_t)row * lk * ld + head_off;
 
   zero_pad_columns<DP>(sq, 6, d);
-  load_tile<S>(sq, q + (size_t)row * lq * ld + head_off, q0, lq, ld, chunks);
-  load_tile<S>(sdo, dout + (size_t)row * lq * ld + head_off, q0, lq, ld,
-               chunks);
-  load_tile<S>(sk, kg, 0, lk, ld, chunks);
-  load_tile<S>(sv, vg, 0, lk, ld, chunks);
+  stage_tile<S, DP, VEC>(sq, q + (size_t)row * lq * ld + head_off, q0, lq,
+                         ld, d);
+  stage_tile<S, DP, VEC>(sdo, dout + (size_t)row * lq * ld + head_off, q0,
+                         lq, ld, d);
+  stage_tile<S, DP, VEC>(sk, kg, 0, lk, ld, d);
+  stage_tile<S, DP, VEC>(sv, vg, 0, lk, ld, d);
   cp_async_commit();
 
   const int g = lane >> 2;
@@ -111,10 +126,10 @@ __global__ void __launch_bounds__(kThreads)
   for (int t = 0; t < n_tiles; ++t) {
     const int st = t & 1;
     if (t + 1 < n_tiles) {
-      load_tile<S>(sk + (st ^ 1) * kBlockK * S, kg, (t + 1) * kBlockK, lk, ld,
-                   chunks);
-      load_tile<S>(sv + (st ^ 1) * kBlockK * S, vg, (t + 1) * kBlockK, lk, ld,
-                   chunks);
+      stage_tile<S, DP, VEC>(sk + (st ^ 1) * kBlockK * S, kg,
+                             (t + 1) * kBlockK, lk, ld, d);
+      stage_tile<S, DP, VEC>(sv + (st ^ 1) * kBlockK * S, vg,
+                             (t + 1) * kBlockK, lk, ld, d);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -175,11 +190,11 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();  // the next prefetch overwrites this stage
   }
 
-  store_rows<NT>(dq + (size_t)row * lq * ld + head_off, acc, scale, r0, lq,
-                 ld, d, tq);
+  store_rows<NT, VEC>(dq + (size_t)row * lq * ld + head_off, acc, scale, r0,
+                      lq, ld, d, tq);
 }
 
-template <int DP>
+template <int DP, bool VEC>
 __global__ void __launch_bounds__(kThreads)
     bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -205,17 +220,18 @@ __global__ void __launch_bounds__(kThreads)
   const int k0 = blockIdx.x * kBlockK;
   const int row = blockIdx.z;
   const size_t head_off = (size_t)blockIdx.y * d;
-  const int chunks = d / 8;
   const bf16* qg = q + (size_t)row * lq * ld + head_off;
   const bf16* dog = dout + (size_t)row * lq * ld + head_off;
   const float* lrow = lse + ((size_t)row * gridDim.y + blockIdx.y) * lq;
   const float* drow = delta + ((size_t)row * gridDim.y + blockIdx.y) * lq;
 
   zero_pad_columns<DP>(sk, 6, d);
-  load_tile<S>(sk, k + (size_t)row * lk * ld + head_off, k0, lk, ld, chunks);
-  load_tile<S>(sv, v + (size_t)row * lk * ld + head_off, k0, lk, ld, chunks);
-  load_tile<S>(sq, qg, 0, lq, ld, chunks);
-  load_tile<S>(sdo, dog, 0, lq, ld, chunks);
+  stage_tile<S, DP, VEC>(sk, k + (size_t)row * lk * ld + head_off, k0, lk,
+                         ld, d);
+  stage_tile<S, DP, VEC>(sv, v + (size_t)row * lk * ld + head_off, k0, lk,
+                         ld, d);
+  stage_tile<S, DP, VEC>(sq, qg, 0, lq, ld, d);
+  stage_tile<S, DP, VEC>(sdo, dog, 0, lq, ld, d);
   cp_async_commit();
 
   const int g = lane >> 2;
@@ -243,10 +259,10 @@ __global__ void __launch_bounds__(kThreads)
       sdelta[tid - kBlockQ] = qi < lq ? drow[qi] : 0.f;
     }
     if (t + 1 < n_tiles) {
-      load_tile<S>(sq + (st ^ 1) * kBlockQ * S, qg, (t + 1) * kBlockQ, lq, ld,
-                   chunks);
-      load_tile<S>(sdo + (st ^ 1) * kBlockQ * S, dog, (t + 1) * kBlockQ, lq,
-                   ld, chunks);
+      stage_tile<S, DP, VEC>(sq + (st ^ 1) * kBlockQ * S, qg,
+                             (t + 1) * kBlockQ, lq, ld, d);
+      stage_tile<S, DP, VEC>(sdo + (st ^ 1) * kBlockQ * S, dog,
+                             (t + 1) * kBlockQ, lq, ld, d);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -315,17 +331,17 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   const size_t out_off = (size_t)row * lk * ld + head_off;
-  store_rows<NT>(dk + out_off, acc_k, scale, r0, lk, ld, d, tq);
-  store_rows<NT>(dv + out_off, acc_v, 1.f, r0, lk, ld, d, tq);
+  store_rows<NT, VEC>(dk + out_off, acc_k, scale, r0, lk, ld, d, tq);
+  store_rows<NT, VEC>(dv + out_off, acc_v, 1.f, r0, lk, ld, d, tq);
 }
 
-template <int DP>
+template <int DP, bool VEC>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
                       void* dq, int batch, int lq, int lk, int heads, int d,
                       float scale, cudaStream_t stream) {
   const size_t smem = (size_t)6 * kTile * (DP + 8) * sizeof(bf16);
-  auto kernel = bwd_dq_kernel<DP>;
+  auto kernel = bwd_dq_kernel<DP, VEC>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -337,14 +353,14 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <int DP>
+template <int DP, bool VEC>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, const float* delta,
                        void* dk, void* dv, int batch, int lq, int lk,
                        int heads, int d, float scale, cudaStream_t stream) {
   const size_t smem = (size_t)6 * kTile * (DP + 8) * sizeof(bf16) +
                       (size_t)2 * kBlockQ * sizeof(float);
-  auto kernel = bwd_dkv_kernel<DP>;
+  auto kernel = bwd_dkv_kernel<DP, VEC>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -357,6 +373,40 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+template <bool VEC>
+int dispatch_dq(const void* q, const void* k, const void* v,
+                const void* dout, const void* lse, const void* delta,
+                void* dq, int batch, int lq, int lk, int heads, int d,
+                float scale, void* stream) {
+  if (d <= 0 || (VEC && d % 8) || d > 160) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+#define DD_CALL(P)                                                          \
+  (int)launch_dq<P, VEC>(q, k, v, dout, l, dl, dq, batch, lq, lk, heads, d, \
+                         scale, s)
+  DD_DISPATCH_DP(d, DD_CALL)
+#undef DD_CALL
+  return (int)cudaErrorInvalidValue;
+}
+
+template <bool VEC>
+int dispatch_dkv(const void* q, const void* k, const void* v,
+                 const void* dout, const void* lse, const void* delta,
+                 void* dk, void* dv, int batch, int lq, int lk, int heads,
+                 int d, float scale, void* stream) {
+  if (d <= 0 || (VEC && d % 8) || d > 160) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+#define DD_CALL(P)                                                         \
+  (int)launch_dkv<P, VEC>(q, k, v, dout, l, dl, dk, dv, batch, lq, lk,     \
+                          heads, d, scale, s)
+  DD_DISPATCH_DP(d, DD_CALL)
+#undef DD_CALL
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" int dd_packed_attention_bwd_dq(const void* q, const void* k,
@@ -365,16 +415,8 @@ extern "C" int dd_packed_attention_bwd_dq(const void* q, const void* k,
                                           void* dq, int batch, int lq, int lk,
                                           int heads, int head_dim, float scale,
                                           void* stream) {
-  const int d = head_dim;
-  if (d <= 0 || d % 8 || d > 160) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-#define DD_CALL(P) \
-  (int)launch_dq<P>(q, k, v, dout, l, dl, dq, batch, lq, lk, heads, d, scale, s)
-  DD_DISPATCH_DP(d, DD_CALL)
-#undef DD_CALL
-  return (int)cudaErrorInvalidValue;
+  return dispatch_dq<true>(q, k, v, dout, lse, delta, dq, batch, lq, lk,
+                           heads, head_dim, scale, stream);
 }
 
 extern "C" int dd_packed_attention_bwd_dkv(const void* q, const void* k,
@@ -384,15 +426,35 @@ extern "C" int dd_packed_attention_bwd_dkv(const void* q, const void* k,
                                            int lq, int lk, int heads,
                                            int head_dim, float scale,
                                            void* stream) {
-  const int d = head_dim;
-  if (d <= 0 || d % 8 || d > 160) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-#define DD_CALL(P)                                                        \
-  (int)launch_dkv<P>(q, k, v, dout, l, dl, dk, dv, batch, lq, lk, heads, d, \
-                     scale, s)
-  DD_DISPATCH_DP(d, DD_CALL)
-#undef DD_CALL
-  return (int)cudaErrorInvalidValue;
+  return dispatch_dkv<true>(q, k, v, dout, lse, delta, dk, dv, batch, lq, lk,
+                            heads, head_dim, scale, stream);
+}
+
+// Split layout (B, L, H, D): any head_dim from 1 to 160; 16-byte staging
+// where d % 8 == 0 and every row is aligned, element loads otherwise.
+extern "C" int dd_flash_attention_bwd_dq(const void* q, const void* k,
+                                         const void* v, const void* dout,
+                                         const void* lse, const void* delta,
+                                         void* dq, int batch, int lq, int lk,
+                                         int heads, int head_dim, float scale,
+                                         void* stream) {
+  if (dd::vec_ok(head_dim, q, k, v, dout, dq))
+    return dispatch_dq<true>(q, k, v, dout, lse, delta, dq, batch, lq, lk,
+                             heads, head_dim, scale, stream);
+  return dispatch_dq<false>(q, k, v, dout, lse, delta, dq, batch, lq, lk,
+                            heads, head_dim, scale, stream);
+}
+
+extern "C" int dd_flash_attention_bwd_dkv(const void* q, const void* k,
+                                          const void* v, const void* dout,
+                                          const void* lse, const void* delta,
+                                          void* dk, void* dv, int batch,
+                                          int lq, int lk, int heads,
+                                          int head_dim, float scale,
+                                          void* stream) {
+  if (dd::vec_ok(head_dim, q, k, v, dout, dk, dv))
+    return dispatch_dkv<true>(q, k, v, dout, lse, delta, dk, dv, batch, lq,
+                              lk, heads, head_dim, scale, stream);
+  return dispatch_dkv<false>(q, k, v, dout, lse, delta, dk, dv, batch, lq,
+                             lk, heads, head_dim, scale, stream);
 }

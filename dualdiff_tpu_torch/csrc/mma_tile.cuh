@@ -1,6 +1,7 @@
 // Shared pieces of the attention kernels (attention.cu, attention_train.cu):
-// 16-byte cp.async staging, ldmatrix, mma.sync m16n8k16 bf16 -> f32, and the
-// tile geometry.  Four warps per block by default (the staging helpers take
+// 16-byte cp.async staging (or, for a head_dim that is not a multiple of 8
+// or a row that is not 16-byte aligned, plain element loads), ldmatrix,
+// mma.sync m16n8k16 bf16 -> f32, and the tile geometry.  Four warps per block by default (the staging helpers take
 // the block's thread count as a template parameter), one 16-row MMA tile per
 // warp, 64-row tiles staged in shared memory with a row stride of DP + 8
 // bf16 (DP = head dim padded to the MMA depth 16), which keeps ldmatrix free
@@ -11,6 +12,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <initializer_list>
 
 namespace dd {
 
@@ -94,6 +97,45 @@ __device__ __forceinline__ void load_tile(bf16* tile, const bf16* g, int row0,
   }
 }
 
+// load_tile for any head_dim d <= DP and any alignment: plain 2-byte loads,
+// synchronous; columns [d, DP) and rows >= nrows are written as zeros.
+template <int S, int DP, int THREADS = kThreads>
+__device__ __forceinline__ void load_tile_any(bf16* tile, const bf16* g,
+                                              int row0, int nrows, int ld,
+                                              int d) {
+  for (int i = threadIdx.x; i < kTile * DP; i += THREADS) {
+    const int r = i / DP;
+    const int col = i - r * DP;
+    const int row = row0 + r;
+    bf16 x = __float2bfloat16(0.f);
+    if (row < nrows && col < d) x = g[(size_t)row * ld + col];
+    tile[r * S + col] = x;
+  }
+}
+
+// Stage one 64-row tile: cp.async (load_tile) when VEC, which needs
+// d % 8 == 0 and 16-byte aligned rows, else load_tile_any.
+template <int S, int DP, bool VEC, int THREADS = kThreads>
+__device__ __forceinline__ void stage_tile(bf16* tile, const bf16* g,
+                                           int row0, int nrows, int ld,
+                                           int d) {
+  if constexpr (VEC)
+    load_tile<S, THREADS>(tile, g, row0, nrows, ld, d / 8);
+  else
+    load_tile_any<S, DP, THREADS>(tile, g, row0, nrows, ld, d);
+}
+
+// The VEC condition for a (rows, heads * d) bf16 matrix: with d % 8 == 0
+// every head's row segment starts 16-byte aligned when the base does.
+inline bool vec_ok(int d, const void* a, const void* b, const void* c,
+                   const void* e, const void* f = nullptr,
+                   const void* g = nullptr) {
+  uintptr_t bits = 0;
+  for (const void* p : {a, b, c, e, f, g})
+    bits |= reinterpret_cast<uintptr_t>(p);
+  return d % 8 == 0 && bits % 16 == 0;
+}
+
 // Columns [d, DP) of n_tiles consecutive tiles (row stride S) stay zero;
 // cp.async never writes them.
 template <int DP, int THREADS = kThreads>
@@ -147,8 +189,10 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
 }
 
 // Write a warp's 16 x DP f32 accumulator times `mul` as bf16 rows r0 and
-// r0 + 8 of a (rows, ld) matrix; only rows < nrows and columns < d.
-template <int NT>
+// r0 + 8 of a (rows, ld) matrix; only rows < nrows and columns < d.  VEC:
+// column pairs as one 4-byte store (d even, rows 4-byte aligned); else one
+// element at a time, for any d and alignment.
+template <int NT, bool VEC = true>
 __device__ __forceinline__ void store_rows(bf16* g, const float (&acc)[NT][4],
                                            float mul, int r0, int nrows,
                                            int ld, int d, int tq) {
@@ -156,16 +200,22 @@ __device__ __forceinline__ void store_rows(bf16* g, const float (&acc)[NT][4],
   for (int i = 0; i < NT; ++i) {
     const int col = i * 8 + 2 * tq;
     if (col >= d) continue;
-    if (r0 < nrows)
-      *reinterpret_cast<uint32_t*>(g + (size_t)r0 * ld + col) =
-          pack_bf16x2(acc[i][0] * mul, acc[i][1] * mul);
-    if (r0 + 8 < nrows)
-      *reinterpret_cast<uint32_t*>(g + (size_t)(r0 + 8) * ld + col) =
-          pack_bf16x2(acc[i][2] * mul, acc[i][3] * mul);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (r0 + 8 * h >= nrows) continue;
+      bf16* p = g + (size_t)(r0 + 8 * h) * ld + col;
+      if constexpr (VEC) {
+        *reinterpret_cast<uint32_t*>(p) =
+            pack_bf16x2(acc[i][2 * h] * mul, acc[i][2 * h + 1] * mul);
+      } else {
+        p[0] = __float2bfloat16(acc[i][2 * h] * mul);
+        if (col + 1 < d) p[1] = __float2bfloat16(acc[i][2 * h + 1] * mul);
+      }
+    }
   }
 }
 
-// head_dim -> padded DP dispatch over the 10 instances d in 8..160.
+// head_dim -> padded DP dispatch over the 10 instances d in 1..160.
 #define DD_DISPATCH_DP(d, CALL)                      \
   switch (((d) + 15) / 16 * 16) {                    \
     case 16: return CALL(16);                        \

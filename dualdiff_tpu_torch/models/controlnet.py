@@ -3,9 +3,9 @@
 Port of ``dualdiff_tpu/models/controlnet.py``: a copy of the SD UNet
 encoder with zero-conv output heads, plus the camera token, the
 ``[cam | text | boxes]`` context assembly, the CFG uncond switch, the
-occupancy-image or raw ORS-ray conditioning and SFA fusion.  With ``remat``
-the encoder's down and mid blocks are rematerialised in the backward as in
-the UNet (``enable_controlnet_checkpointing``).
+occupancy-image or raw ORS-ray conditioning and SFA / SFA+ fusion.  With
+``remat`` the encoder's down and mid blocks are rematerialised in the
+backward as in the UNet (``enable_controlnet_checkpointing``).
 
 ``precompute_only=True`` returns the step-constant tensors (conditioning
 feature map and context tokens); passing them back as ``precomputed`` runs
@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 from .embedders import (BBoxEmbedder, OccImageConditionEmbedder, SFATxtCon,
-                        embed_camera_param)
+                        SFATxtConPlus, embed_camera_param)
 from .layers import (Conv2d, Linear, TimestepEmbedding,
                      get_timestep_embedding, remat_call, zero_module)
 from .unet import CrossAttnDownBlock2D, DownBlock2D, UNetMidBlock2DCrossAttn
@@ -39,6 +39,7 @@ class BEVControlNet(nn.Module):
                  conditioning_embedding_out_channels: Sequence[int] = (
                      16, 32, 96, 256),
                  n_cam: int = 6, use_txt_con_fusion: bool = False,
+                 use_txt_con_fusionp: bool = False,
                  bbox_mode: str = "all-xyz",
                  bbox_num_points: Optional[int] = None,
                  bbox_n_classes: int = 10,
@@ -71,9 +72,11 @@ class BEVControlNet(nn.Module):
         self.controlnet_cond_embedding = OccImageConditionEmbedder(
             chs[0], conditioning_embedding_out_channels, n_cam) \
             if cond_embedder == "occ_image" else None
-        # SFA keeps its own 8 heads whatever the UNet's head count
+        # SFA and SFA+ keep their own 8 heads whatever the UNet's head count
         self.txt_con_fusion = SFATxtCon(chs[0], cross_attention_dim) \
             if use_txt_con_fusion else None
+        self.txt_con_fusionp = SFATxtConPlus(chs[0], cross_attention_dim) \
+            if use_txt_con_fusionp else None
 
         self.time_embedding = TimestepEmbedding(chs[0], temb)
         self.conv_in = Conv2d(in_channels, chs[0], 3, padding=1)
@@ -167,6 +170,8 @@ class BEVControlNet(nn.Module):
             cond = cond.to(self.conv_in.weight.dtype)
         if self.txt_con_fusion is not None:
             cond = self.txt_con_fusion(cond, states[:, 1:])
+        if self.txt_con_fusionp is not None:
+            cond = self.txt_con_fusionp(cond, states[:, 1:])
         if precompute_only:
             return {"cond": cond, "kv": kv}
         return self._encode(sample, timesteps, kv, cond, B, N,

@@ -1,8 +1,9 @@
 """Conditioning embedders: camera, box / map-vector tokens, occupancy image,
 SFA text-condition fusion.
 
-Port of ``dualdiff_tpu/models/embedders.py`` (the parts the flagship path
-runs).  Feature maps are NCHW; token tensors are ``(B, L, C)``.
+Port of ``dualdiff_tpu/models/embedders.py`` (the parts the flagship and
+``occ_bg_fusionp`` paths run).  Feature maps are NCHW; token tensors are
+``(B, L, C)``.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from ..ops.fourier import fourier_embed, fourier_out_dim
 from .layers import Conv2d, Linear, zero_module
 
 __all__ = ["embed_camera_param", "BBoxEmbedder",
-           "OccImageConditionEmbedder", "SFATxtCon"]
+           "OccImageConditionEmbedder", "SFATxtCon", "SFATxtConPlus"]
 
 
 def embed_camera_param(camera_param: torch.Tensor,
@@ -121,5 +122,37 @@ class SFATxtCon(nn.Module):
         split = lambda t: t.reshape(b, t.shape[1], self.heads, hd)
         out = multi_head_attention(split(self.to_q(x)), split(self.to_k(txt)),
                                    split(self.to_v(txt)))
+        out = self.to_out[0](out.reshape(b, h * w, c))
+        return cond + out.transpose(1, 2).reshape(b, c, h, w)
+
+
+class SFATxtConPlus(nn.Module):
+    """Two-stage SFA+: the condition map's queries first attend to the text
+    tokens, and the result then queries the condition map's own keys and
+    values; added back residually.  Stage 2 is a self-attention of the
+    h*w condition tokens (28x50 = 1400 at 224x400), which
+    ``multi_head_attention`` sends to the split-layout kernels."""
+
+    def __init__(self, con_dim: int = 320, txt_dim: int = 768,
+                 heads: int = 8):
+        super().__init__()
+        self.heads = heads
+        self.to_q_occ = Linear(con_dim, con_dim, bias=False)
+        self.to_k_occ = Linear(con_dim, con_dim, bias=False)
+        self.to_v_occ = Linear(con_dim, con_dim, bias=False)
+        self.to_k_txt = Linear(txt_dim, con_dim, bias=False)
+        self.to_v_txt = Linear(txt_dim, con_dim, bias=False)
+        self.to_out = nn.ModuleList([Linear(con_dim, con_dim)])
+
+    def forward(self, cond: torch.Tensor, txt: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = cond.shape
+        x = cond.flatten(2).transpose(1, 2)  # (B, h*w, C)
+        hd = c // self.heads
+        split = lambda t: t.reshape(b, t.shape[1], self.heads, hd)
+        stage1 = multi_head_attention(split(self.to_q_occ(x)),
+                                      split(self.to_k_txt(txt)),
+                                      split(self.to_v_txt(txt)))
+        out = multi_head_attention(stage1, split(self.to_k_occ(x)),
+                                   split(self.to_v_occ(x)))
         out = self.to_out[0](out.reshape(b, h * w, c))
         return cond + out.transpose(1, 2).reshape(b, c, h, w)

@@ -26,6 +26,27 @@ Under grad the camera-ring attn4 takes the JAX training formulation
 (``_nbr_stacked``): the left and right neighbours' K/V gathered and stacked
 on the batch axis, one ``PackedAttention`` call, the two halves summed.
 
+Split layout.  ``flash_attention`` and ``multi_head_attention`` take
+``(B, L, H, D)`` tensors, the JAX package's ``flash_attention`` API; a
+contiguous ``(B, L, H, D)`` tensor is the same memory as the packed
+``(B, L, C)``, so its kernels read it in place.  ``multi_head_attention``
+sends a call with both lengths at least ``FLASH_MIN_LEN`` (SFA+ stage 2,
+1400 x 1400 at d = 40) to ``flash_attention`` and everything else to
+``mha_einsum``, as the JAX dispatcher does.  ``flash_attention`` runs
+``flash_attention_fwd`` (the port of ``_fwd_kernel_nolse``) when it is not
+differentiated, and ``FlashAttention`` otherwise: ``flash_attention_lse_fwd``
+(``_fwd_kernel``), then ``flash_attention_bwd_dq`` (``_bwd_dq_kernel``) and
+``flash_attention_bwd_dkv`` (``_bwd_dkv_kernel``), as ``_flash_padded``'s
+VJP.  These four take any head_dim from 1 to ``MAX_KERNEL_HEAD_DIM``, so
+``attention_packed`` also sends its ``d % 8 != 0`` queries of at least
+``PACKED_MIN_LQ`` tokens there, as ``_packed_infer`` falls back to the split
+kernels (under grad only with at least ``FLASH_MIN_LEN`` keys, einsum below,
+as ``_flash_packed_fwd``).  The TPU's sequence padding (``_auto_blocks``,
+the backward's re-pad to 512, the 128-lane lse) is not carried over: the
+kernels mask keys >= Lk and queries >= Lq exactly.  Neither is
+``_packed_infer``'s 5376-token envelope: the packed kernels hold no score
+tile, so long sequences stay on them.
+
 Frame-axis self-attention (lq == lk <= ``HEADPACK_MAX_LQ``, the video
 temporal attention) is einsum; under grad it runs inside
 ``torch.utils.checkpoint``, so that only q, k and v are saved and the tiny
@@ -50,7 +71,13 @@ from torch.utils.checkpoint import checkpoint
 
 from .cuda_lib import library
 
-__all__ = ["PACKED_MIN_LQ", "mha_einsum", "multi_head_attention",
+__all__ = ["PACKED_MIN_LQ", "FLASH_MIN_LEN", "mha_einsum",
+           "multi_head_attention", "flash_attention", "FlashAttention",
+           "flash_attention_plain", "flash_attention_lse_plain",
+           "flash_attention_bwd_dq_plain", "flash_attention_bwd_dkv_plain",
+           "flash_attention_delta", "flash_attention_fwd",
+           "flash_attention_lse_fwd", "flash_attention_bwd_dq",
+           "flash_attention_bwd_dkv",
            "attention_packed", "attention_packed_neighbors",
            "attention_packed_plain", "attention_packed_neighbors_plain",
            "attention_packed_lse_plain", "attention_packed_bwd_dq_plain",
@@ -68,6 +95,12 @@ __all__ = ["PACKED_MIN_LQ", "mha_einsum", "multi_head_attention",
 # package's _PACKED_MIN_LQ (a TPU measurement); to be decided again on the
 # H100.
 PACKED_MIN_LQ = 512
+# multi_head_attention sends a call with both lengths at least this long to
+# flash_attention.  The JAX package's number (its dispatcher's ">= 1024",
+# where a TPU score tile stops fitting in VMEM), to be decided again on the
+# H100: chip_smoke.py phase 3 times mha_einsum beside the kernel at the
+# SFA+ stage-2 shape.
+FLASH_MIN_LEN = 1024
 # Inference calls whose padded score tile up128(lq) * up128(lk) is over
 # this take packed_attention_capped_fwd.  Carried over from the JAX
 # package's _T_SCORE_CAP, the TPU's VMEM budget for a whole-sequence f32
@@ -105,9 +138,12 @@ def mha_einsum(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def multi_head_attention(q, k, v, scale: Optional[float] = None):
-    """(B, L, H, D) in and out.  The JAX package sends this to its
-    split-layout flash kernel only on a TPU with both lengths >= 1024 (SFA+
-    stage 2, not on this path); the port uses einsum."""
+    """(B, L, H, D) in and out: ``flash_attention`` when both lengths are at
+    least ``FLASH_MIN_LEN`` (and head_dim at most ``MAX_KERNEL_HEAD_DIM``),
+    ``mha_einsum`` otherwise."""
+    if min(q.shape[1], k.shape[1]) >= FLASH_MIN_LEN \
+            and q.shape[-1] <= MAX_KERNEL_HEAD_DIM:
+        return flash_attention(q, k, v, scale)
     return mha_einsum(q, k, v, scale)
 
 
@@ -202,12 +238,14 @@ def attention_packed_lse_plain(q, k, v, heads: int,
 
 def attention_delta(o: torch.Tensor, do: torch.Tensor,
                     heads: int) -> torch.Tensor:
-    """delta = sum_d dO * O per (row, head, query), float32 (B*H, Lq), from
-    the output as it was returned (bf16 on the card), as the JAX package
-    takes it from ``out_t``."""
+    """delta = sum_d dO * O per (row, head, query), float32 (B*H, Lq),
+    contiguous as the backward kernels take it, from the output as it was
+    returned (bf16 on the card), as the JAX package takes it from
+    ``out_t``."""
     b, lq, _ = o.shape
     prod = _heads_f32(do, heads) * _heads_f32(o, heads)
-    return prod.sum(-1).transpose(1, 2).reshape(b * heads, lq)
+    # with B = 1 the reshape is a strided view, not a copy
+    return prod.sum(-1).transpose(1, 2).reshape(b * heads, lq).contiguous()
 
 
 def _probs_and_ds(q, k, v, do, lse, delta, heads, scale):
@@ -243,9 +281,65 @@ def attention_packed_bwd_dkv_plain(q, k, v, do, lse, delta, heads: int,
     return dk.reshape(k.shape).to(k.dtype), dv.reshape(v.shape).to(v.dtype)
 
 
+def _packed(t: torch.Tensor) -> torch.Tensor:
+    """(B, L, H, D) -> (B, L, H*D), a view when contiguous."""
+    return t.reshape(t.shape[0], t.shape[1], -1)
+
+
+def flash_attention_plain(q, k, v, scale: Optional[float] = None):
+    """Plain version of ``flash_attention_fwd``, (B, L, H, D) in and out:
+    q scaled in float32 before the product, as in ``_fwd_kernel``; float32
+    softmax and products, rounded once to q's dtype."""
+    b, lq, h, d = q.shape
+    out = attention_packed_plain(_packed(q), _packed(k), _packed(v), h,
+                                 _default_scale(scale, d))
+    return out.reshape(b, lq, h, d)
+
+
+def flash_attention_lse_plain(q, k, v, scale: Optional[float] = None):
+    """Plain version of ``flash_attention_lse_fwd``: -> (o (B, Lq, H, D) in
+    q's dtype, lse (B*H, Lq) float32), lse = m + log l of ``_fwd_kernel``."""
+    b, lq, h, d = q.shape
+    out, lse = attention_packed_lse_plain(_packed(q), _packed(k), _packed(v),
+                                          h, _default_scale(scale, d))
+    return out.reshape(b, lq, h, d), lse
+
+
+def flash_attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = sum_d dO * O, float32 (B*H, Lq), from the output as it was
+    returned, as ``_flash_padded_bwd`` takes it."""
+    return attention_delta(_packed(o), _packed(do), o.shape[2])
+
+
+def flash_attention_bwd_dq_plain(q, k, v, do, lse, delta,
+                                 scale: Optional[float] = None):
+    """Plain version of ``flash_attention_bwd_dq``: the scale applied after
+    the q.k product and to dq, as in ``_bwd_dq_kernel``; float32, rounded
+    once to q's dtype."""
+    h, d = q.shape[2:]
+    dq = attention_packed_bwd_dq_plain(
+        _packed(q), _packed(k), _packed(v), _packed(do), lse, delta, h,
+        _default_scale(scale, d))
+    return dq.reshape(q.shape)
+
+
+def flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                  scale: Optional[float] = None):
+    """Plain version of ``flash_attention_bwd_dkv``: dk = s dS^T Q and dv =
+    P^T dO over the real queries, as ``_bwd_dkv_kernel`` (its padded ones
+    contribute nothing); float32, rounded once to k's and v's dtype."""
+    h, d = q.shape[2:]
+    dk, dv = attention_packed_bwd_dkv_plain(
+        _packed(q), _packed(k), _packed(v), _packed(do), lse, delta, h,
+        _default_scale(scale, d))
+    return dk.reshape(k.shape), dv.reshape(v.shape)
+
+
 # ------------------------------------------------------ kernel wrappers --
 
-def _check_kernel_args(q, k, v, heads):
+def _check_cuda_bf16(q, k, v, dims: int, layout: str) -> None:
+    """q, k, v: contiguous bf16 CUDA tensors of ``dims`` dimensions on one
+    device."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
             raise ValueError(f"{name} is on {t.device}; the kernel needs "
@@ -253,12 +347,17 @@ def _check_kernel_args(q, k, v, heads):
         if t.dtype != torch.bfloat16:
             raise ValueError(f"{name} is {t.dtype}; the kernel takes "
                              "bfloat16")
-        if t.dim() != 3 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous (B, L, C) tensor")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} is not 16-byte aligned")
+        if t.dim() != dims or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {layout} tensor")
     if q.device != k.device or q.device != v.device:
         raise ValueError("q, k and v lie on different devices")
+
+
+def _check_kernel_args(q, k, v, heads):
+    _check_cuda_bf16(q, k, v, 3, "(B, L, C)")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
     if k.shape != v.shape or k.shape[0] != q.shape[0] \
             or k.shape[2] != q.shape[2]:
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
@@ -275,13 +374,13 @@ def _check_kernel_args(q, k, v, heads):
     return d
 
 
-def _check_grad_args(q, do, lse, delta, heads):
-    """The backward kernels' extra inputs: dO like q, lse and delta float32
-    (B*H, Lq)."""
+def _check_grad_args(q, do, lse, delta, heads, align: int = 16):
+    """The backward kernels' extra inputs: dO like q (``align``-byte
+    aligned), lse and delta float32 (B*H, Lq)."""
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device \
-            or not do.is_contiguous() or do.data_ptr() % 16:
-        raise ValueError("do must be a contiguous 16-byte aligned tensor of "
-                         "q's shape, dtype and device")
+            or not do.is_contiguous() or do.data_ptr() % align:
+        raise ValueError(f"do must be a contiguous {align}-byte aligned "
+                         "tensor of q's shape, dtype and device")
     want = (q.shape[0] * heads, q.shape[1])
     for name, t in (("lse", lse), ("delta", delta)):
         if t.dtype != torch.float32 or tuple(t.shape) != want \
@@ -296,7 +395,8 @@ def _refuse_grad(*tensors) -> None:
     if _differentiated(*tensors):
         raise RuntimeError(
             "the inference attention kernels are not differentiable; "
-            "differentiated calls go through PackedAttention")
+            "differentiated calls go through PackedAttention or "
+            "FlashAttention")
 
 
 def _stream(t: torch.Tensor) -> ctypes.c_void_p:
@@ -499,10 +599,132 @@ def packed_attention_capped_lse_fwd(q: torch.Tensor, k: torch.Tensor,
     return out, lse
 
 
+def _check_split_args(q, k, v):
+    """The split-layout kernels' inputs: contiguous bf16 (B, L, H, D) CUDA
+    tensors, any alignment, head_dim 1 to ``MAX_KERNEL_HEAD_DIM``."""
+    _check_cuda_bf16(q, k, v, 4, "(B, L, H, D)")
+    b, _, h, d = q.shape
+    if k.shape != v.shape or (k.shape[0], k.shape[2], k.shape[3]) != (b, h,
+                                                                       d):
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not match")
+    if not 1 <= d <= MAX_KERNEL_HEAD_DIM:
+        raise ValueError(f"head_dim {d}: the kernel takes 1 to "
+                         f"{MAX_KERNEL_HEAD_DIM}")
+    if q.shape[1] == 0 or k.shape[1] == 0:
+        raise ValueError("empty sequence")
+    return d
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """Inference attention in the split layout, q (B, Lq, H, D), k/v
+    (B, Lk, H, D) -> (B, Lq, H, D), any head_dim up to
+    ``MAX_KERNEL_HEAD_DIM``.
+
+    CUDA kernel ``flash_attention_fwd`` (``csrc/attention.cu``), the port of
+    the TPU kernel ``_fwd_kernel_nolse``.  CPU tensors take
+    ``flash_attention_plain``."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, scale)
+    _refuse_grad(q, k, v)
+    d = _check_split_args(q, k, v)
+    scale = _default_scale(scale, d)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = library("attention").dd_flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            q.shape[0], q.shape[1], k.shape[1], q.shape[2], d, scale,
+            _stream(q))
+    _raise_on(err, "flash_attention_fwd")
+    flash_attention_fwd.launches += 1
+    return out
+
+
+def flash_attention_lse_fwd(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, scale: Optional[float] = None):
+    """Training forward in the split layout, q (B, Lq, H, D), k/v
+    (B, Lk, H, D) -> (o (B, Lq, H, D), lse (B*H, Lq) float32).
+
+    CUDA kernel ``flash_attention_lse_fwd`` (``csrc/attention.cu``), the port
+    of the TPU kernel ``_fwd_kernel``.  CPU tensors take
+    ``flash_attention_lse_plain``."""
+    if q.device.type == "cpu":
+        return flash_attention_lse_plain(q, k, v, scale)
+    d = _check_split_args(q, k, v)
+    scale = _default_scale(scale, d)
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[0] * q.shape[2], q.shape[1],
+                      dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = library("attention").dd_flash_attention_lse_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+            d, scale, _stream(q))
+    _raise_on(err, "flash_attention_lse_fwd")
+    flash_attention_lse_fwd.launches += 1
+    return out, lse
+
+
+def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, do: torch.Tensor,
+                           lse: torch.Tensor, delta: torch.Tensor,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """dq (B, Lq, H, D) of the split-layout attention whose forward gave
+    ``lse``; ``delta`` from ``flash_attention_delta``.
+
+    CUDA kernel ``flash_attention_bwd_dq`` (``csrc/attention_train.cu``),
+    the port of the TPU kernel ``_bwd_dq_kernel``.  CPU tensors take
+    ``flash_attention_bwd_dq_plain``."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, scale)
+    d = _check_split_args(q, k, v)
+    _check_grad_args(q, do, lse, delta, q.shape[2], align=1)
+    scale = _default_scale(scale, d)
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = library("attention_train").dd_flash_attention_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), q.shape[0],
+            q.shape[1], k.shape[1], q.shape[2], d, scale, _stream(q))
+    _raise_on(err, "flash_attention_bwd_dq")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, do: torch.Tensor,
+                            lse: torch.Tensor, delta: torch.Tensor,
+                            scale: Optional[float] = None):
+    """(dk, dv), each (B, Lk, H, D), of the split-layout attention whose
+    forward gave ``lse``.
+
+    CUDA kernel ``flash_attention_bwd_dkv`` (``csrc/attention_train.cu``),
+    the port of the TPU kernel ``_bwd_dkv_kernel``.  CPU tensors take
+    ``flash_attention_bwd_dkv_plain``."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, scale)
+    d = _check_split_args(q, k, v)
+    _check_grad_args(q, do, lse, delta, q.shape[2], align=1)
+    scale = _default_scale(scale, d)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        err = library("attention_train").dd_flash_attention_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            q.shape[0], q.shape[1], k.shape[1], q.shape[2], d, scale,
+            _stream(q))
+    _raise_on(err, "flash_attention_bwd_dkv")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
 KERNEL_WRAPPERS = (packed_attention_fwd, packed_attention_nbr_fwd,
                    packed_attention_lse_fwd, packed_attention_bwd_dq,
                    packed_attention_bwd_dkv, packed_attention_capped_fwd,
-                   packed_attention_capped_lse_fwd)
+                   packed_attention_capped_lse_fwd, flash_attention_fwd,
+                   flash_attention_lse_fwd, flash_attention_bwd_dq,
+                   flash_attention_bwd_dkv)
 for _fn in KERNEL_WRAPPERS:
     _fn.launches = 0
 
@@ -543,6 +765,43 @@ class PackedAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+class FlashAttention(torch.autograd.Function):
+    """Differentiable split-layout attention, (B, L, H, D), over the
+    training kernels (the port of ``_flash_padded``'s VJP).
+
+    forward: ``flash_attention_lse_fwd``; saves q, k, v, o, lse.  backward:
+    delta from the returned o, then ``flash_attention_bwd_dq`` and
+    ``flash_attention_bwd_dkv``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float):
+        out, lse = flash_attention_lse_fwd(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        do = do.contiguous()
+        delta = flash_attention_delta(out, do)
+        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, ctx.scale)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, ctx.scale)
+        return dq, dk, dv, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Split-layout attention, q (B, Lq, H, D), k/v (B, Lk, H, D) ->
+    (B, Lq, H, D) (the JAX package's ``flash_attention``):
+    ``flash_attention_fwd``, or ``FlashAttention`` when differentiated."""
+    scale = _default_scale(scale, q.shape[-1])
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    if _differentiated(q, k, v):
+        return FlashAttention.apply(q, k, v, scale)
+    return flash_attention_fwd(q, k, v, scale)
+
+
 # -------------------------------------------------------------- routing --
 
 def _takes_kernel(lq: int, d: int) -> bool:
@@ -567,7 +826,10 @@ def attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     The JAX package's frame-axis head-packed path (lq == lk <=
     ``HEADPACK_MAX_LQ``, the video temporal attention) is the same per-head
     math with a block-diagonal mask, so the port sends it to einsum like
-    every other short query, recomputed in the backward under grad."""
+    every other short query, recomputed in the backward under grad.  A
+    head_dim the packed kernels do not take (``d % 8 != 0``) goes to the
+    split-layout kernels (``flash_attention``); under grad with fewer than
+    ``FLASH_MIN_LEN`` keys, to einsum."""
     d = q.shape[-1] // heads
     scale = _default_scale(scale, d)
     if q.shape[1] == k.shape[1] <= HEADPACK_MAX_LQ \
@@ -580,6 +842,14 @@ def attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if over_score_cap(q.shape[1], k.shape[1]):
             return packed_attention_capped_fwd(q, k, v, heads, scale)
         return packed_attention_fwd(q, k, v, heads, scale)
+    if q.shape[1] >= PACKED_MIN_LQ and d % 8 and d <= MAX_KERNEL_HEAD_DIM \
+            and (not _differentiated(q, k, v)
+                 or k.shape[1] >= FLASH_MIN_LEN):
+        # d % 8 != 0: the split-layout kernels, as _packed_infer falls back
+        # to them; under grad only with long K, as _flash_packed_fwd
+        split = lambda t: t.reshape(t.shape[0], t.shape[1], heads, d)
+        out = flash_attention(split(q), split(k), split(v), scale)
+        return out.reshape(q.shape[0], q.shape[1], q.shape[2])
     return _einsum_packed(q, k, v, scale, heads)
 
 

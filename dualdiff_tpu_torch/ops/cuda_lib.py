@@ -52,6 +52,13 @@ _SIGNATURES = {
         # stream
         "dd_packed_attention_capped_lse_fwd": [_P, _P, _P, _P, _P, _I, _I,
                                                _I, _I, _I, _I, _F, _P],
+        # split layout (B, L, H, D): q, k, v, o, batch, lq, lk, heads,
+        # head_dim, scale, stream
+        "dd_flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                                   _P],
+        # q, k, v, o, lse, batch, lq, lk, heads, head_dim, scale, stream
+        "dd_flash_attention_lse_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                       _I, _F, _P],
     },
     "attention_train": {
         # q, k, v, do, lse, delta, dq, batch, lq, lk, heads, head_dim,
@@ -62,6 +69,11 @@ _SIGNATURES = {
         # scale, stream
         "dd_packed_attention_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
                                         _I, _I, _I, _I, _F, _P],
+        # split layout, the packed entries' arguments
+        "dd_flash_attention_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                      _I, _I, _F, _P],
+        "dd_flash_attention_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                       _I, _I, _I, _I, _F, _P],
     },
 }
 

@@ -33,9 +33,9 @@ def compute_dtype(cfg) -> torch.dtype:
 
 def _check_ported(cfg) -> None:
     c = cfg.model.controlnet
-    for flag in ("use_txt_con_fusionp", "use_cam_in_temb"):
-        if c.get(flag):
-            raise NotImplementedError(f"model.controlnet.{flag} is not ported")
+    if c.get("use_cam_in_temb"):
+        raise NotImplementedError(
+            "model.controlnet.use_cam_in_temb is not ported")
     if cfg.get("use_box_adapter"):
         raise NotImplementedError("the box adapter is not ported")
     if c.bbox_embedder_param.get("minmax_normalize"):
@@ -106,6 +106,7 @@ def build_models(cfg, tiny: bool = False, device=None) -> Dict:
             conditioning_embedding_out_channels=cond_chs,
             n_cam=len(pairs),
             use_txt_con_fusion=bool(c.use_txt_con_fusion),
+            use_txt_con_fusionp=bool(c.use_txt_con_fusionp),
             bbox_mode=str(cfg.model.bbox_mode),
             bbox_num_points=spec.map_vec_points if spec.use_map_vec else None,
             bbox_n_classes=int(c.bbox_embedder_param.n_classes),

@@ -13,7 +13,7 @@ import os
 from typing import Any, Iterable
 
 __all__ = ["ConfigNode", "load_config", "FLAGSHIP", "VIDEO_16F",
-           "RGD_STAGE2"]
+           "RGD_STAGE2", "FUSIONP"]
 
 CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)),
                           "configs")
@@ -28,6 +28,9 @@ VIDEO_16F = "video_16f_224x400"
 # +exp=rgd_stage2 with VIDEO_16F's other overrides (DualDiff+ stage 2: LoRA
 # on the UNet's attn1 / attn2, the RGD reward)
 RGD_STAGE2 = "rgd_stage2_224x400"
+# +exp=occ_bg_fusionp with FLAGSHIP's other overrides: one ControlNet on the
+# occupancy image with per-view boxes and two-stage SFA+
+FUSIONP = "occ_bg_fusionp_224x400"
 
 
 class ConfigNode(dict):

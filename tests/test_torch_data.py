@@ -15,7 +15,8 @@ from dualdiff_tpu_torch.data.synthetic import SyntheticNuScenes
 from dualdiff_tpu_torch.data.tokenizer import HashTokenizer
 from dualdiff_tpu_torch.data.video import (SyntheticNuScenesVideo,
                                            collate_video)
-from dualdiff_tpu_torch.utils.config import RGD_STAGE2, VIDEO_16F, load_config
+from dualdiff_tpu_torch.utils.config import (FUSIONP, RGD_STAGE2, VIDEO_16F,
+                                             load_config)
 
 
 def test_json_config_equals_composed_yaml():
@@ -51,6 +52,23 @@ def test_rgd_json_config_equals_composed_yaml():
     stage1.video.rgd["enable"] = True
     stage1.model.unet["trainable_state"] = "lora_only"
     assert stage1 == cfg
+
+
+def test_fusionp_json_config_equals_composed_yaml():
+    """configs/occ_bg_fusionp_224x400.json is the JAX loader's composition
+    of ``+exp=occ_bg_fusionp`` with the flagship's other overrides
+    (``tests/torch_parity.FUSIONP``): one ControlNet on the occupancy image
+    with per-view boxes, SFA+ in place of SFA, no aug loss, batch 1."""
+    want = json.loads(json.dumps(to_dict(tp.jax_config(fusionp=True))))
+    cfg = load_config(FUSIONP)
+    assert dict(cfg) == want
+    assert cfg.task_id == "occ_bg_fusionp"
+    c = cfg.model.controlnet
+    assert c.use_txt_con_fusionp and not c.use_txt_con_fusion
+    assert not cfg.use_dual_controlnet and not cfg.use_aug_loss
+    assert cfg.runner.train_batch_size == 1
+    assert cfg.runner.bbox_add_ratio == 0.0
+    assert cfg.dataset.image_size == [224, 400]
 
 
 def test_config_overrides():

@@ -20,7 +20,17 @@ stage-2 step makes 6 capped calls (3 ST-Attn x 2 with remat); the last is
 the replay of the UNet's first ST-Attn, whose lse its backward reads, and
 it returns that lse shifted by 0.5 (P off by a factor e^-0.5 in dq and
 dk/dv).
+
+The ``occ_bg_fusionp`` gate (``train_reference_readings(fusionp=True)``,
+phase ``fusionp_reference``) is held against faults planted in the SFA+
+stage-2 backward, the one ``FlashAttention`` call of the tiny step (512 x
+512 at d = 4): its dq zeroed, its dk/dv zeroed, one head's dq zeroed.  The
+head is the one whose sound dq is largest: a head whose stage-1 attention
+is near uniform over the text passes almost no gradient to SFA+'s leaves,
+and its fault stays under the limit (head 0's reading is printed beside).
 """
+
+import math
 
 import pytest
 import torch
@@ -114,6 +124,106 @@ def test_planted_fault_fails_the_gate(cuda, monkeypatch, label, wrapper,
     print(f"{label}: worst leaf {err:.4f} ({leaf})")
     assert calls[0] == CALLS
     assert err > chip_smoke.LEAF_TOL
+
+
+def _zero_head(head):
+    def fault(dq):
+        dq = dq.clone()
+        dq[:, :, head] = 0  # (B, L, H, D)
+        return dq
+    return fault
+
+
+def _strongest_head(dq):
+    """The head with the largest dq norm, (B, L, H, D)."""
+    return int(dq.float().pow(2).sum((0, 1, 3)).argmax())
+
+
+SFA_FAULTS = [
+    ("sfa_plus_dq_zero", "flash_attention_bwd_dq", torch.zeros_like),
+    ("sfa_plus_dkv_zero", "flash_attention_bwd_dkv",
+     lambda out: tuple(torch.zeros_like(t) for t in out)),
+    ("sfa_plus_dq_zero_strongest_head", "flash_attention_bwd_dq",
+     lambda dq: _zero_head(_strongest_head(dq))(dq)),
+]
+
+
+def test_sound_fusionp_gradients_pass_the_gate(cuda):
+    err, leaf = _worst(chip_smoke.train_reference_readings(fusionp=True))
+    print(f"fusionp sound: worst leaf {err:.4f} ({leaf})")
+    assert err <= chip_smoke.LEAF_TOL
+
+
+@pytest.mark.parametrize("label, wrapper, fault", SFA_FAULTS,
+                         ids=[f[0] for f in SFA_FAULTS])
+def test_planted_sfa_plus_fault_fails_the_fusionp_gate(cuda, monkeypatch,
+                                                       label, wrapper,
+                                                       fault):
+    calls = _plant(monkeypatch, wrapper, fault)
+    err, leaf = _worst(chip_smoke.train_reference_readings(fusionp=True))
+    print(f"{label}: worst leaf {err:.4f} ({leaf})")
+    assert calls[0] == 1
+    assert err > chip_smoke.LEAF_TOL
+
+
+def _plant(monkeypatch, wrapper, fault):
+    """Spoil the card's calls of ``wrapper`` with ``fault``; -> the count of
+    spoiled calls, read after the run."""
+    orig = getattr(A, wrapper)
+    calls = [0]
+
+    def spoiled(*a, **kw):
+        out = orig(*a, **kw)
+        if a[0].is_cuda:  # the float32 CPU side stays sound
+            calls[0] += 1
+            out = fault(out)
+        return out
+
+    spoiled.launches = 0  # the wrapper counts through its module name
+    monkeypatch.setattr(A, wrapper, spoiled)
+    return calls
+
+
+def test_sfa_plus_head0_fault_reading(cuda, monkeypatch):
+    """Head 0's dq zeroed: its reading is printed, not held to the limit
+    (see above)."""
+    calls = _plant(monkeypatch, "flash_attention_bwd_dq", _zero_head(0))
+    err, leaf = _worst(chip_smoke.train_reference_readings(fusionp=True))
+    print(f"sfa_plus_dq_zero_head_0: worst leaf {err:.4f} ({leaf})")
+    assert calls[0] == 1
+
+
+def test_sfa_plus_dq_fault_needs_the_cond_scale(cuda, monkeypatch):
+    """Without ``SFA_COND_SCALE`` the random conditioning features are so
+    small that SFA+'s softmaxes are uniform and its query path carries no
+    gradient a leaf shows: the stage-2 dq zeroed stays under the limit.
+    This is why the reference scales them."""
+    monkeypatch.setattr(chip_smoke, "SFA_COND_SCALE", 1.0)
+    calls = _plant(monkeypatch, "flash_attention_bwd_dq", torch.zeros_like)
+    err, leaf = _worst(chip_smoke.train_reference_readings(fusionp=True))
+    print(f"sfa_plus_dq_zero, unscaled: worst leaf {err:.4f} ({leaf})")
+    assert calls[0] == 1
+    assert err <= chip_smoke.LEAF_TOL
+
+
+def test_gate_readings_at_224x400(cuda, monkeypatch):
+    """The gate at 224x400 (8400 latent positions) instead of 256x128, for
+    the flagship and ``occ_bg_fusionp``: printed, not held to the limit.
+    Sums over every position in bf16 (the ControlNets' first
+    ``time_emb_proj``, SFA+'s projections) read over it there, whatever the
+    kernels; every leaf has a gradient on both sides."""
+    from dualdiff_tpu_torch.utils import config as C
+
+    load = C.load_config
+    monkeypatch.setattr(C, "load_config", lambda name=C.FLAGSHIP,
+                        overrides=(): load(name, [o for o in overrides
+                                                  if "image_size" not in o]))
+    for kw in ({}, {"fusionp": True}):
+        errs = chip_smoke.train_reference_readings(**kw)["leaf_rel_err"]
+        worst = sorted(errs.items(), key=lambda kv: -kv[1])[:3]
+        print(f"224x400 {kw}: worst leaf "
+              + ", ".join(f"{e:.4f} ({k})" for k, e in worst))
+        assert all(math.isfinite(e) for e in errs.values())
 
 
 def test_sound_video_gradients_pass_the_gate(cuda):

@@ -2,8 +2,10 @@
 
 Mirrors the kernel phase of ``chip_smoke.py``: bf16 inputs at the flagship
 and clip paths' shapes plus ragged ones, the training kernels also at the
-video training step's ST-Attn (12 x 1400 x 2800, capped forward); the plain
-version computes in float32 and rounds once.  Tolerance 2^-7 of the output's magnitude + 1e-3: the kernels
+video training step's ST-Attn (12 x 1400 x 2800, capped forward), and the
+split-layout kernels at the SFA+ stage-2 shapes (24 and 6 x 1400 x 1400,
+d = 40), the tiny models' d = 4 and head dims that are not multiples of 8;
+the plain version computes in float32 and rounds once.  Tolerance 2^-7 of the output's magnitude + 1e-3: the kernels
 round one MMA operand to bf16 (P for P.V and dV, dS for dQ and dK) and the
 output to bf16.  lse is float32 on both sides: 1e-3 absolute.  Every test is
 marked ``cuda`` and skips without a card; run them on the GPU machine with
@@ -29,6 +31,12 @@ def _qkv(b, lq, lk, c, device, seed=0):
     g = torch.Generator(device=device).manual_seed(seed)
     return [torch.randn(b, n, c, generator=g, device=device).bfloat16()
             for n in (lq, lk, lk)]
+
+
+def _launched():
+    """The wrappers that launched since the last reset, with their counts."""
+    return {fn.__name__: fn.launches for fn in A.KERNEL_WRAPPERS
+            if fn.launches}
 
 
 def _check(got, want):
@@ -90,8 +98,7 @@ def test_router_sends_long_k_to_the_capped_kernel(cuda, lk, kernel):
     with torch.no_grad():
         got = A.attention_packed(q, k, v, 8)
     torch.cuda.synchronize()
-    launched = {fn.__name__: fn.launches for fn in A.KERNEL_WRAPPERS}
-    assert launched == {name: int(name == kernel) for name in launched}
+    assert _launched() == {kernel: 1}
     _check(got, A.attention_packed_plain(q, k, v, 8))
 
 
@@ -120,7 +127,9 @@ def test_training_kernels(cuda, b, lq, lk, c, heads):
     dq = A.packed_attention_bwd_dq(q, k, v, do, lse, delta, heads)
     dk, dv = A.packed_attention_bwd_dkv(q, k, v, do, lse, delta, heads)
     torch.cuda.synchronize()
-    assert [fn.launches for fn in A.KERNEL_WRAPPERS] == [0, 0, 1, 1, 1, 0, 0]
+    assert _launched() == {"packed_attention_lse_fwd": 1,
+                           "packed_attention_bwd_dq": 1,
+                           "packed_attention_bwd_dkv": 1}
     o_want, lse_want = A.attention_packed_lse_plain(q, k, v, heads)
     _check(o, o_want)
     assert (lse - lse_want).abs().max().item() <= 1e-3
@@ -148,7 +157,9 @@ def test_capped_training_kernels(cuda, lk, warps):
     dq = A.packed_attention_bwd_dq(q, k, v, do, lse, delta, heads)
     dk, dv = A.packed_attention_bwd_dkv(q, k, v, do, lse, delta, heads)
     torch.cuda.synchronize()
-    assert [fn.launches for fn in A.KERNEL_WRAPPERS] == [0, 0, 0, 1, 1, 0, 1]
+    assert _launched() == {"packed_attention_capped_lse_fwd": 1,
+                           "packed_attention_bwd_dq": 1,
+                           "packed_attention_bwd_dkv": 1}
     o_want, lse_want = A.attention_packed_capped_lse_plain(q, k, v, heads)
     _check(o, o_want)
     assert (lse - lse_want).abs().max().item() <= 1e-3
@@ -173,7 +184,9 @@ def test_differentiated_long_k_takes_the_capped_training_forward(cuda):
     out = A.attention_packed(q, k, v, heads)
     (out.float() * w.float()).sum().backward()
     torch.cuda.synchronize()
-    assert [fn.launches for fn in A.KERNEL_WRAPPERS] == [0, 0, 0, 1, 1, 0, 1]
+    assert _launched() == {"packed_attention_capped_lse_fwd": 1,
+                           "packed_attention_bwd_dq": 1,
+                           "packed_attention_bwd_dkv": 1}
     ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
     want = A._einsum_packed(*ref, 40 ** -0.5, heads)
     (want * w.float()).sum().backward()
@@ -192,7 +205,9 @@ def test_differentiated_attention_launches_the_training_kernels(cuda):
     out = A.attention_packed(q, k, v, heads)
     (out.float() * w.float()).sum().backward()
     torch.cuda.synchronize()
-    assert [fn.launches for fn in A.KERNEL_WRAPPERS] == [0, 0, 1, 1, 1, 0, 0]
+    assert _launched() == {"packed_attention_lse_fwd": 1,
+                           "packed_attention_bwd_dq": 1,
+                           "packed_attention_bwd_dkv": 1}
     ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
     want = A._einsum_packed(*ref, 40 ** -0.5, heads)
     (want * w.float()).sum().backward()
@@ -206,3 +221,125 @@ def test_inference_kernels_raise_under_grad(cuda):
         A.packed_attention_fwd(q, k, v, 8)
     with pytest.raises(RuntimeError, match="PackedAttention"):
         A.packed_attention_nbr_fwd(q, k, v, 8, n_cam=1)
+    with pytest.raises(RuntimeError, match="FlashAttention"):
+        A.flash_attention_fwd(*(t.view(1, 64, 8, 8) for t in (q, k, v)))
+
+
+def _qkv4(b, lq, lk, heads, d, device, seed=0):
+    """Split-layout (B, L, H, D) bf16 q, k, v."""
+    return [t.view(t.shape[0], t.shape[1], heads, d)
+            for t in _qkv(b, lq, lk, heads * d, device, seed)]
+
+
+SPLIT_SHAPES = [
+    (24, 1400, 1400, 8, 40),    # SFA+ stage 2 in generation (CFG batch)
+    (6, 1400, 1400, 8, 40),     # SFA+ stage 2 in training
+    (6, 1400, 1400, 8, 4),      # the tiny models' SFA+ (C = 32)
+    (3, 777, 1111, 8, 20),      # d % 8 != 0, ragged
+    (2, 300, 65, 3, 13),        # odd d
+    (2, 513, 65, 8, 160),       # d = 160
+    (1, 64, 1, 2, 1),           # one key, d = 1
+]
+
+
+@pytest.mark.parametrize("b, lq, lk, heads, d", SPLIT_SHAPES)
+def test_split_attention_kernel(cuda, b, lq, lk, heads, d):
+    q, k, v = _qkv4(b, lq, lk, heads, d, cuda, seed=13)
+    A.reset_launch_counts()
+    got = A.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert _launched() == {"flash_attention_fwd": 1}
+    _check(got, A.flash_attention_plain(q, k, v))
+
+
+@pytest.mark.parametrize("b, lq, lk, heads, d", SPLIT_SHAPES)
+def test_split_training_kernels(cuda, b, lq, lk, heads, d):
+    q, k, v = _qkv4(b, lq, lk, heads, d, cuda, seed=14)
+    do = _qkv4(b, lq, 1, heads, d, cuda, seed=15)[0]
+    A.reset_launch_counts()
+    o, lse = A.flash_attention_lse_fwd(q, k, v)
+    delta = A.flash_attention_delta(o, do)
+    dq = A.flash_attention_bwd_dq(q, k, v, do, lse, delta)
+    dk, dv = A.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    assert _launched() == {"flash_attention_lse_fwd": 1,
+                           "flash_attention_bwd_dq": 1,
+                           "flash_attention_bwd_dkv": 1}
+    o_want, lse_want = A.flash_attention_lse_plain(q, k, v)
+    _check(o, o_want)
+    assert (lse - lse_want).abs().max().item() <= 1e-3
+    _check(dq, A.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta))
+    dk_want, dv_want = A.flash_attention_bwd_dkv_plain(q, k, v, do, lse,
+                                                       delta)
+    _check(dk, dk_want)
+    _check(dv, dv_want)
+
+
+def test_split_kernels_take_unaligned_rows(cuda):
+    """d = 40 with every tensor starting 2 bytes past a 16-byte boundary:
+    the entries stage element by element instead of with cp.async."""
+    b, l, heads, d = 2, 600, 8, 40
+
+    def unaligned(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        assert out.data_ptr() % 16 and out.is_contiguous()
+        return out
+
+    q, k, v = (unaligned(t) for t in _qkv4(b, l, l, heads, d, cuda, 16))
+    do = unaligned(_qkv4(b, l, 1, heads, d, cuda, seed=17)[0])
+    _check(A.flash_attention_fwd(q, k, v), A.flash_attention_plain(q, k, v))
+    o, lse = A.flash_attention_lse_fwd(q, k, v)
+    delta = A.flash_attention_delta(o, do)
+    _check(A.flash_attention_bwd_dq(q, k, v, do, lse, delta),
+           A.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta))
+    for got, want in zip(
+            A.flash_attention_bwd_dkv(q, k, v, do, lse, delta),
+            A.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta)):
+        _check(got, want)
+
+
+@pytest.mark.parametrize("lq, lk, d, kernels", [
+    (1400, 1400, 40, ("flash_attention_fwd",)),   # SFA+ stage 2
+    (1400, 1023, 40, ()),                         # one length < 1024
+    (1400, 77, 40, ()),                           # SFA+ stage 1
+])
+def test_multi_head_attention_routes_long_sequences_to_flash(
+        cuda, lq, lk, d, kernels):
+    q, k, v = _qkv4(2, lq, lk, 8, d, cuda, seed=18)
+    A.reset_launch_counts()
+    with torch.no_grad():
+        got = A.multi_head_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert _launched() == {n: 1 for n in kernels}
+    _check(got, A.flash_attention_plain(q, k, v))
+
+
+@pytest.mark.parametrize("heads, lk, kernels", [
+    (8, 1400, ("flash_attention_lse_fwd", "flash_attention_bwd_dq",
+               "flash_attention_bwd_dkv")),   # d = 4: the split kernels
+    (8, 600, ()),                             # d = 4, short K: einsum
+    (4, 1400, ("packed_attention_lse_fwd", "packed_attention_bwd_dq",
+               "packed_attention_bwd_dkv")),  # d = 8: the packed kernels
+])
+def test_differentiated_attention_routes_by_head_dim(cuda, heads, lk,
+                                                     kernels):
+    """Under grad, ``attention_packed`` at 1400 queries: d % 8 != 0 (d =
+    4, the tiny SFA+ width) goes through ``FlashAttention`` with 1400 keys
+    and to einsum with 600, d = 8 through ``PackedAttention``; gradients
+    agree with autograd through the float32 einsum path."""
+    c = 32
+    q = _qkv(2, 1400, 1, c, cuda, seed=19)[0].requires_grad_()
+    k, v = (t.requires_grad_() for t in _qkv(2, lk, lk, c, cuda, 20)[1:])
+    w = _qkv(2, 1400, 1, c, cuda, seed=21)[0]
+    A.reset_launch_counts()
+    out = A.attention_packed(q, k, v, heads)
+    (out.float() * w.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert _launched() == {n: 1 for n in kernels}
+    ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    want = A._einsum_packed(*ref, (c // heads) ** -0.5, heads)
+    (want * w.float()).sum().backward()
+    for got, r in zip((q, k, v), ref):
+        _check(got.grad, r.grad)

@@ -8,7 +8,9 @@ out: the VAE carries its encoder and ``quant_conv`` too, and the video UNet
 its ``norm_temporal``, ``attn_temporal`` and ``temporal_connector`` leaves.
 The RGD stage-2 UNet carries its LoRA leaves, with the one rename
 ``from_jax`` states: the exporter's ``to_out.0_lora_a`` / ``_b`` are
-``to_out_0_lora_a`` / ``_b`` in the port.
+``to_out_0_lora_a`` / ``_b`` in the port.  The ``occ_bg_fusionp``
+ControlNet carries SFA+'s leaves (``txt_con_fusionp``: five bias-free
+projections and ``to_out.0``).
 """
 
 import numpy as np
@@ -22,7 +24,7 @@ from dualdiff_tpu_torch.runner.weights import NOT_PORTED, from_jax
 KINDS = [("unet", "unet"), ("controlnet_0", "controlnet"),
          ("controlnet_1", "controlnet"), ("vae", "vae"),
          ("text_encoder", "clip"), ("video_unet", "unet"),
-         ("rgd_unet", "unet")]
+         ("rgd_unet", "unet"), ("fusionp_controlnet", "controlnet")]
 TEMPORAL = ("norm_temporal.", "attn_temporal.", "temporal_connector.")
 VIDEO = {"video_unet": True, "rgd_unet": "rgd"}
 
@@ -40,6 +42,8 @@ def tiny():
 def _params(tiny, key):
     if key in VIDEO:
         return tp.tiny_video_unet_params(VIDEO[key])
+    if key == "fusionp_controlnet":
+        return tp.tiny_setup(fusionp=True)["params"]["controlnet_0"]
     return tiny["params"][key]
 
 
@@ -50,6 +54,8 @@ def _module(tiny, key):
         return build_models(tp.port_config(tp.TINY_VIDEO_OVERRIDES,
                                            video=VIDEO[key]),
                             tiny=True, device="cpu")["unet"]
+    if key == "fusionp_controlnet":
+        return tp.tiny_setup(fusionp=True)["pmodels"]["controlnets"][0]
     models = tiny["pmodels"]
     return {"unet": models["unet"], "vae": models["vae"],
             "text_encoder": models["text_encoder"],
@@ -80,6 +86,11 @@ def test_from_jax_equals_export_params(tiny, key, kind):
     assert len(set(exported) - set(got)) == len(lora) // 4
     assert all(k.endswith(("_lora_a.weight", "_lora_b.weight"))
                for k in lora)
+    sfa_plus = {k for k in got if k.startswith("txt_con_fusionp.")}
+    assert sfa_plus == ({f"txt_con_fusionp.to_{p}.weight" for p in (
+        "q_occ", "k_occ", "v_occ", "k_txt", "v_txt")} | {
+        "txt_con_fusionp.to_out.0.weight", "txt_con_fusionp.to_out.0.bias"}
+        if key == "fusionp_controlnet" else set())
     for name, value in got.items():
         np.testing.assert_array_equal(value.numpy(), want[name],
                                       err_msg=name)

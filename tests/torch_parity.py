@@ -27,6 +27,10 @@ FLAGSHIP = ["+exp=dual_branch_augloss_fusion", "dataset=Nuscenes_synthetic",
 TINY_OVERRIDES = ["runner.mixed_precision=fp32", "dataset.image_size=[256, 128]",
                   "runner.pipeline_param.num_inference_steps=3"]
 
+# SFA+ (one ControlNet on the occupancy image, two-stage SFA+) with the
+# flagship's other overrides
+FUSIONP = ["+exp=occ_bg_fusionp"] + FLAGSHIP[1:]
+
 # the DualDiff+ clip operating point of bench.py::main_video
 VIDEO = ["+exp=video_16f", "dataset=Nuscenes_synthetic",
          "runner.pipeline_param.bbox_max_length=80",
@@ -44,20 +48,23 @@ LORA_B = {f"{p}_lora_b": 0.1 for p in ("to_q", "to_k", "to_v", "to_out_0")}
 torch.set_num_threads(2)
 
 
-def jax_config(extra=(), video=False):
+def jax_config(extra=(), video=False, fusionp=False):
     """``video``: False (the flagship), True (``video_16f``) or ``"rgd"``
-    (``rgd_stage2``)."""
+    (``rgd_stage2``); ``fusionp``: ``occ_bg_fusionp``."""
     from dualdiff_tpu.utils.config import load_config
 
-    base = RGD if video == "rgd" else VIDEO if video else FLAGSHIP
+    base = RGD if video == "rgd" else VIDEO if video else \
+        FUSIONP if fusionp else FLAGSHIP
     return load_config(CONFIG_DIR, overrides=base + list(extra))
 
 
-def port_config(extra=(), video=False):
-    from dualdiff_tpu_torch.utils.config import (FLAGSHIP, RGD_STAGE2,
-                                                 VIDEO_16F, load_config)
+def port_config(extra=(), video=False, fusionp=False):
+    from dualdiff_tpu_torch.utils.config import (FLAGSHIP, FUSIONP,
+                                                 RGD_STAGE2, VIDEO_16F,
+                                                 load_config)
 
-    name = RGD_STAGE2 if video == "rgd" else VIDEO_16F if video else FLAGSHIP
+    name = RGD_STAGE2 if video == "rgd" else VIDEO_16F if video else \
+        FUSIONP if fusionp else FLAGSHIP
     return load_config(name, overrides=list(extra))
 
 
@@ -100,10 +107,11 @@ def load_port(module: torch.nn.Module, params, kind: str) -> torch.nn.Module:
     return module
 
 
-@functools.lru_cache(maxsize=1)
-def tiny_setup():
+@functools.lru_cache(maxsize=2)
+def tiny_setup(fusionp=False):
     """Tiny JAX and port model sets with equal weights, the seed-0 synthetic
-    batch of 1 sample at 256x128, and the tokenizer."""
+    batch of 1 sample at 256x128, and the tokenizer; the flagship's, or with
+    ``fusionp`` the single-branch ``occ_bg_fusionp`` set."""
     from dualdiff_tpu.data.collate import collate_fn
     from dualdiff_tpu.data.synthetic import SyntheticNuScenes
     from dualdiff_tpu.data.tokenizer import HashTokenizer
@@ -111,8 +119,8 @@ def tiny_setup():
     from dualdiff_tpu.runner.trainer import init_full_params, prepare_batch
     from dualdiff_tpu_torch.runner.factory import build_models as port_build
 
-    jcfg = jax_config(TINY_OVERRIDES)
-    pcfg = port_config(TINY_OVERRIDES)
+    jcfg = jax_config(TINY_OVERRIDES, fusionp=fusionp)
+    pcfg = port_config(TINY_OVERRIDES, fusionp=fusionp)
     h, w = jcfg.dataset.image_size
     tok = HashTokenizer()
     ds = SyntheticNuScenes(num_samples=2, image_size=(h, w), seed=0)
