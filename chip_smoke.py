@@ -25,9 +25,14 @@ Phases, in order; any failure exits non-zero:
             plain version in float32, rounded once), with times of the
             kernel, the plain version, one PyTorch library call where one
             computes the same function, and the least time the card could
-            take (bound); the two capped kernels at 4 and at 8 warps per
-            block; the split-layout kernels at the SFA+ stage-2 shapes and
-            at d = 20, with ``mha_einsum``'s time beside them.
+            take (bound); the sm90 forward beside the template instances it
+            replaces at every in-scope shape (variants ``sm90``,
+            ``template``; the capped template at 4 and at 8 warps per
+            block); the split-layout kernels at the SFA+ stage-2 shapes and
+            at d = 20, with ``mha_einsum``'s time beside them.  Kernel and
+            library times come from a CUDA graph of 20 calls (``graph_ms``),
+            the plain versions' and ``mha_einsum``'s from a host loop
+            (``cuda_ms``).
 4. generate the flagship dual-branch 224x400 generation at full SD v1.5
             width (two ControlNets, seeded random weights, bf16), B=2 x 6
             views, UniPC-20, CFG 2: one warm-up call and timed calls; checks
@@ -72,7 +77,9 @@ On the CPU, ``VideoTrainer(cfg, clips, device="cpu", models=...)`` runs the
 same training with the plain versions; README.md says how to rehearse
 phases 10 and 11 there at a tiny size.
 
-The line before the last is the ``kernels`` JSON summary; the last line is
+The last three lines are the ``kernels`` JSON summary (one entry per
+kernel, and one ``sm90_attention_fwd:<wrapper>`` entry per TPU kernel the
+sm90 forward replaces), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
@@ -90,6 +97,8 @@ import torch
 
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, NVIDIA data sheet (SXM)
 H100_BYTES_PER_S = 3.35e12
+# exponentials per clock of one SM (MUFU: 4 per SM sub-partition) on 132 SMs
+H100_SMS, EXP_PER_CLOCK = 132, 16
 SEED = 0
 TIMED_GENERATIONS = 3
 TIMED_TRAIN_STEPS = 5
@@ -162,9 +171,43 @@ SOURCE = {
 }
 
 
+# The Hopper forward behind packed_attention_fwd, packed_attention_capped_fwd
+# and flash_attention_fwd for the calls in ops.attention.sm90_in_scope: the
+# TPU kernel each wrapper's calls replace there (rows 1, 6 and 8 without
+# lse: _fwd_kernel_t, _fwd_kernel_t_capped, _fwd_kernel_nolse).
+SM90 = "sm90_attention_fwd"
+SM90_WRAPPERS = ("packed_attention_fwd", "packed_attention_capped_fwd",
+                 "flash_attention_fwd")
+SM90_REPLACES = {kern: REPLACES[kern] for kern in SM90_WRAPPERS}
+SM90_SOURCE = "dualdiff_tpu_torch/csrc/attention_sm90.cu"
+
+
 def _launches(**counts) -> dict:
     """Launches of every kernel wrapper, 0 where not given."""
     return {name: counts.get(name, 0) for name in REPLACES}
+
+
+def launch_counts(A) -> dict:
+    """Launches since the last reset: each of the eleven wrappers and the
+    sm90 kernel (``SM90``)."""
+    return {**{fn.__name__: fn.launches for fn in A.KERNEL_WRAPPERS},
+            SM90: A.sm90_attention_fwd.launches}
+
+
+def _wrappers(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if k != SM90}
+
+
+def check_sm90_launches(counts: dict, out_of_scope=()) -> None:
+    """Every in-scope launch of the three inference wrappers went through
+    the sm90 kernel: its count equals theirs, less the wrappers named in
+    ``out_of_scope`` (whose calls on this path have a head_dim outside
+    ``sm90_in_scope``, as SFA+ stage 2 at d = 4 in the tiny models)."""
+    want = sum(counts[k] for k in SM90_WRAPPERS if k not in out_of_scope)
+    if counts[SM90] != want:
+        raise AssertionError(f"sm90_attention_fwd launched {counts[SM90]} "
+                             f"times, the wrappers' in-scope calls {want}: "
+                             f"{counts}")
 
 
 def _sfa_plus_on_kernels(fusionp: bool, tokens: int) -> bool:
@@ -348,8 +391,10 @@ def phase_build() -> None:
 
 
 def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn()`` over ``iters`` calls after one warm-up,
-    with CUDA events."""
+    """Mean time of ``fn()`` over ``iters`` calls from a host loop after
+    one warm-up, with CUDA events: the device time where a call takes
+    longer than its enqueue (the plain versions), else the host's enqueue
+    rate."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -360,6 +405,36 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20) -> float:
+    """Mean device time of ``fn()`` from a CUDA graph of ``iters`` calls,
+    replayed once after a warm-up replay and timed with CUDA events: no
+    host enqueue in the window, so short kernels read their own time.  A
+    call that cannot be captured raises."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / iters
+    del graph
+    return ms
 
 
 def bound(nbytes: float, flops: float):
@@ -375,6 +450,12 @@ def kernel_cases():
          0),
         ("packed_attention_fwd", "attn2 cross (UNet, ControlNet 0 and 1)",
          2 * B * N_CAM, L, KV_CROSS, C, HEADS, 0),
+        # the clip's ControlNet attn1: 16 frames x 6 views
+        ("packed_attention_fwd", "ControlNet attn1 in the clip",
+         FRAMES * N_CAM, L, L, C, HEADS, 0),
+        ("packed_attention_fwd", "ragged, d=40", 3, 777, 333, C, HEADS, 0),
+        # the tiny reference models' 512-token level (C = 32, 4 heads)
+        ("packed_attention_fwd", "tiny models, d=8", 12, 512, 512, 32, 4, 0),
         ("packed_attention_fwd", "ragged, d=80", 3, 777, 333, 320, 4, 0),
         ("packed_attention_nbr_fwd", "attn4 camera ring", 2 * B * N_CAM, L, L,
          C, HEADS, N_CAM),
@@ -457,10 +538,10 @@ def split_on_packed(A):
     pk = lambda t: t.reshape(t.shape[0], t.shape[1], -1)
 
     def call(fn, n_split):
-        def run(*a):
+        def run(*a, **kw):
             heads = a[-1]
             out = fn(*(sp(t, heads) for t in a[:n_split]),
-                     *a[n_split:-1])
+                     *a[n_split:-1], **kw)
             if isinstance(out, tuple):
                 return tuple(pk(t) if t.dim() == 4 else t for t in out)
             return pk(out)
@@ -487,7 +568,8 @@ def train_kernel_rows(A, g, label, b, lq, lk, c, heads,
     ``FlashAttention.backward`` do.  Library yardsticks:
     ``aten._scaled_dot_product_flash_attention`` (it returns the
     logsumexp) for the forward, the backward of
-    ``F.scaled_dot_product_attention`` for dq and dk/dv together.  With
+    ``F.scaled_dot_product_attention`` for dq and dk/dv together (a graph of
+    its forward and backward less a graph of its forward).  With
     ``split_layout`` also the forward and backward of ``mha_einsum``, the
     route below ``FLASH_MIN_LEN``."""
     from torch.nn.attention import sdpa_kernel
@@ -549,15 +631,22 @@ def train_kernel_rows(A, g, label, b, lq, lk, c, heads,
     split = lambda t: t.view(b, t.shape[1], heads, d).transpose(1, 2)
     be = _sdpa_backend(split(q), split(k), split(v))
     qr, kr, vr = (split(t).detach().requires_grad_() for t in (q, k, v))
-    with sdpa_kernel([be]):
-        lib_out = torch.nn.functional.scaled_dot_product_attention(qr, kr, vr)
-    lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
-        lib_out, (qr, kr, vr), split(do), retain_graph=True), 10)
-    del lib_out, qr, kr, vr
+
+    def lib_step(backward: bool):
+        # the forward in the same graph: autograd runs the backward on the
+        # forward's stream, which has to be the capturing one
+        with sdpa_kernel([be]):
+            out = torch.nn.functional.scaled_dot_product_attention(qr, kr, vr)
+        return torch.autograd.grad(out, (qr, kr, vr), split(do)) \
+            if backward else out
+
+    lib_bwd_ms = graph_ms(lambda: lib_step(True), 10) \
+        - graph_ms(lambda: lib_step(False), 10)
+    del qr, kr, vr
     lib_fwd = lambda: torch.ops.aten._scaled_dot_product_flash_attention(
         split(q), split(k), split(v), scale=scale)
     try:
-        lib_fwd_ms = cuda_ms(lib_fwd, 20)
+        lib_fwd_ms = graph_ms(lib_fwd)
     except RuntimeError:  # flash does not take this head_dim
         lib_fwd_ms = None
     einsum = {}
@@ -595,7 +684,7 @@ def train_kernel_rows(A, g, label, b, lq, lk, c, heads,
         nbytes, flops = work[kern]
         bound_ms, bound_by = bound(nbytes, flops)
         errs = checks[kern]
-        times = {n: cuda_ms(run, 20) for n, run in variants.items()}
+        times = {n: graph_ms(run) for n, run in variants.items()}
         row = {
             "kernel": kern, "replaces": REPLACES[kern], "case": label,
             "shape": shape,
@@ -621,9 +710,21 @@ def train_kernel_rows(A, g, label, b, lq, lk, c, heads,
     return out
 
 
+def sm_clock_hz() -> float:
+    """The card's highest SM clock (``nvidia-smi clocks.max.sm``), for the
+    exponential floor."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0]
+    return float(mhz) * 1e6
+
+
 def phase_kernels():
     from dualdiff_tpu_torch.ops import attention as A
 
+    clock_hz = sm_clock_hz()
+    log(f"# SM clock (max) {clock_hz / 1e6:.0f} MHz")
     g = torch.Generator(device="cuda").manual_seed(SEED)
     results = {}
     for case in train_kernel_cases():
@@ -641,6 +742,9 @@ def phase_kernels():
         flops = 4 * b * lq * lk * c
         variants = {}  # label -> launch; the first is the one the path runs
         extra = {}  # further yardsticks
+        # in scope, the path's route is the sm90 kernel, timed beside the
+        # template instance it replaces
+        sm90 = kern in SM90_WRAPPERS and A.sm90_in_scope(d, True)
         if n_cam:
             variants[""] = lambda: A.packed_attention_nbr_fwd(q, k, v, heads,
                                                               n_cam)
@@ -650,15 +754,29 @@ def phase_kernels():
             flops *= 2
         elif kern == "flash_attention_fwd":
             fl = split_on_packed(A)
-            variants[""] = lambda: fl["fwd"](q, k, v, heads)
+            if sm90:
+                variants["sm90"] = lambda: fl["fwd"](q, k, v, heads)
+                variants["template"] = lambda: fl["fwd"](q, k, v, heads,
+                                                         route="template")
+            else:
+                variants[""] = lambda: fl["fwd"](q, k, v, heads)
             plain = lambda: fl["plain"](q, k, v, heads)
             extra["einsum_ms"] = cuda_ms(lambda: A.mha_einsum(
                 *(t.view(b, t.shape[1], heads, d) for t in (q, k, v))), 5)
         elif kern == "packed_attention_capped_fwd":
+            if sm90:
+                variants["sm90"] = functools.partial(
+                    A.packed_attention_capped_fwd, q, k, v, heads)
             for w in sorted((4, 8), key=lambda w: w != A.CAPPED_WARPS):
-                variants[f"{w} warps"] = functools.partial(
-                    A.packed_attention_capped_fwd, q, k, v, heads, warps=w)
+                variants[f"template {w} warps" if sm90 else f"{w} warps"] = \
+                    functools.partial(A.packed_attention_capped_fwd, q, k, v,
+                                      heads, warps=w, route="template")
             plain = lambda: A.attention_packed_capped_plain(q, k, v, heads)
+        elif sm90:
+            variants["sm90"] = lambda: A.packed_attention_fwd(q, k, v, heads)
+            variants["template"] = lambda: A.packed_attention_fwd(
+                q, k, v, heads, route="template")
+            plain = lambda: A.attention_packed_plain(q, k, v, heads)
         else:
             variants[""] = lambda: A.packed_attention_fwd(q, k, v, heads)
             plain = lambda: A.attention_packed_plain(q, k, v, heads)
@@ -676,17 +794,23 @@ def phase_kernels():
         del want
         nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
         bound_ms, bound_by = bound(nbytes, flops)
-        times = {name: cuda_ms(run, 20) for name, run in variants.items()}
+        times = {name: graph_ms(run) for name, run in variants.items()}
+        exp_floor_ms = b * heads * lq * lk * (2 if n_cam else 1) / (
+            H100_SMS * EXP_PER_CLOCK * clock_hz) * 1e3
+        # the row of kern is attention.cu's instance (the template one where
+        # the sm90 kernel takes the shape), and the sm90 row is the sm90 one
+        own = [n for n in variants if n != "sm90"]
         row = {
             "kernel": kern, "replaces": REPLACES[kern], "case": label,
             "shape": {
                 "b": b, "lq": lq, "lk": lk, "c": c, "heads": heads,
                 "head_dim": d, "n_cam": n_cam},
-            "max_abs_err": max(errs.values()), "tol": tol,
-            "kernel_ms": next(iter(times.values())),
+            "max_abs_err": max(errs[n] for n in own), "tol": tol,
+            "kernel_ms": times[own[0]],
             "plain_ms": cuda_ms(plain, 3),
-            "library_ms": cuda_ms(library, 20) if library else None,
-            "bound_ms": bound_ms, "bound_by": bound_by, **extra,
+            "library_ms": graph_ms(library) if library else None,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "exp_floor_ms": exp_floor_ms, **extra,
         }
         if len(variants) > 1:
             row["kernel_ms_by_variant"] = times
@@ -698,6 +822,12 @@ def phase_kernels():
                     f"{kern} {name} [{label}] disagrees with its plain "
                     f"version: max abs err {err} > {tol}")
         results.setdefault(kern, []).append(row)
+        if sm90:
+            sm90_row = dict(row, kernel=SM90, wrapper=kern,
+                            replaces=SM90_REPLACES[kern],
+                            kernel_ms=times["sm90"], max_abs_err=errs["sm90"])
+            log(json.dumps(sm90_row))
+            results.setdefault(SM90, []).append(sm90_row)
         del q, k, v
         torch.cuda.empty_cache()
     return results
@@ -782,9 +912,10 @@ def phase_generate(profile_dir, name=None):
         out = pipe(batch, generator=gen)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        counts = {fn.__name__: fn.launches for fn in A.KERNEL_WRAPPERS}
-        if counts != expect:
+        counts = launch_counts(A)
+        if _wrappers(counts) != expect:
             raise AssertionError(f"kernel launches {counts} != {expect}")
+        check_sm90_launches(counts)
         if tuple(out.shape) != (B, N_CAM, h, w, 3):
             raise AssertionError(f"output shape {tuple(out.shape)}")
         if not torch.isfinite(out).all():
@@ -922,14 +1053,16 @@ def phase_reference(video=False, fusionp=False):
     row = {"phase": phase, "shape": list(got.shape),
            "max_abs_err": err.max().item(),
            "mean_abs_err": err.mean().item(), "tol_mean": 1e-2,
-           "launches": {fn.__name__: fn.launches
-                        for fn in A.KERNEL_WRAPPERS}}
+           "launches": launch_counts(A)}
     log(json.dumps(row))
     if not row["mean_abs_err"] <= row["tol_mean"]:
         raise AssertionError("bf16 generation on the card disagrees with the "
                              "float32 CPU reference")
-    must = ("packed_attention_fwd",) + (("flash_attention_fwd",) if fusionp
-                                         else ())
+    # the tiny SFA+ stage 2 (d = 4) is outside the sm90 kernel's scope
+    check_sm90_launches(row["launches"], ("flash_attention_fwd",) if fusionp
+                        else ())
+    must = ("packed_attention_fwd", SM90) + (("flash_attention_fwd",)
+                                             if fusionp else ())
     if not all(row["launches"][k] > 0 for k in must):
         raise AssertionError(f"the kernels did not run: {row['launches']}")
 
@@ -965,9 +1098,10 @@ def phase_video(profile_dir):
         out = pipe(batch, generator=gen)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        counts = {fn.__name__: fn.launches for fn in A.KERNEL_WRAPPERS}
-        if counts != expect:
+        counts = launch_counts(A)
+        if _wrappers(counts) != expect:
             raise AssertionError(f"kernel launches {counts} != {expect}")
+        check_sm90_launches(counts)
         if tuple(out.shape) != (frames, N_CAM, h, w, 3):
             raise AssertionError(f"output shape {tuple(out.shape)}")
         if not torch.isfinite(out).all():
@@ -1051,10 +1185,10 @@ def phase_train(profile_dir, name=None):
         and bool(cfg.runner.enable_controlnet_checkpointing), fusionp,
         (h // 8) * (w // 8))
     steps, snap = [], {}
-    run_counts = {fn.__name__: 0 for fn in A.KERNEL_WRAPPERS}
+    run_counts = dict.fromkeys(launch_counts(A), 0)
 
     def on_metrics(step, m):
-        counts = {fn.__name__: fn.launches for fn in A.KERNEL_WRAPPERS}
+        counts = launch_counts(A)
         A.reset_launch_counts()
         for k, v in counts.items():
             run_counts[k] += v
@@ -1063,8 +1197,9 @@ def phase_train(profile_dir, name=None):
                                         "grad_norm") if k in m)
             + f", {m['step_time_s']:.3f} s (batch assembly "
             f"{m['data_time_s']:.3f} s)")
-        if counts != expect:
+        if _wrappers(counts) != expect:
             raise AssertionError(f"kernel launches {counts} != {expect}")
+        check_sm90_launches(counts)
         if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
                 and m["grad_norm"] > 0):
             raise AssertionError(f"step {step}: loss {m['loss']}, grad_norm "
@@ -1274,8 +1409,8 @@ def train_reference_readings(device: str = "cuda", video: bool = False,
                                    tuple(cfg.model.get("ors_frame_hw")),
                                    frames=frames, **reward)(batch, draws)
             loss.backward()
-            results.append((loss.detach().item(), _trainable_grads(models), {
-                fn.__name__: fn.launches for fn in A.KERNEL_WRAPPERS}))
+            results.append((loss.detach().item(), _trainable_grads(models),
+                            launch_counts(A)))
     finally:
         A.T_SCORE_CAP, A.FLASH_MIN_LEN = cap, flash_min
     (loss_cpu, g_cpu, _), (loss_gpu, g_gpu, launches) = results
@@ -1307,6 +1442,7 @@ def _reference_gate(row: dict, kernels) -> None:
     if not all(row["launches"][k] > 0 for k in kernels):
         raise AssertionError(f"the training kernels did not run: "
                              f"{row['launches']}")
+    check_sm90_launches(row["launches"])
 
 
 def phase_train_reference():
@@ -1410,7 +1546,7 @@ def _video_train_stage(stage: str, name: str, profile_dir):
         f"M frozen parameters")
     frozen0 = {k: p.detach().clone() for k, p in trainer.frozen.items()}
     steps, snap = [], {}
-    run_counts = {fn.__name__: 0 for fn in A.KERNEL_WRAPPERS}
+    run_counts = dict.fromkeys(launch_counts(A), 0)
     for i in range(1 + TIMED_VIDEO_TRAIN_STEPS):
         A.reset_launch_counts()
         torch.cuda.synchronize()
@@ -1418,15 +1554,16 @@ def _video_train_stage(stage: str, name: str, profile_dir):
         m = trainer.train_step(batch)  # the metrics' float() synchronises
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        counts = {fn.__name__: fn.launches for fn in A.KERNEL_WRAPPERS}
+        counts = launch_counts(A)
         for k, v in counts.items():
             run_counts[k] += v
         log(f"# video train {stage} step {i} "
             f"({'warm-up' if i == 0 else 'timed'}): "
             + ", ".join(f"{k} {v:.6f}" for k, v in m.items())
             + f", {dt:.3f} s")
-        if counts != expect:
+        if _wrappers(counts) != expect:
             raise AssertionError(f"kernel launches {counts} != {expect}")
+        check_sm90_launches(counts)
         finite = [m["loss"], m["grad_norm"]] + ([m["reward"]] if lora else [])
         if not (all(map(math.isfinite, finite)) and m["grad_norm"] > 0):
             raise AssertionError(f"{stage} step {i}: {m}")
@@ -1512,7 +1649,15 @@ def kernels_line(results, path_counts, train_per_step, video_per_step,
     run for the training kernels, both stages' video training runs for the
     capped training forward (whose counts per step, checked on every step,
     are beside them), one ``occ_bg_fusionp`` generation for the split-layout
-    forward and its training run for the split-layout training kernels."""
+    forward and its training run for the split-layout training kernels.
+
+    The sm90 forward has one entry per TPU kernel it replaces, named
+    ``sm90_attention_fwd:<wrapper>``: the launches of that wrapper on its
+    path, all of which took the sm90 kernel (``check_sm90_launches`` held
+    there), and its times at that wrapper's main-path shape.  The three
+    wrappers' own entries are ``attention.cu``'s template instances: their
+    times are the template's at the same shapes, and their launches the
+    template's on the path, none at 224x400."""
     units = {"generate": "generation",
              "train": f"training run of {1 + TIMED_TRAIN_STEPS} steps",
              "video": "clip",
@@ -1526,27 +1671,49 @@ def kernels_line(results, path_counts, train_per_step, video_per_step,
     stages = counts.pop("video_train")
     counts["video_train"] = {k: sum(c[k] for c in stages.values())
                              for k in next(iter(stages.values()))}
-    out = []
-    for kern, rows in results.items():
+    for c in counts.values():
+        check_sm90_launches(c)
+
+    def entry(name, source, replaces, rows, path, launches_of):
         main = rows[0]  # the dominant main-path shape
-        path = KERNEL_PATH[kern]
-        out.append({
-            "name": kern, "route": "cuda", "source": SOURCE[kern],
-            "replaces": REPLACES[kern],
-            "launches": counts[path][kern], "launches_per": units[path],
-            "launches_by_path": {units[p]: c[kern]
+        e = {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches_of(counts[path]),
+            "launches_per": units[path],
+            "launches_by_path": {units[p]: launches_of(c)
                                  for p, c in counts.items()},
-            "launches_per_train_step": train_per_step[kern],
+            "launches_per_train_step": launches_of(train_per_step),
             "launches_per_video_train_step": {
-                st: c[kern] for st, c in video_per_step.items()},
-            "launches_per_fusionp_train_step": fusionp_per_step[kern],
+                st: launches_of(c) for st, c in video_per_step.items()},
+            "launches_per_fusionp_train_step": launches_of(fusionp_per_step),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "shape": main["shape"],
-        })
+        }
         if "kernel_ms_by_variant" in main:
-            out[-1]["ms_by_variant"] = main["kernel_ms_by_variant"]
+            e["ms_by_variant"] = main["kernel_ms_by_variant"]
+        return e
+
+    out = []
+    for kern, rows in results.items():
+        if kern == SM90:
+            continue
+        path = KERNEL_PATH[kern]
+        calls = lambda c, kern=kern: c[kern]  # noqa: E731
+        if kern not in SM90_WRAPPERS:
+            out.append(entry(kern, SOURCE[kern], REPLACES[kern], rows, path,
+                             calls))
+            continue
+        # every call of the wrapper took the sm90 kernel
+        out.append(entry(kern, SOURCE[kern], REPLACES[kern], rows, path,
+                         lambda c: 0))
+        out[-1]["routed_to"] = f"{SM90}:{kern}"
+        out.append(entry(f"{SM90}:{kern}", SM90_SOURCE, SM90_REPLACES[kern],
+                         [r for r in results[SM90] if r["wrapper"] == kern],
+                         path, calls))
+        out[-1]["sm90_launches_by_path"] = {units[p]: c[SM90]
+                                            for p, c in counts.items()}
     return {"kernels": out}
 
 

@@ -1,0 +1,584 @@
+// Inference attention forward for Hopper (sm_90a): TMA, wgmma, warp
+// specialisation.
+//
+// What it replaces.  The TPU kernels _fwd_kernel_t (dualdiff_tpu/ops/
+// attention.py, called by _packed_infer), _fwd_kernel_t_capped (called by
+// _packed_infer_capped over the VMEM score cap) and _fwd_kernel_nolse
+// (called by _fwd_core for the split-layout flash_attention): the same
+// function, softmax(scale q k^T) v per (row, head), keys >= Lk masked to
+// -inf exactly, float32 softmax, P rounded to bf16 for the second product,
+// bf16 output, no lse.  Here it is one kernel behind the three wrappers
+// packed_attention_fwd, packed_attention_capped_fwd and flash_attention_fwd
+// (ops/attention.py), for head dims d <= 64 with d % 8 == 0 and 16-byte
+// aligned rows; every other shape stays on attention.cu's mma.sync
+// template.  A contiguous (B, L, H, D) tensor is the packed (B, L, C)
+// memory, so the three are one layout.
+//
+// What bounds it.  At the flagship's 24 x 1400 x 1400 (C = 320, 8 heads,
+// d = 40) a call is 60.2 GFLOP, 61 us at 989 TFLOP/s, against 86 MB (26 us
+// at 3.35 TB/s), and 376 M exponentials: about 96 us at the SFU's 16 per
+// clock per SM.  The video ST-Attn (96 x 1400 x 2800) is 0.487 ms of FLOPs
+// and 3.0 G exponentials, about 0.78 ms.  So the floor is the exponentials,
+// and a kernel that runs them in lock-step with its matrix products pays
+// both: attention.cu's template, one 16-row mma.sync tile per warp, ran at
+// 6.4-8.4x the FLOP bound.
+//
+// Design.
+// - A work item is 128 queries of one (row, head): two consumer warpgroups
+//   of 64 rows each and one producer warp (a third warpgroup whose other
+//   three warps exit at once).  setmaxnreg moves registers from the
+//   producer warpgroup (24 a thread) to the consumers (240).
+// - Grid: persistent, one block per SM walking the items.  It beat one
+//   block per item at every measured shape, most at short K: the producer
+//   loads the next item's q tile and first K/V tiles while the consumers
+//   finish the current one (attn2, 24 x 1400 x 158, on an H100 80GB HBM3
+//   at 700 W: 0.0618 against 0.0960 ms; PERF.md, kernel table).
+// - The producer loads q tiles into two buffers and K/V tiles of 128 keys
+//   into a ring of kStages stages with TMA, each buffer and stage guarded
+//   by a "full" mbarrier (transaction bytes) and an "empty" one (the 8
+//   consumer warps).
+// - q, k and v are described to TMA as 4-D tensors (d, H, L, B) with
+//   byte strides 2d, 2C and 2LC, multiples of 16 for every d % 8 == 0.  A
+//   64-element inner box with 128-byte swizzle reads one head's d columns
+//   at column h*d and zero-fills columns d..63 and rows past L, so every
+//   tile is the padded 64-wide, 128-row tile wgmma wants with no masking
+//   code and no read of the next head.
+// - S = Q K^T: wgmma m64n128k16, Q and K from shared memory, K-major, in
+//   ceil(d / 16) depth steps (48 of the 64 padded columns at d = 40).
+// - O += P V: wgmma m64n64k16 with P from registers (S's accumulator
+//   rounded to bf16 is already the A fragment layout) and V from shared
+//   memory as an MN-major B operand.  N stays 64: an MN-major swizzled
+//   operand is whole 64-element atoms, so d = 40 pays 1.6x on this product
+//   (1.4x over both), under the exponential floor.
+// - Online softmax in float32 registers; the scale and log2(e) fold into
+//   one FMA before ex2.approx; the key mask runs in the last key tile only.
+// - Overlap.  Within a warpgroup, tile t's S product is issued together
+//   with tile t-1's P V product, and tile t's softmax runs while P V is in
+//   flight.  Across the two warpgroups, named barriers hand the tensor
+//   cores over in turns (ping-pong): one warpgroup issues its products
+//   while the other runs its exponentials.
+// - Output: the normalised accumulator rounded to bf16, stored from
+//   registers as 4-byte pairs, rows < Lq and columns < d only.
+// - Host: tensor maps are encoded per call through cuTensorMapEncodeTiled,
+//   found with cudaGetDriverEntryPoint (no -lcuda), passed as
+//   __grid_constant__ parameters; the dynamic shared-memory attribute is
+//   set once per device, outside any stream capture.
+//
+// Not tried yet: 48-wide K tiles for P V (an MN-major operand narrower
+// than its 64-element swizzle atom), a TMA store of the output, two blocks
+// an SM (registers allow one).
+
+#include <cuda.h>
+
+#include "mma_tile.cuh"
+
+namespace {
+
+using dd::bf16;
+
+constexpr int kQ = 128;             // queries per block
+constexpr int kKeys = 128;          // keys per tile
+constexpr int kStages = 3;          // K/V ring depth
+constexpr int kRowBytes = 128;      // one 64-wide bf16 row, swizzled
+constexpr int kTileBytes = kKeys * kRowBytes;  // 16 KB, q tile too
+constexpr int kConsumers = 256;     // two warpgroups
+constexpr int kThreads = kConsumers + 128;
+// 2 q buffers, the K/V ring, 10 mbarriers, 1024 bytes of alignment slack
+constexpr int kSmem = kTileBytes * (2 + 2 * kStages) + 128 + 1024;
+
+__device__ __forceinline__ uint32_t saddr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---------------------------------------------------------------- mbarrier
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// --------------------------------------------------------------------- TMA
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// ------------------------------------------------------------------- wgmma
+// Shared-memory matrix descriptor, 128-byte swizzle.  K-major operands
+// (Q, K): SBO = 1024 bytes between 8-row groups, LBO unused.  MN-major V:
+// SBO = 1024 bytes between 8-key groups, LBO (between 64-wide atoms) unused
+// with one atom.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving accumulator accesses across an async
+// product in flight.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (64 x 128 f32) (+)= A (64 x 16, smem) . B (128 x 16, smem)^T
+__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64 f32) += A (64 x 16 bf16, registers) . B (16 x 64, smem,
+// MN-major)
+__device__ __forceinline__ void wgmma_pv(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+// ------------------------------------------------------ named barriers
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(kConsumers) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(kConsumers) : "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ------------------------------------------------------------------ kernel
+// Accumulator layout (wgmma m64nN, per warpgroup): warp w of the group,
+// lane l holds rows 16w + l/4 (r0) and r0 + 8, columns 8j + 2(l%4) + {0, 1}
+// in d[4j + {0, 1}] (r0) and d[4j + {2, 3}] (r0 + 8).
+
+// One key tile (keys key0 ...) of the online softmax for rows r0 and r0 + 8:
+// mask keys >= lk (last tile only), update m and l, turn s into P (float32) and return
+// the rescale factor of each row.
+__device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2],
+                                             float (&l)[2],
+                                             float (&alpha)[2], int key0,
+                                             int lk, float scale_log2) {
+  if (key0 + kKeys > lk) {
+    const int col0 = key0 + 2 * (threadIdx.x & 3);
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (col0 + 8 * j + (e & 1) >= lk) s[4 * j + e] = -INFINITY;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = m[r];
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    // finite: key 0 is real, so a row's first tile has a finite score
+    alpha[r] = ex2((m[r] - mx) * scale_log2);
+    m[r] = mx;
+    const float neg = -mx * scale_log2;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float x = ex2(fmaf(s[4 * j + 2 * r + e], scale_log2, neg));
+        s[4 * j + 2 * r + e] = x;
+        sum += x;
+      }
+    l[r] = l[r] * alpha[r] + sum;
+  }
+}
+
+// P (float32, S's layout) -> bf16 A fragments of the P . V product, one
+// per 16-key depth step.
+__device__ __forceinline__ void pack_p(uint32_t (&p)[8][4],
+                                       const float (&s)[64]) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    p[kk][0] = dd::pack_bf16x2(s[8 * kk + 0], s[8 * kk + 1]);
+    p[kk][1] = dd::pack_bf16x2(s[8 * kk + 2], s[8 * kk + 3]);
+    p[kk][2] = dd::pack_bf16x2(s[8 * kk + 4], s[8 * kk + 5]);
+    p[kk][3] = dd::pack_bf16x2(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+template <int KSTEPS>
+__device__ __forceinline__ void issue_qk(float (&s)[64], uint64_t dq,
+                                         uint64_t dk) {
+#pragma unroll
+  for (int kt = 0; kt < KSTEPS; ++kt)  // 16 columns = 32 bytes a step
+    wgmma_qk(s, dq + 2 * kt, dk + 2 * kt, kt);
+}
+
+__device__ __forceinline__ void issue_pv(float (&o)[32],
+                                         const uint32_t (&p)[8][4],
+                                         uint64_t dv) {
+#pragma unroll
+  for (int kk = 0; kk < kKeys / 16; ++kk)  // 16 keys = 2048 bytes a step
+    wgmma_pv(o, p[kk], dv + kk * (16 * kRowBytes >> 4));
+}
+
+// Work item w: query tile w % n_qt of head (w / n_qt) % heads of row
+// w / (n_qt * heads); consecutive blocks share a head's K/V in L2.  A block
+// walks items blockIdx.x, blockIdx.x + gridDim.x, ... (one item when the
+// grid covers them all).  KSTEPS = ceil(d / 16).
+template <int KSTEPS>
+__global__ void __launch_bounds__(kThreads, 1)
+    sm90_attention_kernel(__grid_constant__ const CUtensorMap tq,
+                          __grid_constant__ const CUtensorMap tk,
+                          __grid_constant__ const CUtensorMap tv,
+                          bf16* __restrict__ out, int batch, int lq, int lk,
+                          int heads, int d, float scale_log2) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // 128-byte swizzled TMA tiles need 1024-byte alignment
+  const uint32_t base = (saddr(smem_raw) + 1023) & ~1023u;
+  const uint32_t sq = base;  // 2 q buffers
+  const uint32_t sk = sq + 2 * kTileBytes;
+  const uint32_t sv = sk + kStages * kTileBytes;
+  const uint32_t bars = sv + kStages * kTileBytes;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kStages + s); };
+  auto qfull = [&](int b) { return bars + 8 * (2 * kStages + b); };
+  auto qempty = [&](int b) { return bars + 8 * (2 * kStages + 2 + b); };
+
+  const int tid = threadIdx.x;
+  const int n_qt = (lq + kQ - 1) / kQ;
+  const int n_items = n_qt * heads * batch;
+  const int n_tiles = (lk + kKeys - 1) / kKeys;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kConsumers / 32);
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(qfull(b), 1);
+      mbar_init(qempty(b), kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // ---- producer warpgroup: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid == kConsumers) {
+      int kv = 0, it = 0;
+      for (int w = blockIdx.x; w < n_items; w += gridDim.x, ++it) {
+        const int qt = w % n_qt, head = (w / n_qt) % heads,
+                  row = w / (n_qt * heads);
+        const int qb = it & 1;
+        if (it >= 2) mbar_wait(qempty(qb), ((it >> 1) - 1) & 1);
+        mbar_expect_tx(qfull(qb), kTileBytes);
+        tma_load(sq + qb * kTileBytes, &tq, qfull(qb), 0, head, qt * kQ,
+                 row);
+        for (int t = 0; t < n_tiles; ++t, ++kv) {
+          const int s = kv % kStages;
+          if (kv >= kStages) mbar_wait(empty(s), ((kv / kStages) - 1) & 1);
+          mbar_expect_tx(full(s), 2 * kTileBytes);
+          tma_load(sk + s * kTileBytes, &tk, full(s), 0, head, t * kKeys,
+                   row);
+          tma_load(sv + s * kTileBytes, &tv, full(s), 0, head, t * kKeys,
+                   row);
+        }
+      }
+    }
+  } else {
+    // ---- two consumer warpgroups, 64 query rows each
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int wg = tid >> 7;
+    const int warp = (tid >> 5) & 3;
+    const int lane = tid & 31;
+    const int c = lane & 3;
+    // ping-pong: warpgroup wg issues its products on barrier 1 + wg and
+    // hands the turn to the other; warpgroup 1 lets warpgroup 0 go first
+    // and leaves its last turn of the block unpassed (nobody takes it)
+    const int my_bar = 1 + wg, other_bar = 2 - wg;
+    if (wg == 1) bar_arrive(other_bar);
+
+    float s[64], o[32], m[2], l[2], alpha[2];
+    uint32_t p[8][4];
+    int kv = 0, it = 0;
+#pragma unroll 1
+    for (int w = blockIdx.x; w < n_items; w += gridDim.x, ++it) {
+      const int qt = w % n_qt, head = (w / n_qt) % heads,
+                row = w / (n_qt * heads);
+      const bool last_item = w + (int)gridDim.x >= n_items;
+      const int qb = it & 1;
+      const uint64_t dq =
+          desc_sw128(sq + qb * kTileBytes + wg * 64 * kRowBytes);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[i] = 0.f;
+      m[0] = m[1] = -INFINITY;
+      l[0] = l[1] = 0.f;
+      mbar_wait(qfull(qb), (it >> 1) & 1);
+
+      // key tile 0: S only
+      int st = kv % kStages;
+      mbar_wait(full(st), (kv / kStages) & 1);
+      bar_sync(my_bar);
+      wg_fence();
+      issue_qk<KSTEPS>(s, dq, desc_sw128(sk + st * kTileBytes));
+      wg_commit();
+      if (wg == 0 || !(last_item && n_tiles == 1)) bar_arrive(other_bar);
+      wg_wait<0>();
+      fence_regs(s);
+      softmax_tile(s, m, l, alpha, 0, lk, scale_log2);
+      pack_p(p, s);
+      int prev = st;
+      ++kv;
+
+      // key tile t: S of t and P . V of t - 1 issued together; the
+      // softmax of t runs while P . V is in flight
+#pragma unroll 1
+      for (int t = 1; t < n_tiles; ++t, ++kv) {
+        st = kv % kStages;
+        mbar_wait(full(st), (kv / kStages) & 1);
+        bar_sync(my_bar);
+        wg_fence();
+        issue_qk<KSTEPS>(s, dq, desc_sw128(sk + st * kTileBytes));
+        wg_commit();
+        issue_pv(o, p, desc_sw128(sv + prev * kTileBytes));
+        wg_commit();
+        if (wg == 0 || !(last_item && t + 1 == n_tiles))
+          bar_arrive(other_bar);
+        wg_wait<1>();
+        fence_regs(s);
+        softmax_tile(s, m, l, alpha, t * kKeys, lk, scale_log2);
+        wg_wait<0>();
+        fence_regs(o);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty(prev));
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          o[4 * j + 0] *= alpha[0];
+          o[4 * j + 1] *= alpha[0];
+          o[4 * j + 2] *= alpha[1];
+          o[4 * j + 3] *= alpha[1];
+        }
+        pack_p(p, s);
+        prev = st;
+      }
+
+      // every S product of this item is done: the q buffer is free
+      if (lane == 0) mbar_arrive(qempty(qb));
+      wg_fence();
+      issue_pv(o, p, desc_sw128(sv + prev * kTileBytes));
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(o);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(prev));
+
+      float inv[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        inv[r] = 1.f / l[r];
+      }
+      const int ld = heads * d;
+      const int r0 = qt * kQ + wg * 64 + warp * 16 + (lane >> 2);
+      bf16* g = out + (size_t)row * lq * ld + (size_t)head * d;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 8 * j + 2 * c;
+        if (col >= d) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = r0 + 8 * h;
+          if (r < lq)
+            *reinterpret_cast<uint32_t*>(g + (size_t)r * ld + col) =
+                dd::pack_bf16x2(o[4 * j + 2 * h] * inv[h],
+                                o[4 * j + 2 * h + 1] * inv[h]);
+        }
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------------- host
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault, &q) != cudaSuccess)
+      return nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) != cudaSuccess)
+      return nullptr;
+#endif
+    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
+                                            : nullptr;
+  }();
+  return fn;
+}
+
+// (B, L, H*d) bf16 as the 4-D tensor (d, H, L, B); box 64 x 1 x 128 x 1
+bool make_map(CUtensorMap* map, const void* ptr, int batch, int len,
+              int heads, int d) {
+  EncodeTiled encode = encode_fn();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
+                              (cuuint64_t)len, (cuuint64_t)batch};
+  const cuuint64_t ld = (cuuint64_t)heads * d * sizeof(bf16);
+  const cuuint64_t strides[3] = {(cuuint64_t)d * sizeof(bf16), ld,
+                                 ld * (cuuint64_t)len};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)kKeys, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Per device, once: the dynamic shared-memory size of the four instances
+// and the SM count (0 after a failure).
+int prepare(int device) {
+  static int sms[64] = {0};
+  if (device < 0 || device >= 64) return 0;
+  if (sms[device]) return sms[device];
+  for (auto kernel : {sm90_attention_kernel<1>, sm90_attention_kernel<2>,
+                      sm90_attention_kernel<3>, sm90_attention_kernel<4>})
+    if (cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmem) != cudaSuccess)
+      return 0;
+  int n = 0;
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device) !=
+      cudaSuccess)
+    return 0;
+  return sms[device] = n;
+}
+
+}  // namespace
+
+// q (B, Lq, H*d), k/v (B, Lk, H*d), out (B, Lq, H*d): contiguous bf16,
+// 16-byte aligned, d % 8 == 0 and d <= 64 (the packed and the split layout
+// alike).  One block per SM walks the work items.  Returns a cudaError_t.
+extern "C" int dd_sm90_attention_fwd(const void* q, const void* k,
+                                     const void* v, void* out, int batch,
+                                     int lq, int lk, int heads, int head_dim,
+                                     float scale, void* stream) {
+  if (head_dim <= 0 || head_dim > 64 || !dd::vec_ok(head_dim, q, k, v, out) ||
+      batch <= 0 || lq <= 0 || lk <= 0 || heads <= 0 || batch > 65535 ||
+      heads > 65535)
+    return (int)cudaErrorInvalidValue;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  const int sms = prepare(device);
+  if (sms == 0) return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, batch, lq, heads, head_dim) ||
+      !make_map(&tk, k, batch, lk, heads, head_dim) ||
+      !make_map(&tv, v, batch, lk, heads, head_dim))
+    return (int)cudaErrorInvalidValue;
+  const long long items = (long long)((lq + kQ - 1) / kQ) * heads * batch;
+  if (items > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const int grid = items > sms ? sms : (int)items;
+  auto kernel = sm90_attention_kernel<4>;
+  switch ((head_dim + 15) / 16) {
+    case 1: kernel = sm90_attention_kernel<1>; break;
+    case 2: kernel = sm90_attention_kernel<2>; break;
+    case 3: kernel = sm90_attention_kernel<3>; break;
+  }
+  kernel<<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
+      tq, tk, tv, static_cast<bf16*>(out), batch, lq, lk, heads, head_dim,
+      scale * dd::kLog2e);
+  return (int)cudaGetLastError();
+}

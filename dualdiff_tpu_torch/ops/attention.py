@@ -53,6 +53,16 @@ temporal attention) is einsum; under grad it runs inside
 per-head probabilities are recomputed in the backward, as the JAX
 package's ``_headpacked`` VJP does with ``jax.checkpoint``.
 
+The Hopper forward.  The three inference wrappers without lse or ring
+(``packed_attention_fwd``, ``packed_attention_capped_fwd``,
+``flash_attention_fwd``) send every call in ``sm90_in_scope`` (head_dim a
+multiple of 8 up to ``SM90_MAX_HEAD_DIM``, 16-byte aligned rows) to
+``sm90_attention_fwd`` (``csrc/attention_sm90.cu``: TMA, wgmma, warp
+specialisation), and every other shape (d = 80 and 160, d % 8 != 0,
+unaligned rows) to ``csrc/attention.cu``'s template, by that rule alone.
+``route="template"`` sends an in-scope call to the template too: the
+yardstick ``chip_smoke.py`` times beside the new kernel.
+
 Kernel wrappers take the plain PyTorch version for tensors on the CPU, which
 is what the CPU tests run.  A CUDA tensor either launches the kernel or
 raises; nothing falls back.  The inference wrappers raise under grad: their
@@ -89,7 +99,8 @@ __all__ = ["PACKED_MIN_LQ", "FLASH_MIN_LEN", "mha_einsum",
            "packed_attention_capped_fwd", "packed_attention_capped_lse_fwd",
            "PackedAttention", "T_SCORE_CAP", "CAPPED_WARPS",
            "CAPPED_LSE_WARPS", "HEADPACK_MAX_LQ", "over_score_cap",
-           "KERNEL_WRAPPERS", "reset_launch_counts"]
+           "KERNEL_WRAPPERS", "reset_launch_counts", "SM90_MAX_HEAD_DIM",
+           "sm90_in_scope", "sm90_attention_fwd"]
 
 # Queries at least this long take the kernels.  Carried over from the JAX
 # package's _PACKED_MIN_LQ (a TPU measurement); to be decided again on the
@@ -107,9 +118,10 @@ FLASH_MIN_LEN = 1024
 # score tile; the port's kernels keep no score tile, so the split is to be
 # decided again on the H100.
 T_SCORE_CAP = 2 * 1024 * 1024
-# Warps per block of packed_attention_capped_fwd (4 or 8), the faster of
-# the two at the video ST-Attn shape (chip_smoke.py phase 3; PERF.md,
-# kernel table row 3).
+# Warps per block of packed_attention_capped_fwd's template instance (4 or
+# 8), the faster of the two at the video ST-Attn shape (chip_smoke.py phase
+# 3; PERF.md, kernel table row 6).  Calls in sm90_in_scope (the ST-Attn at
+# d = 40 among them) take sm90_attention_fwd, where it does not apply.
 CAPPED_WARPS = 8
 # Warps per block of packed_attention_capped_lse_fwd (4 or 8), the faster of
 # the two at the ST-Attn training shape (chip_smoke.py phase 3; PERF.md,
@@ -120,6 +132,9 @@ CAPPED_LSE_WARPS = 8
 HEADPACK_MAX_LQ = 32
 # Largest head_dim the CUDA kernels take (80 and 160 reach them at HD).
 MAX_KERNEL_HEAD_DIM = 160
+# Largest head_dim of sm90_attention_fwd: one 64-wide, 128-byte swizzled
+# TMA box per row.
+SM90_MAX_HEAD_DIM = 64
 
 
 def _default_scale(scale: Optional[float], d: int) -> float:
@@ -408,18 +423,71 @@ def _raise_on(err: int, fn: str) -> None:
         raise RuntimeError(f"{fn} failed to launch: cudaError {err}")
 
 
-def packed_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         heads: int,
-                         scale: Optional[float] = None) -> torch.Tensor:
-    """Inference attention, q (B, Lq, C), k/v (B, Lk, C) -> (B, Lq, C).
+def sm90_in_scope(d: int, aligned: bool) -> bool:
+    """The routing rule of the inference wrappers without lse or ring: True
+    when ``sm90_attention_fwd`` takes a call of head_dim ``d`` whose q, k,
+    v rows start 16-byte ``aligned`` (TMA's stride and address rule); the
+    other calls take ``csrc/attention.cu``'s template."""
+    return aligned and d % 8 == 0 and 0 < d <= SM90_MAX_HEAD_DIM
 
-    CUDA kernel ``packed_attention_fwd`` (``csrc/attention.cu``), the port
-    of the TPU kernel ``_fwd_kernel_t``.  CPU tensors take
+
+def _aligned(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _use_sm90(route: str, d: int, aligned: bool) -> bool:
+    if route not in ("auto", "template"):
+        raise ValueError(f"route={route!r}: 'auto' or 'template'")
+    return route == "auto" and sm90_in_scope(d, aligned)
+
+
+def sm90_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       heads: int,
+                       scale: Optional[float] = None) -> torch.Tensor:
+    """Inference attention on Hopper, q (B, Lq, C), k/v (B, Lk, C) ->
+    (B, Lq, C), head_dim a multiple of 8 up to ``SM90_MAX_HEAD_DIM``.
+
+    CUDA kernel ``sm90_attention_fwd`` (``csrc/attention_sm90.cu``), the
+    port of the TPU kernels ``_fwd_kernel_t``, ``_fwd_kernel_t_capped`` and
+    ``_fwd_kernel_nolse`` for the calls in ``sm90_in_scope``; the three
+    inference wrappers route those here.  CPU tensors take
     ``attention_packed_plain``."""
     if q.device.type == "cpu":
         return attention_packed_plain(q, k, v, heads, scale)
     _refuse_grad(q, k, v)
     d = _check_kernel_args(q, k, v, heads)
+    if not sm90_in_scope(d, True):
+        raise ValueError(f"head_dim {d}: the sm90 kernel takes multiples "
+                         f"of 8 up to {SM90_MAX_HEAD_DIM}")
+    scale = _default_scale(scale, d)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = library("attention_sm90").dd_sm90_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            q.shape[0], q.shape[1], k.shape[1], heads, d, scale,
+            _stream(q))
+    _raise_on(err, "sm90_attention_fwd")
+    sm90_attention_fwd.launches += 1
+    return out
+
+
+def packed_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         heads: int, scale: Optional[float] = None, *,
+                         route: str = "auto") -> torch.Tensor:
+    """Inference attention, q (B, Lq, C), k/v (B, Lk, C) -> (B, Lq, C).
+
+    CUDA kernel ``sm90_attention_fwd`` for calls in ``sm90_in_scope``
+    (``route="template"``: not), else ``packed_attention_fwd``
+    (``csrc/attention.cu``), the port of the TPU kernel ``_fwd_kernel_t``.
+    CPU tensors take ``attention_packed_plain``."""
+    if q.device.type == "cpu":
+        return attention_packed_plain(q, k, v, heads, scale)
+    _refuse_grad(q, k, v)
+    d = _check_kernel_args(q, k, v, heads)
+    if _use_sm90(route, d, True):
+        out = sm90_attention_fwd(q, k, v, heads, scale)
+        packed_attention_fwd.launches += 1
+        return out
     scale = _default_scale(scale, d)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
@@ -545,12 +613,15 @@ def packed_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
 def packed_attention_capped_fwd(q: torch.Tensor, k: torch.Tensor,
                                 v: torch.Tensor, heads: int,
                                 scale: Optional[float] = None,
-                                warps: int = CAPPED_WARPS) -> torch.Tensor:
+                                warps: int = CAPPED_WARPS, *,
+                                route: str = "auto") -> torch.Tensor:
     """Inference attention for long K, q (B, Lq, C), k/v (B, Lk, C) ->
-    (B, Lq, C); ``warps`` per block, 4 or 8.
+    (B, Lq, C).
 
-    CUDA kernel ``packed_attention_capped_fwd`` (``csrc/attention.cu``),
-    the port of the TPU kernel ``_fwd_kernel_t_capped``.  CPU tensors take
+    CUDA kernel ``sm90_attention_fwd`` for calls in ``sm90_in_scope``
+    (``route="template"``: not), else ``packed_attention_capped_fwd``
+    (``csrc/attention.cu``) with ``warps`` per block, 4 or 8, the port of
+    the TPU kernel ``_fwd_kernel_t_capped``.  CPU tensors take
     ``attention_packed_capped_plain``."""
     if q.device.type == "cpu":
         return attention_packed_capped_plain(q, k, v, heads, scale)
@@ -558,6 +629,10 @@ def packed_attention_capped_fwd(q: torch.Tensor, k: torch.Tensor,
     d = _check_kernel_args(q, k, v, heads)
     if warps not in (4, 8):
         raise ValueError(f"warps={warps}: the kernel takes 4 or 8")
+    if _use_sm90(route, d, True):
+        out = sm90_attention_fwd(q, k, v, heads, scale)
+        packed_attention_capped_fwd.launches += 1
+        return out
     scale = _default_scale(scale, d)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
@@ -617,18 +692,26 @@ def _check_split_args(q, k, v):
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        scale: Optional[float] = None) -> torch.Tensor:
+                        scale: Optional[float] = None, *,
+                        route: str = "auto") -> torch.Tensor:
     """Inference attention in the split layout, q (B, Lq, H, D), k/v
     (B, Lk, H, D) -> (B, Lq, H, D), any head_dim up to
     ``MAX_KERNEL_HEAD_DIM``.
 
-    CUDA kernel ``flash_attention_fwd`` (``csrc/attention.cu``), the port of
-    the TPU kernel ``_fwd_kernel_nolse``.  CPU tensors take
+    CUDA kernel ``sm90_attention_fwd`` on the packed view of the same
+    memory for calls in ``sm90_in_scope`` (``route="template"``: not), else
+    ``flash_attention_fwd`` (``csrc/attention.cu``), the port of the TPU
+    kernel ``_fwd_kernel_nolse``.  CPU tensors take
     ``flash_attention_plain``."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale)
     _refuse_grad(q, k, v)
     d = _check_split_args(q, k, v)
+    if _use_sm90(route, d, _aligned(q, k, v)):
+        out = sm90_attention_fwd(_packed(q), _packed(k), _packed(v),
+                                 q.shape[2], scale)
+        flash_attention_fwd.launches += 1
+        return out.view(q.shape)
     scale = _default_scale(scale, d)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
@@ -725,12 +808,13 @@ KERNEL_WRAPPERS = (packed_attention_fwd, packed_attention_nbr_fwd,
                    packed_attention_capped_lse_fwd, flash_attention_fwd,
                    flash_attention_lse_fwd, flash_attention_bwd_dq,
                    flash_attention_bwd_dkv)
-for _fn in KERNEL_WRAPPERS:
+for _fn in KERNEL_WRAPPERS + (sm90_attention_fwd,):
     _fn.launches = 0
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNEL_WRAPPERS:
+    """Every wrapper's count and ``sm90_attention_fwd``'s to 0."""
+    for fn in KERNEL_WRAPPERS + (sm90_attention_fwd,):
         fn.launches = 0
 
 

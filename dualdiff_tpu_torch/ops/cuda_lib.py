@@ -27,7 +27,8 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "dualdiff_tpu_torch")
 
 # library name -> source file under csrc/
 SOURCES = {"attention": "attention.cu",
-           "attention_train": "attention_train.cu"}
+           "attention_train": "attention_train.cu",
+           "attention_sm90": "attention_sm90.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
@@ -74,6 +75,11 @@ _SIGNATURES = {
                                       _I, _I, _F, _P],
         "dd_flash_attention_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
                                        _I, _I, _I, _I, _F, _P],
+    },
+    "attention_sm90": {
+        # q, k, v, o, batch, lq, lk, heads, head_dim, scale, stream
+        "dd_sm90_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                                  _P],
     },
 }
 

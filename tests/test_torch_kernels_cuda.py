@@ -343,3 +343,116 @@ def test_differentiated_attention_routes_by_head_dim(cuda, heads, lk,
     (want * w.float()).sum().backward()
     for got, r in zip((q, k, v), ref):
         _check(got.grad, r.grad)
+
+
+# ------------------------------------------- the Hopper forward (sm90) --
+
+SM90_LQ = (1, 127, 128, 129, 1400)
+SM90_LK = (1, 158, 238, 1400, 2800, 2801)
+
+
+@pytest.mark.parametrize("lk", SM90_LK)
+@pytest.mark.parametrize("d", (8, 16, 24, 32, 40, 48, 56, 64))
+def test_sm90_kernel_against_plain(cuda, d, lk):
+    """``sm90_attention_fwd`` at every in-scope head_dim, against the
+    float32 plain version: query counts around its 128-row blocks and the
+    whole 1400, key counts from one key to a ragged long-K tile."""
+    heads = 2
+    for i, lq in enumerate(SM90_LQ):
+        q, k, v = _qkv(2, lq, lk, heads * d, cuda, seed=30 + i)
+        A.reset_launch_counts()
+        got = A.sm90_attention_fwd(q, k, v, heads)
+        torch.cuda.synchronize()
+        assert A.sm90_attention_fwd.launches == 1
+        _check(got, A.attention_packed_plain(q, k, v, heads))
+
+
+@pytest.mark.parametrize("d", (8, 40, 64))
+def test_sm90_kernel_with_very_negative_logits_is_exact(cuda, d):
+    """Every logit near -80 (and a ragged last key tile): exact key masks
+    and a finite running max keep the output finite and right."""
+    heads, lq, lk = 4, 300, 333
+    q, k, v = _qkv(2, lq, lk, heads * d, cuda, seed=40)
+    q = (q.float() * 0.05 - 4.0).bfloat16()
+    k = (k.float() * 0.05 + 4.0).bfloat16()
+    scale = 5.0 / d
+    got = A.sm90_attention_fwd(q, k, v, heads, scale)
+    torch.cuda.synchronize()
+    want = A.attention_packed_plain(q, k, v, heads, scale)
+    assert want.float().max().item() < 1e30  # the reference is finite
+    assert torch.isfinite(got).all()
+    _check(got, want)
+
+
+def test_sm90_kernel_reads_the_split_view_of_the_same_memory(cuda):
+    """``flash_attention_fwd`` on a (B, L, H, D) view and
+    ``packed_attention_fwd`` on its packed memory launch the one kernel and
+    agree bit for bit."""
+    q, k, v = _qkv4(3, 777, 1111, 8, 40, cuda, seed=41)
+    A.reset_launch_counts()
+    split = A.flash_attention_fwd(q, k, v)
+    packed = A.packed_attention_fwd(*(t.reshape(3, t.shape[1], 320)
+                                      for t in (q, k, v)), 8)
+    torch.cuda.synchronize()
+    assert A.sm90_attention_fwd.launches == 2
+    assert torch.equal(split.reshape(packed.shape), packed)
+    _check(split, A.flash_attention_plain(q, k, v))
+
+
+def _unaligned(t):
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("call, sm90", [
+    ("packed d=40", 1), ("capped d=40", 1), ("split d=40", 1),
+    ("packed d=8", 1), ("split d=64", 1),
+    ("packed d=80", 0), ("packed d=160", 0), ("capped d=80", 0),
+    ("split d=20", 0), ("split d=40 unaligned", 0), ("split d=80", 0),
+])
+def test_sm90_routing_on_the_card(cuda, call, sm90):
+    """In-scope calls launch the sm90 kernel, the others the template; the
+    wrapper counts its launch either way, and both agree with the plain
+    version."""
+    kind, dd = call.split()[0], int(call.split()[1][2:])
+    heads = 4
+    A.reset_launch_counts()
+    if kind == "split":
+        q, k, v = _qkv4(2, 300, 200, heads, dd, cuda, seed=42)
+        if "unaligned" in call:
+            q, k, v = (_unaligned(t) for t in (q, k, v))
+        got = A.flash_attention_fwd(q, k, v)
+        want = A.flash_attention_plain(q, k, v)
+        wrapper = A.flash_attention_fwd
+    else:
+        q, k, v = _qkv(2, 300, 200, heads * dd, cuda, seed=43)
+        fn = A.packed_attention_fwd if kind == "packed" \
+            else A.packed_attention_capped_fwd
+        got, want, wrapper = fn(q, k, v, heads), \
+            A.attention_packed_plain(q, k, v, heads), fn
+    torch.cuda.synchronize()
+    assert wrapper.launches == 1
+    assert A.sm90_attention_fwd.launches == sm90
+    _check(got, want)
+
+
+@pytest.mark.parametrize("fn", ["packed_attention_fwd",
+                                "packed_attention_capped_fwd",
+                                "flash_attention_fwd"])
+def test_template_route_keeps_the_template_in_scope(cuda, fn):
+    """``route="template"`` runs the mma.sync template on an in-scope
+    shape (the yardstick chip_smoke.py times beside the sm90 kernel)."""
+    q, k, v = _qkv(2, 300, 200, 320, cuda, seed=44)
+    wrapper = getattr(A, fn)
+    if fn == "flash_attention_fwd":
+        q, k, v = (t.view(2, t.shape[1], 8, 40) for t in (q, k, v))
+    A.reset_launch_counts()
+    got = wrapper(q, k, v, route="template") if fn == "flash_attention_fwd" \
+        else wrapper(q, k, v, 8, route="template")
+    torch.cuda.synchronize()
+    assert wrapper.launches == 1 and A.sm90_attention_fwd.launches == 0
+    want = A.flash_attention_plain(q, k, v) if fn == "flash_attention_fwd" \
+        else A.attention_packed_plain(q, k, v, 8)
+    _check(got, want)
