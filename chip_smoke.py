@@ -23,13 +23,15 @@ Phases, in order; any failure exits non-zero:
 3. kernels  each kernel against its plain PyTorch version at the shapes the
             flagship, clip and video training paths give it (bf16 inputs;
             plain version in float32, rounded once), with times of the
-            kernel, the plain version, one PyTorch library call where one
-            computes the same function, and the least time the card could
-            take (bound); the sm90 forward beside the template instances it
-            replaces at every in-scope shape (variants ``sm90``,
-            ``template``; the capped template at 4 and at 8 warps per
-            block); the split-layout kernels at the SFA+ stage-2 shapes and
-            at d = 20, with ``mha_einsum``'s time beside them.  Kernel and
+            kernel, the plain version, the fastest PyTorch library call
+            where one computes the same function (SDPA's default dispatch
+            and each backend that takes the shape, ``sdpa_ms``, named in
+            the row), and the least time the card could
+            take (bound); the sm90 forward and backward beside the template
+            instances they replace at every in-scope shape (variants
+            ``sm90``, ``template``; the capped template at 4 and at 8 warps
+            per block); the split-layout kernels at the SFA+ stage-2 shapes
+            and at d = 20, with ``mha_einsum``'s time beside them.  Kernel and
             library times come from a CUDA graph of 20 calls (``graph_ms``),
             the plain versions' and ``mha_einsum``'s from a host loop
             (``cuda_ms``).
@@ -78,13 +80,15 @@ same training with the plain versions; README.md says how to rehearse
 phases 10 and 11 there at a tiny size.
 
 The last three lines are the ``kernels`` JSON summary (one entry per
-kernel, and one ``sm90_attention_fwd:<wrapper>`` entry per TPU kernel the
-sm90 forward replaces), the card's name and power limit, and
+kernel, and one ``<sm90 kernel>:<wrapper>`` entry per TPU kernel each sm90
+kernel replaces: ``sm90_attention_fwd``, ``sm90_attention_bwd_dq``,
+``sm90_attention_bwd_dkv``), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -178,8 +182,22 @@ SOURCE = {
 SM90 = "sm90_attention_fwd"
 SM90_WRAPPERS = ("packed_attention_fwd", "packed_attention_capped_fwd",
                  "flash_attention_fwd")
-SM90_REPLACES = {kern: REPLACES[kern] for kern in SM90_WRAPPERS}
 SM90_SOURCE = "dualdiff_tpu_torch/csrc/attention_sm90.cu"
+# The Hopper backward behind the four backward wrappers for the calls in
+# ops.attention.sm90_in_scope (rows 4-5 and 9-10: _bwd_dq_kernel_t,
+# _bwd_dkv_kernel_t, _bwd_dq_kernel, _bwd_dkv_kernel).
+SM90_DQ, SM90_DKV = "sm90_attention_bwd_dq", "sm90_attention_bwd_dkv"
+SM90_BWD_SOURCE = "dualdiff_tpu_torch/csrc/attention_sm90_bwd.cu"
+# each sm90 kernel: the wrappers whose in-scope calls it takes, its source
+SM90_ROUTES = {
+    SM90: (SM90_WRAPPERS, SM90_SOURCE),
+    SM90_DQ: (("packed_attention_bwd_dq", "flash_attention_bwd_dq"),
+              SM90_BWD_SOURCE),
+    SM90_DKV: (("packed_attention_bwd_dkv", "flash_attention_bwd_dkv"),
+               SM90_BWD_SOURCE),
+}
+SM90_REPLACES = {kern: REPLACES[kern]
+                 for wrappers, _ in SM90_ROUTES.values() for kern in wrappers}
 
 
 def _launches(**counts) -> dict:
@@ -189,25 +207,35 @@ def _launches(**counts) -> dict:
 
 def launch_counts(A) -> dict:
     """Launches since the last reset: each of the eleven wrappers and the
-    sm90 kernel (``SM90``)."""
+    three sm90 kernels (``SM90_ROUTES``)."""
     return {**{fn.__name__: fn.launches for fn in A.KERNEL_WRAPPERS},
-            SM90: A.sm90_attention_fwd.launches}
+            **{fn.__name__: fn.launches for fn in A.SM90_KERNELS}}
 
 
 def _wrappers(counts: dict) -> dict:
-    return {k: v for k, v in counts.items() if k != SM90}
+    return {k: v for k, v in counts.items() if k not in SM90_ROUTES}
+
+
+def _sm90_kernel_of(wrapper: str):
+    """The sm90 kernel that takes ``wrapper``'s in-scope calls, or None."""
+    return next((k for k, (ws, _) in SM90_ROUTES.items() if wrapper in ws),
+                None)
 
 
 def check_sm90_launches(counts: dict, out_of_scope=()) -> None:
-    """Every in-scope launch of the three inference wrappers went through
-    the sm90 kernel: its count equals theirs, less the wrappers named in
+    """Every in-scope launch of the three inference wrappers and of the
+    four backward wrappers went through its sm90 kernel: each sm90
+    kernel's count equals its wrappers', less the wrappers named in
     ``out_of_scope`` (whose calls on this path have a head_dim outside
-    ``sm90_in_scope``, as SFA+ stage 2 at d = 4 in the tiny models)."""
-    want = sum(counts[k] for k in SM90_WRAPPERS if k not in out_of_scope)
-    if counts[SM90] != want:
-        raise AssertionError(f"sm90_attention_fwd launched {counts[SM90]} "
-                             f"times, the wrappers' in-scope calls {want}: "
-                             f"{counts}")
+    ``sm90_in_scope``, as SFA+ stage 2 at d = 4 in the tiny models).  A
+    kernel or wrapper missing from ``counts`` counts 0."""
+    for kernel, (wrappers, _) in SM90_ROUTES.items():
+        want = sum(counts.get(k, 0) for k in wrappers
+                   if k not in out_of_scope)
+        if counts.get(kernel, 0) != want:
+            raise AssertionError(f"{kernel} launched {counts.get(kernel, 0)}"
+                                 f" times, the wrappers' in-scope calls "
+                                 f"{want}: {counts}")
 
 
 def _sfa_plus_on_kernels(fusionp: bool, tokens: int) -> bool:
@@ -386,7 +414,7 @@ def phase_build() -> None:
     for name in secs:
         with open(cuda_lib.library_path(name)[:-3] + ".log") as f:
             for line in f:
-                if "registers" in line or "spill" in line:
+                if any(w in line for w in ("registers", "spill", "arning")):
                     log(f"#   {line.strip()}")
 
 
@@ -484,7 +512,7 @@ def train_kernel_cases():
     against the first and the previous frame's 2800 keys, over
     ``T_SCORE_CAP``: the capped forward), the ``occ_bg_fusionp`` step's SFA+
     stage 2 on the split-layout kernels (``split_layout``) plus ragged
-    ones."""
+    ones and the sm90 backward's edge cases."""
     rows = B_TRAIN * N_CAM
     video_rows = TRAIN_FRAMES * N_CAM
     return [
@@ -500,6 +528,13 @@ def train_kernel_cases():
          2 * L, C, HEADS),
         ("ragged ST-Attn under grad, lk = 2801", video_rows, L, 2 * L + 1, C,
          HEADS),
+        # the sm90 backward's edges: ragged tiles at both ends, one key, one
+        # query, the tiny models' d = 8 and the largest head_dim, 64
+        ("ragged, d=40", 3, 777, 333, C, HEADS),
+        ("one key, d=40", 2, 129, 1, C, HEADS),
+        ("one query, d=40", 2, 1, 300, C, HEADS),
+        ("tiny models, d=8", 12, 512, 512, 32, 4),
+        ("ragged, d=64", 3, 777, 333, 256, 4),
     ]
 
 
@@ -515,19 +550,46 @@ def _max_err(got, want) -> float:
     return (got.float() - want.float()).abs().max().item()
 
 
-def _sdpa_backend(q, k, v):
-    """The first SDPA backend that takes these (B, H, L, D) inputs."""
+def sdpa_ms(call, iters: int = 20) -> dict:
+    """``graph_ms`` of ``call()`` (which calls SDPA) under SDPA's default
+    dispatch and under each backend alone, by backend name; a backend whose
+    eager call raises (it does not take the shape) is left out."""
+    import contextlib
+
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
+    ctxs = {"default": contextlib.nullcontext}
     for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
                SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
-        try:
-            with sdpa_kernel([be]):
-                torch.nn.functional.scaled_dot_product_attention(q, k, v)
-            return be
-        except RuntimeError:
-            continue
-    raise RuntimeError("no SDPA backend takes these inputs")
+        ctxs[be.name] = functools.partial(sdpa_kernel, [be])
+    times = {}
+    for name, ctx in ctxs.items():
+        with ctx():
+            try:
+                call()
+            except RuntimeError:
+                continue
+            times[name] = graph_ms(call, iters)
+    if not times:
+        raise RuntimeError("no SDPA backend takes these inputs")
+    return times
+
+
+def fastest(times: dict):
+    """(name, ms) of the fastest entry of ``times``."""
+    name = min(times, key=times.get)
+    return name, times[name]
+
+
+def library_row(call) -> dict:
+    """``library_ms`` of the fastest SDPA backend for ``call`` (None
+    without one), the backend's name and every backend's time."""
+    if call is None:
+        return {"library_ms": None}
+    times = sdpa_ms(call)
+    name, ms = fastest(times)
+    return {"library_ms": ms, "library": f"SDPA ({name})",
+            "library_ms_by_backend": times}
 
 
 def split_on_packed(A):
@@ -558,27 +620,29 @@ def split_on_packed(A):
 
 
 def train_kernel_rows(A, g, label, b, lq, lk, c, heads,
-                      split_layout=False):
+                      split_layout=False, clock_hz=None):
     """The three training kernels on one shape against their plain
     versions: the forward with lse (over ``T_SCORE_CAP`` the capped one, at
     4 and at 8 warps, the path's count first), dq and dk/dv; with
     ``split_layout`` the split-layout ones (``flash_attention_*``, any
-    head_dim).  Each backward kernel gets the path's forward kernel's lse
-    and the delta of its bf16 output, as ``PackedAttention.backward`` and
-    ``FlashAttention.backward`` do.  Library yardsticks:
-    ``aten._scaled_dot_product_flash_attention`` (it returns the
-    logsumexp) for the forward, the backward of
-    ``F.scaled_dot_product_attention`` for dq and dk/dv together (a graph of
-    its forward and backward less a graph of its forward).  With
+    head_dim).  On a shape in ``sm90_in_scope`` dq and dk/dv run on the
+    path's route, the sm90 backward (variant ``sm90``: rows of
+    ``SM90_DQ`` and ``SM90_DKV``), and on the template (``template``: the
+    wrappers' own rows), each checked.  Each backward kernel gets the
+    path's forward kernel's lse and the delta of its bf16 output, as
+    ``PackedAttention.backward`` and ``FlashAttention.backward`` do;
+    ``exp_floor_ms`` (with ``clock_hz``) counts one exponential per
+    score in each kernel.  Library yardsticks, each the fastest of SDPA's
+    default dispatch and its backends (``sdpa_ms``): the forward of
+    ``F.scaled_dot_product_attention`` under grad (it keeps the
+    logsumexp) for the forward, its backward for dq and dk/dv together (a
+    graph of its forward and backward less a graph of its forward).  With
     ``split_layout`` also the forward and backward of ``mha_einsum``, the
     route below ``FLASH_MIN_LEN``."""
-    from torch.nn.attention import sdpa_kernel
-
     q, k, v = (torch.randn(b, n, c, generator=g, device="cuda").bfloat16()
                for n in (lq, lk, lk))
     do = torch.randn(b, lq, c, generator=g, device="cuda").bfloat16()
     d = c // heads
-    scale = d ** -0.5
     shape = {"b": b, "lq": lq, "lk": lk, "c": c, "heads": heads,
              "head_dim": d}
     names = {"dq": "packed_attention_bwd_dq",
@@ -615,40 +679,49 @@ def train_kernel_rows(A, g, label, b, lq, lk, c, heads,
     fwd = next(iter(fwds.values()))
     o, lse = fwd(q, k, v, heads)
     delta = A.attention_delta(o, do, heads)
-    dq = fns["bwd_dq"](q, k, v, do, lse, delta, heads)
-    dk, dv = fns["bwd_dkv"](q, k, v, do, lse, delta, heads)
-    torch.cuda.synchronize()
-    dq_want = fns["bwd_dq_plain"](q, k, v, do, lse, delta, heads)
-    dk_want, dv_want = fns["bwd_dkv_plain"](q, k, v, do, lse, delta, heads)
-    checks = {
-        fwd_kern: fwd_checks,
-        names["dq"]: [("dq", _max_err(dq, dq_want), _tol(dq_want))],
-        names["dkv"]: [("dk", _max_err(dk, dk_want), _tol(dk_want)),
-                       ("dv", _max_err(dv, dv_want), _tol(dv_want))],
-    }
+    bwd_args = (q, k, v, do, lse, delta, heads)
+    # the backward's routes, the path's first: in scope the sm90 kernels,
+    # timed beside the template instances they replace
+    routes = {"sm90": {}, "template": {"route": "template"}} \
+        if A.sm90_in_scope(d, True) else {"": {}}
+    bwd_runs = {kind: {n: functools.partial(fns[f"bwd_{kind}"], *bwd_args,
+                                            **kw)
+                       for n, kw in routes.items()}
+                for kind in ("dq", "dkv")}
+    dq_want = fns["bwd_dq_plain"](*bwd_args)
+    dk_want, dv_want = fns["bwd_dkv_plain"](*bwd_args)
+    checks = {fwd_kern: {"": fwd_checks}, names["dq"]: {},
+              names["dkv"]: {}}
+    for n in routes:
+        dq = bwd_runs["dq"][n]()
+        dk, dv = bwd_runs["dkv"][n]()
+        torch.cuda.synchronize()
+        checks[names["dq"]][n] = [
+            ("dq", _max_err(dq, dq_want), _tol(dq_want))]
+        checks[names["dkv"]][n] = [
+            ("dk", _max_err(dk, dk_want), _tol(dk_want)),
+            ("dv", _max_err(dv, dv_want), _tol(dv_want))]
+        del dq, dk, dv
     del o_want, lse_want, dq_want, dk_want, dv_want
 
     split = lambda t: t.view(b, t.shape[1], heads, d).transpose(1, 2)
-    be = _sdpa_backend(split(q), split(k), split(v))
     qr, kr, vr = (split(t).detach().requires_grad_() for t in (q, k, v))
 
     def lib_step(backward: bool):
         # the forward in the same graph: autograd runs the backward on the
         # forward's stream, which has to be the capturing one
-        with sdpa_kernel([be]):
-            out = torch.nn.functional.scaled_dot_product_attention(qr, kr, vr)
+        out = torch.nn.functional.scaled_dot_product_attention(qr, kr, vr)
         return torch.autograd.grad(out, (qr, kr, vr), split(do)) \
             if backward else out
 
-    lib_bwd_ms = graph_ms(lambda: lib_step(True), 10) \
-        - graph_ms(lambda: lib_step(False), 10)
+    # under grad SDPA's forward keeps its logsumexp (or, in MATH, P)
+    lib_fwd_by = sdpa_ms(lambda: lib_step(False), 10)
+    lib_step_by = sdpa_ms(lambda: lib_step(True), 10)
+    lib_bwd_by = {n: lib_step_by[n] - lib_fwd_by[n] for n in lib_step_by
+                  if n in lib_fwd_by}
     del qr, kr, vr
-    lib_fwd = lambda: torch.ops.aten._scaled_dot_product_flash_attention(
-        split(q), split(k), split(v), scale=scale)
-    try:
-        lib_fwd_ms = graph_ms(lib_fwd)
-    except RuntimeError:  # flash does not take this head_dim
-        lib_fwd_ms = None
+    lib_fwd_name, lib_fwd_ms = fastest(lib_fwd_by)
+    lib_bwd_name, lib_bwd_ms = fastest(lib_bwd_by)
     einsum = {}
     if split_layout:
         sp = lambda t: t.view(b, t.shape[1], heads, d)
@@ -669,44 +742,65 @@ def train_kernel_rows(A, g, label, b, lq, lk, c, heads,
         names["dkv"]: (2 * (2 * nq + 4 * nk) + 2 * rows_lse,
                        8 * b * lq * lk * c),
     }
-    bwd_args = (q, k, v, do, lse, delta, heads)
     runs = {
         fwd_kern: ({n: functools.partial(f, q, k, v, heads)
                     for n, f in fwds.items()},
                    lambda: fns["lse_plain"](q, k, v, heads), lib_fwd_ms),
-        names["dq"]: ({"": lambda: fns["bwd_dq"](*bwd_args)},
+        names["dq"]: (bwd_runs["dq"],
                       lambda: fns["bwd_dq_plain"](*bwd_args), lib_bwd_ms),
-        names["dkv"]: ({"": lambda: fns["bwd_dkv"](*bwd_args)},
+        names["dkv"]: (bwd_runs["dkv"],
                        lambda: fns["bwd_dkv_plain"](*bwd_args), lib_bwd_ms),
     }
+    exp_floor_ms = b * heads * lq * lk / (
+        H100_SMS * EXP_PER_CLOCK * clock_hz) * 1e3 if clock_hz else None
     out = {}
     for kern, (variants, plain, lib_ms) in runs.items():
         nbytes, flops = work[kern]
         bound_ms, bound_by = bound(nbytes, flops)
-        errs = checks[kern]
         times = {n: graph_ms(run) for n, run in variants.items()}
+        # the row of kern is its own kernel's (the template where the sm90
+        # kernel takes the shape), the sm90 row the sm90 kernel's
+        own = [n for n in variants if n != "sm90"]
+        errs = [c for n in own for c in checks[kern].get(n, [])] \
+            or checks[kern][""]
         row = {
             "kernel": kern, "replaces": REPLACES[kern], "case": label,
             "shape": shape,
             "max_abs_err": max(e for _, e, _ in errs),
             "checks": {n: {"max_abs_err": e, "tol": t} for n, e, t in errs},
-            "kernel_ms": next(iter(times.values())),
+            "kernel_ms": times[own[0]],
             "plain_ms": cuda_ms(plain, 3),
             "library_ms": lib_ms, "library": (
-                f"SDPA backward ({be.name}), dq and dk/dv together"
+                f"SDPA backward ({lib_bwd_name}), dq and dk/dv together"
                 if "bwd" in kern else
-                "aten._scaled_dot_product_flash_attention"),
-            "bound_ms": bound_ms, "bound_by": bound_by, **einsum,
+                f"SDPA forward under grad ({lib_fwd_name})"),
+            "library_ms_by_backend": lib_bwd_by if "bwd" in kern
+            else lib_fwd_by,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "exp_floor_ms": exp_floor_ms, **einsum,
         }
         if len(times) > 1:
             row["kernel_ms_by_variant"] = times
         log(json.dumps(row))
-        for n, e, t in errs:
-            if not (e <= t and math.isfinite(e)):
-                raise AssertionError(
-                    f"{kern} [{label}] {n} disagrees with its plain version: "
-                    f"max abs err {e} > {t}")
         out[kern] = row
+        gated = [(kern, errs)]
+        if "sm90" in variants:
+            sm90 = _sm90_kernel_of(kern)
+            sm90_errs = checks[kern]["sm90"]
+            out[sm90] = dict(
+                row, kernel=sm90, wrapper=kern,
+                max_abs_err=max(e for _, e, _ in sm90_errs),
+                checks={n: {"max_abs_err": e, "tol": t}
+                        for n, e, t in sm90_errs},
+                kernel_ms=times["sm90"])
+            log(json.dumps(out[sm90]))
+            gated.append((sm90, sm90_errs))
+        for name, errs in gated:
+            for n, e, t in errs:
+                if not (e <= t and math.isfinite(e)):
+                    raise AssertionError(
+                        f"{name} [{label}] {n} disagrees with its plain "
+                        f"version: max abs err {e} > {t}")
     return out
 
 
@@ -728,7 +822,8 @@ def phase_kernels():
     g = torch.Generator(device="cuda").manual_seed(SEED)
     results = {}
     for case in train_kernel_cases():
-        for kern, row in train_kernel_rows(A, g, *case).items():
+        for kern, row in train_kernel_rows(A, g, *case,
+                                           clock_hz=clock_hz).items():
             results.setdefault(kern, []).append(row)
         torch.cuda.empty_cache()
     for kern, label, b, lq, lk, c, heads, n_cam in kernel_cases():
@@ -808,7 +903,7 @@ def phase_kernels():
             "max_abs_err": max(errs[n] for n in own), "tol": tol,
             "kernel_ms": times[own[0]],
             "plain_ms": cuda_ms(plain, 3),
-            "library_ms": graph_ms(library) if library else None,
+            **library_row(library),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "exp_floor_ms": exp_floor_ms, **extra,
         }
@@ -1428,9 +1523,11 @@ def train_reference_readings(device: str = "cuda", video: bool = False,
                     "leaf_floor": LEAF_FLOOR}, "leaf_rel_err": errs}
 
 
-def _reference_gate(row: dict, kernels) -> None:
+def _reference_gate(row: dict, kernels, out_of_scope=()) -> None:
     """The loss within ``LOSS_REL_TOL`` relative, every trainable leaf's
-    gradient within ``LEAF_TOL`` and each of ``kernels`` launched."""
+    gradient within ``LEAF_TOL``, each of ``kernels`` launched and every
+    in-scope call of an sm90-routed wrapper (all but ``out_of_scope``'s)
+    on its sm90 kernel."""
     errs = row.pop("leaf_rel_err")
     log(json.dumps(row))
     if not row["loss_rel_err"] <= LOSS_REL_TOL:
@@ -1442,7 +1539,7 @@ def _reference_gate(row: dict, kernels) -> None:
     if not all(row["launches"][k] > 0 for k in kernels):
         raise AssertionError(f"the training kernels did not run: "
                              f"{row['launches']}")
-    check_sm90_launches(row["launches"])
+    check_sm90_launches(row["launches"], out_of_scope)
 
 
 def phase_train_reference():
@@ -1456,7 +1553,7 @@ def phase_train_reference():
     readings at the top)."""
     _reference_gate(train_reference_readings(), (
         "packed_attention_lse_fwd", "packed_attention_bwd_dq",
-        "packed_attention_bwd_dkv"))
+        "packed_attention_bwd_dkv", SM90_DQ, SM90_DKV))
 
 
 def phase_fusionp(profile_dir):
@@ -1481,9 +1578,11 @@ def phase_fusionp_reference():
     1400) and phase 7's training gate, the SFA+ leaves included, at 256x128
     with ``FLASH_MIN_LEN`` lowered to 512 (``train_reference_readings``)."""
     phase_reference(fusionp=True)
+    # the tiny SFA+ stage 2 (d = 4) is outside the sm90 kernels' scope
     _reference_gate(train_reference_readings(fusionp=True), (
         "flash_attention_lse_fwd", "flash_attention_bwd_dq",
-        "flash_attention_bwd_dkv", "packed_attention_lse_fwd"))
+        "flash_attention_bwd_dkv", "packed_attention_lse_fwd", SM90_DQ,
+        SM90_DKV), ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"))
 
 
 def phase_video_train(profile_dir):
@@ -1624,7 +1723,8 @@ def phase_video_train_reference():
     training route (``train_reference_readings(video=True)``)."""
     _reference_gate(train_reference_readings(video=True), (
         "packed_attention_capped_lse_fwd", "packed_attention_lse_fwd",
-        "packed_attention_bwd_dq", "packed_attention_bwd_dkv"))
+        "packed_attention_bwd_dq", "packed_attention_bwd_dkv", SM90_DQ,
+        SM90_DKV))
 
 
 # the path each kernel serves, whose launches the kernels line reports
@@ -1651,13 +1751,14 @@ def kernels_line(results, path_counts, train_per_step, video_per_step,
     are beside them), one ``occ_bg_fusionp`` generation for the split-layout
     forward and its training run for the split-layout training kernels.
 
-    The sm90 forward has one entry per TPU kernel it replaces, named
-    ``sm90_attention_fwd:<wrapper>``: the launches of that wrapper on its
-    path, all of which took the sm90 kernel (``check_sm90_launches`` held
-    there), and its times at that wrapper's main-path shape.  The three
-    wrappers' own entries are ``attention.cu``'s template instances: their
-    times are the template's at the same shapes, and their launches the
-    template's on the path, none at 224x400."""
+    Each sm90 kernel (the forward and the backward's two) has one entry
+    per TPU kernel it replaces, named ``<sm90 kernel>:<wrapper>``: the
+    launches of that wrapper on its path, all of which took the sm90
+    kernel (``check_sm90_launches`` held there), and its times at that
+    wrapper's main-path shape.  Those wrappers' own entries are the
+    template instances of ``attention.cu`` and ``attention_train.cu``:
+    their times are the template's at the same shapes, and their launches
+    the template's on the path, none at 224x400."""
     units = {"generate": "generation",
              "train": f"training run of {1 + TIMED_TRAIN_STEPS} steps",
              "video": "clip",
@@ -1697,22 +1798,24 @@ def kernels_line(results, path_counts, train_per_step, video_per_step,
 
     out = []
     for kern, rows in results.items():
-        if kern == SM90:
+        if kern in SM90_ROUTES:
             continue
         path = KERNEL_PATH[kern]
         calls = lambda c, kern=kern: c[kern]  # noqa: E731
-        if kern not in SM90_WRAPPERS:
+        sm90 = _sm90_kernel_of(kern)
+        if sm90 is None:
             out.append(entry(kern, SOURCE[kern], REPLACES[kern], rows, path,
                              calls))
             continue
         # every call of the wrapper took the sm90 kernel
         out.append(entry(kern, SOURCE[kern], REPLACES[kern], rows, path,
                          lambda c: 0))
-        out[-1]["routed_to"] = f"{SM90}:{kern}"
-        out.append(entry(f"{SM90}:{kern}", SM90_SOURCE, SM90_REPLACES[kern],
-                         [r for r in results[SM90] if r["wrapper"] == kern],
+        out[-1]["routed_to"] = f"{sm90}:{kern}"
+        out.append(entry(f"{sm90}:{kern}", SM90_ROUTES[sm90][1],
+                         SM90_REPLACES[kern],
+                         [r for r in results[sm90] if r["wrapper"] == kern],
                          path, calls))
-        out[-1]["sm90_launches_by_path"] = {units[p]: c[SM90]
+        out[-1]["sm90_launches_by_path"] = {units[p]: c[sm90]
                                             for p, c in counts.items()}
     return {"kernels": out}
 

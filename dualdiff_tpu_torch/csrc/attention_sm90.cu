@@ -68,13 +68,12 @@
 // than its 64-element swizzle atom), a TMA store of the output, two blocks
 // an SM (registers allow one).
 
-#include <cuda.h>
-
-#include "mma_tile.cuh"
+#include "sm90.cuh"
 
 namespace {
 
 using dd::bf16;
+using namespace dd::sm90;
 
 constexpr int kQ = 128;             // queries per block
 constexpr int kKeys = 128;          // keys per tile
@@ -85,147 +84,6 @@ constexpr int kConsumers = 256;     // two warpgroups
 constexpr int kThreads = kConsumers + 128;
 // 2 q buffers, the K/V ring, 10 mbarriers, 1024 bytes of alignment slack
 constexpr int kSmem = kTileBytes * (2 + 2 * kStages) + 128 + 1024;
-
-__device__ __forceinline__ uint32_t saddr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---------------------------------------------------------------- mbarrier
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// --------------------------------------------------------------------- TMA
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// ------------------------------------------------------------------- wgmma
-// Shared-memory matrix descriptor, 128-byte swizzle.  K-major operands
-// (Q, K): SBO = 1024 bytes between 8-row groups, LBO unused.  MN-major V:
-// SBO = 1024 bytes between 8-key groups, LBO (between 64-wide atoms) unused
-// with one atom.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from moving accumulator accesses across an async
-// product in flight.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// d (64 x 128 f32) (+)= A (64 x 16, smem) . B (128 x 16, smem)^T
-__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x 64 f32) += A (64 x 16 bf16, registers) . B (16 x 64, smem,
-// MN-major)
-__device__ __forceinline__ void wgmma_pv(float (&d)[32],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
-}
-
-// ------------------------------------------------------ named barriers
-__device__ __forceinline__ void bar_sync(int id) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(kConsumers) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(int id) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(kConsumers) : "memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // ------------------------------------------------------------------ kernel
 // Accumulator layout (wgmma m64nN, per warpgroup): warp w of the group,
@@ -290,7 +148,7 @@ __device__ __forceinline__ void issue_qk(float (&s)[64], uint64_t dq,
                                          uint64_t dk) {
 #pragma unroll
   for (int kt = 0; kt < KSTEPS; ++kt)  // 16 columns = 32 bytes a step
-    wgmma_qk(s, dq + 2 * kt, dk + 2 * kt, kt);
+    wgmma_ss_n128(s, dq + 2 * kt, dk + 2 * kt, kt);
 }
 
 __device__ __forceinline__ void issue_pv(float (&o)[32],
@@ -298,7 +156,7 @@ __device__ __forceinline__ void issue_pv(float (&o)[32],
                                          uint64_t dv) {
 #pragma unroll
   for (int kk = 0; kk < kKeys / 16; ++kk)  // 16 keys = 2048 bytes a step
-    wgmma_pv(o, p[kk], dv + kk * (16 * kRowBytes >> 4));
+    wgmma_rs_n64(o, p[kk], dv + kk * (16 * kRowBytes >> 4));
 }
 
 // Work item w: query tile w % n_qt of head (w / n_qt) % heads of row
@@ -377,7 +235,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     // hands the turn to the other; warpgroup 1 lets warpgroup 0 go first
     // and leaves its last turn of the block unpassed (nobody takes it)
     const int my_bar = 1 + wg, other_bar = 2 - wg;
-    if (wg == 1) bar_arrive(other_bar);
+    if (wg == 1) bar_arrive<kConsumers>(other_bar);
 
     float s[64], o[32], m[2], l[2], alpha[2];
     uint32_t p[8][4];
@@ -399,11 +257,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       // key tile 0: S only
       int st = kv % kStages;
       mbar_wait(full(st), (kv / kStages) & 1);
-      bar_sync(my_bar);
+      bar_sync<kConsumers>(my_bar);
       wg_fence();
       issue_qk<KSTEPS>(s, dq, desc_sw128(sk + st * kTileBytes));
       wg_commit();
-      if (wg == 0 || !(last_item && n_tiles == 1)) bar_arrive(other_bar);
+      if (wg == 0 || !(last_item && n_tiles == 1))
+        bar_arrive<kConsumers>(other_bar);
       wg_wait<0>();
       fence_regs(s);
       softmax_tile(s, m, l, alpha, 0, lk, scale_log2);
@@ -417,14 +276,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int t = 1; t < n_tiles; ++t, ++kv) {
         st = kv % kStages;
         mbar_wait(full(st), (kv / kStages) & 1);
-        bar_sync(my_bar);
+        bar_sync<kConsumers>(my_bar);
         wg_fence();
         issue_qk<KSTEPS>(s, dq, desc_sw128(sk + st * kTileBytes));
         wg_commit();
         issue_pv(o, p, desc_sw128(sv + prev * kTileBytes));
         wg_commit();
         if (wg == 0 || !(last_item && t + 1 == n_tiles))
-          bar_arrive(other_bar);
+          bar_arrive<kConsumers>(other_bar);
         wg_wait<1>();
         fence_regs(s);
         softmax_tile(s, m, l, alpha, t * kKeys, lk, scale_log2);
@@ -480,52 +339,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// ------------------------------------------------------------------- host
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = []() -> EncodeTiled {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                         cudaEnableDefault, &q) != cudaSuccess)
-      return nullptr;
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) != cudaSuccess)
-      return nullptr;
-#endif
-    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
-                                            : nullptr;
-  }();
-  return fn;
-}
-
-// (B, L, H*d) bf16 as the 4-D tensor (d, H, L, B); box 64 x 1 x 128 x 1
-bool make_map(CUtensorMap* map, const void* ptr, int batch, int len,
-              int heads, int d) {
-  EncodeTiled encode = encode_fn();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
-                              (cuuint64_t)len, (cuuint64_t)batch};
-  const cuuint64_t ld = (cuuint64_t)heads * d * sizeof(bf16);
-  const cuuint64_t strides[3] = {(cuuint64_t)d * sizeof(bf16), ld,
-                                 ld * (cuuint64_t)len};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)kKeys, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // Per device, once: the dynamic shared-memory size of the four instances
 // and the SM count (0 after a failure).
 int prepare(int device) {
@@ -564,9 +377,9 @@ extern "C" int dd_sm90_attention_fwd(const void* q, const void* k,
   const int sms = prepare(device);
   if (sms == 0) return (int)cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, batch, lq, heads, head_dim) ||
-      !make_map(&tk, k, batch, lk, heads, head_dim) ||
-      !make_map(&tv, v, batch, lk, heads, head_dim))
+  if (!make_map(&tq, q, batch, lq, heads, head_dim, kQ) ||
+      !make_map(&tk, k, batch, lk, heads, head_dim, kKeys) ||
+      !make_map(&tv, v, batch, lk, heads, head_dim, kKeys))
     return (int)cudaErrorInvalidValue;
   const long long items = (long long)((lq + kQ - 1) / kQ) * heads * batch;
   if (items > 0x7fffffff) return (int)cudaErrorInvalidValue;

@@ -63,6 +63,15 @@ unaligned rows) to ``csrc/attention.cu``'s template, by that rule alone.
 ``route="template"`` sends an in-scope call to the template too: the
 yardstick ``chip_smoke.py`` times beside the new kernel.
 
+The Hopper backward.  The four backward wrappers (``packed_attention_bwd_dq``,
+``packed_attention_bwd_dkv``, ``flash_attention_bwd_dq``,
+``flash_attention_bwd_dkv``) send every call in ``sm90_in_scope`` to
+``sm90_attention_bwd_dq`` and ``sm90_attention_bwd_dkv``
+(``csrc/attention_sm90_bwd.cu``), the split-layout pair on the packed view of
+the same memory; ``csrc/attention_train.cu``'s template serves the backward
+only outside that scope (d = 80 and 160, d % 8 != 0, unaligned rows, the
+tiny SFA+ at d = 4) and under ``route="template"``.
+
 Kernel wrappers take the plain PyTorch version for tensors on the CPU, which
 is what the CPU tests run.  A CUDA tensor either launches the kernel or
 raises; nothing falls back.  The inference wrappers raise under grad: their
@@ -99,8 +108,9 @@ __all__ = ["PACKED_MIN_LQ", "FLASH_MIN_LEN", "mha_einsum",
            "packed_attention_capped_fwd", "packed_attention_capped_lse_fwd",
            "PackedAttention", "T_SCORE_CAP", "CAPPED_WARPS",
            "CAPPED_LSE_WARPS", "HEADPACK_MAX_LQ", "over_score_cap",
-           "KERNEL_WRAPPERS", "reset_launch_counts", "SM90_MAX_HEAD_DIM",
-           "sm90_in_scope", "sm90_attention_fwd"]
+           "KERNEL_WRAPPERS", "SM90_KERNELS", "reset_launch_counts",
+           "SM90_MAX_HEAD_DIM", "sm90_in_scope", "sm90_attention_fwd",
+           "sm90_attention_bwd_dq", "sm90_attention_bwd_dkv"]
 
 # Queries at least this long take the kernels.  Carried over from the JAX
 # package's _PACKED_MIN_LQ (a TPU measurement); to be decided again on the
@@ -132,8 +142,8 @@ CAPPED_LSE_WARPS = 8
 HEADPACK_MAX_LQ = 32
 # Largest head_dim the CUDA kernels take (80 and 160 reach them at HD).
 MAX_KERNEL_HEAD_DIM = 160
-# Largest head_dim of sm90_attention_fwd: one 64-wide, 128-byte swizzled
-# TMA box per row.
+# Largest head_dim of the sm90 kernels: one 64-wide, 128-byte swizzled TMA
+# box per row.
 SM90_MAX_HEAD_DIM = 64
 
 
@@ -424,10 +434,13 @@ def _raise_on(err: int, fn: str) -> None:
 
 
 def sm90_in_scope(d: int, aligned: bool) -> bool:
-    """The routing rule of the inference wrappers without lse or ring: True
-    when ``sm90_attention_fwd`` takes a call of head_dim ``d`` whose q, k,
-    v rows start 16-byte ``aligned`` (TMA's stride and address rule); the
-    other calls take ``csrc/attention.cu``'s template."""
+    """The routing rule of the inference wrappers without lse or ring and of
+    the four backward wrappers: True when the sm90 kernels
+    (``sm90_attention_fwd``, ``sm90_attention_bwd_dq``,
+    ``sm90_attention_bwd_dkv``) take a call of head_dim ``d`` whose rows
+    start 16-byte ``aligned`` (TMA's stride and address rule); the other
+    calls take the templates of ``csrc/attention.cu`` and
+    ``csrc/attention_train.cu``."""
     return aligned and d % 8 == 0 and 0 < d <= SM90_MAX_HEAD_DIM
 
 
@@ -469,6 +482,68 @@ def sm90_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _raise_on(err, "sm90_attention_fwd")
     sm90_attention_fwd.launches += 1
     return out
+
+
+def _sm90_grad_args(q, k, v, do, lse, delta, heads, scale):
+    d = _check_kernel_args(q, k, v, heads)
+    _check_grad_args(q, do, lse, delta, heads)
+    if not sm90_in_scope(d, True):
+        raise ValueError(f"head_dim {d}: the sm90 kernel takes multiples "
+                         f"of 8 up to {SM90_MAX_HEAD_DIM}")
+    return d, _default_scale(scale, d)
+
+
+def sm90_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          do: torch.Tensor, lse: torch.Tensor,
+                          delta: torch.Tensor, heads: int,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """dq (B, Lq, C) on Hopper, the arguments of ``packed_attention_bwd_dq``,
+    head_dim a multiple of 8 up to ``SM90_MAX_HEAD_DIM``.
+
+    CUDA kernel ``sm90_attention_bwd_dq`` (``csrc/attention_sm90_bwd.cu``),
+    the port of the TPU kernels ``_bwd_dq_kernel_t`` and ``_bwd_dq_kernel``
+    for the calls in ``sm90_in_scope``; the two dq wrappers route those
+    here.  CPU tensors take ``attention_packed_bwd_dq_plain``."""
+    if q.device.type == "cpu":
+        return attention_packed_bwd_dq_plain(q, k, v, do, lse, delta, heads,
+                                             scale)
+    d, scale = _sm90_grad_args(q, k, v, do, lse, delta, heads, scale)
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = library("attention_sm90_bwd").dd_sm90_attention_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), q.shape[0],
+            q.shape[1], k.shape[1], heads, d, scale, _stream(q))
+    _raise_on(err, "sm90_attention_bwd_dq")
+    sm90_attention_bwd_dq.launches += 1
+    return dq
+
+
+def sm90_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, do: torch.Tensor,
+                           lse: torch.Tensor, delta: torch.Tensor,
+                           heads: int, scale: Optional[float] = None):
+    """(dk, dv), each (B, Lk, C), on Hopper, the arguments of
+    ``packed_attention_bwd_dkv``, head_dim a multiple of 8 up to
+    ``SM90_MAX_HEAD_DIM``.
+
+    CUDA kernel ``sm90_attention_bwd_dkv`` (``csrc/attention_sm90_bwd.cu``),
+    the port of the TPU kernels ``_bwd_dkv_kernel_t`` and ``_bwd_dkv_kernel``
+    for the calls in ``sm90_in_scope``; the two dk/dv wrappers route those
+    here.  CPU tensors take ``attention_packed_bwd_dkv_plain``."""
+    if q.device.type == "cpu":
+        return attention_packed_bwd_dkv_plain(q, k, v, do, lse, delta, heads,
+                                              scale)
+    d, scale = _sm90_grad_args(q, k, v, do, lse, delta, heads, scale)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        err = library("attention_sm90_bwd").dd_sm90_attention_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            q.shape[0], q.shape[1], k.shape[1], heads, d, scale, _stream(q))
+    _raise_on(err, "sm90_attention_bwd_dkv")
+    sm90_attention_bwd_dkv.launches += 1
+    return dk, dv
 
 
 def packed_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -558,19 +633,25 @@ def packed_attention_lse_fwd(q: torch.Tensor, k: torch.Tensor,
 def packed_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, do: torch.Tensor,
                             lse: torch.Tensor, delta: torch.Tensor,
-                            heads: int,
-                            scale: Optional[float] = None) -> torch.Tensor:
+                            heads: int, scale: Optional[float] = None, *,
+                            route: str = "auto") -> torch.Tensor:
     """dq (B, Lq, C) of the attention whose forward gave ``lse``; ``do``
     the output cotangent, ``delta`` from ``attention_delta``.
 
-    CUDA kernel ``packed_attention_bwd_dq`` (``csrc/attention_train.cu``),
-    the port of the TPU kernel ``_bwd_dq_kernel_t``.  CPU tensors take
+    CUDA kernel ``sm90_attention_bwd_dq`` for calls in ``sm90_in_scope``
+    (``route="template"``: not), else ``packed_attention_bwd_dq``
+    (``csrc/attention_train.cu``), the port of the TPU kernel
+    ``_bwd_dq_kernel_t``.  CPU tensors take
     ``attention_packed_bwd_dq_plain``."""
     if q.device.type == "cpu":
         return attention_packed_bwd_dq_plain(q, k, v, do, lse, delta, heads,
                                              scale)
     d = _check_kernel_args(q, k, v, heads)
     _check_grad_args(q, do, lse, delta, heads)
+    if _use_sm90(route, d, True):
+        dq = sm90_attention_bwd_dq(q, k, v, do, lse, delta, heads, scale)
+        packed_attention_bwd_dq.launches += 1
+        return dq
     scale = _default_scale(scale, d)
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
@@ -586,18 +667,25 @@ def packed_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
 def packed_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, do: torch.Tensor,
                              lse: torch.Tensor, delta: torch.Tensor,
-                             heads: int, scale: Optional[float] = None):
+                             heads: int, scale: Optional[float] = None, *,
+                             route: str = "auto"):
     """(dk, dv), each (B, Lk, C), of the attention whose forward gave
     ``lse``.
 
-    CUDA kernel ``packed_attention_bwd_dkv`` (``csrc/attention_train.cu``),
-    the port of the TPU kernel ``_bwd_dkv_kernel_t``.  CPU tensors take
+    CUDA kernel ``sm90_attention_bwd_dkv`` for calls in ``sm90_in_scope``
+    (``route="template"``: not), else ``packed_attention_bwd_dkv``
+    (``csrc/attention_train.cu``), the port of the TPU kernel
+    ``_bwd_dkv_kernel_t``.  CPU tensors take
     ``attention_packed_bwd_dkv_plain``."""
     if q.device.type == "cpu":
         return attention_packed_bwd_dkv_plain(q, k, v, do, lse, delta, heads,
                                               scale)
     d = _check_kernel_args(q, k, v, heads)
     _check_grad_args(q, do, lse, delta, heads)
+    if _use_sm90(route, d, True):
+        dk, dv = sm90_attention_bwd_dkv(q, k, v, do, lse, delta, heads, scale)
+        packed_attention_bwd_dkv.launches += 1
+        return dk, dv
     scale = _default_scale(scale, d)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
@@ -752,17 +840,25 @@ def flash_attention_lse_fwd(q: torch.Tensor, k: torch.Tensor,
 def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, do: torch.Tensor,
                            lse: torch.Tensor, delta: torch.Tensor,
-                           scale: Optional[float] = None) -> torch.Tensor:
+                           scale: Optional[float] = None, *,
+                           route: str = "auto") -> torch.Tensor:
     """dq (B, Lq, H, D) of the split-layout attention whose forward gave
     ``lse``; ``delta`` from ``flash_attention_delta``.
 
-    CUDA kernel ``flash_attention_bwd_dq`` (``csrc/attention_train.cu``),
-    the port of the TPU kernel ``_bwd_dq_kernel``.  CPU tensors take
+    CUDA kernel ``sm90_attention_bwd_dq`` on the packed view of the same
+    memory for calls in ``sm90_in_scope`` (``route="template"``: not), else
+    ``flash_attention_bwd_dq`` (``csrc/attention_train.cu``), the port of
+    the TPU kernel ``_bwd_dq_kernel``.  CPU tensors take
     ``flash_attention_bwd_dq_plain``."""
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, scale)
     d = _check_split_args(q, k, v)
     _check_grad_args(q, do, lse, delta, q.shape[2], align=1)
+    if _use_sm90(route, d, _aligned(q, k, v, do)):
+        dq = sm90_attention_bwd_dq(_packed(q), _packed(k), _packed(v),
+                                   _packed(do), lse, delta, q.shape[2], scale)
+        flash_attention_bwd_dq.launches += 1
+        return dq.view(q.shape)
     scale = _default_scale(scale, d)
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
@@ -778,17 +874,26 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
 def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, do: torch.Tensor,
                             lse: torch.Tensor, delta: torch.Tensor,
-                            scale: Optional[float] = None):
+                            scale: Optional[float] = None, *,
+                            route: str = "auto"):
     """(dk, dv), each (B, Lk, H, D), of the split-layout attention whose
     forward gave ``lse``.
 
-    CUDA kernel ``flash_attention_bwd_dkv`` (``csrc/attention_train.cu``),
-    the port of the TPU kernel ``_bwd_dkv_kernel``.  CPU tensors take
+    CUDA kernel ``sm90_attention_bwd_dkv`` on the packed view of the same
+    memory for calls in ``sm90_in_scope`` (``route="template"``: not), else
+    ``flash_attention_bwd_dkv`` (``csrc/attention_train.cu``), the port of
+    the TPU kernel ``_bwd_dkv_kernel``.  CPU tensors take
     ``flash_attention_bwd_dkv_plain``."""
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, scale)
     d = _check_split_args(q, k, v)
     _check_grad_args(q, do, lse, delta, q.shape[2], align=1)
+    if _use_sm90(route, d, _aligned(q, k, v, do)):
+        dk, dv = sm90_attention_bwd_dkv(_packed(q), _packed(k), _packed(v),
+                                        _packed(do), lse, delta, q.shape[2],
+                                        scale)
+        flash_attention_bwd_dkv.launches += 1
+        return dk.view(k.shape), dv.view(v.shape)
     scale = _default_scale(scale, d)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
@@ -808,13 +913,17 @@ KERNEL_WRAPPERS = (packed_attention_fwd, packed_attention_nbr_fwd,
                    packed_attention_capped_lse_fwd, flash_attention_fwd,
                    flash_attention_lse_fwd, flash_attention_bwd_dq,
                    flash_attention_bwd_dkv)
-for _fn in KERNEL_WRAPPERS + (sm90_attention_fwd,):
+# the sm90 kernels behind the wrappers' in-scope calls (not wrappers: their
+# launches are counted by the wrapper too)
+SM90_KERNELS = (sm90_attention_fwd, sm90_attention_bwd_dq,
+                sm90_attention_bwd_dkv)
+for _fn in KERNEL_WRAPPERS + SM90_KERNELS:
     _fn.launches = 0
 
 
 def reset_launch_counts() -> None:
-    """Every wrapper's count and ``sm90_attention_fwd``'s to 0."""
-    for fn in KERNEL_WRAPPERS + (sm90_attention_fwd,):
+    """Every wrapper's count and the sm90 kernels' to 0."""
+    for fn in KERNEL_WRAPPERS + SM90_KERNELS:
         fn.launches = 0
 
 

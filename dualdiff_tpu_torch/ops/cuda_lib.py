@@ -28,7 +28,8 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "dualdiff_tpu_torch")
 # library name -> source file under csrc/
 SOURCES = {"attention": "attention.cu",
            "attention_train": "attention_train.cu",
-           "attention_sm90": "attention_sm90.cu"}
+           "attention_sm90": "attention_sm90.cu",
+           "attention_sm90_bwd": "attention_sm90_bwd.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
@@ -80,6 +81,13 @@ _SIGNATURES = {
         # q, k, v, o, batch, lq, lk, heads, head_dim, scale, stream
         "dd_sm90_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                   _P],
+    },
+    "attention_sm90_bwd": {
+        # the arguments of dd_packed_attention_bwd_dq / _dkv
+        "dd_sm90_attention_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                     _I, _I, _F, _P],
+        "dd_sm90_attention_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                      _I, _I, _I, _I, _F, _P],
     },
 }
 

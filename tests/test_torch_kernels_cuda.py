@@ -456,3 +456,207 @@ def test_template_route_keeps_the_template_in_scope(cuda, fn):
     want = A.flash_attention_plain(q, k, v) if fn == "flash_attention_fwd" \
         else A.attention_packed_plain(q, k, v, 8)
     _check(got, want)
+
+
+# ------------------------------------------ the Hopper backward (sm90) --
+
+def _grad_inputs(b, lq, lk, c, heads, device, seed):
+    """q, k, v, do and the lse and delta of the training forward."""
+    q, k, v = _qkv(b, lq, lk, c, device, seed)
+    do = _qkv(b, lq, 1, c, device, seed + 1)[0]
+    o, lse = A.packed_attention_lse_fwd(q, k, v, heads)
+    return q, k, v, do, lse, A.attention_delta(o, do, heads)
+
+
+def _check_sm90_backward(args, heads):
+    A.reset_launch_counts()
+    dq = A.sm90_attention_bwd_dq(*args, heads)
+    dk, dv = A.sm90_attention_bwd_dkv(*args, heads)
+    torch.cuda.synchronize()
+    assert A.sm90_attention_bwd_dq.launches == 1
+    assert A.sm90_attention_bwd_dkv.launches == 1
+    _check(dq, A.attention_packed_bwd_dq_plain(*args, heads))
+    for got, want in zip((dk, dv),
+                         A.attention_packed_bwd_dkv_plain(*args, heads)):
+        _check(got, want)
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("lk", SM90_LK)
+@pytest.mark.parametrize("d", (8, 16, 24, 32, 40, 48, 56, 64))
+def test_sm90_backward_against_plain(cuda, d, lk):
+    """``sm90_attention_bwd_dq`` and ``_dkv`` at every in-scope head_dim,
+    against the float32 plain versions: query counts around the 128-query
+    items and 64-query tiles and the whole 1400, key counts from one key to
+    a ragged long-K tile."""
+    heads = 2
+    for i, lq in enumerate(SM90_LQ):
+        _check_sm90_backward(
+            _grad_inputs(2, lq, lk, heads * d, heads, cuda, 50 + i), heads)
+
+
+@pytest.mark.parametrize("b, lq, lk, c, heads", [
+    (6, 1400, 1400, 320, 8),    # attn1 and SFA+ stage 2 under grad
+    (12, 1400, 1400, 320, 8),   # attn4, both neighbours stacked
+    (6, 1400, 158, 320, 8),     # attn2
+    (12, 1400, 2800, 320, 8),   # video ST-Attn under grad
+    (12, 512, 512, 32, 4),      # the tiny models' d = 8
+])
+def test_sm90_backward_at_the_main_shapes_is_deterministic(cuda, b, lq, lk,
+                                                           c, heads):
+    """The main paths' shapes against the plain versions, and a second
+    launch bit for bit equal to the first: each block owns its rows, no
+    atomics."""
+    args = _grad_inputs(b, lq, lk, c, heads, cuda, 60)
+    first = _check_sm90_backward(args, heads)
+    again = (A.sm90_attention_bwd_dq(*args, heads),
+             *A.sm90_attention_bwd_dkv(*args, heads))
+    torch.cuda.synchronize()
+    for x, y in zip(first, again):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("d", (8, 40, 64))
+def test_sm90_backward_with_very_negative_logits(cuda, d):
+    """Every logit near -80 (and ragged last tiles): the key mask and the
+    queries' lse past Lq keep dq, dk and dv finite and right.
+
+    dq sums dS over keys that share one large offset (k near +4), where
+    the rounding of dS to bf16 (an MMA operand, in the template and in
+    SDPA's FLASH backward too) does not cancel: at d = 8 both routes read
+    0.0031 against the float32 plain version's 0.0012 tolerance (ROADMAP
+    Queue 3 #3).  So dq is held to the plain version with dS rounded to
+    bf16 as the kernels round it, at the usual tolerance, and to the
+    float32 one within that rounding's bound: one bf16 rounding moves dS by
+    at most 2^-8 |dS|, so dq by at most s 2^-8 sum_k |dS| |K| per element,
+    on top of the usual tolerance.  dk and dv are held to the float32
+    version."""
+    heads, lq, lk = 4, 300, 333
+    q, k, v = _qkv(2, lq, lk, heads * d, cuda, seed=70)
+    q = (q.float() * 0.05 - 4.0).bfloat16()
+    k = (k.float() * 0.05 + 4.0).bfloat16()
+    do = _qkv(2, lq, 1, heads * d, cuda, seed=71)[0]
+    scale = 5.0 / d
+    o, lse = A.packed_attention_lse_fwd(q, k, v, heads, scale)
+    args = (q, k, v, do, lse, A.attention_delta(o, do, heads))
+    dq = A.sm90_attention_bwd_dq(*args, heads, scale)
+    dk, dv = A.sm90_attention_bwd_dkv(*args, heads, scale)
+    torch.cuda.synchronize()
+    _, ds = A._probs_and_ds(*args, heads, scale)
+    kh = k.view(2, lk, heads, d).float()
+    dq_bf16_ds = torch.einsum("bhqk,bkhd->bqhd", ds.bfloat16().float(),
+                              kh).reshape(q.shape) * scale
+    assert torch.isfinite(dq).all()
+    _check(dq, dq_bf16_ds.bfloat16())
+    dq_f32 = A.attention_packed_bwd_dq_plain(*args, heads, scale).float()
+    ds_bound = torch.einsum("bhqk,bkhd->bqhd", ds.abs(), kh.abs()).reshape(
+        q.shape) * scale * 2.0 ** -8
+    tol = 2.0 ** -7 * dq_f32.abs().max().item() + 1e-3
+    excess = (dq.float() - dq_f32).abs() - ds_bound - tol
+    assert excess.max().item() <= 0, excess.max().item()
+    for got, want in zip((dk, dv), A.attention_packed_bwd_dkv_plain(
+            *args, heads, scale)):
+        assert torch.isfinite(got).all()
+        _check(got, want)
+
+
+def test_sm90_backward_reads_the_split_view_of_the_same_memory(cuda):
+    """``flash_attention_bwd_dq`` / ``_dkv`` on (B, L, H, D) views and the
+    packed wrappers on their packed memory launch the same two kernels and
+    agree bit for bit."""
+    b, lq, lk, heads, d = 3, 777, 1111, 8, 40
+    q, k, v, do, lse, delta = _grad_inputs(b, lq, lk, heads * d, heads, cuda, 72)
+    sp = lambda t: t.view(b, t.shape[1], heads, d)
+    A.reset_launch_counts()
+    split = (A.flash_attention_bwd_dq(sp(q), sp(k), sp(v), sp(do), lse,
+                                      delta),
+             *A.flash_attention_bwd_dkv(sp(q), sp(k), sp(v), sp(do), lse,
+                                        delta))
+    packed = (A.packed_attention_bwd_dq(q, k, v, do, lse, delta, heads),
+              *A.packed_attention_bwd_dkv(q, k, v, do, lse, delta, heads))
+    torch.cuda.synchronize()
+    assert A.sm90_attention_bwd_dq.launches == 2
+    assert A.sm90_attention_bwd_dkv.launches == 2
+    for s, p in zip(split, packed):
+        assert s.shape == (b, s.shape[1], heads, d)
+        assert torch.equal(s.reshape(p.shape), p)
+    _check(packed[0], A.attention_packed_bwd_dq_plain(q, k, v, do, lse,
+                                                      delta, heads))
+
+
+@pytest.mark.parametrize("call, sm90", [
+    ("packed d=40", 1), ("split d=40", 1), ("packed d=8", 1),
+    ("split d=64", 1), ("packed d=80", 0), ("packed d=160", 0),
+    ("split d=20", 0), ("split d=4", 0), ("split d=40 unaligned", 0),
+    ("split d=80", 0),
+])
+def test_sm90_backward_routing_on_the_card(cuda, call, sm90):
+    """In-scope backward calls launch the sm90 kernels, the others the
+    template; the wrappers count their launch either way, and both agree
+    with the plain versions."""
+    kind, dd = call.split()[0], int(call.split()[1][2:])
+    heads = 4
+    if kind == "split":
+        q, k, v = _qkv4(2, 300, 200, heads, dd, cuda, seed=74)
+        do = _qkv4(2, 300, 1, heads, dd, cuda, seed=75)[0]
+        o, lse = A.flash_attention_lse_fwd(q, k, v)
+        delta = A.flash_attention_delta(o, do)
+        if "unaligned" in call:
+            q, k, v, do = (_unaligned(t) for t in (q, k, v, do))
+        A.reset_launch_counts()
+        dq = A.flash_attention_bwd_dq(q, k, v, do, lse, delta)
+        dk, dv = A.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+        want = (A.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta),
+                *A.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta))
+        wrappers = (A.flash_attention_bwd_dq, A.flash_attention_bwd_dkv)
+    else:
+        q, k, v, do, lse, delta = _grad_inputs(2, 300, 200, heads * dd, heads,
+                                               cuda, 74)
+        A.reset_launch_counts()
+        dq = A.packed_attention_bwd_dq(q, k, v, do, lse, delta, heads)
+        dk, dv = A.packed_attention_bwd_dkv(q, k, v, do, lse, delta, heads)
+        want = (A.attention_packed_bwd_dq_plain(q, k, v, do, lse, delta,
+                                                heads),
+                *A.attention_packed_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                                  heads))
+        wrappers = (A.packed_attention_bwd_dq, A.packed_attention_bwd_dkv)
+    torch.cuda.synchronize()
+    assert [w.launches for w in wrappers] == [1, 1]
+    assert A.sm90_attention_bwd_dq.launches == sm90
+    assert A.sm90_attention_bwd_dkv.launches == sm90
+    for got, w in zip((dq, dk, dv), want):
+        _check(got, w)
+
+
+@pytest.mark.parametrize("split", [False, True])
+def test_template_route_keeps_the_backward_template_in_scope(cuda, split):
+    """``route="template"`` runs the mma.sync template's dq and dk/dv on an
+    in-scope shape (the yardstick chip_smoke.py times beside the sm90
+    backward)."""
+    heads, d = 8, 40
+    q, k, v, do, lse, delta = _grad_inputs(2, 300, 200, heads * d, heads, cuda,
+                                           76)
+    A.reset_launch_counts()
+    if split:
+        q, k, v, do = (t.view(2, t.shape[1], heads, d) for t in (q, k, v, do))
+        dq = A.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                      route="template")
+        dk, dv = A.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                           route="template")
+        want = (A.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta),
+                *A.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta))
+    else:
+        dq = A.packed_attention_bwd_dq(q, k, v, do, lse, delta, heads,
+                                       route="template")
+        dk, dv = A.packed_attention_bwd_dkv(q, k, v, do, lse, delta, heads,
+                                            route="template")
+        want = (A.attention_packed_bwd_dq_plain(q, k, v, do, lse, delta,
+                                                heads),
+                *A.attention_packed_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                                  heads))
+    torch.cuda.synchronize()
+    assert A.sm90_attention_bwd_dq.launches == 0
+    assert A.sm90_attention_bwd_dkv.launches == 0
+    assert sum(fn.launches for fn in A.KERNEL_WRAPPERS) == 2
+    for got, w in zip((dq, dk, dv), want):
+        _check(got, w)

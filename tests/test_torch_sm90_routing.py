@@ -1,13 +1,14 @@
-"""The routing rule of the Hopper forward (``sm90_attention_fwd``), on the
-CPU.
+"""The routing rule of the Hopper kernels (``sm90_attention_fwd``,
+``sm90_attention_bwd_dq``, ``sm90_attention_bwd_dkv``), on the CPU.
 
 ``sm90_in_scope`` is a pure rule on (head_dim, alignment): the three
-inference wrappers without lse or ring send a call to the sm90 kernel
-exactly when it holds, and to ``csrc/attention.cu``'s template otherwise.
-On the CPU every wrapper takes its plain version and launches nothing.
-The kernel itself runs only on the card
-(``tests/test_torch_kernels_cuda.py``).  Tiny shapes, float32: the
-plain versions are one function, so outputs agree to 1e-6.
+inference wrappers without lse or ring and the four backward wrappers send
+a call to their sm90 kernel exactly when it holds, and to the template of
+``csrc/attention.cu`` or ``csrc/attention_train.cu`` otherwise.  On the
+CPU every wrapper takes its plain version and launches nothing.  The
+kernels themselves run only on the card
+(``tests/test_torch_kernels_cuda.py``).  Tiny shapes, float32: the plain
+versions are one function, so outputs agree to 1e-6.
 """
 
 import pytest
@@ -55,6 +56,57 @@ def test_split_wrapper_takes_the_plain_version_on_the_cpu():
     assert A.sm90_attention_fwd.launches == 0
 
 
+def _grad_args(b=2, lq=9, lk=7, c=32, heads=4, seed=2):
+    """q, k, v, do (B, L, C) and the lse and delta of their attention."""
+    q, k, v = _qkv(b, lq, lk, c, seed)
+    do = _qkv(b, lq, 1, c, seed + 1)[0]
+    o, lse = A.attention_packed_lse_plain(q, k, v, heads)
+    return q, k, v, do, lse, A.attention_delta(o, do, heads)
+
+
+@pytest.mark.parametrize("fn", ["packed_attention_bwd_dq",
+                                "sm90_attention_bwd_dq"])
+def test_dq_wrappers_take_the_plain_version_on_the_cpu(fn):
+    args = _grad_args()
+    A.reset_launch_counts()
+    got = getattr(A, fn)(*args, 4)
+    assert torch.allclose(got, A.attention_packed_bwd_dq_plain(*args, 4),
+                          atol=1e-6)
+    assert getattr(A, fn).launches == 0
+    assert A.sm90_attention_bwd_dq.launches == 0
+
+
+@pytest.mark.parametrize("fn", ["packed_attention_bwd_dkv",
+                                "sm90_attention_bwd_dkv"])
+def test_dkv_wrappers_take_the_plain_version_on_the_cpu(fn):
+    args = _grad_args()
+    A.reset_launch_counts()
+    got = getattr(A, fn)(*args, 4)
+    for g, w in zip(got, A.attention_packed_bwd_dkv_plain(*args, 4)):
+        assert torch.allclose(g, w, atol=1e-6)
+    assert getattr(A, fn).launches == 0
+    assert A.sm90_attention_bwd_dkv.launches == 0
+
+
+@pytest.mark.parametrize("route", ["auto", "template"])
+def test_split_backward_wrappers_take_the_plain_versions_on_the_cpu(route):
+    q, k, v, do, lse, delta = (t.view(2, t.shape[1], 4, 8) if t.dim() == 3
+                               else t for t in _grad_args(seed=4))
+    A.reset_launch_counts()
+    dq = A.flash_attention_bwd_dq(q, k, v, do, lse, delta, route=route)
+    dk, dv = A.flash_attention_bwd_dkv(q, k, v, do, lse, delta, route=route)
+    assert torch.allclose(
+        dq, A.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta),
+        atol=1e-6)
+    for g, w in zip((dk, dv), A.flash_attention_bwd_dkv_plain(
+            q, k, v, do, lse, delta)):
+        assert torch.allclose(g, w, atol=1e-6)
+    assert A.flash_attention_bwd_dq.launches == 0
+    assert A.flash_attention_bwd_dkv.launches == 0
+    assert A.sm90_attention_bwd_dq.launches == 0
+    assert A.sm90_attention_bwd_dkv.launches == 0
+
+
 def test_reset_clears_the_sm90_count_and_the_wrappers_stay_eleven():
     A.sm90_attention_fwd.launches = 3
     A.reset_launch_counts()
@@ -63,10 +115,35 @@ def test_reset_clears_the_sm90_count_and_the_wrappers_stay_eleven():
     assert A.sm90_attention_fwd not in A.KERNEL_WRAPPERS
 
 
+def test_reset_clears_the_sm90_backward_counts():
+    A.sm90_attention_bwd_dq.launches = 2
+    A.sm90_attention_bwd_dkv.launches = 5
+    A.reset_launch_counts()
+    assert A.sm90_attention_bwd_dq.launches == 0
+    assert A.sm90_attention_bwd_dkv.launches == 0
+    assert len(A.KERNEL_WRAPPERS) == 11
+    assert not set(A.SM90_KERNELS) & set(A.KERNEL_WRAPPERS)
+    assert set(chip_smoke.launch_counts(A)) == set(chip_smoke.REPLACES) \
+        | set(chip_smoke.SM90_ROUTES)
+
+
 def test_the_sm90_library_is_built_like_the_others():
     assert cuda_lib.SOURCES["attention_sm90"] == "attention_sm90.cu"
     assert "dd_sm90_attention_fwd" in cuda_lib._SIGNATURES["attention_sm90"]
     path = cuda_lib.library_path("attention_sm90")
+    assert path.startswith(cuda_lib.BUILD_DIR) and path.endswith(".so")
+
+
+def test_the_sm90_backward_library_is_built_like_the_others():
+    assert cuda_lib.SOURCES["attention_sm90_bwd"] == "attention_sm90_bwd.cu"
+    sigs = cuda_lib._SIGNATURES["attention_sm90_bwd"]
+    train = cuda_lib._SIGNATURES["attention_train"]
+    # the template's arguments, one for one
+    assert sigs["dd_sm90_attention_bwd_dq"] == \
+        train["dd_packed_attention_bwd_dq"]
+    assert sigs["dd_sm90_attention_bwd_dkv"] == \
+        train["dd_packed_attention_bwd_dkv"]
+    path = cuda_lib.library_path("attention_sm90_bwd")
     assert path.startswith(cuda_lib.BUILD_DIR) and path.endswith(".so")
 
 
@@ -91,6 +168,38 @@ def test_chip_smoke_holds_the_sm90_count_to_the_wrappers(counts, sm90,
             chip_smoke.check_sm90_launches(counts, out_of_scope)
 
 
+# a flagship training step: 22 dq and 22 dk/dv calls; occ_bg_fusionp's
+# tiny reference: the SFA+ stage-2 pair at d = 4 out of scope
+TRAIN = {"packed_attention_bwd_dq": 22, "packed_attention_bwd_dkv": 22}
+FUSIONP = {"packed_attention_bwd_dq": 18, "packed_attention_bwd_dkv": 18,
+           "flash_attention_bwd_dq": 1, "flash_attention_bwd_dkv": 1}
+SPLIT = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+
+
+@pytest.mark.parametrize("counts, dq, dkv, out_of_scope, ok", [
+    (TRAIN, 22, 22, (), True),
+    (TRAIN, 0, 0, (), False),       # the template ran every call
+    (TRAIN, 21, 22, (), False),     # one dq call took the template
+    (TRAIN, 22, 21, (), False),
+    (FUSIONP, 19, 19, (), True),
+    (FUSIONP, 18, 18, (), False),
+    (FUSIONP, 18, 18, SPLIT, True),
+    (FUSIONP, 19, 19, SPLIT, False),
+])
+def test_chip_smoke_holds_the_sm90_backward_counts_to_the_wrappers(
+        counts, dq, dkv, out_of_scope, ok):
+    """``chip_smoke.check_sm90_launches`` on a training path: each sm90
+    backward kernel's count equals its two wrappers' in-scope calls, so a
+    path whose in-scope backward calls ran the template is refused."""
+    counts = dict(chip_smoke._launches(**counts), sm90_attention_fwd=0,
+                  sm90_attention_bwd_dq=dq, sm90_attention_bwd_dkv=dkv)
+    if ok:
+        chip_smoke.check_sm90_launches(counts, out_of_scope)
+    else:
+        with pytest.raises(AssertionError, match="sm90_attention_bwd"):
+            chip_smoke.check_sm90_launches(counts, out_of_scope)
+
+
 def test_sm90_wrapper_refuses_a_tensor_off_the_cpu_and_the_card():
     """A meta tensor reaches the CUDA checks (no plain fallback) and is
     refused before any launch."""
@@ -101,33 +210,57 @@ def test_sm90_wrapper_refuses_a_tensor_off_the_cpu_and_the_card():
     assert A.sm90_attention_fwd.launches == 0
 
 
-def _kernels_line(generate_sm90=360):
+@pytest.mark.parametrize("fn", ["sm90_attention_bwd_dq",
+                                "sm90_attention_bwd_dkv",
+                                "packed_attention_bwd_dq",
+                                "packed_attention_bwd_dkv"])
+def test_sm90_backward_refuses_a_tensor_off_the_cpu_and_the_card(fn):
+    q = torch.empty(2, 512, 64, device="meta", dtype=torch.bfloat16)
+    lse = torch.empty(16, 512, device="meta")
+    A.reset_launch_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        getattr(A, fn)(q, q, q, q, lse, lse, 8)
+    assert getattr(A, fn).launches == 0
+    assert A.sm90_attention_bwd_dq.launches == 0
+    assert A.sm90_attention_bwd_dkv.launches == 0
+
+
+def _kernels_line(generate_sm90=360, train_dq=None):
     """``chip_smoke.kernels_line`` on made-up phase-3 rows and path counts:
     every wrapper's row at 1.0 ms on its own kernel, the template at 0.5,
-    the sm90 kernel at 0.25."""
+    the sm90 forward at 0.25 and the sm90 backward at 0.125."""
     row = lambda ms, **kw: dict(max_abs_err=1e-3, kernel_ms=ms, plain_ms=9.0,
                                 bound_ms=0.06, bound_by="operations",
                                 library_ms=0.24, shape={}, **kw)
-    results = {k: [row(0.5 if k in chip_smoke.SM90_WRAPPERS else 1.0)]
+    routed = chip_smoke.SM90_REPLACES
+    results = {k: [row(0.5 if k in routed else 1.0)]
                for k in chip_smoke.REPLACES}
-    results[chip_smoke.SM90] = [row(0.25, wrapper=w)
-                                for w in chip_smoke.SM90_WRAPPERS]
+    for kern, (wrappers, _) in chip_smoke.SM90_ROUTES.items():
+        results[kern] = [row(0.25 if kern == chip_smoke.SM90 else 0.125,
+                             wrapper=w) for w in wrappers]
 
-    def counts(sm90=None, **kw):
+    def counts(sm90=None, dq=None, **kw):
         c = chip_smoke._launches(**kw)
-        c[chip_smoke.SM90] = sum(c[k] for k in chip_smoke.SM90_WRAPPERS) \
-            if sm90 is None else sm90
+        for kern, (wrappers, _) in chip_smoke.SM90_ROUTES.items():
+            c[kern] = sum(c[k] for k in wrappers)
+        if sm90 is not None:
+            c[chip_smoke.SM90] = sm90
+        if dq is not None:
+            c[chip_smoke.SM90_DQ] = dq
         return c
 
     per_step = chip_smoke._launches(packed_attention_fwd=1)
     path = {"generate": counts(generate_sm90, packed_attention_fwd=360),
-            "train": counts(packed_attention_fwd=2),
+            "train": counts(packed_attention_fwd=2, dq=train_dq,
+                            packed_attention_bwd_dq=132,
+                            packed_attention_bwd_dkv=132),
             "video": counts(packed_attention_fwd=520,
                             packed_attention_capped_fwd=200),
             "video_train": {"stage 1": counts(), "stage 2": counts()},
             "fusionp": counts(packed_attention_fwd=280,
                               flash_attention_fwd=1),
-            "fusionp_train": counts()}
+            "fusionp_train": counts(flash_attention_bwd_dq=6,
+                                    flash_attention_bwd_dkv=6)}
     return chip_smoke.kernels_line(results, path, per_step,
                                    {"stage 1": per_step,
                                     "stage 2": per_step}, per_step)
@@ -138,7 +271,7 @@ def test_kernels_line_credits_in_scope_calls_to_the_sm90_kernel():
     time, no launches on a path whose calls all took the sm90 kernel.  One
     sm90 entry per replaced TPU kernel, with that wrapper's launches."""
     got = {e["name"]: e for e in _kernels_line()["kernels"]}
-    assert len(got) == 11 + 3
+    assert len(got) == 11 + 3 + 4
     for w in chip_smoke.SM90_WRAPPERS:
         tmpl, sm90 = got[w], got[f"{chip_smoke.SM90}:{w}"]
         assert tmpl["source"].endswith("attention.cu")
@@ -154,3 +287,44 @@ def test_kernels_line_credits_in_scope_calls_to_the_sm90_kernel():
 def test_kernels_line_refuses_a_path_where_the_template_ran():
     with pytest.raises(AssertionError, match="sm90"):
         _kernels_line(generate_sm90=359)
+
+
+def test_kernels_line_credits_in_scope_backward_calls_to_the_sm90_kernels():
+    """The four backward wrappers' entries are ``attention_train.cu``'s
+    template, routed to one ``sm90_attention_bwd_dq:<wrapper>`` or
+    ``sm90_attention_bwd_dkv:<wrapper>`` entry each, which replaces the
+    wrapper's TPU kernel (:719, :751, :160, :184) and carries its
+    launches."""
+    got = {e["name"]: e for e in _kernels_line()["kernels"]}
+    want = {"packed_attention_bwd_dq": ("sm90_attention_bwd_dq", ":719", 132),
+            "packed_attention_bwd_dkv": ("sm90_attention_bwd_dkv", ":751",
+                                         132),
+            "flash_attention_bwd_dq": ("sm90_attention_bwd_dq", ":160", 6),
+            "flash_attention_bwd_dkv": ("sm90_attention_bwd_dkv", ":184", 6)}
+    for w, (kern, line, launches) in want.items():
+        tmpl, sm90 = got[w], got[f"{kern}:{w}"]
+        assert tmpl["source"].endswith("attention_train.cu")
+        assert (tmpl["ms"], tmpl["launches"]) == (0.5, 0)
+        assert tmpl["routed_to"] == sm90["name"]
+        assert sm90["source"].endswith("attention_sm90_bwd.cu")
+        assert sm90["replaces"] == tmpl["replaces"]
+        assert sm90["replaces"].endswith(line)
+        assert (sm90["ms"], sm90["launches"]) == (0.125, launches)
+
+
+def test_kernels_line_refuses_a_path_where_the_backward_template_ran():
+    with pytest.raises(AssertionError, match="sm90_attention_bwd_dq"):
+        _kernels_line(train_dq=131)
+
+
+@pytest.mark.parametrize("times, want", [
+    ({"default": 0.1753, "FLASH_ATTENTION": 0.2801,
+      "CUDNN_ATTENTION": 0.1749, "MATH": 1.9122}, ("CUDNN_ATTENTION", 0.1749)),
+    ({"default": 0.0617, "CUDNN_ATTENTION": 0.0621}, ("default", 0.0617)),
+])
+def test_the_library_yardstick_is_the_fastest_sdpa_backend(times, want):
+    """Phase 3's ``library_ms`` is the fastest of SDPA's default dispatch
+    and its backends, not one pinned backend; no library call gives
+    None."""
+    assert chip_smoke.fastest(times) == want
+    assert chip_smoke.library_row(None) == {"library_ms": None}

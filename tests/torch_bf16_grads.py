@@ -30,10 +30,12 @@ installed:
 and JAX's draws to ``build/bf16_case_<config>.pt``; ``port`` reads them and
 holds the port's bf16 gradients on the device against its float32 ones on
 the CPU, with the attention on the kernels (``kernels``: on the CPU their
-plain versions) and on ``mha_einsum`` (``einsum``: ``PACKED_MIN_LQ`` and
-``FLASH_MIN_LEN`` out of reach).  ``gate`` reads
+plain versions), on the mma.sync templates alone (``template``: no call in
+``sm90_in_scope``, so the backward runs ``attention_train.cu`` where it
+would run ``attention_sm90_bwd.cu``) and on ``mha_einsum`` (``einsum``:
+``PACKED_MIN_LQ`` and ``FLASH_MIN_LEN`` out of reach).  ``gate`` reads
 ``chip_smoke.train_reference_readings`` at 224x400 (the gate's own weights
-and batch) the same two ways, and with cuBLAS's reduced-precision bf16
+and batch) the same three ways, and with cuBLAS's reduced-precision bf16
 reductions off (``no_rpr``); for ``fusionp`` the gate lowers
 ``FLASH_MIN_LEN`` itself, so ``einsum`` moves only the packed calls there.
 """
@@ -247,17 +249,19 @@ def _routed(mode: str, run):
     """``run()`` with the attention on ``mode``'s route."""
     from dualdiff_tpu_torch.ops import attention as A
 
-    routes = A.PACKED_MIN_LQ, A.FLASH_MIN_LEN
+    routes = A.PACKED_MIN_LQ, A.FLASH_MIN_LEN, A.SM90_MAX_HEAD_DIM
     matmul = torch.backends.cuda.matmul
     rpr = matmul.allow_bf16_reduced_precision_reduction
     if mode == "einsum":
         A.PACKED_MIN_LQ = A.FLASH_MIN_LEN = 10 ** 9
+    if mode == "template":
+        A.SM90_MAX_HEAD_DIM = 0
     if mode == "no_rpr":
         matmul.allow_bf16_reduced_precision_reduction = False
     try:
         return run()
     finally:
-        A.PACKED_MIN_LQ, A.FLASH_MIN_LEN = routes
+        A.PACKED_MIN_LQ, A.FLASH_MIN_LEN, A.SM90_MAX_HEAD_DIM = routes
         matmul.allow_bf16_reduced_precision_reduction = rpr
 
 
@@ -271,7 +275,7 @@ def _report(inputs, which, dev, mode, loss_rel_err, errs, launches):
 def port(dev: str, which: str) -> None:
     case = torch.load(CASE.format(which), weights_only=False)
     loss32, g32, _ = _case_grads(which, case, "fp32", "cpu")
-    for mode in ("kernels", "einsum"):
+    for mode in ("kernels", "template", "einsum"):
         loss16, g16, launches = _routed(
             mode, lambda: _case_grads(which, case, "bf16", dev))
         _report("jax seeded", which, dev, mode,
@@ -286,7 +290,7 @@ def gate(dev: str, which: str) -> None:
     C.load_config = lambda name=C.FLAGSHIP, overrides=(): load(
         name, [o for o in overrides if "image_size" not in o])
     try:
-        for mode in ("kernels", "einsum", "no_rpr"):
+        for mode in ("kernels", "template", "einsum", "no_rpr"):
             r = _routed(mode, lambda: chip_smoke.train_reference_readings(
                 dev, fusionp=which == "fusionp"))
             _report("gate's", which, dev, mode, r["loss_rel_err"],
