@@ -27,11 +27,12 @@ Phases, in order; any failure exits non-zero:
             where one computes the same function (SDPA's default dispatch
             and each backend that takes the shape, ``sdpa_ms``, named in
             the row), and the least time the card could
-            take (bound); the sm90 forward and backward beside the template
-            instances they replace at every in-scope shape (variants
-            ``sm90``, ``template``; the capped template at 4 and at 8 warps
-            per block); the split-layout kernels at the SFA+ stage-2 shapes
-            and at d = 20, with ``mha_einsum``'s time beside them.  Kernel and
+            take (bound); the sm90 forward (with and without lse) and
+            backward beside the template instances they replace at every
+            in-scope shape (variants ``sm90``, ``template``; the capped
+            templates at 4 and at 8 warps per block); the split-layout
+            kernels at the SFA+ stage-2 shapes and at d = 20, with
+            ``mha_einsum``'s time beside them.  Kernel and
             library times come from a CUDA graph of 20 calls (``graph_ms``),
             the plain versions' and ``mha_einsum``'s from a host loop
             (``cuda_ms``).
@@ -81,9 +82,10 @@ phases 10 and 11 there at a tiny size.
 
 The last three lines are the ``kernels`` JSON summary (one entry per
 kernel, and one ``<sm90 kernel>:<wrapper>`` entry per TPU kernel each sm90
-kernel replaces: ``sm90_attention_fwd``, ``sm90_attention_bwd_dq``,
-``sm90_attention_bwd_dkv``), the card's name and power limit, and
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+kernel replaces: ``sm90_attention_fwd``, ``sm90_attention_lse_fwd``,
+``sm90_attention_bwd_dq``, ``sm90_attention_bwd_dkv``), the card's name
+and power limit, and ``{"ok": true, "device": {...}}``.  Imports nothing
+of JAX.
 """
 
 from __future__ import annotations
@@ -183,6 +185,13 @@ SM90 = "sm90_attention_fwd"
 SM90_WRAPPERS = ("packed_attention_fwd", "packed_attention_capped_fwd",
                  "flash_attention_fwd")
 SM90_SOURCE = "dualdiff_tpu_torch/csrc/attention_sm90.cu"
+# The same kernel with its lse epilogue behind the three training forwards
+# (rows 3, 7 and 8 with lse: _fwd_kernel_t_lse, _fwd_kernel_t_capped_lse,
+# _fwd_kernel).
+SM90_LSE = "sm90_attention_lse_fwd"
+SM90_LSE_WRAPPERS = ("packed_attention_lse_fwd",
+                     "packed_attention_capped_lse_fwd",
+                     "flash_attention_lse_fwd")
 # The Hopper backward behind the four backward wrappers for the calls in
 # ops.attention.sm90_in_scope (rows 4-5 and 9-10: _bwd_dq_kernel_t,
 # _bwd_dkv_kernel_t, _bwd_dq_kernel, _bwd_dkv_kernel).
@@ -191,6 +200,7 @@ SM90_BWD_SOURCE = "dualdiff_tpu_torch/csrc/attention_sm90_bwd.cu"
 # each sm90 kernel: the wrappers whose in-scope calls it takes, its source
 SM90_ROUTES = {
     SM90: (SM90_WRAPPERS, SM90_SOURCE),
+    SM90_LSE: (SM90_LSE_WRAPPERS, SM90_SOURCE),
     SM90_DQ: (("packed_attention_bwd_dq", "flash_attention_bwd_dq"),
               SM90_BWD_SOURCE),
     SM90_DKV: (("packed_attention_bwd_dkv", "flash_attention_bwd_dkv"),
@@ -207,7 +217,7 @@ def _launches(**counts) -> dict:
 
 def launch_counts(A) -> dict:
     """Launches since the last reset: each of the eleven wrappers and the
-    three sm90 kernels (``SM90_ROUTES``)."""
+    four sm90 kernels (``SM90_ROUTES``)."""
     return {**{fn.__name__: fn.launches for fn in A.KERNEL_WRAPPERS},
             **{fn.__name__: fn.launches for fn in A.SM90_KERNELS}}
 
@@ -223,12 +233,12 @@ def _sm90_kernel_of(wrapper: str):
 
 
 def check_sm90_launches(counts: dict, out_of_scope=()) -> None:
-    """Every in-scope launch of the three inference wrappers and of the
-    four backward wrappers went through its sm90 kernel: each sm90
-    kernel's count equals its wrappers', less the wrappers named in
-    ``out_of_scope`` (whose calls on this path have a head_dim outside
-    ``sm90_in_scope``, as SFA+ stage 2 at d = 4 in the tiny models).  A
-    kernel or wrapper missing from ``counts`` counts 0."""
+    """Every in-scope launch of the three inference wrappers, of the three
+    training forwards and of the four backward wrappers went through its
+    sm90 kernel: each sm90 kernel's count equals its wrappers', less the
+    wrappers named in ``out_of_scope`` (whose calls on this path have a
+    head_dim outside ``sm90_in_scope``, as SFA+ stage 2 at d = 4 in the
+    tiny models).  A kernel or wrapper missing from ``counts`` counts 0."""
     for kernel, (wrappers, _) in SM90_ROUTES.items():
         want = sum(counts.get(k, 0) for k in wrappers
                    if k not in out_of_scope)
@@ -622,16 +632,16 @@ def split_on_packed(A):
 def train_kernel_rows(A, g, label, b, lq, lk, c, heads,
                       split_layout=False, clock_hz=None):
     """The three training kernels on one shape against their plain
-    versions: the forward with lse (over ``T_SCORE_CAP`` the capped one, at
-    4 and at 8 warps, the path's count first), dq and dk/dv; with
-    ``split_layout`` the split-layout ones (``flash_attention_*``, any
-    head_dim).  On a shape in ``sm90_in_scope`` dq and dk/dv run on the
-    path's route, the sm90 backward (variant ``sm90``: rows of
-    ``SM90_DQ`` and ``SM90_DKV``), and on the template (``template``: the
-    wrappers' own rows), each checked.  Each backward kernel gets the
-    path's forward kernel's lse and the delta of its bf16 output, as
-    ``PackedAttention.backward`` and ``FlashAttention.backward`` do;
-    ``exp_floor_ms`` (with ``clock_hz``) counts one exponential per
+    versions: the forward with lse (over ``T_SCORE_CAP`` the capped one,
+    whose template runs at 4 and at 8 warps, the path's count first), dq
+    and dk/dv; with ``split_layout`` the split-layout ones
+    (``flash_attention_*``, any head_dim).  On a shape in ``sm90_in_scope``
+    each runs on the path's route, the sm90 kernels (variant ``sm90``: rows
+    of ``SM90_LSE``, ``SM90_DQ`` and ``SM90_DKV``), and on the template
+    (``template``: the wrappers' own rows), each checked.  Each backward
+    kernel gets the path's forward kernel's lse and the delta of its bf16
+    output, as ``PackedAttention.backward`` and ``FlashAttention.backward``
+    do; ``exp_floor_ms`` (with ``clock_hz``) counts one exponential per
     score in each kernel.  Library yardsticks, each the fastest of SDPA's
     default dispatch and its backends (``sdpa_ms``): the forward of
     ``F.scaled_dot_product_attention`` under grad (it keeps the
@@ -652,46 +662,51 @@ def train_kernel_rows(A, g, label, b, lq, lk, c, heads,
            "bwd_dq_plain": A.attention_packed_bwd_dq_plain,
            "bwd_dkv": A.packed_attention_bwd_dkv,
            "bwd_dkv_plain": A.attention_packed_bwd_dkv_plain}
+    warps = ()
     if split_layout:
         fns = split_on_packed(A)
-        fwd_kern = "flash_attention_lse_fwd"
-        fwds = {"": fns["lse_fwd"]}
+        fwd_kern, fwd_fn = "flash_attention_lse_fwd", fns["lse_fwd"]
         names = {"dq": "flash_attention_bwd_dq",
                  "dkv": "flash_attention_bwd_dkv"}
     elif A.over_score_cap(lq, lk):
         fwd_kern = "packed_attention_capped_lse_fwd"
-        fwds = {f"{w} warps": functools.partial(
-            A.packed_attention_capped_lse_fwd, warps=w)
-            for w in sorted((4, 8), key=lambda w: w != A.CAPPED_LSE_WARPS)}
+        fwd_fn = A.packed_attention_capped_lse_fwd
+        warps = sorted((4, 8), key=lambda w: w != A.CAPPED_LSE_WARPS)
     else:
         fwd_kern = "packed_attention_lse_fwd"
-        fwds = {"": A.packed_attention_lse_fwd}
+        fwd_fn = A.packed_attention_lse_fwd
+    # every kernel's routes, the path's first: in scope the sm90 kernels,
+    # timed beside the template instances they replace
+    in_scope = A.sm90_in_scope(d, True)
+    routes = {"sm90": {}, "template": {"route": "template"}} if in_scope \
+        else {"": {}}
+    fwd_routes = {"sm90": {}} if in_scope else {}
+    for n, kw in ({f"{w} warps": {"warps": w} for w in warps}
+                  or {"": {}}).items():
+        if in_scope:
+            n, kw = f"template {n}".strip(), dict(kw, route="template")
+        fwd_routes[n] = kw
+    fwds = {n: functools.partial(fwd_fn, **kw) for n, kw in fwd_routes.items()}
     o_want, lse_want = fns["lse_plain"](q, k, v, heads)
-    # lse is float32 on both sides; online softmax with exp2f and another
+    checks = {fwd_kern: {}, names["dq"]: {}, names["dkv"]: {}}
+    # lse is float32 on both sides; online softmax with exp2 and another
     # order of sums: 1e-3 absolute on values of about log(Lk) + max logit
-    fwd_checks = []
     for name, fwd in fwds.items():
         o, lse = fwd(q, k, v, heads)
         torch.cuda.synchronize()
-        fwd_checks += [(f"o {name}".strip(), _max_err(o, o_want),
-                        _tol(o_want)),
-                       (f"lse {name}".strip(), _max_err(lse, lse_want), 1e-3)]
+        checks[fwd_kern][name] = [
+            (f"o {name}".strip(), _max_err(o, o_want), _tol(o_want)),
+            (f"lse {name}".strip(), _max_err(lse, lse_want), 1e-3)]
     fwd = next(iter(fwds.values()))
     o, lse = fwd(q, k, v, heads)
     delta = A.attention_delta(o, do, heads)
     bwd_args = (q, k, v, do, lse, delta, heads)
-    # the backward's routes, the path's first: in scope the sm90 kernels,
-    # timed beside the template instances they replace
-    routes = {"sm90": {}, "template": {"route": "template"}} \
-        if A.sm90_in_scope(d, True) else {"": {}}
     bwd_runs = {kind: {n: functools.partial(fns[f"bwd_{kind}"], *bwd_args,
                                             **kw)
                        for n, kw in routes.items()}
                 for kind in ("dq", "dkv")}
     dq_want = fns["bwd_dq_plain"](*bwd_args)
     dk_want, dv_want = fns["bwd_dkv_plain"](*bwd_args)
-    checks = {fwd_kern: {"": fwd_checks}, names["dq"]: {},
-              names["dkv"]: {}}
     for n in routes:
         dq = bwd_runs["dq"][n]()
         dk, dv = bwd_runs["dkv"][n]()
@@ -761,8 +776,7 @@ def train_kernel_rows(A, g, label, b, lq, lk, c, heads,
         # the row of kern is its own kernel's (the template where the sm90
         # kernel takes the shape), the sm90 row the sm90 kernel's
         own = [n for n in variants if n != "sm90"]
-        errs = [c for n in own for c in checks[kern].get(n, [])] \
-            or checks[kern][""]
+        errs = [c for n in own for c in checks[kern][n]]
         row = {
             "kernel": kern, "replaces": REPLACES[kern], "case": label,
             "shape": shape,
@@ -1553,7 +1567,7 @@ def phase_train_reference():
     readings at the top)."""
     _reference_gate(train_reference_readings(), (
         "packed_attention_lse_fwd", "packed_attention_bwd_dq",
-        "packed_attention_bwd_dkv", SM90_DQ, SM90_DKV))
+        "packed_attention_bwd_dkv", SM90_LSE, SM90_DQ, SM90_DKV))
 
 
 def phase_fusionp(profile_dir):
@@ -1581,8 +1595,10 @@ def phase_fusionp_reference():
     # the tiny SFA+ stage 2 (d = 4) is outside the sm90 kernels' scope
     _reference_gate(train_reference_readings(fusionp=True), (
         "flash_attention_lse_fwd", "flash_attention_bwd_dq",
-        "flash_attention_bwd_dkv", "packed_attention_lse_fwd", SM90_DQ,
-        SM90_DKV), ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"))
+        "flash_attention_bwd_dkv", "packed_attention_lse_fwd", SM90_LSE,
+        SM90_DQ, SM90_DKV), ("flash_attention_lse_fwd",
+                             "flash_attention_bwd_dq",
+                             "flash_attention_bwd_dkv"))
 
 
 def phase_video_train(profile_dir):
@@ -1723,8 +1739,8 @@ def phase_video_train_reference():
     training route (``train_reference_readings(video=True)``)."""
     _reference_gate(train_reference_readings(video=True), (
         "packed_attention_capped_lse_fwd", "packed_attention_lse_fwd",
-        "packed_attention_bwd_dq", "packed_attention_bwd_dkv", SM90_DQ,
-        SM90_DKV))
+        "packed_attention_bwd_dq", "packed_attention_bwd_dkv", SM90_LSE,
+        SM90_DQ, SM90_DKV))
 
 
 # the path each kernel serves, whose launches the kernels line reports
@@ -1751,12 +1767,13 @@ def kernels_line(results, path_counts, train_per_step, video_per_step,
     are beside them), one ``occ_bg_fusionp`` generation for the split-layout
     forward and its training run for the split-layout training kernels.
 
-    Each sm90 kernel (the forward and the backward's two) has one entry
-    per TPU kernel it replaces, named ``<sm90 kernel>:<wrapper>``: the
-    launches of that wrapper on its path, all of which took the sm90
-    kernel (``check_sm90_launches`` held there), and its times at that
-    wrapper's main-path shape.  Those wrappers' own entries are the
-    template instances of ``attention.cu`` and ``attention_train.cu``:
+    Each sm90 kernel (the forward, the forward with lse and the
+    backward's two) has one entry per TPU kernel it replaces, named
+    ``<sm90 kernel>:<wrapper>``: the launches of that wrapper on its path,
+    all of which took the sm90 kernel (``check_sm90_launches`` held
+    there), and its times at that wrapper's main-path shape.  Those
+    wrappers' own entries are the template instances of ``attention.cu``
+    and ``attention_train.cu``:
     their times are the template's at the same shapes, and their launches
     the template's on the path, none at 224x400."""
     units = {"generate": "generation",
@@ -1831,6 +1848,9 @@ def main() -> int:
 
     timed("build", phase_build)
     results = timed("kernels", phase_kernels)
+    # what phase 3 leaves allocated sits under every later phase's peak
+    log(f"# allocated after phase 3: "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB")
     counts = {"generate": timed("generate", phase_generate, profile_dir)}
     timed("reference", phase_reference)
     counts["train"], train_per_step = timed("train", phase_train,

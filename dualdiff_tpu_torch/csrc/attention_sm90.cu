@@ -1,18 +1,22 @@
-// Inference attention forward for Hopper (sm_90a): TMA, wgmma, warp
-// specialisation.
+// Attention forward for Hopper (sm_90a): TMA, wgmma, warp specialisation.
 //
-// What it replaces.  The TPU kernels _fwd_kernel_t (dualdiff_tpu/ops/
-// attention.py, called by _packed_infer), _fwd_kernel_t_capped (called by
-// _packed_infer_capped over the VMEM score cap) and _fwd_kernel_nolse
-// (called by _fwd_core for the split-layout flash_attention): the same
-// function, softmax(scale q k^T) v per (row, head), keys >= Lk masked to
+// What it replaces.  Six TPU kernels of dualdiff_tpu/ops/attention.py, one
+// function: softmax(scale q k^T) v per (row, head), keys >= Lk masked to
 // -inf exactly, float32 softmax, P rounded to bf16 for the second product,
-// bf16 output, no lse.  Here it is one kernel behind the three wrappers
-// packed_attention_fwd, packed_attention_capped_fwd and flash_attention_fwd
-// (ops/attention.py), for head dims d <= 64 with d % 8 == 0 and 16-byte
-// aligned rows; every other shape stays on attention.cu's mma.sync
-// template.  A contiguous (B, L, H, D) tensor is the packed (B, L, C)
-// memory, so the three are one layout.
+// bf16 output.  Without lse (LSE = false): _fwd_kernel_t (called by
+// _packed_infer), _fwd_kernel_t_capped (called by _packed_infer_capped over
+// the VMEM score cap) and _fwd_kernel_nolse (called by _fwd_core for the
+// split-layout flash_attention), behind packed_attention_fwd,
+// packed_attention_capped_fwd and flash_attention_fwd.  With lse (LSE =
+// true: also lse = log sum_k exp(scale q.k), float32, (B*H, Lq)):
+// _fwd_kernel_t_lse and _fwd_kernel_t_capped_lse (called by
+// _packed_train_t_fwd) and _fwd_kernel (called by _fwd_core), behind
+// packed_attention_lse_fwd, packed_attention_capped_lse_fwd and
+// flash_attention_lse_fwd; the backward kernels read that lse.  All for
+// head dims d <= 64 with d % 8 == 0 and 16-byte aligned rows (ops/
+// attention.py::sm90_in_scope); every other shape stays on attention.cu's
+// mma.sync template.  A contiguous (B, L, H, D) tensor is the packed
+// (B, L, C) memory, so the packed and the split layout are one layout.
 //
 // What bounds it.  At the flagship's 24 x 1400 x 1400 (C = 320, 8 heads,
 // d = 40) a call is 60.2 GFLOP, 61 us at 989 TFLOP/s, against 86 MB (26 us
@@ -58,7 +62,10 @@
 //   cores over in turns (ping-pong): one warpgroup issues its products
 //   while the other runs its exponentials.
 // - Output: the normalised accumulator rounded to bf16, stored from
-//   registers as 4-byte pairs, rows < Lq and columns < d only.
+//   registers as 4-byte pairs, rows < Lq and columns < d only.  With lse,
+//   the first lane of each quad (the quad holds the whole row sum l after
+//   two shuffles) also stores lse = m scale + ln l of its two rows < Lq: 4
+//   bytes a query row against 2d of output.
 // - Host: tensor maps are encoded per call through cuTensorMapEncodeTiled,
 //   found with cudaGetDriverEntryPoint (no -lcuda), passed as
 //   __grid_constant__ parameters; the dynamic shared-memory attribute is
@@ -162,14 +169,16 @@ __device__ __forceinline__ void issue_pv(float (&o)[32],
 // Work item w: query tile w % n_qt of head (w / n_qt) % heads of row
 // w / (n_qt * heads); consecutive blocks share a head's K/V in L2.  A block
 // walks items blockIdx.x, blockIdx.x + gridDim.x, ... (one item when the
-// grid covers them all).  KSTEPS = ceil(d / 16).
-template <int KSTEPS>
+// grid covers them all).  KSTEPS = ceil(d / 16).  LSE: also write lse
+// (B*H, Lq) float32 (unread and may be null without it).
+template <int KSTEPS, bool LSE>
 __global__ void __launch_bounds__(kThreads, 1)
     sm90_attention_kernel(__grid_constant__ const CUtensorMap tq,
                           __grid_constant__ const CUtensorMap tk,
                           __grid_constant__ const CUtensorMap tv,
-                          bf16* __restrict__ out, int batch, int lq, int lk,
-                          int heads, int d, float scale_log2) {
+                          bf16* __restrict__ out, float* __restrict__ lse,
+                          int batch, int lq, int lk, int heads, int d,
+                          float scale_log2) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // 128-byte swizzled TMA tiles need 1024-byte alignment
   const uint32_t base = (saddr(smem_raw) + 1023) & ~1023u;
@@ -335,18 +344,32 @@ __global__ void __launch_bounds__(kThreads, 1)
                                 o[4 * j + 2 * h + 1] * inv[h]);
         }
       }
+      if constexpr (LSE) {
+        // m is the raw maximum: l = sum 2^((s - m) scale log2e), so
+        // lse = m scale + ln l, in the natural log of the scaled logits
+        if (c == 0) {
+          float* lg = lse + ((size_t)row * heads + head) * lq;
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            if (r0 + 8 * h < lq)
+              lg[r0 + 8 * h] = m[h] * scale_log2 * dd::kLn2 + logf(l[h]);
+        }
+      }
     }
   }
 }
 
-// Per device, once: the dynamic shared-memory size of the four instances
+// Per device, once: the dynamic shared-memory size of the eight instances
 // and the SM count (0 after a failure).
 int prepare(int device) {
   static int sms[64] = {0};
   if (device < 0 || device >= 64) return 0;
   if (sms[device]) return sms[device];
-  for (auto kernel : {sm90_attention_kernel<1>, sm90_attention_kernel<2>,
-                      sm90_attention_kernel<3>, sm90_attention_kernel<4>})
+  for (auto kernel :
+       {sm90_attention_kernel<1, false>, sm90_attention_kernel<2, false>,
+        sm90_attention_kernel<3, false>, sm90_attention_kernel<4, false>,
+        sm90_attention_kernel<1, true>, sm90_attention_kernel<2, true>,
+        sm90_attention_kernel<3, true>, sm90_attention_kernel<4, true>})
     if (cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kSmem) != cudaSuccess)
@@ -358,18 +381,14 @@ int prepare(int device) {
   return sms[device] = n;
 }
 
-}  // namespace
-
-// q (B, Lq, H*d), k/v (B, Lk, H*d), out (B, Lq, H*d): contiguous bf16,
-// 16-byte aligned, d % 8 == 0 and d <= 64 (the packed and the split layout
-// alike).  One block per SM walks the work items.  Returns a cudaError_t.
-extern "C" int dd_sm90_attention_fwd(const void* q, const void* k,
-                                     const void* v, void* out, int batch,
-                                     int lq, int lk, int heads, int head_dim,
-                                     float scale, void* stream) {
+// The two entries' shared checks, tensor maps and launch.
+template <bool LSE>
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int batch, int lq, int lk, int heads, int head_dim,
+           float scale, void* stream) {
   if (head_dim <= 0 || head_dim > 64 || !dd::vec_ok(head_dim, q, k, v, out) ||
       batch <= 0 || lq <= 0 || lk <= 0 || heads <= 0 || batch > 65535 ||
-      heads > 65535)
+      heads > 65535 || (LSE && lse == nullptr))
     return (int)cudaErrorInvalidValue;
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -384,14 +403,38 @@ extern "C" int dd_sm90_attention_fwd(const void* q, const void* k,
   const long long items = (long long)((lq + kQ - 1) / kQ) * heads * batch;
   if (items > 0x7fffffff) return (int)cudaErrorInvalidValue;
   const int grid = items > sms ? sms : (int)items;
-  auto kernel = sm90_attention_kernel<4>;
+  auto kernel = sm90_attention_kernel<4, LSE>;
   switch ((head_dim + 15) / 16) {
-    case 1: kernel = sm90_attention_kernel<1>; break;
-    case 2: kernel = sm90_attention_kernel<2>; break;
-    case 3: kernel = sm90_attention_kernel<3>; break;
+    case 1: kernel = sm90_attention_kernel<1, LSE>; break;
+    case 2: kernel = sm90_attention_kernel<2, LSE>; break;
+    case 3: kernel = sm90_attention_kernel<3, LSE>; break;
   }
   kernel<<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
-      tq, tk, tv, static_cast<bf16*>(out), batch, lq, lk, heads, head_dim,
-      scale * dd::kLog2e);
+      tq, tk, tv, static_cast<bf16*>(out), lse, batch, lq, lk, heads,
+      head_dim, scale * dd::kLog2e);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// q (B, Lq, H*d), k/v (B, Lk, H*d), out (B, Lq, H*d): contiguous bf16,
+// 16-byte aligned, d % 8 == 0 and d <= 64 (the packed and the split layout
+// alike).  One block per SM walks the work items.  Returns a cudaError_t.
+extern "C" int dd_sm90_attention_fwd(const void* q, const void* k,
+                                     const void* v, void* out, int batch,
+                                     int lq, int lk, int heads, int head_dim,
+                                     float scale, void* stream) {
+  return launch<false>(q, k, v, out, nullptr, batch, lq, lk, heads, head_dim,
+                       scale, stream);
+}
+
+// The same, also writing lse (B*H, Lq) contiguous float32: the training
+// forward, whose lse the backward kernels read.
+extern "C" int dd_sm90_attention_lse_fwd(const void* q, const void* k,
+                                         const void* v, void* out, void* lse,
+                                         int batch, int lq, int lk, int heads,
+                                         int head_dim, float scale,
+                                         void* stream) {
+  return launch<true>(q, k, v, out, static_cast<float*>(lse), batch, lq, lk,
+                      heads, head_dim, scale, stream);
 }

@@ -53,15 +53,20 @@ temporal attention) is einsum; under grad it runs inside
 per-head probabilities are recomputed in the backward, as the JAX
 package's ``_headpacked`` VJP does with ``jax.checkpoint``.
 
-The Hopper forward.  The three inference wrappers without lse or ring
+The Hopper forward.  The three inference wrappers without ring
 (``packed_attention_fwd``, ``packed_attention_capped_fwd``,
 ``flash_attention_fwd``) send every call in ``sm90_in_scope`` (head_dim a
 multiple of 8 up to ``SM90_MAX_HEAD_DIM``, 16-byte aligned rows) to
 ``sm90_attention_fwd`` (``csrc/attention_sm90.cu``: TMA, wgmma, warp
-specialisation), and every other shape (d = 80 and 160, d % 8 != 0,
-unaligned rows) to ``csrc/attention.cu``'s template, by that rule alone.
-``route="template"`` sends an in-scope call to the template too: the
-yardstick ``chip_smoke.py`` times beside the new kernel.
+specialisation), and the three training forwards with lse
+(``packed_attention_lse_fwd``, ``packed_attention_capped_lse_fwd``,
+``flash_attention_lse_fwd``, the split layout on the packed view of the
+same memory) to ``sm90_attention_lse_fwd``, the same kernel with its lse
+epilogue.  Every other shape (d = 80 and 160, d % 8 != 0 as the tiny SFA+
+at d = 4, unaligned rows) goes to ``csrc/attention.cu``'s template, by
+that rule alone; so does the ring kernel.  ``route="template"`` sends an
+in-scope call to the template too: the yardstick ``chip_smoke.py`` times
+beside the new kernel.
 
 The Hopper backward.  The four backward wrappers (``packed_attention_bwd_dq``,
 ``packed_attention_bwd_dkv``, ``flash_attention_bwd_dq``,
@@ -110,7 +115,8 @@ __all__ = ["PACKED_MIN_LQ", "FLASH_MIN_LEN", "mha_einsum",
            "CAPPED_LSE_WARPS", "HEADPACK_MAX_LQ", "over_score_cap",
            "KERNEL_WRAPPERS", "SM90_KERNELS", "reset_launch_counts",
            "SM90_MAX_HEAD_DIM", "sm90_in_scope", "sm90_attention_fwd",
-           "sm90_attention_bwd_dq", "sm90_attention_bwd_dkv"]
+           "sm90_attention_lse_fwd", "sm90_attention_bwd_dq",
+           "sm90_attention_bwd_dkv"]
 
 # Queries at least this long take the kernels.  Carried over from the JAX
 # package's _PACKED_MIN_LQ (a TPU measurement); to be decided again on the
@@ -133,9 +139,11 @@ T_SCORE_CAP = 2 * 1024 * 1024
 # 3; PERF.md, kernel table row 6).  Calls in sm90_in_scope (the ST-Attn at
 # d = 40 among them) take sm90_attention_fwd, where it does not apply.
 CAPPED_WARPS = 8
-# Warps per block of packed_attention_capped_lse_fwd (4 or 8), the faster of
-# the two at the ST-Attn training shape (chip_smoke.py phase 3; PERF.md,
-# kernel table row 5).
+# Warps per block of packed_attention_capped_lse_fwd's template instance (4
+# or 8), the faster of the two at the ST-Attn training shape (chip_smoke.py
+# phase 3; PERF.md, kernel table row 7).  Calls in sm90_in_scope (the
+# ST-Attn at d = 40 among them) take sm90_attention_lse_fwd, where it does
+# not apply.
 CAPPED_LSE_WARPS = 8
 # Self-attention this short (lq == lk, the video temporal attention over
 # the frame axis) is the JAX package's head-packed path (_HEADPACK_MAX_LQ).
@@ -434,13 +442,12 @@ def _raise_on(err: int, fn: str) -> None:
 
 
 def sm90_in_scope(d: int, aligned: bool) -> bool:
-    """The routing rule of the inference wrappers without lse or ring and of
-    the four backward wrappers: True when the sm90 kernels
-    (``sm90_attention_fwd``, ``sm90_attention_bwd_dq``,
-    ``sm90_attention_bwd_dkv``) take a call of head_dim ``d`` whose rows
-    start 16-byte ``aligned`` (TMA's stride and address rule); the other
-    calls take the templates of ``csrc/attention.cu`` and
-    ``csrc/attention_train.cu``."""
+    """The routing rule of every wrapper but the ring kernel's: True when
+    the sm90 kernels (``sm90_attention_fwd``, ``sm90_attention_lse_fwd``,
+    ``sm90_attention_bwd_dq``, ``sm90_attention_bwd_dkv``) take a call of
+    head_dim ``d`` whose rows start 16-byte ``aligned`` (TMA's stride and
+    address rule); the other calls take the templates of
+    ``csrc/attention.cu`` and ``csrc/attention_train.cu``."""
     return aligned and d % 8 == 0 and 0 < d <= SM90_MAX_HEAD_DIM
 
 
@@ -452,6 +459,16 @@ def _use_sm90(route: str, d: int, aligned: bool) -> bool:
     if route not in ("auto", "template"):
         raise ValueError(f"route={route!r}: 'auto' or 'template'")
     return route == "auto" and sm90_in_scope(d, aligned)
+
+
+def _sm90_args(q, k, v, heads, scale):
+    """(head_dim, scale) of a call the sm90 kernels take; raises on one
+    outside ``sm90_in_scope``."""
+    d = _check_kernel_args(q, k, v, heads)
+    if not sm90_in_scope(d, True):
+        raise ValueError(f"head_dim {d}: the sm90 kernel takes multiples "
+                         f"of 8 up to {SM90_MAX_HEAD_DIM}")
+    return d, _default_scale(scale, d)
 
 
 def sm90_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -468,11 +485,7 @@ def sm90_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return attention_packed_plain(q, k, v, heads, scale)
     _refuse_grad(q, k, v)
-    d = _check_kernel_args(q, k, v, heads)
-    if not sm90_in_scope(d, True):
-        raise ValueError(f"head_dim {d}: the sm90 kernel takes multiples "
-                         f"of 8 up to {SM90_MAX_HEAD_DIM}")
-    scale = _default_scale(scale, d)
+    d, scale = _sm90_args(q, k, v, heads, scale)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = library("attention_sm90").dd_sm90_attention_fwd(
@@ -484,13 +497,39 @@ def sm90_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def sm90_attention_lse_fwd(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, heads: int,
+                           scale: Optional[float] = None):
+    """Training forward on Hopper, q (B, Lq, C), k/v (B, Lk, C) -> (o
+    (B, Lq, C), lse (B*H, Lq) float32), head_dim a multiple of 8 up to
+    ``SM90_MAX_HEAD_DIM``.
+
+    CUDA kernel ``sm90_attention_lse_fwd`` (``csrc/attention_sm90.cu``, the
+    kernel of ``sm90_attention_fwd`` with its lse epilogue), the port of
+    the TPU kernels ``_fwd_kernel_t_lse``, ``_fwd_kernel_t_capped_lse`` and
+    ``_fwd_kernel`` for the calls in ``sm90_in_scope``; the three lse
+    wrappers route those here.  CPU tensors take
+    ``attention_packed_lse_plain``."""
+    if q.device.type == "cpu":
+        return attention_packed_lse_plain(q, k, v, heads, scale)
+    d, scale = _sm90_args(q, k, v, heads, scale)
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[0] * heads, q.shape[1], dtype=torch.float32,
+                      device=q.device)
+    with torch.cuda.device(q.device):
+        err = library("attention_sm90").dd_sm90_attention_lse_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), q.shape[0], q.shape[1], k.shape[1], heads, d,
+            scale, _stream(q))
+    _raise_on(err, "sm90_attention_lse_fwd")
+    sm90_attention_lse_fwd.launches += 1
+    return out, lse
+
+
 def _sm90_grad_args(q, k, v, do, lse, delta, heads, scale):
-    d = _check_kernel_args(q, k, v, heads)
+    d, scale = _sm90_args(q, k, v, heads, scale)
     _check_grad_args(q, do, lse, delta, heads)
-    if not sm90_in_scope(d, True):
-        raise ValueError(f"head_dim {d}: the sm90 kernel takes multiples "
-                         f"of 8 up to {SM90_MAX_HEAD_DIM}")
-    return d, _default_scale(scale, d)
+    return d, scale
 
 
 def sm90_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -606,16 +645,23 @@ def packed_attention_nbr_fwd(q: torch.Tensor, k: torch.Tensor,
 
 def packed_attention_lse_fwd(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, heads: int,
-                             scale: Optional[float] = None):
+                             scale: Optional[float] = None, *,
+                             route: str = "auto"):
     """Training forward, q (B, Lq, C), k/v (B, Lk, C) -> (o (B, Lq, C),
     lse (B*H, Lq) float32).
 
-    CUDA kernel ``packed_attention_lse_fwd`` (``csrc/attention.cu``), the
-    port of the TPU kernel ``_fwd_kernel_t_lse``.  CPU tensors take
+    CUDA kernel ``sm90_attention_lse_fwd`` for calls in ``sm90_in_scope``
+    (``route="template"``: not), else ``packed_attention_lse_fwd``
+    (``csrc/attention.cu``), the port of the TPU kernel
+    ``_fwd_kernel_t_lse``.  CPU tensors take
     ``attention_packed_lse_plain``."""
     if q.device.type == "cpu":
         return attention_packed_lse_plain(q, k, v, heads, scale)
     d = _check_kernel_args(q, k, v, heads)
+    if _use_sm90(route, d, True):
+        out, lse = sm90_attention_lse_fwd(q, k, v, heads, scale)
+        packed_attention_lse_fwd.launches += 1
+        return out, lse
     scale = _default_scale(scale, d)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[0] * heads, q.shape[1], dtype=torch.float32,
@@ -736,18 +782,25 @@ def packed_attention_capped_fwd(q: torch.Tensor, k: torch.Tensor,
 def packed_attention_capped_lse_fwd(q: torch.Tensor, k: torch.Tensor,
                                     v: torch.Tensor, heads: int,
                                     scale: Optional[float] = None,
-                                    warps: int = CAPPED_LSE_WARPS):
+                                    warps: int = CAPPED_LSE_WARPS, *,
+                                    route: str = "auto"):
     """Training forward for long K, q (B, Lq, C), k/v (B, Lk, C) -> (o
-    (B, Lq, C), lse (B*H, Lq) float32); ``warps`` per block, 4 or 8.
+    (B, Lq, C), lse (B*H, Lq) float32).
 
-    CUDA kernel ``packed_attention_capped_lse_fwd`` (``csrc/attention.cu``),
-    the port of the TPU kernel ``_fwd_kernel_t_capped_lse``.  CPU tensors
-    take ``attention_packed_capped_lse_plain``."""
+    CUDA kernel ``sm90_attention_lse_fwd`` for calls in ``sm90_in_scope``
+    (``route="template"``: not), else ``packed_attention_capped_lse_fwd``
+    (``csrc/attention.cu``) with ``warps`` per block, 4 or 8, the port of
+    the TPU kernel ``_fwd_kernel_t_capped_lse``.  CPU tensors take
+    ``attention_packed_capped_lse_plain``."""
     if q.device.type == "cpu":
         return attention_packed_capped_lse_plain(q, k, v, heads, scale)
     d = _check_kernel_args(q, k, v, heads)
     if warps not in (4, 8):
         raise ValueError(f"warps={warps}: the kernel takes 4 or 8")
+    if _use_sm90(route, d, True):
+        out, lse = sm90_attention_lse_fwd(q, k, v, heads, scale)
+        packed_attention_capped_lse_fwd.launches += 1
+        return out, lse
     scale = _default_scale(scale, d)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[0] * heads, q.shape[1], dtype=torch.float32,
@@ -813,16 +866,24 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention_lse_fwd(q: torch.Tensor, k: torch.Tensor,
-                            v: torch.Tensor, scale: Optional[float] = None):
+                            v: torch.Tensor, scale: Optional[float] = None, *,
+                            route: str = "auto"):
     """Training forward in the split layout, q (B, Lq, H, D), k/v
     (B, Lk, H, D) -> (o (B, Lq, H, D), lse (B*H, Lq) float32).
 
-    CUDA kernel ``flash_attention_lse_fwd`` (``csrc/attention.cu``), the port
-    of the TPU kernel ``_fwd_kernel``.  CPU tensors take
+    CUDA kernel ``sm90_attention_lse_fwd`` on the packed view of the same
+    memory for calls in ``sm90_in_scope`` (``route="template"``: not), else
+    ``flash_attention_lse_fwd`` (``csrc/attention.cu``), the port of the TPU
+    kernel ``_fwd_kernel``.  CPU tensors take
     ``flash_attention_lse_plain``."""
     if q.device.type == "cpu":
         return flash_attention_lse_plain(q, k, v, scale)
     d = _check_split_args(q, k, v)
+    if _use_sm90(route, d, _aligned(q, k, v)):
+        out, lse = sm90_attention_lse_fwd(_packed(q), _packed(k), _packed(v),
+                                          q.shape[2], scale)
+        flash_attention_lse_fwd.launches += 1
+        return out.view(q.shape), lse
     scale = _default_scale(scale, d)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[0] * q.shape[2], q.shape[1],
@@ -915,8 +976,8 @@ KERNEL_WRAPPERS = (packed_attention_fwd, packed_attention_nbr_fwd,
                    flash_attention_bwd_dkv)
 # the sm90 kernels behind the wrappers' in-scope calls (not wrappers: their
 # launches are counted by the wrapper too)
-SM90_KERNELS = (sm90_attention_fwd, sm90_attention_bwd_dq,
-                sm90_attention_bwd_dkv)
+SM90_KERNELS = (sm90_attention_fwd, sm90_attention_lse_fwd,
+                sm90_attention_bwd_dq, sm90_attention_bwd_dkv)
 for _fn in KERNEL_WRAPPERS + SM90_KERNELS:
     _fn.launches = 0
 

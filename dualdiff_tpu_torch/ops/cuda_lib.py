@@ -81,6 +81,9 @@ _SIGNATURES = {
         # q, k, v, o, batch, lq, lk, heads, head_dim, scale, stream
         "dd_sm90_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                   _P],
+        # the arguments of dd_packed_attention_lse_fwd
+        "dd_sm90_attention_lse_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                      _F, _P],
     },
     "attention_sm90_bwd": {
         # the arguments of dd_packed_attention_bwd_dq / _dkv

@@ -141,18 +141,21 @@ def test_training_kernels(cuda, b, lq, lk, c, heads):
     _check(dv, dv_want)
 
 
-@pytest.mark.parametrize("warps", [4, 8])
+@pytest.mark.parametrize("route, warps", [("auto", 8), ("template", 4),
+                                          ("template", 8)])
 @pytest.mark.parametrize("lk", [2800, 2801])
-def test_capped_training_kernels(cuda, lk, warps):
+def test_capped_training_kernels(cuda, lk, route, warps):
     """The video training step's ST-Attn under grad (2 frames x 6 views,
     1400 queries against the first and the previous frame's 2800 keys, and
-    a ragged 2801): the capped forward with lse, then dq and dk/dv fed its
-    lse."""
+    a ragged 2801): the capped forward with lse (the path's sm90 kernel, or
+    the template at 4 or 8 warps), then dq and dk/dv fed its lse."""
     b, lq, c, heads = 12, 1400, 320, 8
     q, k, v = _qkv(b, lq, lk, c, cuda, seed=8)
     do = _qkv(b, lq, 1, c, cuda, seed=9)[0]
     A.reset_launch_counts()
-    o, lse = A.packed_attention_capped_lse_fwd(q, k, v, heads, warps=warps)
+    o, lse = A.packed_attention_capped_lse_fwd(q, k, v, heads, warps=warps,
+                                               route=route)
+    assert A.sm90_attention_lse_fwd.launches == (route == "auto")
     delta = A.attention_delta(o, do, heads)
     dq = A.packed_attention_bwd_dq(q, k, v, do, lse, delta, heads)
     dk, dv = A.packed_attention_bwd_dkv(q, k, v, do, lse, delta, heads)
@@ -456,6 +459,195 @@ def test_template_route_keeps_the_template_in_scope(cuda, fn):
     want = A.flash_attention_plain(q, k, v) if fn == "flash_attention_fwd" \
         else A.attention_packed_plain(q, k, v, 8)
     _check(got, want)
+
+
+# ------------------------------- the Hopper forward with lse (sm90) --
+
+def _check_lse(got, want):
+    """lse is float32 on both sides: 1e-3 absolute."""
+    assert torch.isfinite(got).all()
+    err = (got - want).abs().max().item()
+    assert err <= 1e-3, err
+
+
+@pytest.mark.parametrize("lk", SM90_LK)
+@pytest.mark.parametrize("d", (8, 16, 24, 32, 40, 48, 56, 64))
+def test_sm90_lse_kernel_against_plain(cuda, d, lk):
+    """``sm90_attention_lse_fwd`` at every in-scope head_dim against the
+    float32 plain version, o and lse (B*H, Lq): query counts around its
+    128-row blocks and the whole 1400, key counts from one key to a ragged
+    long-K tile."""
+    heads = 2
+    for i, lq in enumerate(SM90_LQ):
+        q, k, v = _qkv(2, lq, lk, heads * d, cuda, seed=80 + i)
+        A.reset_launch_counts()
+        o, lse = A.sm90_attention_lse_fwd(q, k, v, heads)
+        torch.cuda.synchronize()
+        assert A.sm90_attention_lse_fwd.launches == 1
+        assert lse.shape == (2 * heads, lq) and lse.dtype == torch.float32
+        o_want, lse_want = A.attention_packed_lse_plain(q, k, v, heads)
+        _check(o, o_want)
+        _check_lse(lse, lse_want)
+
+
+@pytest.mark.parametrize("d", (8, 40, 64))
+def test_sm90_lse_kernel_with_very_negative_logits(cuda, d):
+    """Every logit near -80 (and a ragged last key tile): lse = m s + ln l
+    keeps the scale's units, so lse is near -80 and right to 1e-3."""
+    heads, lq, lk = 4, 300, 333
+    q, k, v = _qkv(2, lq, lk, heads * d, cuda, seed=81)
+    q = (q.float() * 0.05 - 4.0).bfloat16()
+    k = (k.float() * 0.05 + 4.0).bfloat16()
+    scale = 5.0 / d
+    o, lse = A.sm90_attention_lse_fwd(q, k, v, heads, scale)
+    torch.cuda.synchronize()
+    o_want, lse_want = A.attention_packed_lse_plain(q, k, v, heads, scale)
+    assert lse_want.max().item() < -50  # the logits are very negative
+    assert torch.isfinite(o).all()
+    _check(o, o_want)
+    _check_lse(lse, lse_want)
+
+
+@pytest.mark.parametrize("b, lq, lk, c, heads", [
+    (6, 1400, 1400, 320, 8),    # attn1 and SFA+ stage 2 under grad
+    (12, 1400, 2800, 320, 8),   # video ST-Attn under grad
+    (6, 1400, 158, 320, 8),     # attn2
+    (12, 512, 512, 32, 4),      # the tiny models' d = 8
+])
+def test_sm90_lse_kernel_output_is_the_inference_kernels(cuda, b, lq, lk, c,
+                                                         heads):
+    """The lse epilogue changes nothing else: o is bit for bit
+    ``sm90_attention_fwd``'s on the same inputs, and a second launch
+    repeats o and lse bit for bit."""
+    q, k, v = _qkv(b, lq, lk, c, cuda, seed=82)
+    o, lse = A.sm90_attention_lse_fwd(q, k, v, heads)
+    o2, lse2 = A.sm90_attention_lse_fwd(q, k, v, heads)
+    plain_o = A.sm90_attention_fwd(q, k, v, heads)
+    torch.cuda.synchronize()
+    assert torch.equal(o, plain_o)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    o_want, lse_want = A.attention_packed_lse_plain(q, k, v, heads)
+    _check(o, o_want)
+    _check_lse(lse, lse_want)
+
+
+def test_sm90_lse_kernel_reads_the_split_view_of_the_same_memory(cuda):
+    """``flash_attention_lse_fwd`` on a (B, L, H, D) view and
+    ``packed_attention_lse_fwd`` on its packed memory launch the one kernel
+    and agree bit for bit, o and lse."""
+    q, k, v = _qkv4(3, 777, 1111, 8, 40, cuda, seed=83)
+    A.reset_launch_counts()
+    o_split, lse_split = A.flash_attention_lse_fwd(q, k, v)
+    o_packed, lse_packed = A.packed_attention_lse_fwd(
+        *(t.reshape(3, t.shape[1], 320) for t in (q, k, v)), 8)
+    torch.cuda.synchronize()
+    assert A.sm90_attention_lse_fwd.launches == 2
+    assert o_split.shape == q.shape
+    assert torch.equal(o_split.reshape(o_packed.shape), o_packed)
+    assert torch.equal(lse_split, lse_packed)
+    o_want, lse_want = A.flash_attention_lse_plain(q, k, v)
+    _check(o_split, o_want)
+    _check_lse(lse_split, lse_want)
+
+
+@pytest.mark.parametrize("call, sm90", [
+    ("packed d=40", 1), ("capped d=40", 1), ("split d=40", 1),
+    ("packed d=8", 1), ("split d=64", 1),
+    ("packed d=80", 0), ("packed d=160", 0), ("capped d=80", 0),
+    ("split d=20", 0), ("split d=4", 0), ("split d=40 unaligned", 0),
+    ("split d=80", 0),
+])
+def test_sm90_lse_routing_on_the_card(cuda, call, sm90):
+    """In-scope training forwards launch ``sm90_attention_lse_fwd``, the
+    others the template; the wrapper counts its launch either way, and both
+    agree with the plain version, o and lse."""
+    kind, dd = call.split()[0], int(call.split()[1][2:])
+    heads = 4
+    A.reset_launch_counts()
+    if kind == "split":
+        q, k, v = _qkv4(2, 300, 200, heads, dd, cuda, seed=84)
+        if "unaligned" in call:
+            q, k, v = (_unaligned(t) for t in (q, k, v))
+        got = A.flash_attention_lse_fwd(q, k, v)
+        want = A.flash_attention_lse_plain(q, k, v)
+        wrapper = A.flash_attention_lse_fwd
+    else:
+        q, k, v = _qkv(2, 300, 200, heads * dd, cuda, seed=85)
+        wrapper = A.packed_attention_lse_fwd if kind == "packed" \
+            else A.packed_attention_capped_lse_fwd
+        got = wrapper(q, k, v, heads)
+        want = A.attention_packed_lse_plain(q, k, v, heads)
+    torch.cuda.synchronize()
+    assert wrapper.launches == 1
+    assert A.sm90_attention_lse_fwd.launches == sm90
+    _check(got[0], want[0])
+    _check_lse(got[1], want[1])
+
+
+@pytest.mark.parametrize("fn", ["packed_attention_lse_fwd",
+                                "packed_attention_capped_lse_fwd",
+                                "flash_attention_lse_fwd"])
+def test_template_route_keeps_the_lse_template_in_scope(cuda, fn):
+    """``route="template"`` runs the mma.sync template's lse forward on an
+    in-scope shape (the yardstick chip_smoke.py times beside the sm90
+    kernel)."""
+    q, k, v = _qkv(2, 300, 200, 320, cuda, seed=86)
+    wrapper = getattr(A, fn)
+    A.reset_launch_counts()
+    if fn == "flash_attention_lse_fwd":
+        q, k, v = (t.view(2, t.shape[1], 8, 40) for t in (q, k, v))
+        got = wrapper(q, k, v, route="template")
+        want = A.flash_attention_lse_plain(q, k, v)
+    else:
+        got = wrapper(q, k, v, 8, route="template")
+        want = A.attention_packed_lse_plain(q, k, v, 8)
+    torch.cuda.synchronize()
+    assert wrapper.launches == 1 and A.sm90_attention_lse_fwd.launches == 0
+    _check(got[0], want[0])
+    _check_lse(got[1], want[1])
+
+
+@pytest.mark.parametrize("b, lq, lk, split", [
+    (6, 1400, 1400, False),    # attn1 under grad: PackedAttention
+    (12, 1400, 2800, False),   # ST-Attn over the cap: the capped route
+    (6, 1400, 1400, True),     # SFA+ stage 2 under grad: FlashAttention
+])
+def test_sm90_training_forward_and_backward_gradients(cuda, b, lq, lk,
+                                                      split):
+    """``PackedAttention`` (whole and capped) and ``FlashAttention`` at the
+    main training shapes (C = 320, d = 40): the sm90 lse forward, then the
+    sm90 backward fed its lse.  Their gradients agree with autograd through
+    the float32 plain version (``attention_packed_plain`` /
+    ``flash_attention_plain`` on float32 copies) within 2^-7 of the
+    gradient's magnitude + 1e-3, the kernels' tolerance."""
+    heads, c = 8, 320
+    q = _qkv(b, lq, 1, c, cuda, seed=87)[0].requires_grad_()
+    k, v = (t.requires_grad_() for t in _qkv(b, lk, lk, c, cuda, 88)[1:])
+    w = _qkv(b, lq, 1, c, cuda, seed=89)[0]
+    scale = 40 ** -0.5
+    sp = lambda t: t.view(b, t.shape[1], heads, 40)
+    A.reset_launch_counts()
+    if split:
+        out = A.FlashAttention.apply(sp(q), sp(k), sp(v), scale)
+    else:
+        out = A.PackedAttention.apply(q, k, v, heads, scale)
+    (out.reshape(w.shape).float() * w.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert A.sm90_attention_lse_fwd.launches == 1
+    assert A.sm90_attention_bwd_dq.launches == 1
+    assert A.sm90_attention_bwd_dkv.launches == 1
+    fwd = "flash_attention_lse_fwd" if split else \
+        "packed_attention_capped_lse_fwd" if A.over_score_cap(lq, lk) \
+        else "packed_attention_lse_fwd"
+    assert getattr(A, fwd).launches == 1
+    ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    if split:
+        want = A.flash_attention_plain(*(sp(t) for t in ref), scale)
+    else:
+        want = A.attention_packed_plain(*ref, heads, scale)
+    (want.reshape(w.shape) * w.float()).sum().backward()
+    for got, r in zip((q, k, v), ref):
+        _check(got.grad, r.grad)
 
 
 # ------------------------------------------ the Hopper backward (sm90) --

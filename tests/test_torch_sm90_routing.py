@@ -1,10 +1,12 @@
 """The routing rule of the Hopper kernels (``sm90_attention_fwd``,
-``sm90_attention_bwd_dq``, ``sm90_attention_bwd_dkv``), on the CPU.
+``sm90_attention_lse_fwd``, ``sm90_attention_bwd_dq``,
+``sm90_attention_bwd_dkv``), on the CPU.
 
 ``sm90_in_scope`` is a pure rule on (head_dim, alignment): the three
-inference wrappers without lse or ring and the four backward wrappers send
-a call to their sm90 kernel exactly when it holds, and to the template of
-``csrc/attention.cu`` or ``csrc/attention_train.cu`` otherwise.  On the
+inference wrappers without ring, the three training forwards with lse and
+the four backward wrappers send a call to their sm90 kernel exactly when it
+holds, and to the template of ``csrc/attention.cu`` or
+``csrc/attention_train.cu`` otherwise.  On the
 CPU every wrapper takes its plain version and launches nothing.  The
 kernels themselves run only on the card
 (``tests/test_torch_kernels_cuda.py``).  Tiny shapes, float32: the plain
@@ -54,6 +56,37 @@ def test_split_wrapper_takes_the_plain_version_on_the_cpu():
     assert torch.allclose(got, A.flash_attention_plain(q, k, v), atol=1e-6)
     assert A.flash_attention_fwd.launches == 0
     assert A.sm90_attention_fwd.launches == 0
+
+
+@pytest.mark.parametrize("route", ["auto", "template"])
+@pytest.mark.parametrize("fn", ["packed_attention_lse_fwd",
+                                "packed_attention_capped_lse_fwd",
+                                "flash_attention_lse_fwd"])
+def test_lse_wrappers_take_the_plain_version_on_the_cpu(fn, route):
+    """The three training forwards return their plain versions bit for bit
+    on the CPU under either route, and launch nothing."""
+    q, k, v = _qkv(seed=5)
+    A.reset_launch_counts()
+    if fn == "flash_attention_lse_fwd":
+        q, k, v = (t.view(2, t.shape[1], 4, 8) for t in (q, k, v))
+        got = A.flash_attention_lse_fwd(q, k, v, route=route)
+        want = A.flash_attention_lse_plain(q, k, v)
+    else:
+        got = getattr(A, fn)(q, k, v, 4, route=route)
+        want = A.attention_packed_lse_plain(q, k, v, 4)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert getattr(A, fn).launches == 0
+    assert A.sm90_attention_lse_fwd.launches == 0
+
+
+def test_sm90_lse_kernel_takes_the_plain_version_on_the_cpu():
+    q, k, v = _qkv(seed=6)
+    A.reset_launch_counts()
+    for g, w in zip(A.sm90_attention_lse_fwd(q, k, v, 4),
+                    A.attention_packed_lse_plain(q, k, v, 4)):
+        assert torch.equal(g, w)
+    assert A.sm90_attention_lse_fwd.launches == 0
 
 
 def _grad_args(b=2, lq=9, lk=7, c=32, heads=4, seed=2):
@@ -115,6 +148,16 @@ def test_reset_clears_the_sm90_count_and_the_wrappers_stay_eleven():
     assert A.sm90_attention_fwd not in A.KERNEL_WRAPPERS
 
 
+def test_reset_clears_the_sm90_lse_count_and_the_sm90_kernels_are_four():
+    A.sm90_attention_lse_fwd.launches = 4
+    A.reset_launch_counts()
+    assert A.sm90_attention_lse_fwd.launches == 0
+    assert len(A.KERNEL_WRAPPERS) == 11
+    assert A.SM90_KERNELS == (A.sm90_attention_fwd, A.sm90_attention_lse_fwd,
+                              A.sm90_attention_bwd_dq,
+                              A.sm90_attention_bwd_dkv)
+
+
 def test_reset_clears_the_sm90_backward_counts():
     A.sm90_attention_bwd_dq.launches = 2
     A.sm90_attention_bwd_dkv.launches = 5
@@ -132,6 +175,14 @@ def test_the_sm90_library_is_built_like_the_others():
     assert "dd_sm90_attention_fwd" in cuda_lib._SIGNATURES["attention_sm90"]
     path = cuda_lib.library_path("attention_sm90")
     assert path.startswith(cuda_lib.BUILD_DIR) and path.endswith(".so")
+
+
+def test_the_sm90_lse_entry_takes_the_template_arguments():
+    """``dd_sm90_attention_lse_fwd`` lives in the sm90 forward's library
+    and takes ``dd_packed_attention_lse_fwd``'s arguments, one for one."""
+    sigs = cuda_lib._SIGNATURES["attention_sm90"]
+    assert sigs["dd_sm90_attention_lse_fwd"] == \
+        cuda_lib._SIGNATURES["attention"]["dd_packed_attention_lse_fwd"]
 
 
 def test_the_sm90_backward_library_is_built_like_the_others():
@@ -200,6 +251,37 @@ def test_chip_smoke_holds_the_sm90_backward_counts_to_the_wrappers(
             chip_smoke.check_sm90_launches(counts, out_of_scope)
 
 
+# a flagship training step's 44 lse forwards; a video stage-1 step's 36 +
+# 8 capped; occ_bg_fusionp's tiny reference: SFA+ stage 2 at d = 4 out of
+# scope
+LSE_TRAIN = {"packed_attention_lse_fwd": 44}
+LSE_VIDEO = {"packed_attention_lse_fwd": 36,
+             "packed_attention_capped_lse_fwd": 8}
+LSE_FUSIONP = {"packed_attention_lse_fwd": 36, "flash_attention_lse_fwd": 1}
+
+
+@pytest.mark.parametrize("counts, lse, out_of_scope, ok", [
+    (LSE_TRAIN, 44, (), True),
+    (LSE_TRAIN, 43, (), False),     # one call took the template
+    (LSE_VIDEO, 44, (), True),
+    (LSE_VIDEO, 36, (), False),     # the capped calls took the template
+    (LSE_FUSIONP, 37, (), True),
+    (LSE_FUSIONP, 36, (), False),
+    (LSE_FUSIONP, 36, ("flash_attention_lse_fwd",), True),
+    (LSE_FUSIONP, 37, ("flash_attention_lse_fwd",), False),
+])
+def test_chip_smoke_holds_the_sm90_lse_count_to_the_wrappers(
+        counts, lse, out_of_scope, ok):
+    """``chip_smoke.check_sm90_launches``: ``sm90_attention_lse_fwd``'s
+    count equals the three training forwards' in-scope calls."""
+    counts = dict(chip_smoke._launches(**counts), sm90_attention_lse_fwd=lse)
+    if ok:
+        chip_smoke.check_sm90_launches(counts, out_of_scope)
+    else:
+        with pytest.raises(AssertionError, match="sm90_attention_lse_fwd"):
+            chip_smoke.check_sm90_launches(counts, out_of_scope)
+
+
 def test_sm90_wrapper_refuses_a_tensor_off_the_cpu_and_the_card():
     """A meta tensor reaches the CUDA checks (no plain fallback) and is
     refused before any launch."""
@@ -208,6 +290,35 @@ def test_sm90_wrapper_refuses_a_tensor_off_the_cpu_and_the_card():
     with pytest.raises(ValueError, match="CUDA"):
         A.sm90_attention_fwd(q, q, q, heads=8)
     assert A.sm90_attention_fwd.launches == 0
+
+
+@pytest.mark.parametrize("fn", ["sm90_attention_lse_fwd",
+                                "packed_attention_lse_fwd",
+                                "packed_attention_capped_lse_fwd"])
+def test_sm90_lse_kernel_refuses_a_tensor_off_the_cpu_and_the_card(fn):
+    q = torch.empty(2, 512, 64, device="meta", dtype=torch.bfloat16)
+    A.reset_launch_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        getattr(A, fn)(q, q, q, 8)
+    assert getattr(A, fn).launches == 0
+    assert A.sm90_attention_lse_fwd.launches == 0
+
+
+@pytest.mark.parametrize("c, heads, match", [
+    (320, 4, "sm90 kernel"),      # d = 80
+    (288, 4, "sm90 kernel"),      # d = 72
+    (160, 8, "multiples of 8"),   # d = 20
+])
+def test_sm90_lse_kernel_refuses_a_head_dim_outside_its_scope(
+        monkeypatch, c, heads, match):
+    """Past the device checks (taken out here: no card), a head_dim outside
+    ``sm90_in_scope`` is refused before any launch, not sent elsewhere."""
+    monkeypatch.setattr(A, "_check_cuda_bf16", lambda *a: None)
+    q = torch.empty(2, 512, c, device="meta", dtype=torch.bfloat16)
+    A.reset_launch_counts()
+    with pytest.raises(ValueError, match=match):
+        A.sm90_attention_lse_fwd(q, q, q, heads)
+    assert A.sm90_attention_lse_fwd.launches == 0
 
 
 @pytest.mark.parametrize("fn", ["sm90_attention_bwd_dq",
@@ -225,41 +336,47 @@ def test_sm90_backward_refuses_a_tensor_off_the_cpu_and_the_card(fn):
     assert A.sm90_attention_bwd_dkv.launches == 0
 
 
-def _kernels_line(generate_sm90=360, train_dq=None):
+def _kernels_line(generate_sm90=360, train_dq=None, train_lse=None):
     """``chip_smoke.kernels_line`` on made-up phase-3 rows and path counts:
     every wrapper's row at 1.0 ms on its own kernel, the template at 0.5,
-    the sm90 forward at 0.25 and the sm90 backward at 0.125."""
+    the sm90 forward at 0.25, with lse at 0.0625 and the sm90 backward at
+    0.125."""
     row = lambda ms, **kw: dict(max_abs_err=1e-3, kernel_ms=ms, plain_ms=9.0,
                                 bound_ms=0.06, bound_by="operations",
                                 library_ms=0.24, shape={}, **kw)
     routed = chip_smoke.SM90_REPLACES
     results = {k: [row(0.5 if k in routed else 1.0)]
                for k in chip_smoke.REPLACES}
+    ms = {chip_smoke.SM90: 0.25, chip_smoke.SM90_LSE: 0.0625}
     for kern, (wrappers, _) in chip_smoke.SM90_ROUTES.items():
-        results[kern] = [row(0.25 if kern == chip_smoke.SM90 else 0.125,
-                             wrapper=w) for w in wrappers]
+        results[kern] = [row(ms.get(kern, 0.125), wrapper=w)
+                         for w in wrappers]
 
-    def counts(sm90=None, dq=None, **kw):
+    def counts(sm90=None, dq=None, lse=None, **kw):
         c = chip_smoke._launches(**kw)
         for kern, (wrappers, _) in chip_smoke.SM90_ROUTES.items():
             c[kern] = sum(c[k] for k in wrappers)
-        if sm90 is not None:
-            c[chip_smoke.SM90] = sm90
-        if dq is not None:
-            c[chip_smoke.SM90_DQ] = dq
+        for kern, n in ((chip_smoke.SM90, sm90), (chip_smoke.SM90_DQ, dq),
+                        (chip_smoke.SM90_LSE, lse)):
+            if n is not None:
+                c[kern] = n
         return c
 
     per_step = chip_smoke._launches(packed_attention_fwd=1)
     path = {"generate": counts(generate_sm90, packed_attention_fwd=360),
             "train": counts(packed_attention_fwd=2, dq=train_dq,
+                            lse=train_lse, packed_attention_lse_fwd=264,
                             packed_attention_bwd_dq=132,
                             packed_attention_bwd_dkv=132),
             "video": counts(packed_attention_fwd=520,
                             packed_attention_capped_fwd=200),
-            "video_train": {"stage 1": counts(), "stage 2": counts()},
+            "video_train": {
+                "stage 1": counts(packed_attention_capped_lse_fwd=32),
+                "stage 2": counts(packed_attention_capped_lse_fwd=40)},
             "fusionp": counts(packed_attention_fwd=280,
                               flash_attention_fwd=1),
-            "fusionp_train": counts(flash_attention_bwd_dq=6,
+            "fusionp_train": counts(flash_attention_lse_fwd=6,
+                                    flash_attention_bwd_dq=6,
                                     flash_attention_bwd_dkv=6)}
     return chip_smoke.kernels_line(results, path, per_step,
                                    {"stage 1": per_step,
@@ -271,7 +388,7 @@ def test_kernels_line_credits_in_scope_calls_to_the_sm90_kernel():
     time, no launches on a path whose calls all took the sm90 kernel.  One
     sm90 entry per replaced TPU kernel, with that wrapper's launches."""
     got = {e["name"]: e for e in _kernels_line()["kernels"]}
-    assert len(got) == 11 + 3 + 4
+    assert len(got) == 11 + 3 + 3 + 4
     for w in chip_smoke.SM90_WRAPPERS:
         tmpl, sm90 = got[w], got[f"{chip_smoke.SM90}:{w}"]
         assert tmpl["source"].endswith("attention.cu")
@@ -315,6 +432,31 @@ def test_kernels_line_credits_in_scope_backward_calls_to_the_sm90_kernels():
 def test_kernels_line_refuses_a_path_where_the_backward_template_ran():
     with pytest.raises(AssertionError, match="sm90_attention_bwd_dq"):
         _kernels_line(train_dq=131)
+
+
+def test_kernels_line_credits_in_scope_lse_calls_to_the_sm90_kernel():
+    """The three training forwards' entries are ``attention.cu``'s
+    template, routed to one ``sm90_attention_lse_fwd:<wrapper>`` entry
+    each, which replaces the wrapper's TPU kernel (:701, :789, :126) from
+    ``attention_sm90.cu`` and carries its launches on its path."""
+    got = {e["name"]: e for e in _kernels_line()["kernels"]}
+    want = {"packed_attention_lse_fwd": (":701", 264),
+            "packed_attention_capped_lse_fwd": (":789", 72),
+            "flash_attention_lse_fwd": (":126", 6)}
+    for w, (line, launches) in want.items():
+        tmpl, sm90 = got[w], got[f"{chip_smoke.SM90_LSE}:{w}"]
+        assert tmpl["source"].endswith("attention.cu")
+        assert (tmpl["ms"], tmpl["launches"]) == (0.5, 0)
+        assert tmpl["routed_to"] == sm90["name"]
+        assert sm90["source"].endswith("attention_sm90.cu")
+        assert sm90["replaces"] == tmpl["replaces"]
+        assert sm90["replaces"].endswith(line)
+        assert (sm90["ms"], sm90["launches"]) == (0.0625, launches)
+
+
+def test_kernels_line_refuses_a_path_where_the_lse_template_ran():
+    with pytest.raises(AssertionError, match="sm90_attention_lse_fwd"):
+        _kernels_line(train_lse=263)
 
 
 @pytest.mark.parametrize("times, want", [
