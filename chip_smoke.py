@@ -27,10 +27,14 @@ Phases, in order; any failure exits non-zero:
             where one computes the same function (SDPA's default dispatch
             and each backend that takes the shape, ``sdpa_ms``, named in
             the row), and the least time the card could
-            take (bound); the sm90 forward (with and without lse) and
-            backward beside the template instances they replace at every
-            in-scope shape (variants ``sm90``, ``template``; the capped
-            templates at 4 and at 8 warps per block); the split-layout
+            take (bound); the sm90 forward (with and without lse, and the
+            camera ring) and backward beside the template instances they
+            replace at every in-scope shape (variants ``sm90``,
+            ``template``; the capped templates at 4 and at 8 warps per
+            block); the ring also beside the JAX package's training
+            formulation in library calls (``stacked_sdpa_ms``: the
+            ``_nbr_stacked`` gather, one SDPA on the stacked rows, the sum
+            of the halves; no single call computes the ring); the split-layout
             kernels at the SFA+ stage-2 shapes and at d = 20, with
             ``mha_einsum``'s time beside them.  Kernel and
             library times come from a CUDA graph of 20 calls (``graph_ms``),
@@ -83,7 +87,8 @@ phases 10 and 11 there at a tiny size.
 The last three lines are the ``kernels`` JSON summary (one entry per
 kernel, and one ``<sm90 kernel>:<wrapper>`` entry per TPU kernel each sm90
 kernel replaces: ``sm90_attention_fwd``, ``sm90_attention_lse_fwd``,
-``sm90_attention_bwd_dq``, ``sm90_attention_bwd_dkv``), the card's name
+``sm90_attention_nbr_fwd``, ``sm90_attention_bwd_dq``,
+``sm90_attention_bwd_dkv``), the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.  Imports nothing
 of JAX.
 """
@@ -192,6 +197,9 @@ SM90_LSE = "sm90_attention_lse_fwd"
 SM90_LSE_WRAPPERS = ("packed_attention_lse_fwd",
                      "packed_attention_capped_lse_fwd",
                      "flash_attention_lse_fwd")
+# The same kernel with its ring flag behind the camera ring (row 2:
+# _fwd_kernel_t_nbr).
+SM90_NBR = "sm90_attention_nbr_fwd"
 # The Hopper backward behind the four backward wrappers for the calls in
 # ops.attention.sm90_in_scope (rows 4-5 and 9-10: _bwd_dq_kernel_t,
 # _bwd_dkv_kernel_t, _bwd_dq_kernel, _bwd_dkv_kernel).
@@ -201,6 +209,7 @@ SM90_BWD_SOURCE = "dualdiff_tpu_torch/csrc/attention_sm90_bwd.cu"
 SM90_ROUTES = {
     SM90: (SM90_WRAPPERS, SM90_SOURCE),
     SM90_LSE: (SM90_LSE_WRAPPERS, SM90_SOURCE),
+    SM90_NBR: (("packed_attention_nbr_fwd",), SM90_SOURCE),
     SM90_DQ: (("packed_attention_bwd_dq", "flash_attention_bwd_dq"),
               SM90_BWD_SOURCE),
     SM90_DKV: (("packed_attention_bwd_dkv", "flash_attention_bwd_dkv"),
@@ -217,7 +226,7 @@ def _launches(**counts) -> dict:
 
 def launch_counts(A) -> dict:
     """Launches since the last reset: each of the eleven wrappers and the
-    four sm90 kernels (``SM90_ROUTES``)."""
+    five sm90 kernels (``SM90_ROUTES``)."""
     return {**{fn.__name__: fn.launches for fn in A.KERNEL_WRAPPERS},
             **{fn.__name__: fn.launches for fn in A.SM90_KERNELS}}
 
@@ -234,8 +243,9 @@ def _sm90_kernel_of(wrapper: str):
 
 def check_sm90_launches(counts: dict, out_of_scope=()) -> None:
     """Every in-scope launch of the three inference wrappers, of the three
-    training forwards and of the four backward wrappers went through its
-    sm90 kernel: each sm90 kernel's count equals its wrappers', less the
+    training forwards, of the ring wrapper and of the four backward
+    wrappers went through its sm90 kernel: each sm90 kernel's count equals
+    its wrappers', less the
     wrappers named in ``out_of_scope`` (whose calls on this path have a
     head_dim outside ``sm90_in_scope``, as SFA+ stage 2 at d = 4 in the
     tiny models).  A kernel or wrapper missing from ``counts`` counts 0."""
@@ -497,6 +507,14 @@ def kernel_cases():
         ("packed_attention_fwd", "ragged, d=80", 3, 777, 333, 320, 4, 0),
         ("packed_attention_nbr_fwd", "attn4 camera ring", 2 * B * N_CAM, L, L,
          C, HEADS, N_CAM),
+        # the clip's ring: 16 frames x 6 views per CFG half
+        ("packed_attention_nbr_fwd", "attn4 camera ring in the clip",
+         FRAMES * N_CAM, L, L, C, HEADS, N_CAM),
+        ("packed_attention_nbr_fwd", "ragged ring, d=40", 2 * 3, 777, 777, C,
+         HEADS, 3),
+        # the tiny reference models' ring at their 512-token level
+        ("packed_attention_nbr_fwd", "tiny models' ring, d=8", 2 * N_CAM, 512,
+         512, 32, 4, N_CAM),
         ("packed_attention_nbr_fwd", "ragged ring, d=80", 2 * 3, 701, 701,
          320, 4, 3),
         ("packed_attention_capped_fwd", "video ST-Attn, first + previous "
@@ -600,6 +618,32 @@ def library_row(call) -> dict:
     name, ms = fastest(times)
     return {"library_ms": ms, "library": f"SDPA ({name})",
             "library_ms_by_backend": times}
+
+
+def stacked_sdpa_call(q, k, v, heads: int, n_cam: int):
+    """The camera ring as the JAX package's training formulation computes
+    it with library calls (``_nbr_stacked``): the left and right views' K/V
+    gathered and stacked on the batch axis with ``torch.cat``, one
+    ``scaled_dot_product_attention`` over the 2B stacked rows, the two
+    halves summed; q/k/v (B*N, L, C) packed in, (B*N, L, C) out.  A
+    yardstick of two calls beside the ring kernel: the port never calls
+    it."""
+    bn, l, c = q.shape
+    b, d = bn // n_cam, c // heads
+    idx = lambda off: torch.tensor([(n + off) % n_cam for n in range(n_cam)],
+                                   device=q.device)
+    left, right = idx(-1), idx(1)
+    take = lambda t, i: t.view(b, n_cam, l, c).index_select(1, i).reshape(
+        bn, l, c)
+    split = lambda t: t.view(t.shape[0], l, heads, d).transpose(1, 2)
+
+    def call():
+        k2 = torch.cat([take(k, left), take(k, right)])
+        v2 = torch.cat([take(v, left), take(v, right)])
+        o2 = torch.nn.functional.scaled_dot_product_attention(
+            split(torch.cat([q, q])), split(k2), split(v2))
+        return (o2[:bn] + o2[bn:]).transpose(1, 2).reshape(bn, l, c)
+    return call
 
 
 def split_on_packed(A):
@@ -851,15 +895,24 @@ def phase_kernels():
         flops = 4 * b * lq * lk * c
         variants = {}  # label -> launch; the first is the one the path runs
         extra = {}  # further yardsticks
+        stacked = None
         # in scope, the path's route is the sm90 kernel, timed beside the
         # template instance it replaces
-        sm90 = kern in SM90_WRAPPERS and A.sm90_in_scope(d, True)
+        sm90_kern = _sm90_kernel_of(kern)
+        sm90 = sm90_kern is not None and A.sm90_in_scope(d, True)
         if n_cam:
-            variants[""] = lambda: A.packed_attention_nbr_fwd(q, k, v, heads,
-                                                              n_cam)
+            ring = functools.partial(A.packed_attention_nbr_fwd, q, k, v,
+                                     heads, n_cam)
+            if sm90:
+                variants["sm90"] = ring
+                variants["template"] = functools.partial(ring,
+                                                         route="template")
+            else:
+                variants[""] = ring
             plain = lambda: A.attention_packed_neighbors_plain(
                 q, k, v, heads, n_cam)
             library = None  # no single PyTorch call computes the ring sum
+            stacked = stacked_sdpa_call(q, k, v, heads, n_cam)
             flops *= 2
         elif kern == "flash_attention_fwd":
             fl = split_on_packed(A)
@@ -900,6 +953,15 @@ def phase_kernels():
             torch.cuda.synchronize()
             errs[name] = (got.float() - want.float()).abs().max().item()
             del got
+        if stacked is not None:
+            # the yardstick's own error, recorded (it gates nothing)
+            extra["stacked_sdpa_max_abs_err"] = _max_err(stacked(), want)
+            by_backend = sdpa_ms(stacked)
+            name, ms = fastest(by_backend)
+            extra.update(stacked_sdpa_ms=ms,
+                         stacked_sdpa=f"_nbr_stacked gather + SDPA ({name}) "
+                                      f"+ sum of the halves",
+                         stacked_sdpa_ms_by_backend=by_backend)
         del want
         nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
         bound_ms, bound_by = bound(nbytes, flops)
@@ -932,11 +994,11 @@ def phase_kernels():
                     f"version: max abs err {err} > {tol}")
         results.setdefault(kern, []).append(row)
         if sm90:
-            sm90_row = dict(row, kernel=SM90, wrapper=kern,
+            sm90_row = dict(row, kernel=sm90_kern, wrapper=kern,
                             replaces=SM90_REPLACES[kern],
                             kernel_ms=times["sm90"], max_abs_err=errs["sm90"])
             log(json.dumps(sm90_row))
-            results.setdefault(SM90, []).append(sm90_row)
+            results.setdefault(sm90_kern, []).append(sm90_row)
         del q, k, v
         torch.cuda.empty_cache()
     return results
@@ -1170,8 +1232,8 @@ def phase_reference(video=False, fusionp=False):
     # the tiny SFA+ stage 2 (d = 4) is outside the sm90 kernel's scope
     check_sm90_launches(row["launches"], ("flash_attention_fwd",) if fusionp
                         else ())
-    must = ("packed_attention_fwd", SM90) + (("flash_attention_fwd",)
-                                             if fusionp else ())
+    must = ("packed_attention_fwd", SM90, "packed_attention_nbr_fwd",
+            SM90_NBR) + (("flash_attention_fwd",) if fusionp else ())
     if not all(row["launches"][k] > 0 for k in must):
         raise AssertionError(f"the kernels did not run: {row['launches']}")
 
@@ -1811,6 +1873,9 @@ def kernels_line(results, path_counts, train_per_step, video_per_step,
         }
         if "kernel_ms_by_variant" in main:
             e["ms_by_variant"] = main["kernel_ms_by_variant"]
+        for key in ("stacked_sdpa_ms", "stacked_sdpa"):  # the ring's
+            if key in main:
+                e[key] = main[key]
         return e
 
     out = []

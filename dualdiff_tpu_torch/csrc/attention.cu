@@ -1,5 +1,11 @@
 // Forward attention kernels for Hopper (sm_90a), channel-packed layout.
 //
+// Since attention_sm90.cu (TMA, wgmma) took every forward, the camera ring
+// included, for head dims d <= 64 with d % 8 == 0 and 16-byte aligned rows
+// (ops.attention.sm90_in_scope), these mma.sync kernels serve them only
+// outside that scope (d = 80 and 160, d % 8 != 0, unaligned rows) and
+// under route="template", the yardstick chip_smoke.py times beside it.
+//
 // packed_attention_fwd replaces the TPU kernel _fwd_kernel_t
 // (dualdiff_tpu/ops/attention.py, body _attn_body_t, called by
 // _packed_infer).  packed_attention_nbr_fwd replaces _fwd_kernel_t_nbr

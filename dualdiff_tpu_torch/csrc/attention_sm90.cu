@@ -1,6 +1,6 @@
 // Attention forward for Hopper (sm_90a): TMA, wgmma, warp specialisation.
 //
-// What it replaces.  Six TPU kernels of dualdiff_tpu/ops/attention.py, one
+// What it replaces.  Seven TPU kernels of dualdiff_tpu/ops/attention.py, one
 // function: softmax(scale q k^T) v per (row, head), keys >= Lk masked to
 // -inf exactly, float32 softmax, P rounded to bf16 for the second product,
 // bf16 output.  Without lse (LSE = false): _fwd_kernel_t (called by
@@ -12,20 +12,28 @@
 // _fwd_kernel_t_lse and _fwd_kernel_t_capped_lse (called by
 // _packed_train_t_fwd) and _fwd_kernel (called by _fwd_core), behind
 // packed_attention_lse_fwd, packed_attention_capped_lse_fwd and
-// flash_attention_lse_fwd; the backward kernels read that lse.  All for
-// head dims d <= 64 with d % 8 == 0 and 16-byte aligned rows (ops/
-// attention.py::sm90_in_scope); every other shape stays on attention.cu's
-// mma.sync template.  A contiguous (B, L, H, D) tensor is the packed
-// (B, L, C) memory, so the packed and the split layout are one layout.
+// flash_attention_lse_fwd; the backward kernels read that lse.  The camera
+// ring (NBR = true): _fwd_kernel_t_nbr (dualdiff_tpu/ops/attention.py:671,
+// called by _flash_packed_nbr :1059), behind packed_attention_nbr_fwd: for
+// row r = b N + n, attn(q_r, K/V of row b N + (n-1) mod N) + attn(q_r, K/V
+// of row b N + (n+1) mod N), each half its own softmax and normalised
+// alone, the two summed in float32 and rounded to bf16 once (the TPU kernel
+// rounds each half to bf16 before the sum).  All for head dims d <= 64 with
+// d % 8 == 0 and 16-byte aligned rows (ops/attention.py::sm90_in_scope);
+// every other shape stays on attention.cu's mma.sync template.  A
+// contiguous (B, L, H, D) tensor is the packed (B, L, C) memory, so the
+// packed and the split layout are one layout.
 //
 // What bounds it.  At the flagship's 24 x 1400 x 1400 (C = 320, 8 heads,
 // d = 40) a call is 60.2 GFLOP, 61 us at 989 TFLOP/s, against 86 MB (26 us
 // at 3.35 TB/s), and 376 M exponentials: about 96 us at the SFU's 16 per
 // clock per SM.  The video ST-Attn (96 x 1400 x 2800) is 0.487 ms of FLOPs
-// and 3.0 G exponentials, about 0.78 ms.  So the floor is the exponentials,
-// and a kernel that runs them in lock-step with its matrix products pays
-// both: attention.cu's template, one 16-row mma.sync tile per warp, ran at
-// 6.4-8.4x the FLOP bound.
+// and 3.0 G exponentials, about 0.78 ms.  The ring does two such
+// attentions per query: 120 GFLOP (0.122 ms) and 752 M exponentials (about
+// 0.18 ms) at 24 x 1400 x 1400, four times that for a clip's 96 rows.  So
+// the floor is the exponentials, and a kernel that runs them in lock-step
+// with its matrix products pays both: attention.cu's template, one 16-row
+// mma.sync tile per warp, ran at 6.4-8.4x the FLOP bound (the ring at 7.6x).
 //
 // Design.
 // - A work item is 128 queries of one (row, head): two consumer warpgroups
@@ -66,10 +74,22 @@
 //   the first lane of each quad (the quad holds the whole row sum l after
 //   two shuffles) also stores lse = m scale + ln l of its two rows < Lq: 4
 //   bytes a query row against 2d of output.
+// - The ring (NBR).  Both neighbours belong to one item: nothing carries
+//   over between blocks, so two items could only be summed with atomics or
+//   a second pass over a bf16 output.  The q tile is loaded once; the
+//   producer then streams the left view's K/V tiles and the right view's
+//   through the same ring, K/V read in place (only the row coordinate of
+//   the TMA box differs).  The consumers walk the 2 n_tiles tiles as one
+//   sequence, so the S(t) || P V(t-1) overlap runs across the boundary and
+//   an item pays one prologue: pass 1's first S product goes out with pass
+//   0's last P V.  After that P V the consumers keep pass 0's output,
+//   normalised by its own l, in 32 more float registers a thread (kept),
+//   reset o, m and l in place of the rescale by alpha (so the two passes
+//   never mix), and add kept to pass 1's normalised output at the store.
 // - Host: tensor maps are encoded per call through cuTensorMapEncodeTiled,
 //   found with cudaGetDriverEntryPoint (no -lcuda), passed as
 //   __grid_constant__ parameters; the dynamic shared-memory attribute is
-//   set once per device, outside any stream capture.
+//   set once per device on every instance, outside any stream capture.
 //
 // Not tried yet: 48-wide K tiles for P V (an MN-major operand narrower
 // than its 64-element swizzle atom), a TMA store of the output, two blocks
@@ -170,15 +190,17 @@ __device__ __forceinline__ void issue_pv(float (&o)[32],
 // w / (n_qt * heads); consecutive blocks share a head's K/V in L2.  A block
 // walks items blockIdx.x, blockIdx.x + gridDim.x, ... (one item when the
 // grid covers them all).  KSTEPS = ceil(d / 16).  LSE: also write lse
-// (B*H, Lq) float32 (unread and may be null without it).
-template <int KSTEPS, bool LSE>
+// (B*H, Lq) float32 (unread and may be null without it).  NBR: the camera
+// ring over n_cam views a batch (lq == lk; n_cam unread without it).
+template <int KSTEPS, bool LSE, bool NBR>
 __global__ void __launch_bounds__(kThreads, 1)
     sm90_attention_kernel(__grid_constant__ const CUtensorMap tq,
                           __grid_constant__ const CUtensorMap tk,
                           __grid_constant__ const CUtensorMap tv,
                           bf16* __restrict__ out, float* __restrict__ lse,
                           int batch, int lq, int lk, int heads, int d,
-                          float scale_log2) {
+                          int n_cam, float scale_log2) {
+  static_assert(!(NBR && LSE), "the ring kernel writes no lse");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // 128-byte swizzled TMA tiles need 1024-byte alignment
   const uint32_t base = (saddr(smem_raw) + 1023) & ~1023u;
@@ -195,6 +217,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int n_qt = (lq + kQ - 1) / kQ;
   const int n_items = n_qt * heads * batch;
   const int n_tiles = (lk + kKeys - 1) / kKeys;
+  // key tiles an item walks: the ring's two passes are one sequence
+  const int n_steps = NBR ? 2 * n_tiles : n_tiles;
 
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -222,14 +246,22 @@ __global__ void __launch_bounds__(kThreads, 1)
         mbar_expect_tx(qfull(qb), kTileBytes);
         tma_load(sq + qb * kTileBytes, &tq, qfull(qb), 0, head, qt * kQ,
                  row);
-        for (int t = 0; t < n_tiles; ++t, ++kv) {
+        for (int u = 0; u < n_steps; ++u, ++kv) {
+          // the ring: tiles of the left view (n - 1), then the right (n + 1)
+          int kv_row = row, t = u;
+          if (NBR) {
+            const int b = row / n_cam, n = row - b * n_cam;
+            const bool right = u >= n_tiles;
+            kv_row = b * n_cam + (n + (right ? 1 : n_cam - 1)) % n_cam;
+            if (right) t -= n_tiles;
+          }
           const int s = kv % kStages;
           if (kv >= kStages) mbar_wait(empty(s), ((kv / kStages) - 1) & 1);
           mbar_expect_tx(full(s), 2 * kTileBytes);
           tma_load(sk + s * kTileBytes, &tk, full(s), 0, head, t * kKeys,
-                   row);
+                   kv_row);
           tma_load(sv + s * kTileBytes, &tv, full(s), 0, head, t * kKeys,
-                   row);
+                   kv_row);
         }
       }
     }
@@ -247,6 +279,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (wg == 1) bar_arrive<kConsumers>(other_bar);
 
     float s[64], o[32], m[2], l[2], alpha[2];
+    float kept[NBR ? 32 : 1];  // the ring's pass 0 output, normalised
     uint32_t p[8][4];
     int kv = 0, it = 0;
 #pragma unroll 1
@@ -270,7 +303,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       wg_fence();
       issue_qk<KSTEPS>(s, dq, desc_sw128(sk + st * kTileBytes));
       wg_commit();
-      if (wg == 0 || !(last_item && n_tiles == 1))
+      if (wg == 0 || !(last_item && n_steps == 1))
         bar_arrive<kConsumers>(other_bar);
       wg_wait<0>();
       fence_regs(s);
@@ -279,10 +312,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       int prev = st;
       ++kv;
 
-      // key tile t: S of t and P . V of t - 1 issued together; the
-      // softmax of t runs while P . V is in flight
+      // key tile u: S of u and P . V of u - 1 issued together; the
+      // softmax of u runs while P . V is in flight.  The ring's pass 1
+      // starts at u = n_tiles (the boundary), without a prologue of its own
 #pragma unroll 1
-      for (int t = 1; t < n_tiles; ++t, ++kv) {
+      for (int u = 1; u < n_steps; ++u, ++kv) {
+        const bool boundary = NBR && u == n_tiles;
+        const int t = NBR && u >= n_tiles ? u - n_tiles : u;
         st = kv % kStages;
         mbar_wait(full(st), (kv / kStages) & 1);
         bar_sync<kConsumers>(my_bar);
@@ -291,21 +327,44 @@ __global__ void __launch_bounds__(kThreads, 1)
         wg_commit();
         issue_pv(o, p, desc_sw128(sv + prev * kTileBytes));
         wg_commit();
-        if (wg == 0 || !(last_item && t + 1 == n_tiles))
+        if (wg == 0 || !(last_item && u + 1 == n_steps))
           bar_arrive<kConsumers>(other_bar);
         wg_wait<1>();
         fence_regs(s);
+        float l0[2] = {l[0], l[1]};  // at the boundary: pass 0's sums
+        if (boundary) {  // pass 1's softmax starts afresh
+          m[0] = m[1] = -INFINITY;
+          l[0] = l[1] = 0.f;
+        }
         softmax_tile(s, m, l, alpha, t * kKeys, lk, scale_log2);
         wg_wait<0>();
         fence_regs(o);
         __syncwarp();
         if (lane == 0) mbar_arrive(empty(prev));
+        if constexpr (NBR) {
+          if (boundary) {
+            // o holds the whole of pass 0: keep it normalised, start anew
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          o[4 * j + 0] *= alpha[0];
-          o[4 * j + 1] *= alpha[0];
-          o[4 * j + 2] *= alpha[1];
-          o[4 * j + 3] *= alpha[1];
+            for (int r = 0; r < 2; ++r) {
+              l0[r] += __shfl_xor_sync(0xffffffffu, l0[r], 1);
+              l0[r] += __shfl_xor_sync(0xffffffffu, l0[r], 2);
+              l0[r] = 1.f / l0[r];
+            }
+#pragma unroll
+            for (int i = 0; i < 32; ++i) {
+              kept[i] = o[i] * l0[(i >> 1) & 1];
+              o[i] = 0.f;
+            }
+          }
+        }
+        if (!boundary) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            o[4 * j + 0] *= alpha[0];
+            o[4 * j + 1] *= alpha[0];
+            o[4 * j + 2] *= alpha[1];
+            o[4 * j + 3] *= alpha[1];
+          }
         }
         pack_p(p, s);
         prev = st;
@@ -338,10 +397,15 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int r = r0 + 8 * h;
+          float x0 = o[4 * j + 2 * h] * inv[h];
+          float x1 = o[4 * j + 2 * h + 1] * inv[h];
+          if constexpr (NBR) {  // the two halves summed in float32
+            x0 += kept[4 * j + 2 * h];
+            x1 += kept[4 * j + 2 * h + 1];
+          }
           if (r < lq)
             *reinterpret_cast<uint32_t*>(g + (size_t)r * ld + col) =
-                dd::pack_bf16x2(o[4 * j + 2 * h] * inv[h],
-                                o[4 * j + 2 * h + 1] * inv[h]);
+                dd::pack_bf16x2(x0, x1);
         }
       }
       if constexpr (LSE) {
@@ -359,17 +423,26 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// Per device, once: the dynamic shared-memory size of the eight instances
-// and the SM count (0 after a failure).
+// Per device, once: the dynamic shared-memory size of the twelve instances
+// (without and with lse, the ring; each at KSTEPS 1-4) and the SM count (0
+// after a failure).  A launch of an instance left out here fails.
 int prepare(int device) {
   static int sms[64] = {0};
   if (device < 0 || device >= 64) return 0;
   if (sms[device]) return sms[device];
   for (auto kernel :
-       {sm90_attention_kernel<1, false>, sm90_attention_kernel<2, false>,
-        sm90_attention_kernel<3, false>, sm90_attention_kernel<4, false>,
-        sm90_attention_kernel<1, true>, sm90_attention_kernel<2, true>,
-        sm90_attention_kernel<3, true>, sm90_attention_kernel<4, true>})
+       {sm90_attention_kernel<1, false, false>,
+        sm90_attention_kernel<2, false, false>,
+        sm90_attention_kernel<3, false, false>,
+        sm90_attention_kernel<4, false, false>,
+        sm90_attention_kernel<1, true, false>,
+        sm90_attention_kernel<2, true, false>,
+        sm90_attention_kernel<3, true, false>,
+        sm90_attention_kernel<4, true, false>,
+        sm90_attention_kernel<1, false, true>,
+        sm90_attention_kernel<2, false, true>,
+        sm90_attention_kernel<3, false, true>,
+        sm90_attention_kernel<4, false, true>})
     if (cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kSmem) != cudaSuccess)
@@ -381,14 +454,16 @@ int prepare(int device) {
   return sms[device] = n;
 }
 
-// The two entries' shared checks, tensor maps and launch.
-template <bool LSE>
+// The three entries' shared checks, tensor maps and launch.  NBR: lq ==
+// lk, batch rows of n_cam views each.
+template <bool LSE, bool NBR>
 int launch(const void* q, const void* k, const void* v, void* out,
            float* lse, int batch, int lq, int lk, int heads, int head_dim,
-           float scale, void* stream) {
+           int n_cam, float scale, void* stream) {
   if (head_dim <= 0 || head_dim > 64 || !dd::vec_ok(head_dim, q, k, v, out) ||
       batch <= 0 || lq <= 0 || lk <= 0 || heads <= 0 || batch > 65535 ||
-      heads > 65535 || (LSE && lse == nullptr))
+      heads > 65535 || (LSE && lse == nullptr) ||
+      (NBR && (n_cam < 1 || batch % n_cam || lq != lk)))
     return (int)cudaErrorInvalidValue;
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -403,15 +478,15 @@ int launch(const void* q, const void* k, const void* v, void* out,
   const long long items = (long long)((lq + kQ - 1) / kQ) * heads * batch;
   if (items > 0x7fffffff) return (int)cudaErrorInvalidValue;
   const int grid = items > sms ? sms : (int)items;
-  auto kernel = sm90_attention_kernel<4, LSE>;
+  auto kernel = sm90_attention_kernel<4, LSE, NBR>;
   switch ((head_dim + 15) / 16) {
-    case 1: kernel = sm90_attention_kernel<1, LSE>; break;
-    case 2: kernel = sm90_attention_kernel<2, LSE>; break;
-    case 3: kernel = sm90_attention_kernel<3, LSE>; break;
+    case 1: kernel = sm90_attention_kernel<1, LSE, NBR>; break;
+    case 2: kernel = sm90_attention_kernel<2, LSE, NBR>; break;
+    case 3: kernel = sm90_attention_kernel<3, LSE, NBR>; break;
   }
   kernel<<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
       tq, tk, tv, static_cast<bf16*>(out), lse, batch, lq, lk, heads,
-      head_dim, scale * dd::kLog2e);
+      head_dim, n_cam, scale * dd::kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -424,8 +499,8 @@ extern "C" int dd_sm90_attention_fwd(const void* q, const void* k,
                                      const void* v, void* out, int batch,
                                      int lq, int lk, int heads, int head_dim,
                                      float scale, void* stream) {
-  return launch<false>(q, k, v, out, nullptr, batch, lq, lk, heads, head_dim,
-                       scale, stream);
+  return launch<false, false>(q, k, v, out, nullptr, batch, lq, lk, heads,
+                              head_dim, 1, scale, stream);
 }
 
 // The same, also writing lse (B*H, Lq) contiguous float32: the training
@@ -435,6 +510,19 @@ extern "C" int dd_sm90_attention_lse_fwd(const void* q, const void* k,
                                          int batch, int lq, int lk, int heads,
                                          int head_dim, float scale,
                                          void* stream) {
-  return launch<true>(q, k, v, out, static_cast<float*>(lse), batch, lq, lk,
-                      heads, head_dim, scale, stream);
+  return launch<true, false>(q, k, v, out, static_cast<float*>(lse), batch,
+                             lq, lk, heads, head_dim, 1, scale, stream);
+}
+
+// The camera ring, the arguments and checks of dd_packed_attention_nbr_fwd:
+// q, k, v, out (batch = B * n_cam, l, H*d), view n of each batch over views
+// n - 1 and n + 1 (mod n_cam), K/V read in place.  Returns a cudaError_t.
+extern "C" int dd_sm90_attention_nbr_fwd(const void* q, const void* k,
+                                         const void* v, void* out, int batch,
+                                         int l, int heads, int head_dim,
+                                         int n_cam, float scale,
+                                         void* stream) {
+  if (n_cam < 1 || batch % n_cam) return (int)cudaErrorInvalidValue;
+  return launch<false, true>(q, k, v, out, nullptr, batch, l, l, heads,
+                             head_dim, n_cam, scale, stream);
 }

@@ -58,15 +58,19 @@ The Hopper forward.  The three inference wrappers without ring
 ``flash_attention_fwd``) send every call in ``sm90_in_scope`` (head_dim a
 multiple of 8 up to ``SM90_MAX_HEAD_DIM``, 16-byte aligned rows) to
 ``sm90_attention_fwd`` (``csrc/attention_sm90.cu``: TMA, wgmma, warp
-specialisation), and the three training forwards with lse
+specialisation), the three training forwards with lse
 (``packed_attention_lse_fwd``, ``packed_attention_capped_lse_fwd``,
 ``flash_attention_lse_fwd``, the split layout on the packed view of the
 same memory) to ``sm90_attention_lse_fwd``, the same kernel with its lse
-epilogue.  Every other shape (d = 80 and 160, d % 8 != 0 as the tiny SFA+
-at d = 4, unaligned rows) goes to ``csrc/attention.cu``'s template, by
-that rule alone; so does the ring kernel.  ``route="template"`` sends an
-in-scope call to the template too: the yardstick ``chip_smoke.py`` times
-beside the new kernel.
+epilogue, and the camera ring (``packed_attention_nbr_fwd``) to
+``sm90_attention_nbr_fwd``, the same kernel with both neighbours' K/V
+streamed through one work item.  Every other shape (d = 80 and 160, as the
+ring of HD's d = 80; d % 8 != 0 as the tiny SFA+ at d = 4; unaligned rows)
+goes to ``csrc/attention.cu``'s template, by that rule alone.
+``route="template"`` sends an in-scope call to the template too: the
+yardstick ``chip_smoke.py`` times beside the new kernel.  The ring stays
+inference only: under grad attn4 takes ``_nbr_stacked`` through
+``PackedAttention``, as in the JAX package.
 
 The Hopper backward.  The four backward wrappers (``packed_attention_bwd_dq``,
 ``packed_attention_bwd_dkv``, ``flash_attention_bwd_dq``,
@@ -115,8 +119,8 @@ __all__ = ["PACKED_MIN_LQ", "FLASH_MIN_LEN", "mha_einsum",
            "CAPPED_LSE_WARPS", "HEADPACK_MAX_LQ", "over_score_cap",
            "KERNEL_WRAPPERS", "SM90_KERNELS", "reset_launch_counts",
            "SM90_MAX_HEAD_DIM", "sm90_in_scope", "sm90_attention_fwd",
-           "sm90_attention_lse_fwd", "sm90_attention_bwd_dq",
-           "sm90_attention_bwd_dkv"]
+           "sm90_attention_lse_fwd", "sm90_attention_nbr_fwd",
+           "sm90_attention_bwd_dq", "sm90_attention_bwd_dkv"]
 
 # Queries at least this long take the kernels.  Carried over from the JAX
 # package's _PACKED_MIN_LQ (a TPU measurement); to be decided again on the
@@ -442,12 +446,13 @@ def _raise_on(err: int, fn: str) -> None:
 
 
 def sm90_in_scope(d: int, aligned: bool) -> bool:
-    """The routing rule of every wrapper but the ring kernel's: True when
-    the sm90 kernels (``sm90_attention_fwd``, ``sm90_attention_lse_fwd``,
-    ``sm90_attention_bwd_dq``, ``sm90_attention_bwd_dkv``) take a call of
-    head_dim ``d`` whose rows start 16-byte ``aligned`` (TMA's stride and
-    address rule); the other calls take the templates of
-    ``csrc/attention.cu`` and ``csrc/attention_train.cu``."""
+    """The routing rule of every kernel wrapper: True when the sm90 kernels
+    (``sm90_attention_fwd``, ``sm90_attention_lse_fwd``,
+    ``sm90_attention_nbr_fwd``, ``sm90_attention_bwd_dq``,
+    ``sm90_attention_bwd_dkv``) take a call of head_dim ``d`` whose rows
+    start 16-byte ``aligned`` (TMA's stride and address rule); the other
+    calls take the templates of ``csrc/attention.cu`` and
+    ``csrc/attention_train.cu``."""
     return aligned and d % 8 == 0 and 0 < d <= SM90_MAX_HEAD_DIM
 
 
@@ -469,6 +474,14 @@ def _sm90_args(q, k, v, heads, scale):
         raise ValueError(f"head_dim {d}: the sm90 kernel takes multiples "
                          f"of 8 up to {SM90_MAX_HEAD_DIM}")
     return d, _default_scale(scale, d)
+
+
+def _check_ring_args(q, k, n_cam):
+    if q.shape != k.shape:
+        raise ValueError("neighbor attention needs q, k, v of one shape")
+    if n_cam < 1 or q.shape[0] % n_cam:
+        raise ValueError(f"batch {q.shape[0]} is not a multiple of "
+                         f"n_cam={n_cam}")
 
 
 def sm90_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -524,6 +537,35 @@ def sm90_attention_lse_fwd(q: torch.Tensor, k: torch.Tensor,
     _raise_on(err, "sm90_attention_lse_fwd")
     sm90_attention_lse_fwd.launches += 1
     return out, lse
+
+
+def sm90_attention_nbr_fwd(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, heads: int, n_cam: int,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """Camera-ring attention on Hopper, q/k/v (B*n_cam, L, C) ->
+    (B*n_cam, L, C), head_dim a multiple of 8 up to ``SM90_MAX_HEAD_DIM``:
+    view n attends to views n-1 and n+1 (mod n_cam), two softmaxes, the
+    halves summed in float32 and rounded once.
+
+    CUDA kernel ``sm90_attention_nbr_fwd`` (``csrc/attention_sm90.cu``, the
+    kernel of ``sm90_attention_fwd`` with its ring flag: both neighbours in
+    one work item, K/V read in place), the port of the TPU kernel
+    ``_fwd_kernel_t_nbr`` for the calls in ``sm90_in_scope``;
+    ``packed_attention_nbr_fwd`` routes those here.  CPU tensors take
+    ``attention_packed_neighbors_plain``."""
+    if q.device.type == "cpu":
+        return attention_packed_neighbors_plain(q, k, v, heads, n_cam, scale)
+    _refuse_grad(q, k, v)
+    d, scale = _sm90_args(q, k, v, heads, scale)
+    _check_ring_args(q, k, n_cam)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = library("attention_sm90").dd_sm90_attention_nbr_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            q.shape[0], q.shape[1], heads, d, n_cam, scale, _stream(q))
+    _raise_on(err, "sm90_attention_nbr_fwd")
+    sm90_attention_nbr_fwd.launches += 1
+    return out
 
 
 def _sm90_grad_args(q, k, v, do, lse, delta, heads, scale):
@@ -615,23 +657,27 @@ def packed_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def packed_attention_nbr_fwd(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, heads: int, n_cam: int,
-                             scale: Optional[float] = None) -> torch.Tensor:
+                             scale: Optional[float] = None, *,
+                             route: str = "auto") -> torch.Tensor:
     """Camera-ring neighbor attention (attn4 'add'), q/k/v (B*N, L, C) ->
     (B*N, L, C): view n attends to views n-1 and n+1 (mod N).
 
-    CUDA kernel ``packed_attention_nbr_fwd`` (``csrc/attention.cu``), the
-    port of the TPU kernel ``_fwd_kernel_t_nbr``; K/V are read in place,
-    never gathered.  CPU tensors take
-    ``attention_packed_neighbors_plain``."""
+    CUDA kernel ``sm90_attention_nbr_fwd`` for calls in ``sm90_in_scope``
+    (``route="template"``: not), else ``packed_attention_nbr_fwd``
+    (``csrc/attention.cu``), the port of the TPU kernel
+    ``_fwd_kernel_t_nbr``; K/V are read in place, never gathered.  Rows are
+    16-byte aligned whenever ``_check_kernel_args`` lets a call through (an
+    aligned base, d % 8 == 0), so alignment splits nothing here.  CPU
+    tensors take ``attention_packed_neighbors_plain``."""
     if q.device.type == "cpu":
         return attention_packed_neighbors_plain(q, k, v, heads, n_cam, scale)
     _refuse_grad(q, k, v)
     d = _check_kernel_args(q, k, v, heads)
-    if q.shape != k.shape:
-        raise ValueError("neighbor attention needs q, k, v of one shape")
-    if n_cam < 1 or q.shape[0] % n_cam:
-        raise ValueError(f"batch {q.shape[0]} is not a multiple of "
-                         f"n_cam={n_cam}")
+    _check_ring_args(q, k, n_cam)
+    if _use_sm90(route, d, True):
+        out = sm90_attention_nbr_fwd(q, k, v, heads, n_cam, scale)
+        packed_attention_nbr_fwd.launches += 1
+        return out
     scale = _default_scale(scale, d)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
@@ -977,7 +1023,8 @@ KERNEL_WRAPPERS = (packed_attention_fwd, packed_attention_nbr_fwd,
 # the sm90 kernels behind the wrappers' in-scope calls (not wrappers: their
 # launches are counted by the wrapper too)
 SM90_KERNELS = (sm90_attention_fwd, sm90_attention_lse_fwd,
-                sm90_attention_bwd_dq, sm90_attention_bwd_dkv)
+                sm90_attention_nbr_fwd, sm90_attention_bwd_dq,
+                sm90_attention_bwd_dkv)
 for _fn in KERNEL_WRAPPERS + SM90_KERNELS:
     _fn.launches = 0
 

@@ -2,7 +2,8 @@
 
 The port's kernel wrappers take their plain PyTorch versions on CPU tensors;
 those are held here against ``_packed_infer`` (``_fwd_kernel_t``),
-``_flash_packed_nbr`` (``_fwd_kernel_t_nbr``) and ``_packed_infer_capped``
+``_flash_packed_nbr`` (``_fwd_kernel_t_nbr``, for the template's and the
+sm90 ring's wrappers) and ``_packed_infer_capped``
 (``_fwd_kernel_t_capped``) run in Pallas interpret mode, as
 ``tests/test_ops.py`` runs them.  Inputs are float32 from a seeded numpy
 generator; tolerance 2e-5 absolute on outputs of magnitude ~1 (1e-5 for the
@@ -52,6 +53,23 @@ def test_neighbor_plain_matches_fwd_kernel_t_nbr(d):
                              1.0 / math.sqrt(d), heads, n_cam, (l, l))
     got = A.packed_attention_nbr_fwd(tp.t(q), tp.t(k), tp.t(v), heads, n_cam)
     tp.assert_close(got, want, rtol=0, atol=ATOL)
+
+
+def test_sm90_ring_plain_matches_fwd_kernel_t_nbr():
+    """``sm90_attention_nbr_fwd`` (its plain version on the CPU) against
+    ``_flash_packed_nbr`` (``_fwd_kernel_t_nbr`` in interpret mode) at the
+    tiny models' d = 8, two batches of three views (a wrong b*N offset
+    reads another batch's views), 200 keys a view (a ragged last tile).
+    float32 on both sides; 1e-5: only the order of the sums differs."""
+    heads, d, n_cam, b, l = 4, 8, 3, 2, 200
+    c = heads * d
+    q, k, v = _qkv(b * n_cam, l, l, c, seed=9)
+    want = _flash_packed_nbr(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             1.0 / math.sqrt(d), heads, n_cam, (l, l))
+    A.reset_launch_counts()
+    got = A.sm90_attention_nbr_fwd(tp.t(q), tp.t(k), tp.t(v), heads, n_cam)
+    tp.assert_close(got, want, rtol=0, atol=1e-5)
+    assert A.sm90_attention_nbr_fwd.launches == 0
 
 
 def test_padded_k_with_very_negative_logits_is_exact():

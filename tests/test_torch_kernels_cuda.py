@@ -7,14 +7,19 @@ split-layout kernels at the SFA+ stage-2 shapes (24 and 6 x 1400 x 1400,
 d = 40), the tiny models' d = 4 and head dims that are not multiples of 8;
 the plain version computes in float32 and rounds once.  Tolerance 2^-7 of the output's magnitude + 1e-3: the kernels
 round one MMA operand to bf16 (P for P.V and dV, dS for dQ and dK) and the
-output to bf16.  lse is float32 on both sides: 1e-3 absolute.  Every test is
-marked ``cuda`` and skips without a card; run them on the GPU machine with
-``python -m pytest tests/test_torch_kernels_cuda.py``.
+output to bf16.  lse is float32 on both sides: 1e-3 absolute.  The camera
+ring's sm90 kernel is also held against a planted fault (one neighbour
+replaced by the view itself): phase 3's comparison and phase 5's gate each
+read it.  Every test is marked ``cuda`` and skips without a card; run them
+on the GPU machine with ``python -m pytest tests/test_torch_kernels_cuda.py``.
 """
+
+import json
 
 import pytest
 import torch
 
+import chip_smoke
 from dualdiff_tpu_torch.ops import attention as A
 
 pytestmark = pytest.mark.cuda
@@ -66,11 +71,15 @@ def test_packed_attention_kernel(cuda, b, lq, lk, c, heads):
     (2, 3, 701, 320, 4),        # ragged, d = 80
 ])
 def test_neighbor_attention_kernel(cuda, b, n_cam, l, c, heads):
+    """The ring wrapper: d = 40 takes the sm90 ring, HD's d = 80 stays on
+    the template."""
     q, k, v = _qkv(b * n_cam, l, l, c, cuda, seed=1)
     A.reset_launch_counts()
     got = A.packed_attention_nbr_fwd(q, k, v, heads, n_cam)
     torch.cuda.synchronize()
     assert A.packed_attention_nbr_fwd.launches == 1
+    assert A.sm90_attention_nbr_fwd.launches == int(A.sm90_in_scope(
+        c // heads, True))
     _check(got, A.attention_packed_neighbors_plain(q, k, v, heads, n_cam))
 
 
@@ -852,3 +861,169 @@ def test_template_route_keeps_the_backward_template_in_scope(cuda, split):
     assert sum(fn.launches for fn in A.KERNEL_WRAPPERS) == 2
     for got, w in zip((dq, dk, dv), want):
         _check(got, w)
+
+
+# ------------------------------------- the Hopper camera ring (sm90) --
+
+def _ring_inputs(b, n_cam, l, c, device, seed):
+    """q, k, v (B*n_cam, L, C); v carries 0.1 x its row index, so that each
+    view's output names the two views it read (a wrong b*N offset or
+    neighbour moves it by 0.1 or more)."""
+    q, k, v = _qkv(b * n_cam, l, l, c, device, seed)
+    rows = torch.arange(b * n_cam, device=device).view(-1, 1, 1)
+    return q, k, (v.float() + 0.1 * rows).bfloat16()
+
+
+@pytest.mark.parametrize("b, n_cam, l, c, heads", [
+    (4, 6, 1400, 320, 8),    # attn4 of a generation: 24 rows
+    (16, 6, 1400, 320, 8),   # attn4 of a clip: 16 frames x 6 views
+    (2, 3, 701, 320, 8),     # ragged, d = 40
+    (2, 3, 777, 320, 8),
+    (2, 6, 127, 320, 8),     # one partial key tile a pass
+    (2, 6, 129, 320, 8),     # a full tile and one key
+    (2, 3, 1, 320, 8),       # one key a pass
+    (2, 6, 300, 32, 4),      # d = 8, the tiny models'
+    (2, 6, 300, 64, 4),      # d = 16
+    (2, 6, 300, 256, 4),     # d = 64
+    (3, 1, 300, 320, 8),     # one view: its own left and right neighbour
+    (3, 2, 300, 320, 8),     # two views: left == right
+])
+def test_sm90_ring_against_plain(cuda, b, n_cam, l, c, heads):
+    """``packed_attention_nbr_fwd`` in scope launches
+    ``sm90_attention_nbr_fwd`` once and agrees with the float32 plain
+    version (two softmaxes, the halves summed in float32, rounded once)
+    within phase 3's tolerance."""
+    q, k, v = _ring_inputs(b, n_cam, l, c, cuda, seed=100 + l)
+    A.reset_launch_counts()
+    got = A.packed_attention_nbr_fwd(q, k, v, heads, n_cam)
+    torch.cuda.synchronize()
+    assert A.packed_attention_nbr_fwd.launches == 1
+    assert A.sm90_attention_nbr_fwd.launches == 1
+    _check(got, A.attention_packed_neighbors_plain(q, k, v, heads, n_cam))
+
+
+@pytest.mark.parametrize("d", (8, 40, 64))
+def test_sm90_ring_with_very_negative_logits(cuda, d):
+    """Every logit near -80 in both passes (and a ragged last key tile):
+    each half's softmax starts afresh at the pass boundary, so the output
+    stays finite and right."""
+    heads, n_cam, l = 4, 3, 333
+    q, k, v = _ring_inputs(2, n_cam, l, heads * d, cuda, seed=110)
+    q = (q.float() * 0.05 - 4.0).bfloat16()
+    k = (k.float() * 0.05 + 4.0).bfloat16()
+    scale = 5.0 / d
+    got = A.sm90_attention_nbr_fwd(q, k, v, heads, n_cam, scale)
+    torch.cuda.synchronize()
+    want = A.attention_packed_neighbors_plain(q, k, v, heads, n_cam, scale)
+    assert want.float().abs().max().item() < 1e30  # the reference is finite
+    assert torch.isfinite(got).all()
+    _check(got, want)
+
+
+def test_sm90_ring_repeats_bit_for_bit(cuda):
+    q, k, v = _ring_inputs(4, 6, 1400, 320, cuda, seed=111)
+    first = A.sm90_attention_nbr_fwd(q, k, v, 8, 6)
+    second = A.sm90_attention_nbr_fwd(q, k, v, 8, 6)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_template_route_keeps_the_ring_template_in_scope(cuda):
+    """``route="template"`` runs ``attention.cu``'s ring instance on an
+    in-scope shape (the yardstick chip_smoke.py times beside the sm90
+    ring)."""
+    q, k, v = _ring_inputs(2, 6, 300, 320, cuda, seed=112)
+    A.reset_launch_counts()
+    got = A.packed_attention_nbr_fwd(q, k, v, 8, 6, route="template")
+    torch.cuda.synchronize()
+    assert A.packed_attention_nbr_fwd.launches == 1
+    assert A.sm90_attention_nbr_fwd.launches == 0
+    _check(got, A.attention_packed_neighbors_plain(q, k, v, 8, 6))
+
+
+def test_ring_refuses_an_unaligned_view(cuda):
+    """The packed wrappers take no unaligned base (``_check_kernel_args``):
+    an unaligned ring view is refused before any launch, by either
+    route."""
+    q, k, v = (_unaligned(t) for t in _ring_inputs(2, 3, 300, 320, cuda,
+                                                   seed=114))
+    A.reset_launch_counts()
+    for route in ("auto", "template"):
+        with pytest.raises(ValueError, match="aligned"):
+            A.packed_attention_nbr_fwd(q, k, v, 8, 3, route=route)
+    assert A.packed_attention_nbr_fwd.launches == 0
+    assert A.sm90_attention_nbr_fwd.launches == 0
+
+
+def _ring_without_left(q, k, v, heads, n_cam, scale=None, **kw):
+    """A planted fault: the camera ring with the left neighbour replaced by
+    the view itself (the sm90 kernel on the view's own K/V plus on the
+    right neighbour's), summed in float32 and rounded once."""
+    bn, l, c = q.shape
+    right = torch.tensor([(n + 1) % n_cam for n in range(n_cam)],
+                         device=q.device)
+    take = lambda t: t.view(bn // n_cam, n_cam, l, c).index_select(
+        1, right).reshape(bn, l, c)
+    out = A.sm90_attention_fwd(q, k, v, heads, scale).float() \
+        + A.sm90_attention_fwd(q, take(k), take(v), heads, scale).float()
+    return out.to(q.dtype)
+
+
+def test_phase_3_catches_a_ring_without_its_left_neighbour(cuda):
+    """Phase 3's comparison (2^-7 max|out| + 1e-3 against the plain
+    version) refuses the planted fault at the generation's ring shape."""
+    q, k, v = _qkv(24, 1400, 1400, 320, cuda, seed=115)
+    want = A.attention_packed_neighbors_plain(q, k, v, 8, 6)
+    sound = A.packed_attention_nbr_fwd(q, k, v, 8, 6)
+    bad = _ring_without_left(q, k, v, 8, 6)
+    torch.cuda.synchronize()
+    tol = 2.0 ** -7 * want.float().abs().max().item() + 1e-3
+    err = lambda got: (got.float() - want.float()).abs().max().item()
+    print(f"ring fault: sound {err(sound):.3e}, fault {err(bad):.3e}, "
+          f"tol {tol:.3e}")
+    assert err(sound) <= tol < err(bad)
+
+
+def _gate_reading(monkeypatch, fault: bool) -> dict:
+    """Phase 5's row (``chip_smoke.phase_reference``), with or without the
+    planted ring fault in every ring call on the card; the phase raises
+    with it (the fault leaves ``packed_attention_nbr_fwd`` uncounted)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    real = A.packed_attention_nbr_fwd
+
+    def faulty(q, k, v, heads, n_cam, scale=None, **kw):
+        if q.device.type == "cpu":  # the float32 reference stays sound
+            return real(q, k, v, heads, n_cam, scale, **kw)
+        return _ring_without_left(q, k, v, heads, n_cam, scale)
+
+    lines = []
+    with monkeypatch.context() as m:
+        if fault:
+            m.setattr(A, "packed_attention_nbr_fwd", faulty)
+        m.setattr(chip_smoke, "log", lines.append)
+        if fault:
+            with pytest.raises(AssertionError):
+                chip_smoke.phase_reference()
+        else:
+            chip_smoke.phase_reference()
+    return json.loads(next(x for x in lines if '"phase": "reference"' in x))
+
+
+def test_generation_gate_reading_of_a_ring_without_its_left_neighbour(
+        cuda, monkeypatch):
+    """Phase 5's gate (the tiny bf16 generation on the card against float32
+    on the CPU, mean absolute error at most 1e-2) under the planted ring
+    fault.  The fault moves the reading, but not past the limit: on an H100
+    80GB HBM3 at 700 W the sound run read 3.2e-3 and the fault 3.8e-3.  The
+    tiny models' random attn4 weights leave the ring's softmaxes near
+    uniform, so each half is close to its view's mean of V, and the views'
+    means are alike: the gate cannot tell a view from its neighbour.  Phase
+    3's comparison catches the fault (the test above); the gate's blind
+    spot is recorded, the gate unchanged."""
+    sound = _gate_reading(monkeypatch, fault=False)
+    bad = _gate_reading(monkeypatch, fault=True)
+    print(f"generation gate: sound {sound['mean_abs_err']:.3e}, ring fault "
+          f"{bad['mean_abs_err']:.3e} (limit {bad['tol_mean']})")
+    assert sound["mean_abs_err"] <= sound["tol_mean"]
+    assert bad["mean_abs_err"] > sound["mean_abs_err"]

@@ -1,11 +1,11 @@
 """The routing rule of the Hopper kernels (``sm90_attention_fwd``,
-``sm90_attention_lse_fwd``, ``sm90_attention_bwd_dq``,
-``sm90_attention_bwd_dkv``), on the CPU.
+``sm90_attention_lse_fwd``, ``sm90_attention_nbr_fwd``,
+``sm90_attention_bwd_dq``, ``sm90_attention_bwd_dkv``), on the CPU.
 
 ``sm90_in_scope`` is a pure rule on (head_dim, alignment): the three
-inference wrappers without ring, the three training forwards with lse and
-the four backward wrappers send a call to their sm90 kernel exactly when it
-holds, and to the template of ``csrc/attention.cu`` or
+inference wrappers without ring, the three training forwards with lse, the
+camera ring and the four backward wrappers send a call to their sm90 kernel
+exactly when it holds, and to the template of ``csrc/attention.cu`` or
 ``csrc/attention_train.cu`` otherwise.  On the
 CPU every wrapper takes its plain version and launches nothing.  The
 kernels themselves run only on the card
@@ -148,12 +148,15 @@ def test_reset_clears_the_sm90_count_and_the_wrappers_stay_eleven():
     assert A.sm90_attention_fwd not in A.KERNEL_WRAPPERS
 
 
-def test_reset_clears_the_sm90_lse_count_and_the_sm90_kernels_are_four():
+def test_reset_clears_the_sm90_lse_count_and_the_sm90_kernels_are_five():
     A.sm90_attention_lse_fwd.launches = 4
+    A.sm90_attention_nbr_fwd.launches = 3
     A.reset_launch_counts()
     assert A.sm90_attention_lse_fwd.launches == 0
+    assert A.sm90_attention_nbr_fwd.launches == 0
     assert len(A.KERNEL_WRAPPERS) == 11
     assert A.SM90_KERNELS == (A.sm90_attention_fwd, A.sm90_attention_lse_fwd,
+                              A.sm90_attention_nbr_fwd,
                               A.sm90_attention_bwd_dq,
                               A.sm90_attention_bwd_dkv)
 
@@ -336,44 +339,57 @@ def test_sm90_backward_refuses_a_tensor_off_the_cpu_and_the_card(fn):
     assert A.sm90_attention_bwd_dkv.launches == 0
 
 
-def _kernels_line(generate_sm90=360, train_dq=None, train_lse=None):
+def _kernels_line(generate_sm90=360, train_dq=None, train_lse=None,
+                  clip_ring=None):
     """``chip_smoke.kernels_line`` on made-up phase-3 rows and path counts:
     every wrapper's row at 1.0 ms on its own kernel, the template at 0.5,
-    the sm90 forward at 0.25, with lse at 0.0625 and the sm90 backward at
-    0.125."""
-    row = lambda ms, **kw: dict(max_abs_err=1e-3, kernel_ms=ms, plain_ms=9.0,
-                                bound_ms=0.06, bound_by="operations",
-                                library_ms=0.24, shape={}, **kw)
+    the sm90 forward at 0.25, with lse at 0.0625, the ring at 0.5 (no
+    library call, the stacked yardstick at 0.75) and the sm90 backward at
+    0.125.  ``clip_ring``: the sm90 ring's launches in the clip (the
+    wrapper's 200 by default)."""
+    row = lambda ms, **kw: dict(
+        dict(max_abs_err=1e-3, kernel_ms=ms, plain_ms=9.0, bound_ms=0.06,
+             bound_by="operations", library_ms=0.24, shape={}), **kw)
+    ring = dict(library_ms=None, stacked_sdpa_ms=0.75,
+                stacked_sdpa="_nbr_stacked gather + SDPA (default) + sum of "
+                             "the halves")
     routed = chip_smoke.SM90_REPLACES
     results = {k: [row(0.5 if k in routed else 1.0)]
                for k in chip_smoke.REPLACES}
-    ms = {chip_smoke.SM90: 0.25, chip_smoke.SM90_LSE: 0.0625}
+    results["packed_attention_nbr_fwd"] = [row(1.0, **ring)]
+    ms = {chip_smoke.SM90: 0.25, chip_smoke.SM90_LSE: 0.0625,
+          chip_smoke.SM90_NBR: 0.5}
     for kern, (wrappers, _) in chip_smoke.SM90_ROUTES.items():
-        results[kern] = [row(ms.get(kern, 0.125), wrapper=w)
+        results[kern] = [row(ms.get(kern, 0.125), wrapper=w,
+                             **(ring if kern == chip_smoke.SM90_NBR else {}))
                          for w in wrappers]
 
-    def counts(sm90=None, dq=None, lse=None, **kw):
+    def counts(sm90=None, dq=None, lse=None, nbr=None, **kw):
         c = chip_smoke._launches(**kw)
         for kern, (wrappers, _) in chip_smoke.SM90_ROUTES.items():
             c[kern] = sum(c[k] for k in wrappers)
         for kern, n in ((chip_smoke.SM90, sm90), (chip_smoke.SM90_DQ, dq),
-                        (chip_smoke.SM90_LSE, lse)):
+                        (chip_smoke.SM90_LSE, lse),
+                        (chip_smoke.SM90_NBR, nbr)):
             if n is not None:
                 c[kern] = n
         return c
 
     per_step = chip_smoke._launches(packed_attention_fwd=1)
-    path = {"generate": counts(generate_sm90, packed_attention_fwd=360),
+    path = {"generate": counts(generate_sm90, packed_attention_fwd=360,
+                               packed_attention_nbr_fwd=100),
             "train": counts(packed_attention_fwd=2, dq=train_dq,
                             lse=train_lse, packed_attention_lse_fwd=264,
                             packed_attention_bwd_dq=132,
                             packed_attention_bwd_dkv=132),
-            "video": counts(packed_attention_fwd=520,
+            "video": counts(packed_attention_fwd=520, nbr=clip_ring,
+                            packed_attention_nbr_fwd=200,
                             packed_attention_capped_fwd=200),
             "video_train": {
                 "stage 1": counts(packed_attention_capped_lse_fwd=32),
                 "stage 2": counts(packed_attention_capped_lse_fwd=40)},
             "fusionp": counts(packed_attention_fwd=280,
+                              packed_attention_nbr_fwd=100,
                               flash_attention_fwd=1),
             "fusionp_train": counts(flash_attention_lse_fwd=6,
                                     flash_attention_bwd_dq=6,
@@ -388,7 +404,7 @@ def test_kernels_line_credits_in_scope_calls_to_the_sm90_kernel():
     time, no launches on a path whose calls all took the sm90 kernel.  One
     sm90 entry per replaced TPU kernel, with that wrapper's launches."""
     got = {e["name"]: e for e in _kernels_line()["kernels"]}
-    assert len(got) == 11 + 3 + 3 + 4
+    assert len(got) == 11 + 3 + 3 + 1 + 4
     for w in chip_smoke.SM90_WRAPPERS:
         tmpl, sm90 = got[w], got[f"{chip_smoke.SM90}:{w}"]
         assert tmpl["source"].endswith("attention.cu")
@@ -470,3 +486,130 @@ def test_the_library_yardstick_is_the_fastest_sdpa_backend(times, want):
     None."""
     assert chip_smoke.fastest(times) == want
     assert chip_smoke.library_row(None) == {"library_ms": None}
+
+
+# ----------------------------------------------------- the camera ring --
+
+def _ring_qkv(b=2, n_cam=3, l=9, c=32, seed=7):
+    return _qkv(b * n_cam, l, l, c, seed)
+
+
+@pytest.mark.parametrize("fn, route", [
+    ("sm90_attention_nbr_fwd", None),
+    ("packed_attention_nbr_fwd", "auto"),
+    ("packed_attention_nbr_fwd", "template"),
+])
+def test_ring_wrappers_take_the_plain_version_on_the_cpu(fn, route):
+    """The ring's sm90 kernel and its wrapper (either route) return the
+    plain version bit for bit on the CPU and launch nothing."""
+    q, k, v = _ring_qkv()
+    A.reset_launch_counts()
+    kw = {} if route is None else {"route": route}
+    got = getattr(A, fn)(q, k, v, 4, 3, **kw)
+    assert torch.equal(got, A.attention_packed_neighbors_plain(q, k, v, 4,
+                                                               3))
+    assert A.packed_attention_nbr_fwd.launches == 0
+    assert A.sm90_attention_nbr_fwd.launches == 0
+
+
+def test_ring_wrapper_refuses_a_bad_route(monkeypatch):
+    """Past the device checks (taken out here: no card), a route other
+    than "auto" or "template" is refused before any launch."""
+    monkeypatch.setattr(A, "_check_cuda_bf16", lambda *a: None)
+    q = torch.empty(6, 512, 64, device="meta", dtype=torch.bfloat16)
+    A.reset_launch_counts()
+    with pytest.raises(ValueError, match="route"):
+        A.packed_attention_nbr_fwd(q, q, q, 8, 3, route="sm90")
+    assert A.packed_attention_nbr_fwd.launches == 0
+    assert A.sm90_attention_nbr_fwd.launches == 0
+
+
+@pytest.mark.parametrize("fn", ["sm90_attention_nbr_fwd",
+                                "packed_attention_nbr_fwd"])
+def test_ring_kernel_refuses_a_tensor_off_the_cpu_and_the_card(fn):
+    q = torch.empty(6, 512, 64, device="meta", dtype=torch.bfloat16)
+    A.reset_launch_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        getattr(A, fn)(q, q, q, 8, 3)
+    assert A.sm90_attention_nbr_fwd.launches == 0
+
+
+def test_sm90_ring_refuses_grad():
+    q = torch.empty(6, 512, 64, device="meta", dtype=torch.bfloat16,
+                    requires_grad=True)
+    A.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="PackedAttention"):
+        A.sm90_attention_nbr_fwd(q, q, q, 8, 3)
+    assert A.sm90_attention_nbr_fwd.launches == 0
+
+
+@pytest.mark.parametrize("c, heads, n_cam, match", [
+    (320, 4, 3, "sm90 kernel"),      # d = 80: the template's
+    (160, 8, 3, "multiples of 8"),   # d = 20
+    (320, 8, 4, "n_cam=4"),          # 6 rows are not views of 4
+])
+def test_sm90_ring_refuses_what_it_cannot_take(monkeypatch, c, heads, n_cam,
+                                               match):
+    """Past the device checks, a head_dim outside ``sm90_in_scope`` or a
+    batch that is not whole rings is refused before any launch, not sent
+    elsewhere."""
+    monkeypatch.setattr(A, "_check_cuda_bf16", lambda *a: None)
+    q = torch.empty(6, 512, c, device="meta", dtype=torch.bfloat16)
+    A.reset_launch_counts()
+    with pytest.raises(ValueError, match=match):
+        A.sm90_attention_nbr_fwd(q, q, q, heads, n_cam)
+    assert A.sm90_attention_nbr_fwd.launches == 0
+
+
+def test_the_sm90_ring_entry_takes_the_template_arguments():
+    """``dd_sm90_attention_nbr_fwd`` lives in the sm90 forward's library
+    and takes ``dd_packed_attention_nbr_fwd``'s arguments, one for one."""
+    sigs = cuda_lib._SIGNATURES["attention_sm90"]
+    assert sigs["dd_sm90_attention_nbr_fwd"] == \
+        cuda_lib._SIGNATURES["attention"]["dd_packed_attention_nbr_fwd"]
+
+
+@pytest.mark.parametrize("ring, sm90, ok", [
+    (100, 100, True),    # a generation
+    (200, 200, True),    # a clip
+    (100, 99, False),    # one call took the template
+    (200, 0, False),     # the template ran every call
+    (0, 0, True),        # a training path: the ring never runs
+    (0, 1, False),
+])
+def test_chip_smoke_holds_the_sm90_ring_count_to_the_wrapper(ring, sm90, ok):
+    """``chip_smoke.check_sm90_launches``: ``sm90_attention_nbr_fwd``'s
+    count equals the ring wrapper's in-scope calls."""
+    counts = dict(chip_smoke._launches(packed_attention_nbr_fwd=ring),
+                  sm90_attention_nbr_fwd=sm90)
+    if ok:
+        chip_smoke.check_sm90_launches(counts)
+    else:
+        with pytest.raises(AssertionError, match="sm90_attention_nbr_fwd"):
+            chip_smoke.check_sm90_launches(counts)
+
+
+def test_kernels_line_credits_in_scope_ring_calls_to_the_sm90_kernel():
+    """The ring wrapper's entry is ``attention.cu``'s template (its time,
+    no launches at 224x400), routed to ``sm90_attention_nbr_fwd:
+    packed_attention_nbr_fwd``, which replaces ``_fwd_kernel_t_nbr``
+    (:671) from ``attention_sm90.cu``, carries the wrapper's launches (100
+    a generation, 200 a clip), no library call and the stacked
+    yardstick."""
+    got = {e["name"]: e for e in _kernels_line()["kernels"]}
+    w = "packed_attention_nbr_fwd"
+    tmpl, sm90 = got[w], got[f"{chip_smoke.SM90_NBR}:{w}"]
+    assert tmpl["source"].endswith("attention.cu")
+    assert (tmpl["ms"], tmpl["launches"]) == (1.0, 0)
+    assert tmpl["routed_to"] == sm90["name"]
+    assert sm90["source"].endswith("attention_sm90.cu")
+    assert sm90["replaces"] == tmpl["replaces"]
+    assert sm90["replaces"].endswith(":671")
+    assert (sm90["ms"], sm90["launches"]) == (0.5, 100)
+    assert sm90["launches_by_path"]["clip"] == 200
+    assert sm90["library_ms"] is None and sm90["stacked_sdpa_ms"] == 0.75
+
+
+def test_kernels_line_refuses_a_path_where_the_ring_template_ran():
+    with pytest.raises(AssertionError, match="sm90_attention_nbr_fwd"):
+        _kernels_line(clip_ring=199)
