@@ -6,15 +6,17 @@
                                          # breakdowns of one generation, one
                                          # training step, one clip, one
                                          # video training step of each stage
-                                         # and one occ_bg_fusionp generation
-                                         # and training step to
+                                         # and one occ_bg_fusionp and HD
+                                         # generation and training step to
                                          # DIR/profile_generation.txt,
                                          # DIR/profile_train_step.txt,
                                          # DIR/profile_video_clip.txt,
                                          # DIR/profile_video_train_step.txt,
                                          # ..._video_train_step_rgd.txt,
-                                         # DIR/profile_fusionp_generation.txt
-                                         # and ..._fusionp_train_step.txt
+                                         # DIR/profile_fusionp_generation.txt,
+                                         # ..._fusionp_train_step.txt and
+                                         # DIR/profile_hd_<h>x<w>_generation
+                                         # .txt, ..._train_step.txt
 
 Phases, in order; any failure exits non-zero:
 
@@ -36,7 +38,9 @@ Phases, in order; any failure exits non-zero:
             ``_nbr_stacked`` gather, one SDPA on the stacked rows, the sum
             of the halves; no single call computes the ring); the split-layout
             kernels at the SFA+ stage-2 shapes and at d = 20, with
-            ``mha_einsum``'s time beside them.  Kernel and
+            ``mha_einsum``'s time beside them; HD's shapes (the top level
+            at 2816 and 5184 tokens, the second at d = 80), the plain
+            versions there on slices of rows (``by_rows``).  Kernel and
             library times come from a CUDA graph of 20 calls (``graph_ms``),
             the plain versions' and ``mha_einsum``'s from a host loop
             (``cuda_ms``).
@@ -79,6 +83,14 @@ Phases, in order; any failure exits non-zero:
 13. fusionp_reference  the tiny ``occ_bg_fusionp`` set with SFA+ stage 2
             at d = 4 on the split-layout kernels: phase 5's gate at 224x400,
             phase 7's at 256x128 with ``FLASH_MIN_LEN`` lowered to 512.
+14. hd      the flagship at HD (``+exp-hd=256x704`` and ``432x768``) at
+            full SD v1.5 width: phase 4's generation, its UNet, VAE and CLIP
+            weights loaded through the checkpoint loader by their SD v1.5
+            names (``load_sd15_shaped``), and phase 6's training step, each
+            with its launches derived per latent level (the top level over
+            ``T_SCORE_CAP`` on the sm90 kernels, the second at d = 80 on
+            the templates).  Alone: ``python3 -c "import chip_smoke as s;
+            s.phase_device(); s.phase_build(); s.phase_hd(None)"``.
 
 On the CPU, ``VideoTrainer(cfg, clips, device="cpu", models=...)`` runs the
 same training with the plain versions; README.md says how to rehearse
@@ -115,6 +127,8 @@ TIMED_GENERATIONS = 3
 TIMED_TRAIN_STEPS = 5
 TIMED_CLIPS = 2
 TIMED_VIDEO_TRAIN_STEPS = 3
+TIMED_HD_GENERATIONS = 2
+TIMED_HD_TRAIN_STEPS = 3
 # Training reference (phase 7), bf16 card against float32 CPU; readings on
 # an H100 80GB HBM3 at 700 W.  Loss: 3.75e-4 relative apart; the limit is
 # about 5x that.  Gradients, per trainable leaf (``leaf_grad_errors``): the
@@ -241,17 +255,18 @@ def _sm90_kernel_of(wrapper: str):
                 None)
 
 
-def check_sm90_launches(counts: dict, out_of_scope=()) -> None:
+def check_sm90_launches(counts: dict, out_of_scope=None) -> None:
     """Every in-scope launch of the three inference wrappers, of the three
     training forwards, of the ring wrapper and of the four backward
     wrappers went through its sm90 kernel: each sm90 kernel's count equals
-    its wrappers', less the
-    wrappers named in ``out_of_scope`` (whose calls on this path have a
-    head_dim outside ``sm90_in_scope``, as SFA+ stage 2 at d = 4 in the
-    tiny models).  A kernel or wrapper missing from ``counts`` counts 0."""
+    its wrappers', less each wrapper's calls in ``out_of_scope`` ({wrapper:
+    calls whose head_dim is outside ``sm90_in_scope``}, as HD's d = 80
+    level or SFA+ stage 2 at d = 4 in the tiny models; those take the
+    templates).  A kernel or wrapper missing from ``counts`` counts 0."""
+    out_of_scope = out_of_scope or {}
     for kernel, (wrappers, _) in SM90_ROUTES.items():
-        want = sum(counts.get(k, 0) for k in wrappers
-                   if k not in out_of_scope)
+        want = sum(counts.get(k, 0) - out_of_scope.get(k, 0)
+                   for k in wrappers)
         if counts.get(kernel, 0) != want:
             raise AssertionError(f"{kernel} launched {counts.get(kernel, 0)}"
                                  f" times, the wrappers' in-scope calls "
@@ -266,62 +281,151 @@ def _sfa_plus_on_kernels(fusionp: bool, tokens: int) -> bool:
     return fusionp and tokens >= FLASH_MIN_LEN
 
 
+def attention_levels(latent_hw, channels, heads: int) -> list:
+    """(tokens, head_dim) of each latent level that holds transformer
+    blocks, top first: the UNet's and each ControlNet's down blocks 0-2
+    (and the UNet's up blocks 3-1) at ``channels[i] / heads``, each level
+    the last's size halved by a stride-2 conv (rounded up).  The mid
+    block's level holds one more block of each; it stays under
+    ``PACKED_MIN_LQ`` at every size the configs give (4x7 tokens at
+    224x400, 7x12 at 432x768), so it reaches no kernel, and a size where
+    it would is refused."""
+    from dualdiff_tpu_torch.ops.attention import PACKED_MIN_LQ
+
+    h, w = latent_hw
+    levels = []
+    for c in channels[:-1]:
+        levels.append((h * w, c // heads))
+        h, w = -(-h // 2), -(-w // 2)
+    if h * w >= PACKED_MIN_LQ:
+        raise NotImplementedError(f"the mid block's {h}x{w} tokens would "
+                                  f"reach the kernels")
+    return levels
+
+
+def _kernel_levels(levels, template_only: bool):
+    """(index, tokens) of each level whose attention reaches the packed
+    kernels (at least ``PACKED_MIN_LQ`` queries).  With ``template_only``,
+    only the levels whose head_dim is outside ``sm90_in_scope``."""
+    from dualdiff_tpu_torch.ops.attention import PACKED_MIN_LQ, sm90_in_scope
+
+    out = []
+    for i, (t, d) in enumerate(levels):
+        if t < PACKED_MIN_LQ:
+            continue
+        if d % 8:
+            raise NotImplementedError(f"head_dim {d}: the split-layout route"
+                                      f" is not derived here")
+        if template_only and sm90_in_scope(d, True):
+            continue
+        out.append((i, t))
+    return out
+
+
 def generate_launches_per_generation(layers: int, n_controlnets: int,
-                                     steps: int, fusionp: bool = False,
-                                     tokens: int = 1400) -> dict:
-    """Kernel launches of one image generation, derived from the code.  Per
-    model evaluation the UNet's ``2 * layers + 1`` transformer blocks at the
-    top latent level (``down_blocks_0``, ``up_blocks_3``) run attn1, attn2
-    (``packed_attention_fwd``) and attn4 (the ring kernel), and each
-    ControlNet's ``layers`` blocks attn1 and attn2; nothing is
-    differentiated.  With SFA+ (``fusionp``) its stage 2 runs once per
-    generation, in the ControlNet's step-constant precompute over the whole
-    CFG batch: one ``flash_attention_fwd`` when it reaches the kernels."""
+                                     steps: int, levels: list,
+                                     fusionp: bool = False,
+                                     template_only: bool = False) -> dict:
+    """Kernel launches of one image generation, derived from the code.
+    ``levels``: (tokens, head_dim) of each latent level, top first
+    (``attention_levels``; at 224x400 and in the tiny 256x128 models only
+    the top level reaches the kernels, the second's 350 and 128 tokens
+    being under ``PACKED_MIN_LQ``).  Per model evaluation, at each level
+    with at least ``PACKED_MIN_LQ`` tokens:
+
+    * the UNet's ``2 * layers + 1`` transformer blocks there (``layers`` in
+      the down block, ``layers + 1`` in the up block) run attn1 (self),
+      attn2 (over the ``KV_CROSS`` context tokens) and attn4 (the ring
+      kernel, at any length);
+    * each ControlNet's ``layers`` blocks there run attn1 and attn2;
+    * attn1 and attn2 take ``packed_attention_capped_fwd`` where their
+      padded score tile is over ``T_SCORE_CAP`` (HD's top level: 2816 and
+      5184 tokens), else ``packed_attention_fwd``.
+
+    Nothing is differentiated.  With SFA+ (``fusionp``) its stage 2 over
+    the top level's tokens runs once per generation, in the ControlNet's
+    step-constant precompute over the whole CFG batch: one
+    ``flash_attention_fwd`` when it reaches the kernels (its head_dim is
+    the top level's).  ``template_only``: only the calls outside
+    ``sm90_in_scope`` (the templates' launches)."""
+    from dualdiff_tpu_torch.ops.attention import over_score_cap
+
     blocks = 2 * layers + 1
-    return _launches(
-        packed_attention_fwd=(2 * blocks + 2 * n_controlnets * layers)
-        * steps,
-        packed_attention_nbr_fwd=blocks * steps,
-        flash_attention_fwd=int(_sfa_plus_on_kernels(fusionp, tokens)))
+    cn = n_controlnets * layers
+    counts = _launches()
+    for i, t in _kernel_levels(levels, template_only):
+        for lk in (t, KV_CROSS):  # attn1, attn2
+            kern = "packed_attention_capped_fwd" if over_score_cap(t, lk) \
+                else "packed_attention_fwd"
+            counts[kern] += (blocks + cn) * steps
+        counts["packed_attention_nbr_fwd"] += blocks * steps
+        if i == 0:
+            counts["flash_attention_fwd"] += int(
+                _sfa_plus_on_kernels(fusionp, t))
+    return counts
 
 
 def train_launches_per_step(layers: int, n_controlnets: int,
-                            remat: bool, fusionp: bool = False,
-                            tokens: int = 1400) -> dict:
-    """Kernel launches of one training step, derived from the code.  Only
-    the top latent level reaches the kernels (28x50 = 1400 tokens at
-    224x400; 32x16 = 512 for the tiny 256x128 models).  There:
+                            remat: bool, levels: list, fusionp: bool = False,
+                            template_only: bool = False) -> dict:
+    """Kernel launches of one training step, derived from the code.
+    ``levels`` and ``template_only`` as in
+    ``generate_launches_per_generation``.  At each level with at least
+    ``PACKED_MIN_LQ`` tokens:
 
-    * UNet ``down_blocks_0``: ``layers`` transformer blocks of attn1, attn2
-      and attn4.  Its first block's attn1 sees only frozen inputs (the noisy
-      latents through frozen layers): no input needs a gradient, so it
-      takes the inference kernel.  That block's attn2 (K/V from the
-      ControlNet's context tokens) and attn4 (trainable norm4 and
-      projections) are differentiated, as is everything after them.
-    * UNet ``up_blocks_3``: ``layers + 1`` blocks, 3 differentiated each.
-    * each ControlNet's ``down_blocks_0``: ``layers`` blocks of attn1 and
+    * the UNet's down block there: ``layers`` transformer blocks of attn1,
+      attn2 and attn4.  At the top level its first block's attn1 sees only
+      frozen inputs (the noisy latents through frozen layers): no input
+      needs a gradient, so it takes an inference kernel.  That block's
+      attn2 (K/V from the ControlNet's context tokens) and attn4
+      (trainable norm4 and projections) are differentiated, as is
+      everything after them, every lower level included.
+    * the UNet's up block there: ``layers + 1`` blocks, 3 differentiated
+      each.
+    * each ControlNet's down block there: ``layers`` blocks of attn1 and
       attn2 (no attn4), all trainable.
-    * attn4 under grad is one stacked ``PackedAttention`` call per block;
-      the ring kernel never runs.
+    * attn4 under grad is one stacked ``PackedAttention`` call per block
+      (both neighbours on the batch axis, the view's own length); the ring
+      kernel never runs.
+    * a call whose padded score tile is over ``T_SCORE_CAP`` (attn1 and
+      attn4 at HD's top level) takes the capped kernels:
+      ``packed_attention_capped_fwd`` frozen,
+      ``packed_attention_capped_lse_fwd`` differentiated.
 
-    * with SFA+ (``fusionp``), its stage 2 over the ``tokens`` of the
-      condition map runs once, outside the remat blocks, differentiated
-      (every ControlNet leaf trains): one ``FlashAttention`` when both
-      lengths reach ``FLASH_MIN_LEN``.
+    * with SFA+ (``fusionp``), its stage 2 over the top level's tokens
+      runs once, outside the remat blocks, differentiated (every
+      ControlNet leaf trains): one ``FlashAttention`` when both lengths
+      reach ``FLASH_MIN_LEN``.
 
     A differentiated call is one forward with lse, one dq and one dk/dv;
     remat replays every block's forward in the backward, so the forward
     kernels run twice."""
-    train = 2 + 3 * (layers - 1) + 3 * (layers + 1) \
-        + 2 * n_controlnets * layers
+    from dualdiff_tpu_torch.ops.attention import over_score_cap
+
+    blocks = 2 * layers + 1
+    cn = n_controlnets * layers
     replay = 2 if remat else 1
-    sfa = int(_sfa_plus_on_kernels(fusionp, tokens))
-    return _launches(packed_attention_fwd=replay,
-                     packed_attention_lse_fwd=train * replay,
-                     packed_attention_bwd_dq=train,
-                     packed_attention_bwd_dkv=train,
-                     flash_attention_lse_fwd=sfa, flash_attention_bwd_dq=sfa,
-                     flash_attention_bwd_dkv=sfa)
+    counts = _launches()
+    for i, t in _kernel_levels(levels, template_only):
+        capped = over_score_cap(t, t)
+        frozen = 1 if i == 0 else 0  # the UNet's first attn1
+        if frozen:
+            counts["packed_attention_capped_fwd" if capped
+                   else "packed_attention_fwd"] += replay
+        # (differentiated calls, their lk): attn1, attn4, attn2
+        for n, lk in ((blocks - frozen + cn, t), (blocks, t),
+                      (blocks + cn, KV_CROSS)):
+            kern = "packed_attention_capped_lse_fwd" \
+                if over_score_cap(t, lk) else "packed_attention_lse_fwd"
+            counts[kern] += n * replay
+            counts["packed_attention_bwd_dq"] += n
+            counts["packed_attention_bwd_dkv"] += n
+        if i == 0:
+            sfa = int(_sfa_plus_on_kernels(fusionp, t))
+            for kern in ("flash_attention_lse_fwd", "flash_attention_bwd_dq",
+                         "flash_attention_bwd_dkv"):
+                counts[kern] += sfa
+    return counts
 
 
 def video_launches_per_clip(layers: int, n_controlnets: int, steps: int,
@@ -529,6 +633,22 @@ def kernel_cases():
          2 * B * N_CAM, L, L, C, HEADS, 0),
         ("flash_attention_fwd", "d=20 (d % 8 != 0), ragged", 3, 777, 1111,
          160, 8, 0),
+    ] + [  # HD: the top level over the cap (d = 40), the second at d = 80
+        ("packed_attention_capped_fwd", f"HD {g} attn1 self", 2 * B * N_CAM,
+         t, t, C, HEADS, 0) for g, t in (("432x768", 5184), ("256x704", 2816))
+    ] + [
+        ("packed_attention_fwd", "HD 432x768 attn2 cross", 2 * B * N_CAM,
+         5184, KV_CROSS, C, HEADS, 0),
+        ("packed_attention_fwd", "HD 432x768 attn1 self, d=80", 2 * B * N_CAM,
+         1296, 1296, 2 * C, HEADS, 0),
+        ("packed_attention_fwd", "HD 432x768 attn2 cross, d=80",
+         2 * B * N_CAM, 1296, KV_CROSS, 2 * C, HEADS, 0),
+    ] + [
+        ("packed_attention_nbr_fwd", f"HD {g} attn4 camera ring{dd}",
+         2 * B * N_CAM, t, t, c, HEADS, N_CAM)
+        for g, t, c, dd in (("432x768", 5184, C, ""), ("256x704", 2816, C, ""),
+                            ("432x768", 1296, 2 * C, ", d=80"),
+                            ("256x704", 704, 2 * C, ", d=80"))
     ]
 
 
@@ -563,7 +683,57 @@ def train_kernel_cases():
         ("one query, d=40", 2, 1, 300, C, HEADS),
         ("tiny models, d=8", 12, 512, 512, 32, 4),
         ("ragged, d=64", 3, 777, 333, 256, 4),
+        # HD 432x768: attn1 over the cap (the capped forward), the stacked
+        # ring, attn2, and the second level at d = 80 (the templates)
+        ("HD 432x768 attn1 self", rows, 5184, 5184, C, HEADS),
+        ("HD 432x768 attn4 stacked neighbours", 2 * rows, 5184, 5184, C,
+         HEADS),
+        ("HD 432x768 attn2 cross", rows, 5184, KV_CROSS, C, HEADS),
+        ("HD 432x768 attn1 self, d=80", rows, 1296, 1296, 2 * C, HEADS),
     ]
+
+
+# The plain versions materialise float32 scores, (rows, heads, lq, lk):
+# 20.6 GB at HD's 24 x 5184 x 5184.  Phase 3 calls them on slices of rows
+# whose scores stay under this (whole camera rings for the ring; every
+# 224x400 case but the clip's ST-Attn fits in one), and SDPA's MATH
+# backend, which does the same, is not timed above it.
+PLAIN_SCORE_BYTES = 6 * 2 ** 30
+
+
+def _score_bytes(b, heads, lq, lk) -> int:
+    """The float32 scores (b, heads, lq, lk) a plain version holds; the
+    ring's computes its two neighbours one after the other
+    (``attention_packed_neighbors_plain``), so it too holds one set at a
+    time."""
+    return b * heads * lq * lk * 4
+
+
+def by_rows(fn, b: int, heads: int, lq: int, lk: int, n_cam: int = 0):
+    """``fn`` (a plain version) on slices of the ``b`` rows small enough
+    for ``PLAIN_SCORE_BYTES``, outputs concatenated: row-sized arguments
+    (q, k, v, do) are sliced by rows, (rows * heads)-sized ones (lse,
+    delta) by their rows' heads, other arguments passed as they are.  The
+    rows are independent (the ring's within a sample of ``n_cam`` views),
+    so the result is ``fn``'s on all rows."""
+    group = max(n_cam, 1)
+    step = max(group, PLAIN_SCORE_BYTES // _score_bytes(group, heads, lq, lk)
+               * group)
+    if step >= b:
+        return fn
+
+    def run(*args):
+        outs = []
+        for r in range(0, b, step):
+            sl = [a[r:r + step] if torch.is_tensor(a) and a.shape[0] == b
+                  else a[r * heads:(r + step) * heads]
+                  if torch.is_tensor(a) and a.shape[0] == b * heads else a
+                  for a in args]
+            outs.append(fn(*sl))
+        if isinstance(outs[0], tuple):
+            return tuple(torch.cat(o) for o in zip(*outs))
+        return torch.cat(outs)
+    return run
 
 
 def _tol(want) -> float:
@@ -578,17 +748,19 @@ def _max_err(got, want) -> float:
     return (got.float() - want.float()).abs().max().item()
 
 
-def sdpa_ms(call, iters: int = 20) -> dict:
-    """``graph_ms`` of ``call()`` (which calls SDPA) under SDPA's default
-    dispatch and under each backend alone, by backend name; a backend whose
-    eager call raises (it does not take the shape) is left out."""
-    import contextlib
-
+def sdpa_ms(call, scores, iters: int = 20) -> dict:
+    """``graph_ms`` of ``call()`` (which calls SDPA on (b, heads, lq, lk)
+    ``scores``) under SDPA's default dispatch and under each backend alone,
+    by backend name; a backend whose eager call raises (it does not take
+    the shape) is left out, and MATH (the scores in memory) where they are
+    over ``PLAIN_SCORE_BYTES``."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
+    math = _score_bytes(*scores) <= PLAIN_SCORE_BYTES
     ctxs = {"default": contextlib.nullcontext}
     for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
-               SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+               SDPBackend.CUDNN_ATTENTION) + ((SDPBackend.MATH,) if math
+                                              else ()):
         ctxs[be.name] = functools.partial(sdpa_kernel, [be])
     times = {}
     for name, ctx in ctxs.items():
@@ -609,12 +781,13 @@ def fastest(times: dict):
     return name, times[name]
 
 
-def library_row(call) -> dict:
-    """``library_ms`` of the fastest SDPA backend for ``call`` (None
-    without one), the backend's name and every backend's time."""
+def library_row(call, scores=None) -> dict:
+    """``library_ms`` of the fastest SDPA backend for ``call`` on
+    ``scores`` (None without one), the backend's name and every backend's
+    time."""
     if call is None:
         return {"library_ms": None}
-    times = sdpa_ms(call)
+    times = sdpa_ms(call, scores)
     name, ms = fastest(times)
     return {"library_ms": ms, "library": f"SDPA ({name})",
             "library_ms_by_backend": times}
@@ -731,6 +904,8 @@ def train_kernel_rows(A, g, label, b, lq, lk, c, heads,
             n, kw = f"template {n}".strip(), dict(kw, route="template")
         fwd_routes[n] = kw
     fwds = {n: functools.partial(fwd_fn, **kw) for n, kw in fwd_routes.items()}
+    chunked = functools.partial(by_rows, b=b, heads=heads, lq=lq, lk=lk)
+    fns = {n: chunked(f) if "plain" in n else f for n, f in fns.items()}
     o_want, lse_want = fns["lse_plain"](q, k, v, heads)
     checks = {fwd_kern: {}, names["dq"]: {}, names["dkv"]: {}}
     # lse is float32 on both sides; online softmax with exp2 and another
@@ -774,8 +949,8 @@ def train_kernel_rows(A, g, label, b, lq, lk, c, heads,
             if backward else out
 
     # under grad SDPA's forward keeps its logsumexp (or, in MATH, P)
-    lib_fwd_by = sdpa_ms(lambda: lib_step(False), 10)
-    lib_step_by = sdpa_ms(lambda: lib_step(True), 10)
+    lib_fwd_by = sdpa_ms(lambda: lib_step(False), (b, heads, lq, lk), 10)
+    lib_step_by = sdpa_ms(lambda: lib_step(True), (b, heads, lq, lk), 10)
     lib_bwd_by = {n: lib_step_by[n] - lib_fwd_by[n] for n in lib_step_by
                   if n in lib_fwd_by}
     del qr, kr, vr
@@ -909,8 +1084,9 @@ def phase_kernels():
                                                          route="template")
             else:
                 variants[""] = ring
-            plain = lambda: A.attention_packed_neighbors_plain(
-                q, k, v, heads, n_cam)
+            plain = lambda: by_rows(A.attention_packed_neighbors_plain, b,
+                                    heads, lq, lk, n_cam)(q, k, v, heads,
+                                                          n_cam)
             library = None  # no single PyTorch call computes the ring sum
             stacked = stacked_sdpa_call(q, k, v, heads, n_cam)
             flops *= 2
@@ -922,7 +1098,8 @@ def phase_kernels():
                                                          route="template")
             else:
                 variants[""] = lambda: fl["fwd"](q, k, v, heads)
-            plain = lambda: fl["plain"](q, k, v, heads)
+            plain = lambda: by_rows(fl["plain"], b, heads, lq, lk)(
+                q, k, v, heads)
             extra["einsum_ms"] = cuda_ms(lambda: A.mha_einsum(
                 *(t.view(b, t.shape[1], heads, d) for t in (q, k, v))), 5)
         elif kern == "packed_attention_capped_fwd":
@@ -933,15 +1110,18 @@ def phase_kernels():
                 variants[f"template {w} warps" if sm90 else f"{w} warps"] = \
                     functools.partial(A.packed_attention_capped_fwd, q, k, v,
                                       heads, warps=w, route="template")
-            plain = lambda: A.attention_packed_capped_plain(q, k, v, heads)
+            plain = lambda: by_rows(A.attention_packed_capped_plain, b,
+                                    heads, lq, lk)(q, k, v, heads)
         elif sm90:
             variants["sm90"] = lambda: A.packed_attention_fwd(q, k, v, heads)
             variants["template"] = lambda: A.packed_attention_fwd(
                 q, k, v, heads, route="template")
-            plain = lambda: A.attention_packed_plain(q, k, v, heads)
+            plain = lambda: by_rows(A.attention_packed_plain, b, heads, lq,
+                                    lk)(q, k, v, heads)
         else:
             variants[""] = lambda: A.packed_attention_fwd(q, k, v, heads)
-            plain = lambda: A.attention_packed_plain(q, k, v, heads)
+            plain = lambda: by_rows(A.attention_packed_plain, b, heads, lq,
+                                    lk)(q, k, v, heads)
         want = plain()
         # bf16 output: one rounding of |o| <= max|v| is 2^-8 relative; the
         # kernel also rounds P to bf16 for the P.V product (2^-9 relative
@@ -956,7 +1136,7 @@ def phase_kernels():
         if stacked is not None:
             # the yardstick's own error, recorded (it gates nothing)
             extra["stacked_sdpa_max_abs_err"] = _max_err(stacked(), want)
-            by_backend = sdpa_ms(stacked)
+            by_backend = sdpa_ms(stacked, (2 * b, heads, lq, lk))
             name, ms = fastest(by_backend)
             extra.update(stacked_sdpa_ms=ms,
                          stacked_sdpa=f"_nbr_stacked gather + SDPA ({name}) "
@@ -979,7 +1159,7 @@ def phase_kernels():
             "max_abs_err": max(errs[n] for n in own), "tol": tol,
             "kernel_ms": times[own[0]],
             "plain_ms": cuda_ms(plain, 3),
-            **library_row(library),
+            **library_row(library, (b, heads, lq, lk)),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "exp_floor_ms": exp_floor_ms, **extra,
         }
@@ -1005,12 +1185,14 @@ def phase_kernels():
 
 
 def _flagship(device, tiny=False, extra=(), weights_from=None,
-              video=False, name=None):
+              video=False, name=None, loader=False):
     """(cfg, collated batch, pipeline) with seeded random weights, or the
     weights of the models in ``weights_from``; the flagship config, or
-    ``name``.  The batch: B=2 synthetic samples; with ``video``, clip 0 of
-    ``bench.py::main_video``'s seed-0 synthetic clips (``video.num_frames``
-    frames), collated as it collates them."""
+    ``name``.  With ``loader`` the UNet's, VAE's and CLIP's weights come
+    through the checkpoint loader (``load_sd15_shaped``).  The batch: B=2
+    synthetic samples; with ``video``, clip 0 of ``bench.py::main_video``'s
+    seed-0 synthetic clips (``video.num_frames`` frames), collated as it
+    collates them."""
     import numpy as np
 
     from dualdiff_tpu_torch.data.collate import collate_fn
@@ -1049,33 +1231,119 @@ def _flagship(device, tiny=False, extra=(), weights_from=None,
         src = [weights_from[k] for k in names] + weights_from["controlnets"]
         for m, m_src in zip(mods, src):
             m.load_state_dict(m_src.state_dict(), strict=True)
+    if loader:
+        log(json.dumps({"phase": f"{_tag(cfg)} checkpoint loader",
+                        **load_sd15_shaped(cfg, models, SEED + 1)}))
     return cfg, batch, BEVControlNetPipeline(cfg, models, device=device)
 
 
-def phase_generate(profile_dir, name=None):
+def _tag(cfg) -> str:
+    """The phase tag of a config: "" for the flagship at 224x400,
+    ``fusionp`` for ``occ_bg_fusionp``, ``hd_<h>x<w>`` at HD."""
+    h, w = cfg.dataset.image_size
+    if cfg.model.controlnet.use_txt_con_fusionp:
+        return "fusionp"
+    return "" if (h, w) == (224, 400) else f"hd_{h}x{w}"
+
+
+def _named(tag: str, what: str) -> str:
+    return f"{tag}_{what}" if tag else what
+
+
+def load_sd15_shaped(cfg, models, seed: int) -> dict:
+    """The UNet's, VAE's and CLIP's weights through the port's checkpoint
+    loader, as from a released SD v1.5 checkpoint: a second model set,
+    seeded with ``seed``, on the same device; its state dicts renamed to
+    such a checkpoint's names (the UNet's SD v1.5 keys alone, without the
+    multiview leaves SD v1.5 lacks; the VAE in the legacy attention names
+    of the hub's SD v1.5 dump; CLIP with ``position_ids``) and loaded in
+    memory with ``load_pretrained``.  Checks that every loaded tensor
+    equals its source bit for bit and that the tensors not loaded are
+    exactly the UNet's multiview leaves.  -> {component: {"src_keys",
+    "missing"}}."""
+    from dualdiff_tpu_torch.runner.factory import (build_models,
+                                                   randomize_weights)
+    from dualdiff_tpu_torch.runner.sd15_keys import sd15_unet_keys
+    from dualdiff_tpu_torch.runner.weights import (LEGACY_VAE_NAMES,
+                                                   MULTIVIEW_MODULES,
+                                                   load_pretrained)
+
+    dev = next(models["unet"].parameters()).device
+    src = build_models(cfg, device=dev)
+    report = {}
+    for key, kind in (("unet", "unet"), ("vae", "vae"),
+                      ("text_encoder", "clip")):
+        randomize_weights(src[key], seed)
+        want = src[key].state_dict()
+        if kind == "unet":
+            sd = {k: want[k] for k in sd15_unet_keys()}
+        elif kind == "vae":
+            sd = {}
+            for k, v in want.items():
+                for old, new in LEGACY_VAE_NAMES.items():
+                    k = k.replace(f"attentions.0.{new}.",
+                                  f"attentions.0.{old}.")
+                sd[k] = v
+        else:
+            sd = dict(want, **{"text_model.embeddings.position_ids":
+                               torch.arange(77, device=dev)[None]})
+        missing = load_pretrained(models[key], sd, kind)
+        got = models[key].state_dict()
+        multiview = sorted(k for k in got if any(
+            f".{m}." in k for m in MULTIVIEW_MODULES))
+        if missing != (multiview if kind == "unet" else []):
+            raise AssertionError(f"{key}: not loaded {missing[:5]} "
+                                 f"({len(missing)})")
+        differ = [k for k in want if k not in missing
+                  and not torch.equal(got[k], want[k])]
+        if differ:
+            raise AssertionError(f"{key}: loaded tensors differ from the "
+                                 f"checkpoint: {differ[:5]}")
+        report[key] = {"src_keys": len(sd), "missing": len(missing)}
+    del src
+    return report
+
+
+def model_levels(unet, latent_hw) -> list:
+    """``attention_levels`` of a built UNet (its block widths and head
+    count) at latent size ``latent_hw``."""
+    heads = unet.down_blocks[0].attentions[0].transformer_blocks[0] \
+        .attn1.heads
+    return attention_levels(latent_hw, unet.block_out_channels, heads)
+
+
+def phase_generate(profile_dir, name=None, timed_calls=TIMED_GENERATIONS,
+                   loader=False):
     """Image generation at full SD v1.5 width, B=2 x 6 views: the flagship
     (phase 4), or the config ``name`` (``occ_bg_fusionp`` in phase
-    ``fusionp``).  One warm-up call, then timed calls, each checked for
+    ``fusionp``, the HD geometries in phase ``hd``, there with ``loader``:
+    the UNet, VAE and CLIP weights through the checkpoint loader).  One
+    warm-up call, then ``timed_calls`` timed calls, each checked for
     shape, finiteness, range and the kernels' launches per generation
-    (``generate_launches_per_generation``)."""
+    (``generate_launches_per_generation``, per latent level; the calls
+    outside ``sm90_in_scope``, HD's d = 80 level, on the templates).
+    -> (launches of the last call, those of them on the templates)."""
     from dualdiff_tpu_torch.ops import attention as A
 
     t0 = time.perf_counter()
-    cfg, batch, pipe = _flagship("cuda", name=name)
+    cfg, batch, pipe = _flagship("cuda", name=name, loader=loader)
     torch.cuda.synchronize()
     log(f"# models built and cast in {time.perf_counter() - t0:.1f} s")
     steps = int(cfg.runner.pipeline_param.num_inference_steps)
     h, w = cfg.dataset.image_size
     lh, lw = h // 8, w // 8
     models = pipe.models
-    fusionp = bool(cfg.model.controlnet.use_txt_con_fusionp)
-    expect = generate_launches_per_generation(
+    tag = _tag(cfg)
+    levels = model_levels(models["unet"], (lh, lw))
+    derive = functools.partial(
+        generate_launches_per_generation,
         len(models["unet"].down_blocks[0].resnets), len(models["controlnets"]),
-        steps, fusionp, lh * lw)
+        steps, levels, fusionp=tag == "fusionp")
+    expect, template = derive(), derive(template_only=True)
     gen = torch.Generator(device="cuda")
     times, counts = [], None
     torch.cuda.reset_peak_memory_stats()
-    for i in range(1 + TIMED_GENERATIONS):
+    for i in range(1 + timed_calls):
         gen.manual_seed(SEED + i)
         A.reset_launch_counts()
         torch.cuda.synchronize()
@@ -1086,7 +1354,7 @@ def phase_generate(profile_dir, name=None):
         counts = launch_counts(A)
         if _wrappers(counts) != expect:
             raise AssertionError(f"kernel launches {counts} != {expect}")
-        check_sm90_launches(counts)
+        check_sm90_launches(counts, template)
         if tuple(out.shape) != (B, N_CAM, h, w, 3):
             raise AssertionError(f"output shape {tuple(out.shape)}")
         if not torch.isfinite(out).all():
@@ -1099,26 +1367,27 @@ def phase_generate(profile_dir, name=None):
         if i:
             times.append(dt)
     s = sorted(times)[len(times) // 2]
-    row = {"phase": "fusionp generate" if fusionp else "generate",
+    row = {"phase": f"{tag} generate".strip(),
            "config": f"{cfg.task_id} {h}x{w}",
            "batch": B, "views": N_CAM, "steps": steps, "cfg_scale": float(
                cfg.runner.pipeline_param.guidance_scale),
-           "latent_hw": [lh, lw], "s_per_generation": s,
+           "latent_hw": [lh, lw], "levels": levels, "s_per_generation": s,
            "s_per_generation_all": times, "samples_per_s": B / s,
            "images_per_s": B * N_CAM / s,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-           "launches_per_generation": counts}
+           "launches_per_generation": counts,
+           "template_launches_per_generation": template}
     log(json.dumps(row))
-    if fusionp:
-        log(f"fusionp s/generation: {s}")
-        log(f"fusionp images/s: {B * N_CAM / s}")
+    if tag:
+        log(f"{tag} s/generation: {s}")
+        log(f"{tag} images/s: {B * N_CAM / s}")
     if profile_dir:
         gen.manual_seed(SEED)
         profile_run(lambda: pipe(batch, generator=gen), s, profile_dir,
-                    "fusionp_generation" if fusionp else "generation")
+                    _named(tag, "generation"))
     del pipe
     torch.cuda.empty_cache()
-    return counts
+    return counts, template
 
 
 _CATEGORIES = (  # kernel-name fragment -> category, first match wins
@@ -1230,8 +1499,9 @@ def phase_reference(video=False, fusionp=False):
         raise AssertionError("bf16 generation on the card disagrees with the "
                              "float32 CPU reference")
     # the tiny SFA+ stage 2 (d = 4) is outside the sm90 kernel's scope
-    check_sm90_launches(row["launches"], ("flash_attention_fwd",) if fusionp
-                        else ())
+    check_sm90_launches(row["launches"], {
+        "flash_attention_fwd": row["launches"]["flash_attention_fwd"]}
+        if fusionp else None)
     must = ("packed_attention_fwd", SM90, "packed_attention_nbr_fwd",
             SM90_NBR) + (("flash_attention_fwd",) if fusionp else ())
     if not all(row["launches"][k] > 0 for k in must):
@@ -1316,16 +1586,20 @@ def _train_batch(cfg, n: int):
                              seed=int(cfg.seed))
 
 
-def phase_train(profile_dir, name=None):
+def phase_train(profile_dir, name=None, timed_steps=TIMED_TRAIN_STEPS):
     """The flagship training step (or that of the config ``name``:
-    ``occ_bg_fusionp`` in phase ``fusionp``) at full SD v1.5 width: seeded
-    random weights, B = 1 x 6 views, bf16, remat on, AdamW with a bf16
-    first moment and the warmup-cosine schedule; one warm-up step, then
-    timed steps.  Checks finite loss and grad_norm > 0 every step, the kernels'
-    launches per step, and that the trainables (float32 master copies)
-    moved while every frozen parameter stayed as it was.  The learning rate
-    of step 0 is exactly 0 (warmup from 0), so the comparison starts after
-    step 1."""
+    ``occ_bg_fusionp`` in phase ``fusionp``, the HD geometries in phase
+    ``hd``) at full SD v1.5 width: seeded random weights, B = 1 x 6 views,
+    bf16, remat on, AdamW with a bf16 first moment and the warmup-cosine
+    schedule; one warm-up step, then ``timed_steps`` timed steps.  Checks
+    finite loss and grad_norm > 0 every step, the kernels' launches per
+    step (``train_launches_per_step``, per latent level; the calls outside
+    ``sm90_in_scope`` on the templates), and that the trainables (float32
+    master copies) moved while every frozen parameter stayed as it was.
+    The learning rate of step 0 is exactly 0 (warmup from 0), so the
+    comparison starts after step 1.  -> {"run": the run's launches,
+    "step": one step's, "run_template", "step_template": those of them on
+    the templates}."""
     from dualdiff_tpu_torch.ops import attention as A
     from dualdiff_tpu_torch.runner.factory import (build_models,
                                                    randomize_weights)
@@ -1338,7 +1612,7 @@ def phase_train(profile_dir, name=None):
     for m in (models["unet"], models["vae"], models["text_encoder"],
               *models["controlnets"]):
         randomize_weights(m, SEED)
-    n_steps = 1 + TIMED_TRAIN_STEPS
+    n_steps = 1 + timed_steps
     trainer = MultiviewTrainer(cfg, _train_batch(cfg, n_steps + 2),
                                models=models)
     torch.cuda.synchronize()
@@ -1349,12 +1623,14 @@ def phase_train(profile_dir, name=None):
         f"frozen parameters")
     layers = len(models["unet"].down_blocks[0].resnets)
     h, w = cfg.dataset.image_size
-    fusionp = bool(cfg.model.controlnet.use_txt_con_fusionp)
-    expect = train_launches_per_step(
-        layers, len(models["controlnets"]),
+    tag = _tag(cfg)
+    derive = functools.partial(
+        train_launches_per_step, layers, len(models["controlnets"]),
         bool(cfg.runner.enable_unet_checkpointing)
-        and bool(cfg.runner.enable_controlnet_checkpointing), fusionp,
-        (h // 8) * (w // 8))
+        and bool(cfg.runner.enable_controlnet_checkpointing),
+        model_levels(models["unet"], (h // 8, w // 8)),
+        fusionp=tag == "fusionp")
+    expect, template = derive(), derive(template_only=True)
     steps, snap = [], {}
     run_counts = dict.fromkeys(launch_counts(A), 0)
 
@@ -1370,7 +1646,7 @@ def phase_train(profile_dir, name=None):
             f"{m['data_time_s']:.3f} s)")
         if _wrappers(counts) != expect:
             raise AssertionError(f"kernel launches {counts} != {expect}")
-        check_sm90_launches(counts)
+        check_sm90_launches(counts, template)
         if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
                 and m["grad_norm"] > 0):
             raise AssertionError(f"step {step}: loss {m['loss']}, grad_norm "
@@ -1402,7 +1678,7 @@ def phase_train(profile_dir, name=None):
     times = [m["step_time_s"] for m in steps[1:]]
     s = sorted(times)[len(times) // 2]
     data = sorted(m["data_time_s"] for m in steps[1:])[len(times) // 2]
-    row = {"phase": "fusionp train" if fusionp else "train",
+    row = {"phase": f"{tag} train".strip(),
            "config": f"{cfg.task_id} {h}x{w}",
            "batch": B_TRAIN, "views": N_CAM, "steps": n_steps,
            "s_per_step": s, "s_per_step_all": times,
@@ -1418,11 +1694,12 @@ def phase_train(profile_dir, name=None):
            "trainable_tensors_without_grad": sorted(set(opt.master)
                                                     - got_grad),
            "frozen_tensors_changed": len(frozen_changed),
-           "launches_per_step": expect, "launches_run": run_counts}
+           "launches_per_step": expect, "launches_run": run_counts,
+           "template_launches_per_step": template}
     log(json.dumps(row))
-    if fusionp:
-        log(f"fusionp s/step: {s}")
-        log(f"fusionp train images/s: {B_TRAIN * N_CAM / s}")
+    if tag:
+        log(f"{tag} s/step: {s}")
+        log(f"{tag} train images/s: {B_TRAIN * N_CAM / s}")
     if frozen_changed:
         raise AssertionError(f"frozen parameters changed: "
                              f"{frozen_changed[:5]}")
@@ -1438,10 +1715,11 @@ def phase_train(profile_dir, name=None):
     if profile_dir:
         batch = trainer._build_batch(next(trainer._batch_plan(0)))
         profile_run(lambda: trainer.train_step(batch), s, profile_dir,
-                    "fusionp_train_step" if fusionp else "train_step")
+                    _named(tag, "train_step"))
     del trainer, models, snap
     torch.cuda.empty_cache()
-    return run_counts, expect
+    return {"run": run_counts, "step": expect, "step_template": template,
+            "run_template": {k: v * n_steps for k, v in template.items()}}
 
 
 def _trainable_grads(models) -> dict:
@@ -1599,11 +1877,11 @@ def train_reference_readings(device: str = "cuda", video: bool = False,
                     "leaf_floor": LEAF_FLOOR}, "leaf_rel_err": errs}
 
 
-def _reference_gate(row: dict, kernels, out_of_scope=()) -> None:
+def _reference_gate(row: dict, kernels, out_of_scope=None) -> None:
     """The loss within ``LOSS_REL_TOL`` relative, every trainable leaf's
     gradient within ``LEAF_TOL``, each of ``kernels`` launched and every
-    in-scope call of an sm90-routed wrapper (all but ``out_of_scope``'s)
-    on its sm90 kernel."""
+    in-scope call of an sm90-routed wrapper (every call but the
+    ``out_of_scope`` ones, {wrapper: calls}) on its sm90 kernel."""
     errs = row.pop("leaf_rel_err")
     log(json.dumps(row))
     if not row["loss_rel_err"] <= LOSS_REL_TOL:
@@ -1641,11 +1919,50 @@ def phase_fusionp(profile_dir):
     per step)."""
     from dualdiff_tpu_torch.utils.config import FUSIONP
 
-    counts = {"fusionp": timed("fusionp generate", phase_generate,
-                               profile_dir, FUSIONP)}
-    counts["fusionp_train"], per_step = timed("fusionp train", phase_train,
-                                              profile_dir, FUSIONP)
-    return counts, per_step
+    gen = timed("fusionp generate", phase_generate, profile_dir, FUSIONP)
+    train = timed("fusionp train", phase_train, profile_dir, FUSIONP)
+    return {"fusionp": ("occ_bg_fusionp generation", *gen),
+            "fusionp_train": (f"occ_bg_fusionp training run of "
+                              f"{1 + TIMED_TRAIN_STEPS} steps", train["run"],
+                              train["run_template"])}, \
+        {"occ_bg_fusionp": (train["step"], train["step_template"])}
+
+
+def phase_hd(profile_dir):
+    """HD at full SD v1.5 width (phase ``hd``): ``bench.py``'s
+    ``BENCH_OVERLAY`` geometries (``configs/exp-hd/256x704.yaml`` and
+    ``432x768.yaml``, the flagship otherwise).  For each: phase 4's
+    generation (``TIMED_HD_GENERATIONS`` timed calls) with the UNet's,
+    VAE's and CLIP's weights through the checkpoint loader
+    (``load_sd15_shaped``), and phase 6's training step
+    (``TIMED_HD_TRAIN_STEPS`` timed steps), each with its launches derived
+    per latent level: the top level (2816 / 5184 tokens, d = 40) over
+    ``T_SCORE_CAP`` on the capped routes and the sm90 kernels, the second
+    (704 / 1296 tokens, d = 80) on the templates.  A run that does not fit
+    in the card's memory fails the phase and says so."""
+    from dualdiff_tpu_torch.utils.config import HD_256X704, HD_432X768
+
+    paths, per_step = {}, {}
+    for name in (HD_256X704, HD_432X768):
+        geom = name.rsplit("_", 1)[1]
+        tag = f"hd_{geom}"
+        try:
+            gen = timed(f"{tag} generate", phase_generate, profile_dir, name,
+                        TIMED_HD_GENERATIONS, True)
+            train = timed(f"{tag} train", phase_train, profile_dir, name,
+                          TIMED_HD_TRAIN_STEPS)
+        except torch.OutOfMemoryError:
+            total = torch.cuda.get_device_properties(0).total_memory
+            log(f"# {tag}: out of the card's memory ({total / 2 ** 30:.1f} "
+                f"GiB; peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
+                f" GiB): phase hd fails, nothing is cut to fit")
+            raise
+        paths[tag] = (f"{geom} generation", *gen)
+        paths[f"{tag}_train"] = (f"{geom} training run of "
+                                 f"{1 + TIMED_HD_TRAIN_STEPS} steps",
+                                 train["run"], train["run_template"])
+        per_step[geom] = (train["step"], train["step_template"])
+    return paths, per_step
 
 
 def phase_fusionp_reference():
@@ -1654,13 +1971,14 @@ def phase_fusionp_reference():
     1400) and phase 7's training gate, the SFA+ leaves included, at 256x128
     with ``FLASH_MIN_LEN`` lowered to 512 (``train_reference_readings``)."""
     phase_reference(fusionp=True)
-    # the tiny SFA+ stage 2 (d = 4) is outside the sm90 kernels' scope
-    _reference_gate(train_reference_readings(fusionp=True), (
-        "flash_attention_lse_fwd", "flash_attention_bwd_dq",
-        "flash_attention_bwd_dkv", "packed_attention_lse_fwd", SM90_LSE,
-        SM90_DQ, SM90_DKV), ("flash_attention_lse_fwd",
-                             "flash_attention_bwd_dq",
-                             "flash_attention_bwd_dkv"))
+    # the tiny SFA+ stage 2 (d = 4) is outside the sm90 kernels' scope:
+    # every call of the split-layout training wrappers
+    split = ("flash_attention_lse_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
+    row = train_reference_readings(fusionp=True)
+    _reference_gate(row, split + (
+        "packed_attention_lse_fwd", SM90_LSE, SM90_DQ, SM90_DKV),
+        {k: row["launches"][k] for k in split})
 
 
 def phase_video_train(profile_dir):
@@ -1819,53 +2137,43 @@ KERNEL_PATH = {"packed_attention_fwd": "generate",
                "flash_attention_bwd_dkv": "fusionp_train"}
 
 
-def kernels_line(results, path_counts, train_per_step, video_per_step,
-                 fusionp_per_step):
+def kernels_line(results, paths, per_step):
     """One entry per kernel: its main-path shape's times and the launches
-    of the path it serves, with their unit: one generation for the flagship
-    inference kernels, one clip for the capped kernel, the whole training
-    run for the training kernels, both stages' video training runs for the
-    capped training forward (whose counts per step, checked on every step,
-    are beside them), one ``occ_bg_fusionp`` generation for the split-layout
-    forward and its training run for the split-layout training kernels.
+    of the path it serves (``KERNEL_PATH``), with their unit, and its
+    launches on every path and in one step of every training path.
+    ``paths``: {path: (unit, launches, those of them on the templates)};
+    ``per_step``: {training path: (launches of one step, those on the
+    templates)}.  The units: one generation for the flagship inference
+    kernels, one clip for the capped kernel, the whole training run for
+    the training kernels, both stages' video training runs for the capped
+    training forward, one ``occ_bg_fusionp`` generation for the
+    split-layout forward and its training run for the split-layout
+    training kernels.
 
-    Each sm90 kernel (the forward, the forward with lse and the
+    Each sm90 kernel (the forward, the forward with lse, the ring and the
     backward's two) has one entry per TPU kernel it replaces, named
-    ``<sm90 kernel>:<wrapper>``: the launches of that wrapper on its path,
-    all of which took the sm90 kernel (``check_sm90_launches`` held
-    there), and its times at that wrapper's main-path shape.  Those
+    ``<sm90 kernel>:<wrapper>``: the launches of that wrapper that took the
+    sm90 kernel (``check_sm90_launches`` held on every path; all of them
+    at 224x400), and its times at that wrapper's main-path shape.  Those
     wrappers' own entries are the template instances of ``attention.cu``
-    and ``attention_train.cu``:
-    their times are the template's at the same shapes, and their launches
-    the template's on the path, none at 224x400."""
-    units = {"generate": "generation",
-             "train": f"training run of {1 + TIMED_TRAIN_STEPS} steps",
-             "video": "clip",
-             "video_train": f"video training runs of "
-                            f"{1 + TIMED_VIDEO_TRAIN_STEPS} steps, stage 1 "
-                            f"and stage 2",
-             "fusionp": "occ_bg_fusionp generation",
-             "fusionp_train": f"occ_bg_fusionp training run of "
-                              f"{1 + TIMED_TRAIN_STEPS} steps"}
-    counts = dict(path_counts)
-    stages = counts.pop("video_train")
-    counts["video_train"] = {k: sum(c[k] for c in stages.values())
-                             for k in next(iter(stages.values()))}
-    for c in counts.values():
-        check_sm90_launches(c)
+    and ``attention_train.cu``: their times are the template's at the same
+    shapes, and their launches the template's (HD's d = 80 level; none at
+    224x400)."""
+    for _, c, t in paths.values():
+        check_sm90_launches(c, t)
 
-    def entry(name, source, replaces, rows, path, launches_of):
+    def entry(name, source, replaces, rows, kern, template):
         main = rows[0]  # the dominant main-path shape
+        of = (lambda c, t: t.get(kern, 0)) if template \
+            else (lambda c, t: c[kern] - t.get(kern, 0))
+        unit, c, t = paths[KERNEL_PATH[kern]]
         e = {
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches_of(counts[path]),
-            "launches_per": units[path],
-            "launches_by_path": {units[p]: launches_of(c)
-                                 for p, c in counts.items()},
-            "launches_per_train_step": launches_of(train_per_step),
-            "launches_per_video_train_step": {
-                st: launches_of(c) for st, c in video_per_step.items()},
-            "launches_per_fusionp_train_step": launches_of(fusionp_per_step),
+            "replaces": replaces, "launches": of(c, t),
+            "launches_per": unit,
+            "launches_by_path": {u: of(c, t) for u, c, t in paths.values()},
+            "launches_per_train_step": {p: of(c, t) for p, (c, t)
+                                        in per_step.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -1882,23 +2190,16 @@ def kernels_line(results, path_counts, train_per_step, video_per_step,
     for kern, rows in results.items():
         if kern in SM90_ROUTES:
             continue
-        path = KERNEL_PATH[kern]
-        calls = lambda c, kern=kern: c[kern]  # noqa: E731
         sm90 = _sm90_kernel_of(kern)
-        if sm90 is None:
-            out.append(entry(kern, SOURCE[kern], REPLACES[kern], rows, path,
-                             calls))
-            continue
-        # every call of the wrapper took the sm90 kernel
-        out.append(entry(kern, SOURCE[kern], REPLACES[kern], rows, path,
-                         lambda c: 0))
+        out.append(entry(kern, SOURCE[kern], REPLACES[kern], rows, kern,
+                         True))
         out[-1]["routed_to"] = f"{sm90}:{kern}"
         out.append(entry(f"{sm90}:{kern}", SM90_ROUTES[sm90][1],
                          SM90_REPLACES[kern],
                          [r for r in results[sm90] if r["wrapper"] == kern],
-                         path, calls))
-        out[-1]["sm90_launches_by_path"] = {units[p]: c[sm90]
-                                            for p, c in counts.items()}
+                         kern, False))
+        out[-1]["sm90_launches_by_path"] = {u: c[sm90]
+                                            for u, c, _ in paths.values()}
     return {"kernels": out}
 
 
@@ -1916,23 +2217,35 @@ def main() -> int:
     # what phase 3 leaves allocated sits under every later phase's peak
     log(f"# allocated after phase 3: "
         f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB")
-    counts = {"generate": timed("generate", phase_generate, profile_dir)}
+    # path -> (unit, launches, those on the templates); training path ->
+    # (launches of one step, those on the templates)
+    paths, per_step = {}, {}
+    paths["generate"] = ("generation", *timed("generate", phase_generate,
+                                              profile_dir))
     timed("reference", phase_reference)
-    counts["train"], train_per_step = timed("train", phase_train,
-                                            profile_dir)
+    train = timed("train", phase_train, profile_dir)
+    paths["train"] = (f"training run of {1 + TIMED_TRAIN_STEPS} steps",
+                      train["run"], train["run_template"])
+    per_step["flagship"] = (train["step"], train["step_template"])
     timed("train_reference", phase_train_reference)
-    counts["video"] = timed("video", phase_video, profile_dir)
+    paths["video"] = ("clip", timed("video", phase_video, profile_dir), {})
     timed("video_reference", phase_reference, video=True)
-    counts["video_train"], video_per_step = timed(
-        "video_train", phase_video_train, profile_dir)
+    stages, stage_step = timed("video_train", phase_video_train, profile_dir)
+    paths["video_train"] = (
+        f"video training runs of {1 + TIMED_VIDEO_TRAIN_STEPS} steps, stage "
+        f"1 and stage 2", {k: sum(c[k] for c in stages.values())
+                           for k in next(iter(stages.values()))}, {})
+    per_step.update({f"video {st}": (c, {}) for st, c in stage_step.items()})
     timed("video_train_reference", phase_video_train_reference)
-    fusionp_counts, fusionp_per_step = timed("fusionp", phase_fusionp,
-                                             profile_dir)
-    counts.update(fusionp_counts)
+    more_paths, more_steps = timed("fusionp", phase_fusionp, profile_dir)
+    paths.update(more_paths)
+    per_step.update(more_steps)
     timed("fusionp_reference", phase_fusionp_reference)
+    more_paths, more_steps = timed("hd", phase_hd, profile_dir)
+    paths.update(more_paths)
+    per_step.update(more_steps)
     log(f"# all phases: {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps(kernels_line(results, counts, train_per_step,
-                                  video_per_step, fusionp_per_step)))
+    print(json.dumps(kernels_line(results, paths, per_step)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

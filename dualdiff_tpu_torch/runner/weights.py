@@ -1,4 +1,7 @@
-"""JAX param trees -> the port's ``state_dict``.
+"""Weights for the port's modules: JAX param trees, and released
+diffusers / transformers checkpoints.
+
+JAX param trees -> the port's ``state_dict`` (``from_jax``):
 
 The port's parameter names are the diffusers / transformers names that the
 JAX package's exporter (``dualdiff_tpu/runner/weight_import.py``,
@@ -16,19 +19,32 @@ attention's output projection, which the exporter names
 projection itself).  The adapters of ``to_q``, ``to_k`` and ``to_v`` keep
 the exporter's ``to_q_lora_a`` etc.
 
-A diffusers SD v1.5 checkpoint carries the same names, so it loads into the
-same modules.
+Released checkpoints (the import side of the JAX package's
+``runner/weight_import.py`` and ``tools/import_weights.py``): a diffusers
+SD v1.5 checkpoint carries the port's names, with two exceptions that
+``from_diffusers`` maps: the legacy VAE attention names of pre-0.15
+diffusers dumps (the original SD v1.5 VAE on the hub) and the CLIP
+``position_ids`` buffer of older transformers dumps, which is dropped.
+``read_checkpoint`` reads ``.safetensors`` (with no ``safetensors``
+package) and ``.bin`` / ``.pt`` files; ``load_pretrained`` loads one state
+dict into a module by the JAX ``merge_imported``'s rules, and
+``load_pretrained_dir`` a diffusers-layout directory into a model set.
 """
 
 from __future__ import annotations
 
+import glob
+import json
+import os
 import re
-from typing import Dict, Mapping, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["from_jax", "NOT_PORTED"]
+__all__ = ["from_jax", "NOT_PORTED", "MULTIVIEW_MODULES", "LEGACY_VAE_NAMES",
+           "from_diffusers", "read_checkpoint", "load_pretrained",
+           "load_pretrained_dir"]
 
 _LISTY = (
     "resnets", "attentions", "transformer_blocks", "down_blocks", "up_blocks",
@@ -94,3 +110,143 @@ def from_jax(flat: Mapping[str, np.ndarray],
         if not name.startswith(skip):
             out[name] = torch.from_numpy(np.array(v))
     return out
+
+
+# the modules DualDiff adds to each transformer block of SD v1.5's UNet
+# (the camera-ring attention and its zero-init connector): an SD v1.5
+# checkpoint holds none of their leaves, which keep the module's init
+MULTIVIEW_MODULES = ("attn4", "norm4", "connector")
+# legacy -> current names of the VAE's mid-block attention (diffusers
+# renamed them in its 0.15 attention refactor; weight_import.py:120-123)
+LEGACY_VAE_NAMES = {"query": "to_q", "key": "to_k", "value": "to_v",
+                    "proj_attn": "to_out.0"}
+_KINDS = ("unet", "controlnet", "vae", "clip")
+# safetensors dtype names -> torch dtypes, those SD checkpoints use
+_SAFETENSORS_DTYPES = {"F32": torch.float32, "F16": torch.float16,
+                       "BF16": torch.bfloat16, "I64": torch.int64}
+
+
+def from_diffusers(state_dict: Mapping[str, torch.Tensor],
+                   kind: str) -> Dict[str, torch.Tensor]:
+    """A diffusers / transformers state dict -> the port's names; ``kind``
+    in {unet, controlnet, vae, clip}.  The VAE's legacy attention names
+    (``LEGACY_VAE_NAMES``) become the current ones; CLIP's
+    ``position_ids`` buffer is dropped (``weight_import.py:147``); the
+    JAX exporter's ``to_out.0_lora_*`` adapters become ``to_out_0_lora_*``
+    (see above).  UNet and ControlNet names are otherwise the port's own:
+    the ControlNet's ``bbox_embedder._class_tokens`` and
+    ``uncond_cam.weight`` are the exporter's names, which the port keeps.
+    Values become tensors, unconverted."""
+    if kind not in _KINDS:
+        raise ValueError(f"unknown kind {kind!r}")
+    legacy = re.compile(r"attentions\.0\.(" + "|".join(LEGACY_VAE_NAMES)
+                        + r")\.")
+    out = {}
+    for name, value in state_dict.items():
+        if kind == "clip" and name.endswith("position_ids"):
+            continue
+        if kind == "vae":
+            name = legacy.sub(lambda m: f"attentions.0."
+                              f"{LEGACY_VAE_NAMES[m.group(1)]}.", name)
+        name = name.replace("to_out.0_lora_", "to_out_0_lora_")
+        out[name] = torch.as_tensor(value)
+    return out
+
+
+def read_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """The tensors of a checkpoint file on the CPU: ``.safetensors``
+    read here (an 8-byte little-endian header length, a JSON header of
+    ``{name: {dtype, shape, data_offsets}}``, then the raw little-endian
+    bytes; F32, F16, BF16 and I64), anything else through
+    ``torch.load(weights_only=True)``."""
+    if not path.endswith(".safetensors"):
+        return dict(torch.load(path, map_location="cpu", weights_only=True))
+    with open(path, "rb") as f:
+        n = int.from_bytes(f.read(8), "little")
+        header = json.loads(f.read(n))
+        data = bytearray(f.read())
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        dtype = _SAFETENSORS_DTYPES.get(info["dtype"])
+        if dtype is None:
+            raise ValueError(f"{path}: {name} has dtype {info['dtype']}, "
+                             f"not one of {sorted(_SAFETENSORS_DTYPES)}")
+        shape = tuple(info["shape"])
+        begin, end = info["data_offsets"]
+        numel = int(np.prod(shape, dtype=np.int64))
+        if end - begin != numel * dtype.itemsize or end > len(data):
+            raise ValueError(f"{path}: {name}'s bytes {begin}:{end} do not "
+                             f"hold {shape} {info['dtype']}")
+        out[name] = torch.frombuffer(data, dtype=dtype, count=numel,
+                                     offset=begin).reshape(shape) \
+            if numel else torch.empty(shape, dtype=dtype)
+    return out
+
+
+def load_pretrained(module: torch.nn.Module,
+                    state_dict: Mapping[str, torch.Tensor],
+                    kind: str) -> List[str]:
+    """Copy a diffusers / transformers state dict (``from_diffusers``'s
+    names) into ``module``, onto its own device and dtype, by the JAX
+    ``merge_imported``'s rules (``weight_import.py:215-233``): a shape
+    mismatch or a key the module lacks raises before anything is copied;
+    a module key the state dict lacks keeps the module's value.  ->
+    those missing keys (after an SD v1.5 UNet checkpoint, exactly the
+    ``MULTIVIEW_MODULES``' leaves)."""
+    src = from_diffusers(state_dict, kind)
+    own = module.state_dict()
+    unexpected = sorted(k for k in src if k not in own)
+    if unexpected:
+        raise KeyError(f"{len(unexpected)} keys the {kind} lacks: "
+                       f"{unexpected[:10]}")
+    for k, v in src.items():
+        if tuple(own[k].shape) != tuple(v.shape):
+            raise ValueError(f"shape mismatch at {k}: the {kind} has "
+                             f"{tuple(own[k].shape)}, the checkpoint "
+                             f"{tuple(v.shape)}")
+    with torch.no_grad():
+        for k, v in src.items():
+            own[k].copy_(v)
+    return sorted(k for k in own if k not in src)
+
+
+def _weights_file(sub: str) -> Optional[str]:
+    """The first ``*.safetensors``, else ``*.bin``, else ``*.pt`` file of
+    directory ``sub`` (``tools/import_weights.py::_find_weights``)."""
+    for pattern in ("*.safetensors", "*.bin", "*.pt"):
+        hits = sorted(glob.glob(os.path.join(sub, pattern)))
+        if hits:
+            return hits[0]
+    return None
+
+
+def load_pretrained_dir(models: Dict, src: str) -> Dict[str, Optional[Dict]]:
+    """Load a diffusers-layout checkpoint directory into ``build_models``'s
+    model set, as ``tools/import_weights.py`` reads it (``:40-130``):
+    ``vae/``, ``text_encoder/`` and ``unet/``, and for ControlNet ``i`` the
+    first of ``controlnet_<i>/``, ``controlnet/`` and
+    ``controlnet_bg_{1,2}/`` (branch 0, 1) that holds a weights file.  ->
+    {component: {"file", "missing", "src_keys"}, or None where no weights
+    file was found: that component keeps its weights and is reported, not
+    guessed}."""
+    jobs = [("vae", models["vae"], "vae", ["vae"]),
+            ("text_encoder", models["text_encoder"], "clip",
+             ["text_encoder"]),
+            ("unet", models["unet"], "unet", ["unet"])]
+    jobs += [(f"controlnet_{i}", cn, "controlnet",
+              [f"controlnet_{i}", "controlnet", f"controlnet_bg_{i + 1}"])
+             for i, cn in enumerate(models["controlnets"])]
+    report = {}
+    for name, module, kind, subdirs in jobs:
+        path = next(filter(None, (_weights_file(os.path.join(src, d))
+                                  for d in subdirs)), None)
+        if path is None:
+            report[name] = None
+            continue
+        sd = read_checkpoint(path)
+        missing = load_pretrained(module, sd, kind)
+        report[name] = {"file": path, "missing": missing,
+                        "src_keys": len(sd)}
+    return report

@@ -12,14 +12,18 @@ import json
 import os
 from typing import Any, Iterable
 
-__all__ = ["ConfigNode", "load_config", "FLAGSHIP", "VIDEO_16F",
-           "RGD_STAGE2", "FUSIONP"]
+__all__ = ["ConfigNode", "load_config", "FLAGSHIP", "HD_256X704",
+           "HD_432X768", "VIDEO_16F", "RGD_STAGE2", "FUSIONP"]
 
 CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)),
                           "configs")
 # +exp=dual_branch_augloss_fusion dataset=Nuscenes_synthetic
 # runner.pipeline_param.bbox_max_length=80
 FLAGSHIP = "dual_branch_augloss_fusion_224x400"
+# +exp-hd=256x704 / +exp-hd=432x768 (the flagship at HD, bench.py's
+# BENCH_OVERLAY geometries) with FLAGSHIP's other overrides
+HD_256X704 = "dual_branch_augloss_fusion_256x704"
+HD_432X768 = "dual_branch_augloss_fusion_432x768"
 # +exp=video_16f dataset=Nuscenes_synthetic
 # runner.pipeline_param.bbox_max_length=80
 # runner.pipeline_param.vae_slicing=12

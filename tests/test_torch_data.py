@@ -71,6 +71,25 @@ def test_fusionp_json_config_equals_composed_yaml():
     assert cfg.dataset.image_size == [224, 400]
 
 
+def test_sd15_key_lists_equal_the_originals():
+    """dualdiff_tpu_torch/runner/sd15_keys.py is a copy of the JAX
+    package's: the same keys and shapes for every variant."""
+    from dualdiff_tpu.runner import sd15_keys as jax_keys
+    from dualdiff_tpu_torch.runner import sd15_keys as port_keys
+
+    for fn, flags in (("sd15_unet_keys", [{}]),
+                      ("sd15_vae_keys", [{"legacy_attn": False},
+                                         {"legacy_attn": True}]),
+                      ("sd15_clip_keys", [{"with_position_ids": False},
+                                          {"with_position_ids": True}])):
+        for kw in flags:
+            want = getattr(jax_keys, fn)(**kw)
+            assert getattr(port_keys, fn)(**kw) == want, (fn, kw)
+    assert len(port_keys.sd15_unet_keys()) == 686
+    assert len(port_keys.sd15_vae_keys()) == 248
+    assert len(port_keys.sd15_clip_keys()) == 196
+
+
 def test_config_overrides():
     cfg = load_config(overrides=["runner.mixed_precision=fp32",
                                  "dataset.image_size=[256, 128]"])

@@ -4,7 +4,8 @@ Mirrors the kernel phase of ``chip_smoke.py``: bf16 inputs at the flagship
 and clip paths' shapes plus ragged ones, the training kernels also at the
 video training step's ST-Attn (12 x 1400 x 2800, capped forward), and the
 split-layout kernels at the SFA+ stage-2 shapes (24 and 6 x 1400 x 1400,
-d = 40), the tiny models' d = 4 and head dims that are not multiples of 8;
+d = 40), the tiny models' d = 4 and head dims that are not multiples of 8,
+and at HD the ring over 5184 tokens and the second level's d = 80;
 the plain version computes in float32 and rounds once.  Tolerance 2^-7 of the output's magnitude + 1e-3: the kernels
 round one MMA operand to bf16 (P for P.V and dV, dS for dQ and dK) and the
 output to bf16.  lse is float32 on both sides: 1e-3 absolute.  The camera
@@ -56,6 +57,7 @@ def _check(got, want):
     (3, 777, 333, 320, 4),      # ragged, d = 80
     (2, 513, 65, 1280, 8),      # d = 160
     (1, 64, 1, 64, 8),          # one key, d = 8
+    (6, 1296, 1296, 640, 8),    # HD 432x768's second level, d = 80
 ])
 def test_packed_attention_kernel(cuda, b, lq, lk, c, heads):
     q, k, v = _qkv(b, lq, lk, c, cuda)
@@ -69,6 +71,7 @@ def test_packed_attention_kernel(cuda, b, lq, lk, c, heads):
 @pytest.mark.parametrize("b, n_cam, l, c, heads", [
     (4, 6, 1400, 320, 8),       # attn4 on the camera ring
     (2, 3, 701, 320, 4),        # ragged, d = 80
+    (1, 6, 5184, 320, 8),       # HD 432x768's top level, one sample
 ])
 def test_neighbor_attention_kernel(cuda, b, n_cam, l, c, heads):
     """The ring wrapper: d = 40 takes the sm90 ring, HD's d = 80 stays on

@@ -164,5 +164,7 @@ def test_tiny_fusionp_pipeline_matches_jax(tiny, flash_at_512):
     tp.assert_close(got, want, 0, 2e-4)
     steps = int(cfg.runner.pipeline_param.num_inference_steps)
     assert flash_at_512 == chip_smoke.generate_launches_per_generation(
-        layers=1, n_controlnets=1, steps=steps, fusionp=True, tokens=TOKENS)
+        layers=1, n_controlnets=1, steps=steps, fusionp=True,
+        levels=chip_smoke.model_levels(tiny["pmodels"]["unet"],
+                                       (h // 8, w // 8)))
     assert flash_at_512["flash_attention_fwd"] == 1

@@ -83,7 +83,7 @@ def step():
         loss.backward()
         expect = chip_smoke.train_launches_per_step(
             layers=1, n_controlnets=1, remat=True, fusionp=True,
-            tokens=TOKENS)
+            levels=chip_smoke.model_levels(models["unet"], latent_hw))
     return {"jmetrics": jmetrics, "jgrads": jgrads, "metrics": metrics,
             "models": models, "calls": calls, "expect": expect}
 

@@ -201,18 +201,29 @@ def test_the_sm90_backward_library_is_built_like_the_others():
     assert path.startswith(cuda_lib.BUILD_DIR) and path.endswith(".so")
 
 
+# an HD generation: packed_attention_fwd carries 180 in-scope calls (d =
+# 40) and 360 at d = 80, which take the template
+HD_GEN = {"packed_attention_fwd": 540, "packed_attention_capped_fwd": 180}
+
+
 @pytest.mark.parametrize("counts, sm90, out_of_scope, ok", [
-    ({"packed_attention_fwd": 360, "flash_attention_fwd": 1}, 361, (), True),
-    ({"packed_attention_fwd": 360, "flash_attention_fwd": 1}, 360, (), False),
+    ({"packed_attention_fwd": 360, "flash_attention_fwd": 1}, 361, {}, True),
+    ({"packed_attention_fwd": 360, "flash_attention_fwd": 1}, 360, {}, False),
     ({"packed_attention_fwd": 8, "flash_attention_fwd": 1}, 8,
-     ("flash_attention_fwd",), True),
+     {"flash_attention_fwd": 1}, True),
     ({"packed_attention_fwd": 520, "packed_attention_capped_fwd": 200}, 720,
-     (), True),
+     {}, True),
+    (HD_GEN, 360, {"packed_attention_fwd": 360}, True),
+    (HD_GEN, 720, {"packed_attention_fwd": 360}, False),  # sm90 took d = 80
+    (HD_GEN, 359, {"packed_attention_fwd": 360}, False),  # one d = 40 call
+                                                          # took the template
+    (HD_GEN, 360, {}, False),
 ])
 def test_chip_smoke_holds_the_sm90_count_to_the_wrappers(counts, sm90,
                                                          out_of_scope, ok):
     """``chip_smoke.check_sm90_launches``: the sm90 kernel's count equals
-    the in-scope launches of the three wrappers."""
+    the in-scope launches of the three wrappers, each wrapper's
+    out-of-scope calls (``{wrapper: calls}``) taken off."""
     counts = dict(chip_smoke._launches(**counts),
                   sm90_attention_fwd=sm90)
     if ok:
@@ -227,16 +238,16 @@ def test_chip_smoke_holds_the_sm90_count_to_the_wrappers(counts, sm90,
 TRAIN = {"packed_attention_bwd_dq": 22, "packed_attention_bwd_dkv": 22}
 FUSIONP = {"packed_attention_bwd_dq": 18, "packed_attention_bwd_dkv": 18,
            "flash_attention_bwd_dq": 1, "flash_attention_bwd_dkv": 1}
-SPLIT = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+SPLIT = {"flash_attention_bwd_dq": 1, "flash_attention_bwd_dkv": 1}
 
 
 @pytest.mark.parametrize("counts, dq, dkv, out_of_scope, ok", [
-    (TRAIN, 22, 22, (), True),
-    (TRAIN, 0, 0, (), False),       # the template ran every call
-    (TRAIN, 21, 22, (), False),     # one dq call took the template
-    (TRAIN, 22, 21, (), False),
-    (FUSIONP, 19, 19, (), True),
-    (FUSIONP, 18, 18, (), False),
+    (TRAIN, 22, 22, {}, True),
+    (TRAIN, 0, 0, {}, False),       # the template ran every call
+    (TRAIN, 21, 22, {}, False),     # one dq call took the template
+    (TRAIN, 22, 21, {}, False),
+    (FUSIONP, 19, 19, {}, True),
+    (FUSIONP, 18, 18, {}, False),
     (FUSIONP, 18, 18, SPLIT, True),
     (FUSIONP, 19, 19, SPLIT, False),
 ])
@@ -264,14 +275,14 @@ LSE_FUSIONP = {"packed_attention_lse_fwd": 36, "flash_attention_lse_fwd": 1}
 
 
 @pytest.mark.parametrize("counts, lse, out_of_scope, ok", [
-    (LSE_TRAIN, 44, (), True),
-    (LSE_TRAIN, 43, (), False),     # one call took the template
-    (LSE_VIDEO, 44, (), True),
-    (LSE_VIDEO, 36, (), False),     # the capped calls took the template
-    (LSE_FUSIONP, 37, (), True),
-    (LSE_FUSIONP, 36, (), False),
-    (LSE_FUSIONP, 36, ("flash_attention_lse_fwd",), True),
-    (LSE_FUSIONP, 37, ("flash_attention_lse_fwd",), False),
+    (LSE_TRAIN, 44, {}, True),
+    (LSE_TRAIN, 43, {}, False),     # one call took the template
+    (LSE_VIDEO, 44, {}, True),
+    (LSE_VIDEO, 36, {}, False),     # the capped calls took the template
+    (LSE_FUSIONP, 37, {}, True),
+    (LSE_FUSIONP, 36, {}, False),
+    (LSE_FUSIONP, 36, {"flash_attention_lse_fwd": 1}, True),
+    (LSE_FUSIONP, 37, {"flash_attention_lse_fwd": 1}, False),
 ])
 def test_chip_smoke_holds_the_sm90_lse_count_to_the_wrappers(
         counts, lse, out_of_scope, ok):
@@ -340,13 +351,15 @@ def test_sm90_backward_refuses_a_tensor_off_the_cpu_and_the_card(fn):
 
 
 def _kernels_line(generate_sm90=360, train_dq=None, train_lse=None,
-                  clip_ring=None):
+                  clip_ring=None, hd_sm90=None):
     """``chip_smoke.kernels_line`` on made-up phase-3 rows and path counts:
     every wrapper's row at 1.0 ms on its own kernel, the template at 0.5,
     the sm90 forward at 0.25, with lse at 0.0625, the ring at 0.5 (no
     library call, the stacked yardstick at 0.75) and the sm90 backward at
     0.125.  ``clip_ring``: the sm90 ring's launches in the clip (the
-    wrapper's 200 by default)."""
+    wrapper's 200 by default).  ``hd_sm90``: with it, an HD generation
+    path whose d = 80 calls (360 whole-K, 100 rings) are template
+    launches, and the sm90 forward's launches there."""
     row = lambda ms, **kw: dict(
         dict(max_abs_err=1e-3, kernel_ms=ms, plain_ms=9.0, bound_ms=0.06,
              bound_by="operations", library_ms=0.24, shape={}), **kw)
@@ -376,6 +389,7 @@ def _kernels_line(generate_sm90=360, train_dq=None, train_lse=None,
         return c
 
     per_step = chip_smoke._launches(packed_attention_fwd=1)
+    units = {"generate": "generation", "video": "clip"}
     path = {"generate": counts(generate_sm90, packed_attention_fwd=360,
                                packed_attention_nbr_fwd=100),
             "train": counts(packed_attention_fwd=2, dq=train_dq,
@@ -385,18 +399,23 @@ def _kernels_line(generate_sm90=360, train_dq=None, train_lse=None,
             "video": counts(packed_attention_fwd=520, nbr=clip_ring,
                             packed_attention_nbr_fwd=200,
                             packed_attention_capped_fwd=200),
-            "video_train": {
-                "stage 1": counts(packed_attention_capped_lse_fwd=32),
-                "stage 2": counts(packed_attention_capped_lse_fwd=40)},
+            "video_train": counts(packed_attention_capped_lse_fwd=72),
             "fusionp": counts(packed_attention_fwd=280,
                               packed_attention_nbr_fwd=100,
                               flash_attention_fwd=1),
             "fusionp_train": counts(flash_attention_lse_fwd=6,
                                     flash_attention_bwd_dq=6,
                                     flash_attention_bwd_dkv=6)}
-    return chip_smoke.kernels_line(results, path, per_step,
-                                   {"stage 1": per_step,
-                                    "stage 2": per_step}, per_step)
+    paths = {p: (units.get(p, p), c, {}) for p, c in path.items()}
+    if hd_sm90 is not None:
+        paths["hd_432x768"] = (
+            "432x768 generation",
+            counts(hd_sm90, nbr=100, packed_attention_fwd=540,
+                   packed_attention_capped_fwd=180,
+                   packed_attention_nbr_fwd=200),
+            {"packed_attention_fwd": 360, "packed_attention_nbr_fwd": 100})
+    return chip_smoke.kernels_line(results, paths,
+                                   {"flagship": (per_step, {})})
 
 
 def test_kernels_line_credits_in_scope_calls_to_the_sm90_kernel():
@@ -420,6 +439,30 @@ def test_kernels_line_credits_in_scope_calls_to_the_sm90_kernel():
 def test_kernels_line_refuses_a_path_where_the_template_ran():
     with pytest.raises(AssertionError, match="sm90"):
         _kernels_line(generate_sm90=359)
+
+
+def test_kernels_line_credits_hd_d80_calls_to_the_template():
+    """At HD one wrapper carries in-scope calls (d = 40, on the sm90
+    kernel) and d = 80 ones (on the template): each entry gets its
+    share."""
+    got = {e["name"]: e for e in _kernels_line(hd_sm90=360)["kernels"]}
+    hd = "432x768 generation"
+    for w, tmpl, sm90 in (("packed_attention_fwd", 360, 180),
+                          ("packed_attention_capped_fwd", 0, 180),
+                          ("packed_attention_nbr_fwd", 100, 100)):
+        kern = chip_smoke._sm90_kernel_of(w)
+        assert got[w]["launches_by_path"][hd] == tmpl, w
+        assert got[f"{kern}:{w}"]["launches_by_path"][hd] == sm90, w
+    assert got[f"{chip_smoke.SM90}:packed_attention_fwd"][
+        "sm90_launches_by_path"][hd] == 360
+
+
+@pytest.mark.parametrize("hd_sm90", [720, 359])
+def test_kernels_line_refuses_an_hd_path_with_a_misrouted_call(hd_sm90):
+    """The sm90 forward took a d = 80 call (720), or a d = 40 call took
+    the template (359)."""
+    with pytest.raises(AssertionError, match="sm90_attention_fwd"):
+        _kernels_line(hd_sm90=hd_sm90)
 
 
 def test_kernels_line_credits_in_scope_backward_calls_to_the_sm90_kernels():

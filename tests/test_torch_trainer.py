@@ -110,7 +110,8 @@ def step():
             prepare_batch(batch, "cpu"), draws)
         loss.backward()
     return {"jmetrics": jmetrics, "jgrads": jgrads, "metrics": metrics,
-            "models": models, "calls": calls, "draws": draws}
+            "models": models, "calls": calls, "draws": draws,
+            "latent_hw": latent_hw}
 
 
 def test_loss_and_metrics_match_jax(step):
@@ -142,7 +143,9 @@ def test_training_step_reaches_the_training_kernels(step):
     ``chip_smoke.py`` derives from the code (tiny models: 1 layer per
     block, two ControlNets, remat on)."""
     assert step["calls"] == chip_smoke.train_launches_per_step(
-        layers=1, n_controlnets=2, remat=True)
+        layers=1, n_controlnets=2, remat=True,
+        levels=chip_smoke.model_levels(step["models"]["unet"],
+                                       step["latent_hw"]))
 
 
 def test_leaf_grad_errors_reads_each_leaf():
