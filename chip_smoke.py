@@ -88,8 +88,8 @@ Phases, in order; any failure exits non-zero:
             weights loaded through the checkpoint loader by their SD v1.5
             names (``load_sd15_shaped``), and phase 6's training step, each
             with its launches derived per latent level (the top level over
-            ``T_SCORE_CAP`` on the sm90 kernels, the second at d = 80 on
-            the templates).  Alone: ``python3 -c "import chip_smoke as s;
+            ``T_SCORE_CAP`` on the capped routes, the second at d = 80;
+            every call on the sm90 kernels).  Alone: ``python3 -c "import chip_smoke as s;
             s.phase_device(); s.phase_build(); s.phase_hd(None)"``.
 
 On the CPU, ``VideoTrainer(cfg, clips, device="cpu", models=...)`` runs the
@@ -260,9 +260,8 @@ def check_sm90_launches(counts: dict, out_of_scope=None) -> None:
     training forwards, of the ring wrapper and of the four backward
     wrappers went through its sm90 kernel: each sm90 kernel's count equals
     its wrappers', less each wrapper's calls in ``out_of_scope`` ({wrapper:
-    calls whose head_dim is outside ``sm90_in_scope``}, as HD's d = 80
-    level or SFA+ stage 2 at d = 4 in the tiny models; those take the
-    templates).  A kernel or wrapper missing from ``counts`` counts 0."""
+    calls whose head_dim is outside ``sm90_in_scope``}, as d = 160 or
+    SFA+ stage 2 at d = 4 in the tiny models; those take the templates).  A kernel or wrapper missing from ``counts`` counts 0."""
     out_of_scope = out_of_scope or {}
     for kernel, (wrappers, _) in SM90_ROUTES.items():
         want = sum(counts.get(k, 0) - out_of_scope.get(k, 0)
@@ -609,6 +608,8 @@ def kernel_cases():
         # the tiny reference models' 512-token level (C = 32, 4 heads)
         ("packed_attention_fwd", "tiny models, d=8", 12, 512, 512, 32, 4, 0),
         ("packed_attention_fwd", "ragged, d=80", 3, 777, 333, 320, 4, 0),
+        # d = 72: the second TMA box's columns 72..79 read as zero
+        ("packed_attention_fwd", "ragged, d=72", 3, 777, 333, 288, 4, 0),
         ("packed_attention_nbr_fwd", "attn4 camera ring", 2 * B * N_CAM, L, L,
          C, HEADS, N_CAM),
         # the clip's ring: 16 frames x 6 views per CFG half
@@ -621,6 +622,8 @@ def kernel_cases():
          512, 32, 4, N_CAM),
         ("packed_attention_nbr_fwd", "ragged ring, d=80", 2 * 3, 701, 701,
          320, 4, 3),
+        ("packed_attention_nbr_fwd", "ragged ring, d=72", 2 * 3, 701, 701,
+         288, 4, 3),
         ("packed_attention_capped_fwd", "video ST-Attn, first + previous "
          "frame", FRAMES * N_CAM, L, 2 * L, C, HEADS, 0),
         ("packed_attention_capped_fwd", "ragged ST-Attn, lk = 2801",
@@ -671,20 +674,21 @@ def train_kernel_cases():
         ("attn4 stacked neighbours", 2 * rows, L, L, C, HEADS),
         ("attn2 cross", rows, L, KV_CROSS, C, HEADS),
         ("ragged, d=80", 3, 777, 333, 320, 4),
+        ("ragged, d=72", 3, 777, 333, 288, 4),
         ("d=160", 2, 513, 65, 1280, 8),
         ("video ST-Attn under grad, first + previous frame", video_rows, L,
          2 * L, C, HEADS),
         ("ragged ST-Attn under grad, lk = 2801", video_rows, L, 2 * L + 1, C,
          HEADS),
         # the sm90 backward's edges: ragged tiles at both ends, one key, one
-        # query, the tiny models' d = 8 and the largest head_dim, 64
+        # query, the tiny models' d = 8 and the first box's widest, 64
         ("ragged, d=40", 3, 777, 333, C, HEADS),
         ("one key, d=40", 2, 129, 1, C, HEADS),
         ("one query, d=40", 2, 1, 300, C, HEADS),
         ("tiny models, d=8", 12, 512, 512, 32, 4),
         ("ragged, d=64", 3, 777, 333, 256, 4),
         # HD 432x768: attn1 over the cap (the capped forward), the stacked
-        # ring, attn2, and the second level at d = 80 (the templates)
+        # ring, attn2, and the second level at d = 80
         ("HD 432x768 attn1 self", rows, 5184, 5184, C, HEADS),
         ("HD 432x768 attn4 stacked neighbours", 2 * rows, 5184, 5184, C,
          HEADS),
@@ -1321,7 +1325,7 @@ def phase_generate(profile_dir, name=None, timed_calls=TIMED_GENERATIONS,
     warm-up call, then ``timed_calls`` timed calls, each checked for
     shape, finiteness, range and the kernels' launches per generation
     (``generate_launches_per_generation``, per latent level; the calls
-    outside ``sm90_in_scope``, HD's d = 80 level, on the templates).
+    outside ``sm90_in_scope`` on the templates, none at full width).
     -> (launches of the last call, those of them on the templates)."""
     from dualdiff_tpu_torch.ops import attention as A
 
@@ -1937,8 +1941,9 @@ def phase_hd(profile_dir):
     (``load_sd15_shaped``), and phase 6's training step
     (``TIMED_HD_TRAIN_STEPS`` timed steps), each with its launches derived
     per latent level: the top level (2816 / 5184 tokens, d = 40) over
-    ``T_SCORE_CAP`` on the capped routes and the sm90 kernels, the second
-    (704 / 1296 tokens, d = 80) on the templates.  A run that does not fit
+    ``T_SCORE_CAP`` on the capped routes, the second (704 / 1296 tokens,
+    d = 80) on the whole-K ones, every call on the sm90 kernels
+    (``check_sm90_launches`` with no call out of scope).  A run that does not fit
     in the card's memory fails the phase and says so."""
     from dualdiff_tpu_torch.utils.config import HD_256X704, HD_432X768
 
@@ -2157,8 +2162,8 @@ def kernels_line(results, paths, per_step):
     at 224x400), and its times at that wrapper's main-path shape.  Those
     wrappers' own entries are the template instances of ``attention.cu``
     and ``attention_train.cu``: their times are the template's at the same
-    shapes, and their launches the template's (HD's d = 80 level; none at
-    224x400)."""
+    shapes, and their launches the template's (calls outside
+    ``sm90_in_scope``: none on these paths)."""
     for _, c, t in paths.values():
         check_sm90_launches(c, t)
 

@@ -18,7 +18,7 @@
 // row r = b N + n, attn(q_r, K/V of row b N + (n-1) mod N) + attn(q_r, K/V
 // of row b N + (n+1) mod N), each half its own softmax and normalised
 // alone, the two summed in float32 and rounded to bf16 once (the TPU kernel
-// rounds each half to bf16 before the sum).  All for head dims d <= 64 with
+// rounds each half to bf16 before the sum).  All for head dims d <= 80 with
 // d % 8 == 0 and 16-byte aligned rows (ops/attention.py::sm90_in_scope);
 // every other shape stays on attention.cu's mma.sync template.  A
 // contiguous (B, L, H, D) tensor is the packed (B, L, C) memory, so the
@@ -55,13 +55,27 @@
 //   at column h*d and zero-fills columns d..63 and rows past L, so every
 //   tile is the padded 64-wide, 128-row tile wgmma wants with no masking
 //   code and no read of the next head.
+// - Head dims 72 and 80 (HD's second level; KSTEPS = 5): every tile adds a
+//   second box, 16 columns at column 64 with 32-byte swizzle (4 KB a
+//   128-row tile, the d..79 columns zero-filled at d = 72), loaded under
+//   the same mbarrier as the first (the transaction bytes count both).
+//   Shared memory is 2 q buffers and 3 K/V stages of 16 + 4 KB: 161 KB
+//   against 129 KB below d = 65, one block an SM either way.  A zero-padded
+//   128-wide row (two 128-byte boxes) would need 256 KB, so a ring stage or
+//   a q buffer less, and pay 1.6x on the MN-major product.
 // - S = Q K^T: wgmma m64n128k16, Q and K from shared memory, K-major, in
-//   ceil(d / 16) depth steps (48 of the 64 padded columns at d = 40).
+//   ceil(d / 16) depth steps (48 of the 64 padded columns at d = 40); at
+//   d = 72, 80 four over the first box and the fifth over the second
+//   (desc_sw32).
 // - O += P V: wgmma m64n64k16 with P from registers (S's accumulator
 //   rounded to bf16 is already the A fragment layout) and V from shared
 //   memory as an MN-major B operand.  N stays 64: an MN-major swizzled
 //   operand is whole 64-element atoms, so d = 40 pays 1.6x on this product
-//   (1.4x over both), under the exponential floor.
+//   (1.4x over both), under the exponential floor.  At d = 72, 80 also
+//   m64n16k16 over V's second box, into 8 more accumulator floats a thread
+//   (o2; the ring keeps 8 more in kept2): no padding at d = 80, and the
+//   FLOP bound over the exp floor (at 24 x 1296 x 1296 on an H100 SXM at
+//   700 W, 989 TFLOP/s and 1980 MHz: 0.1043 against 0.0771 ms).
 // - Online softmax in float32 registers; the scale and log2(e) fold into
 //   one FMA before ex2.approx; the key mask runs in the last key tile only.
 // - Overlap.  Within a warpgroup, tile t's S product is issued together
@@ -88,8 +102,17 @@
 //   never mix), and add kept to pass 1's normalised output at the store.
 // - Host: tensor maps are encoded per call through cuTensorMapEncodeTiled,
 //   found with cudaGetDriverEntryPoint (no -lcuda), passed as
-//   __grid_constant__ parameters; the dynamic shared-memory attribute is
-//   set once per device on every instance, outside any stream capture.
+//   __grid_constant__ parameters (the second boxes' three only above d =
+//   64; below, the first three again, unread); each instance's dynamic
+//   shared-memory size (smem_bytes<KSTEPS>) is set once per device,
+//   outside any stream capture.
+// - Registers: -Xptxas=-v (kept in build/dualdiff_tpu_torch/
+//   attention_sm90-*.log) reports 0 bytes of spill for all fifteen
+//   instances.
+// - What it reaches at d = 80 (PERF.md, HD table; an H100 80GB HBM3 at
+//   700 W): 0.2547 ms at 24 x 1296 x 1296 against the template's 0.6379
+//   and SDPA's fastest (cuDNN) 0.3270; the ring at 24 x 1296 0.5327
+//   against 1.2990.
 //
 // Not tried yet: 48-wide K tiles for P V (an MN-major operand narrower
 // than its 64-element swizzle atom), a TMA store of the output, two blocks
@@ -107,10 +130,20 @@ constexpr int kKeys = 128;          // keys per tile
 constexpr int kStages = 3;          // K/V ring depth
 constexpr int kRowBytes = 128;      // one 64-wide bf16 row, swizzled
 constexpr int kTileBytes = kKeys * kRowBytes;  // 16 KB, q tile too
+// d = 72 and 80 (KSTEPS = 5): a second box of columns 64..79 per tile
+constexpr int kRow2Bytes = 32;      // one 16-wide bf16 row, swizzled
+constexpr int kTile2Bytes = kKeys * kRow2Bytes;  // 4 KB, q tile too
 constexpr int kConsumers = 256;     // two warpgroups
 constexpr int kThreads = kConsumers + 128;
-// 2 q buffers, the K/V ring, 10 mbarriers, 1024 bytes of alignment slack
-constexpr int kSmem = kTileBytes * (2 + 2 * kStages) + 128 + 1024;
+
+// 2 q buffers and the K/V ring (with KSTEPS = 5 also their second boxes),
+// 10 mbarriers, 1024 bytes of alignment slack: 132,224 bytes at KSTEPS
+// 1-4, 164,992 at 5
+template <int KSTEPS>
+constexpr int smem_bytes() {
+  return (kTileBytes + (KSTEPS == 5 ? kTile2Bytes : 0)) * (2 + 2 * kStages) +
+         128 + 1024;
+}
 
 // ------------------------------------------------------------------ kernel
 // Accumulator layout (wgmma m64nN, per warpgroup): warp w of the group,
@@ -170,44 +203,67 @@ __device__ __forceinline__ void pack_p(uint32_t (&p)[8][4],
   }
 }
 
+// S = Q K^T: min(KSTEPS, 4) depth steps over the first boxes (dq, dk),
+// and with KSTEPS = 5 a fifth over the second (dq2, dk2)
 template <int KSTEPS>
 __device__ __forceinline__ void issue_qk(float (&s)[64], uint64_t dq,
-                                         uint64_t dk) {
+                                         uint64_t dk, uint64_t dq2,
+                                         uint64_t dk2) {
 #pragma unroll
-  for (int kt = 0; kt < KSTEPS; ++kt)  // 16 columns = 32 bytes a step
-    wgmma_ss_n128(s, dq + 2 * kt, dk + 2 * kt, kt);
+  for (int kt = 0; kt < (KSTEPS < 4 ? KSTEPS : 4); ++kt)
+    wgmma_ss_n128(s, dq + 2 * kt, dk + 2 * kt, kt);  // 32 bytes a step
+  if constexpr (KSTEPS == 5) wgmma_ss_n128(s, dq2, dk2, 1);
 }
 
+// O += P V: columns 0..63 from V's first box (dv) into o and, WIDE,
+// columns 64..79 from its second (dv2) into o2
+template <bool WIDE>
 __device__ __forceinline__ void issue_pv(float (&o)[32],
+                                         float (&o2)[WIDE ? 8 : 1],
                                          const uint32_t (&p)[8][4],
-                                         uint64_t dv) {
+                                         uint64_t dv, uint64_t dv2) {
 #pragma unroll
   for (int kk = 0; kk < kKeys / 16; ++kk)  // 16 keys = 2048 bytes a step
     wgmma_rs_n64(o, p[kk], dv + kk * (16 * kRowBytes >> 4));
+  if constexpr (WIDE) {
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk)  // 16 keys = 512 bytes a step
+      wgmma_rs_n16(o2, p[kk], dv2 + kk * (16 * kRow2Bytes >> 4));
+  }
 }
 
 // Work item w: query tile w % n_qt of head (w / n_qt) % heads of row
 // w / (n_qt * heads); consecutive blocks share a head's K/V in L2.  A block
 // walks items blockIdx.x, blockIdx.x + gridDim.x, ... (one item when the
-// grid covers them all).  KSTEPS = ceil(d / 16).  LSE: also write lse
-// (B*H, Lq) float32 (unread and may be null without it).  NBR: the camera
-// ring over n_cam views a batch (lq == lk; n_cam unread without it).
+// grid covers them all).  KSTEPS = ceil(d / 16); at 5 (d = 72, 80) every
+// tile also has its second box (maps tq2, tk2, tv2, unread below 5).
+// LSE: also write lse (B*H, Lq) float32 (unread and may be null without
+// it).  NBR: the camera ring over n_cam views a batch (lq == lk; n_cam
+// unread without it).
 template <int KSTEPS, bool LSE, bool NBR>
 __global__ void __launch_bounds__(kThreads, 1)
     sm90_attention_kernel(__grid_constant__ const CUtensorMap tq,
                           __grid_constant__ const CUtensorMap tk,
                           __grid_constant__ const CUtensorMap tv,
+                          __grid_constant__ const CUtensorMap tq2,
+                          __grid_constant__ const CUtensorMap tk2,
+                          __grid_constant__ const CUtensorMap tv2,
                           bf16* __restrict__ out, float* __restrict__ lse,
                           int batch, int lq, int lk, int heads, int d,
                           int n_cam, float scale_log2) {
   static_assert(!(NBR && LSE), "the ring kernel writes no lse");
+  constexpr bool kWide = KSTEPS == 5;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // 128-byte swizzled TMA tiles need 1024-byte alignment
   const uint32_t base = (saddr(smem_raw) + 1023) & ~1023u;
   const uint32_t sq = base;  // 2 q buffers
   const uint32_t sk = sq + 2 * kTileBytes;
   const uint32_t sv = sk + kStages * kTileBytes;
-  const uint32_t bars = sv + kStages * kTileBytes;
+  // the second boxes (kWide), each 4 KB: 2 q buffers, the K/V ring
+  const uint32_t sq2 = sv + kStages * kTileBytes;
+  const uint32_t sk2 = sq2 + 2 * kTile2Bytes;
+  const uint32_t sv2 = sk2 + kStages * kTile2Bytes;
+  const uint32_t bars = kWide ? sv2 + kStages * kTile2Bytes : sq2;
   auto full = [&](int s) { return bars + 8 * s; };
   auto empty = [&](int s) { return bars + 8 * (kStages + s); };
   auto qfull = [&](int b) { return bars + 8 * (2 * kStages + b); };
@@ -243,9 +299,12 @@ __global__ void __launch_bounds__(kThreads, 1)
                   row = w / (n_qt * heads);
         const int qb = it & 1;
         if (it >= 2) mbar_wait(qempty(qb), ((it >> 1) - 1) & 1);
-        mbar_expect_tx(qfull(qb), kTileBytes);
+        mbar_expect_tx(qfull(qb), kTileBytes + (kWide ? kTile2Bytes : 0));
         tma_load(sq + qb * kTileBytes, &tq, qfull(qb), 0, head, qt * kQ,
                  row);
+        if constexpr (kWide)
+          tma_load(sq2 + qb * kTile2Bytes, &tq2, qfull(qb), 64, head,
+                   qt * kQ, row);
         for (int u = 0; u < n_steps; ++u, ++kv) {
           // the ring: tiles of the left view (n - 1), then the right (n + 1)
           int kv_row = row, t = u;
@@ -257,11 +316,18 @@ __global__ void __launch_bounds__(kThreads, 1)
           }
           const int s = kv % kStages;
           if (kv >= kStages) mbar_wait(empty(s), ((kv / kStages) - 1) & 1);
-          mbar_expect_tx(full(s), 2 * kTileBytes);
+          mbar_expect_tx(full(s),
+                         2 * (kTileBytes + (kWide ? kTile2Bytes : 0)));
           tma_load(sk + s * kTileBytes, &tk, full(s), 0, head, t * kKeys,
                    kv_row);
           tma_load(sv + s * kTileBytes, &tv, full(s), 0, head, t * kKeys,
                    kv_row);
+          if constexpr (kWide) {
+            tma_load(sk2 + s * kTile2Bytes, &tk2, full(s), 64, head,
+                     t * kKeys, kv_row);
+            tma_load(sv2 + s * kTile2Bytes, &tv2, full(s), 64, head,
+                     t * kKeys, kv_row);
+          }
         }
       }
     }
@@ -279,7 +345,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (wg == 1) bar_arrive<kConsumers>(other_bar);
 
     float s[64], o[32], m[2], l[2], alpha[2];
-    float kept[NBR ? 32 : 1];  // the ring's pass 0 output, normalised
+    float o2[kWide ? 8 : 1];  // columns 64..79
+    // the ring's pass 0 output, normalised
+    float kept[NBR ? 32 : 1], kept2[NBR && kWide ? 8 : 1];
     uint32_t p[8][4];
     int kv = 0, it = 0;
 #pragma unroll 1
@@ -290,8 +358,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int qb = it & 1;
       const uint64_t dq =
           desc_sw128(sq + qb * kTileBytes + wg * 64 * kRowBytes);
+      const uint64_t dq2 =
+          desc_sw32(sq2 + qb * kTile2Bytes + wg * 64 * kRow2Bytes);
 #pragma unroll
       for (int i = 0; i < 32; ++i) o[i] = 0.f;
+      if constexpr (kWide) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) o2[i] = 0.f;
+      }
       m[0] = m[1] = -INFINITY;
       l[0] = l[1] = 0.f;
       mbar_wait(qfull(qb), (it >> 1) & 1);
@@ -301,7 +375,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_wait(full(st), (kv / kStages) & 1);
       bar_sync<kConsumers>(my_bar);
       wg_fence();
-      issue_qk<KSTEPS>(s, dq, desc_sw128(sk + st * kTileBytes));
+      issue_qk<KSTEPS>(s, dq, desc_sw128(sk + st * kTileBytes), dq2,
+                       desc_sw32(sk2 + st * kTile2Bytes));
       wg_commit();
       if (wg == 0 || !(last_item && n_steps == 1))
         bar_arrive<kConsumers>(other_bar);
@@ -323,9 +398,11 @@ __global__ void __launch_bounds__(kThreads, 1)
         mbar_wait(full(st), (kv / kStages) & 1);
         bar_sync<kConsumers>(my_bar);
         wg_fence();
-        issue_qk<KSTEPS>(s, dq, desc_sw128(sk + st * kTileBytes));
+        issue_qk<KSTEPS>(s, dq, desc_sw128(sk + st * kTileBytes), dq2,
+                         desc_sw32(sk2 + st * kTile2Bytes));
         wg_commit();
-        issue_pv(o, p, desc_sw128(sv + prev * kTileBytes));
+        issue_pv<kWide>(o, o2, p, desc_sw128(sv + prev * kTileBytes),
+                        desc_sw32(sv2 + prev * kTile2Bytes));
         wg_commit();
         if (wg == 0 || !(last_item && u + 1 == n_steps))
           bar_arrive<kConsumers>(other_bar);
@@ -339,6 +416,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         softmax_tile(s, m, l, alpha, t * kKeys, lk, scale_log2);
         wg_wait<0>();
         fence_regs(o);
+        if constexpr (kWide) fence_regs(o2);
         __syncwarp();
         if (lane == 0) mbar_arrive(empty(prev));
         if constexpr (NBR) {
@@ -355,6 +433,13 @@ __global__ void __launch_bounds__(kThreads, 1)
               kept[i] = o[i] * l0[(i >> 1) & 1];
               o[i] = 0.f;
             }
+            if constexpr (kWide) {
+#pragma unroll
+              for (int i = 0; i < 8; ++i) {
+                kept2[i] = o2[i] * l0[(i >> 1) & 1];
+                o2[i] = 0.f;
+              }
+            }
           }
         }
         if (!boundary) {
@@ -365,6 +450,10 @@ __global__ void __launch_bounds__(kThreads, 1)
             o[4 * j + 2] *= alpha[1];
             o[4 * j + 3] *= alpha[1];
           }
+          if constexpr (kWide) {
+#pragma unroll
+            for (int i = 0; i < 8; ++i) o2[i] *= alpha[(i >> 1) & 1];
+          }
         }
         pack_p(p, s);
         prev = st;
@@ -373,10 +462,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       // every S product of this item is done: the q buffer is free
       if (lane == 0) mbar_arrive(qempty(qb));
       wg_fence();
-      issue_pv(o, p, desc_sw128(sv + prev * kTileBytes));
+      issue_pv<kWide>(o, o2, p, desc_sw128(sv + prev * kTileBytes),
+                      desc_sw32(sv2 + prev * kTile2Bytes));
       wg_commit();
       wg_wait<0>();
       fence_regs(o);
+      if constexpr (kWide) fence_regs(o2);
       __syncwarp();
       if (lane == 0) mbar_arrive(empty(prev));
 
@@ -408,6 +499,26 @@ __global__ void __launch_bounds__(kThreads, 1)
                 dd::pack_bf16x2(x0, x1);
         }
       }
+      if constexpr (kWide) {  // columns 64 .. d-1
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int col = 64 + 8 * j + 2 * c;
+          if (col >= d) continue;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = r0 + 8 * h;
+            float x0 = o2[4 * j + 2 * h] * inv[h];
+            float x1 = o2[4 * j + 2 * h + 1] * inv[h];
+            if constexpr (NBR) {
+              x0 += kept2[4 * j + 2 * h];
+              x1 += kept2[4 * j + 2 * h + 1];
+            }
+            if (r < lq)
+              *reinterpret_cast<uint32_t*>(g + (size_t)r * ld + col) =
+                  dd::pack_bf16x2(x0, x1);
+          }
+        }
+      }
       if constexpr (LSE) {
         // m is the raw maximum: l = sum 2^((s - m) scale log2e), so
         // lse = m scale + ln l, in the natural log of the scaled logits
@@ -423,30 +534,32 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// Per device, once: the dynamic shared-memory size of the twelve instances
-// (without and with lse, the ring; each at KSTEPS 1-4) and the SM count (0
-// after a failure).  A launch of an instance left out here fails.
+// The dynamic shared-memory size of one instance.
+template <int KSTEPS, bool LSE, bool NBR>
+bool set_smem() {
+  return cudaFuncSetAttribute(sm90_attention_kernel<KSTEPS, LSE, NBR>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              smem_bytes<KSTEPS>()) == cudaSuccess;
+}
+
+template <bool LSE, bool NBR>
+bool set_smem_all() {
+  return set_smem<1, LSE, NBR>() && set_smem<2, LSE, NBR>() &&
+         set_smem<3, LSE, NBR>() && set_smem<4, LSE, NBR>() &&
+         set_smem<5, LSE, NBR>();
+}
+
+// Per device, once: the dynamic shared-memory size of each of the fifteen
+// instances (without and with lse, the ring; each at KSTEPS 1-5), set
+// outside any stream capture, and the SM count (0 after a failure).  A
+// launch of an instance left out here fails.
 int prepare(int device) {
   static int sms[64] = {0};
   if (device < 0 || device >= 64) return 0;
   if (sms[device]) return sms[device];
-  for (auto kernel :
-       {sm90_attention_kernel<1, false, false>,
-        sm90_attention_kernel<2, false, false>,
-        sm90_attention_kernel<3, false, false>,
-        sm90_attention_kernel<4, false, false>,
-        sm90_attention_kernel<1, true, false>,
-        sm90_attention_kernel<2, true, false>,
-        sm90_attention_kernel<3, true, false>,
-        sm90_attention_kernel<4, true, false>,
-        sm90_attention_kernel<1, false, true>,
-        sm90_attention_kernel<2, false, true>,
-        sm90_attention_kernel<3, false, true>,
-        sm90_attention_kernel<4, false, true>})
-    if (cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kSmem) != cudaSuccess)
-      return 0;
+  if (!set_smem_all<false, false>() || !set_smem_all<true, false>() ||
+      !set_smem_all<false, true>())
+    return 0;
   int n = 0;
   if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device) !=
       cudaSuccess)
@@ -460,7 +573,7 @@ template <bool LSE, bool NBR>
 int launch(const void* q, const void* k, const void* v, void* out,
            float* lse, int batch, int lq, int lk, int heads, int head_dim,
            int n_cam, float scale, void* stream) {
-  if (head_dim <= 0 || head_dim > 64 || !dd::vec_ok(head_dim, q, k, v, out) ||
+  if (head_dim <= 0 || head_dim > 80 || !dd::vec_ok(head_dim, q, k, v, out) ||
       batch <= 0 || lq <= 0 || lk <= 0 || heads <= 0 || batch > 65535 ||
       heads > 65535 || (LSE && lse == nullptr) ||
       (NBR && (n_cam < 1 || batch % n_cam || lq != lk)))
@@ -470,11 +583,20 @@ int launch(const void* q, const void* k, const void* v, void* out,
   if (err != cudaSuccess) return (int)err;
   const int sms = prepare(device);
   if (sms == 0) return (int)cudaErrorInvalidValue;
-  CUtensorMap tq, tk, tv;
+  const bool wide = head_dim > 64;
+  // the second boxes' maps; below d = 65 the kernel reads none of them
+  CUtensorMap tq, tk, tv, tq2, tk2, tv2;
   if (!make_map(&tq, q, batch, lq, heads, head_dim, kQ) ||
       !make_map(&tk, k, batch, lk, heads, head_dim, kKeys) ||
       !make_map(&tv, v, batch, lk, heads, head_dim, kKeys))
     return (int)cudaErrorInvalidValue;
+  if (!wide) {
+    tq2 = tq, tk2 = tk, tv2 = tv;
+  } else if (!make_map(&tq2, q, batch, lq, heads, head_dim, kQ, 16) ||
+             !make_map(&tk2, k, batch, lk, heads, head_dim, kKeys, 16) ||
+             !make_map(&tv2, v, batch, lk, heads, head_dim, kKeys, 16)) {
+    return (int)cudaErrorInvalidValue;
+  }
   const long long items = (long long)((lq + kQ - 1) / kQ) * heads * batch;
   if (items > 0x7fffffff) return (int)cudaErrorInvalidValue;
   const int grid = items > sms ? sms : (int)items;
@@ -483,17 +605,19 @@ int launch(const void* q, const void* k, const void* v, void* out,
     case 1: kernel = sm90_attention_kernel<1, LSE, NBR>; break;
     case 2: kernel = sm90_attention_kernel<2, LSE, NBR>; break;
     case 3: kernel = sm90_attention_kernel<3, LSE, NBR>; break;
+    case 5: kernel = sm90_attention_kernel<5, LSE, NBR>; break;
   }
-  kernel<<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
-      tq, tk, tv, static_cast<bf16*>(out), lse, batch, lq, lk, heads,
-      head_dim, n_cam, scale * dd::kLog2e);
+  const int smem = wide ? smem_bytes<5>() : smem_bytes<4>();
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      tq, tk, tv, tq2, tk2, tv2, static_cast<bf16*>(out), lse, batch, lq, lk,
+      heads, head_dim, n_cam, scale * dd::kLog2e);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q (B, Lq, H*d), k/v (B, Lk, H*d), out (B, Lq, H*d): contiguous bf16,
-// 16-byte aligned, d % 8 == 0 and d <= 64 (the packed and the split layout
+// 16-byte aligned, d % 8 == 0 and d <= 80 (the packed and the split layout
 // alike).  One block per SM walks the work items.  Returns a cudaError_t.
 extern "C" int dd_sm90_attention_fwd(const void* q, const void* k,
                                      const void* v, void* out, int batch,

@@ -1,10 +1,10 @@
 // Backward attention kernels for Hopper (sm_90a), channel-packed layout.
 //
 // Since attention_sm90_bwd.cu (TMA, wgmma) took the backward for head dims
-// d <= 64 with d % 8 == 0 and 16-byte aligned rows
+// d <= 80 with d % 8 == 0 and 16-byte aligned rows
 // (ops.attention.sm90_in_scope), these mma.sync kernels serve it only
-// outside that scope (d = 80 and 160, d % 8 != 0, unaligned rows) and
-// under route="template", the yardstick chip_smoke.py times beside it.
+// outside that scope (d = 160, d % 8 != 0, unaligned rows) and under
+// route="template", the yardstick chip_smoke.py times beside it.
 //
 // packed_attention_bwd_dq replaces the TPU kernel _bwd_dq_kernel_t and
 // packed_attention_bwd_dkv replaces _bwd_dkv_kernel_t

@@ -7,9 +7,12 @@
 // by TMA with 128-byte swizzle into 1024-byte aligned shared memory: the
 // layout wgmma reads through desc_sw128, K-major (rows are M or N, the 64
 // columns the depth) or MN-major (rows are the depth, the 64 columns N).
-// q, k, v and their gradients' inputs are described to TMA as 4-D tensors
-// (d, H, L, B) (make_map), so a 64-wide box reads one head's d columns and
-// zero-fills columns d..63 and rows past L.
+// Head dims 72 and 80 add a second box per tile: rows x 16 elements (32
+// bytes) at column 64, loaded with 32-byte swizzle and read through
+// desc_sw32.  q, k, v and their gradients' inputs are described to TMA as
+// 4-D tensors (d, H, L, B) (make_map), so a box reads one head's columns
+// below d and zero-fills the columns from d to the box's end (d..63 in the
+// first box, d..79 in the second) and rows past L.
 #pragma once
 
 #include <cuda.h>
@@ -77,6 +80,18 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
          (static_cast<uint64_t>(1) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) |
          (static_cast<uint64_t>(1) << 62);
+}
+
+// Shared-memory matrix descriptor, 32-byte swizzle, for the 16-wide second
+// box: rows of 32 bytes, SBO = 256 bytes between 8-row groups, in K-major
+// (rows M or N, the 16 columns one depth step) and MN-major (rows the
+// depth, the 16 columns N) operands alike.  LBO (the step between
+// 16-element atoms along MN) is unused: N is one atom.
+__device__ __forceinline__ uint64_t desc_sw32(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(256 >> 4) << 32) |
+         (static_cast<uint64_t>(3) << 62);
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -168,6 +183,20 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
 }
 
+// d (64 x 16 f32) += A (64 x 16 bf16, registers) . B (16 x 16, smem,
+// MN-major): the columns 64..79 of the d = 72 and 80 products
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, 1, 1, 1, "
+      "1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
 // ------------------------------------------------------ named barriers
 // Barrier `id` (1..15; 0 is __syncthreads) among `kCount` threads.
 template <int kCount>
@@ -213,21 +242,25 @@ inline EncodeTiled encode_fn() {
   return fn;
 }
 
-// (B, L, H*d) bf16 as the 4-D tensor (d, H, L, B); box 64 x 1 x rows x 1
+// (B, L, H*d) bf16 as the 4-D tensor (d, H, L, B); box cols x 1 x rows x 1
+// with cols 64 (128-byte swizzle, the first box) or 16 (32-byte swizzle,
+// the second box, loaded at column 64)
 inline bool make_map(CUtensorMap* map, const void* ptr, int batch, int len,
-                     int heads, int d, int rows) {
+                     int heads, int d, int rows, int cols = 64) {
   EncodeTiled encode = encode_fn();
-  if (encode == nullptr) return false;
+  if (encode == nullptr || (cols != 64 && cols != 16)) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
                               (cuuint64_t)len, (cuuint64_t)batch};
   const cuuint64_t ld = (cuuint64_t)heads * d * sizeof(bf16);
   const cuuint64_t strides[3] = {(cuuint64_t)d * sizeof(bf16), ld,
                                  ld * (cuuint64_t)len};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                           : CU_TENSOR_MAP_SWIZZLE_32B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -64,9 +64,9 @@ specialisation), the three training forwards with lse
 same memory) to ``sm90_attention_lse_fwd``, the same kernel with its lse
 epilogue, and the camera ring (``packed_attention_nbr_fwd``) to
 ``sm90_attention_nbr_fwd``, the same kernel with both neighbours' K/V
-streamed through one work item.  Every other shape (d = 80 and 160, as the
-ring of HD's d = 80; d % 8 != 0 as the tiny SFA+ at d = 4; unaligned rows)
-goes to ``csrc/attention.cu``'s template, by that rule alone.
+streamed through one work item.  Every other shape (d = 160; d % 8 != 0 as
+the tiny SFA+ at d = 4; unaligned rows) goes to ``csrc/attention.cu``'s
+template, by that rule alone.
 ``route="template"`` sends an in-scope call to the template too: the
 yardstick ``chip_smoke.py`` times beside the new kernel.  The ring stays
 inference only: under grad attn4 takes ``_nbr_stacked`` through
@@ -78,8 +78,8 @@ The Hopper backward.  The four backward wrappers (``packed_attention_bwd_dq``,
 ``sm90_attention_bwd_dq`` and ``sm90_attention_bwd_dkv``
 (``csrc/attention_sm90_bwd.cu``), the split-layout pair on the packed view of
 the same memory; ``csrc/attention_train.cu``'s template serves the backward
-only outside that scope (d = 80 and 160, d % 8 != 0, unaligned rows, the
-tiny SFA+ at d = 4) and under ``route="template"``.
+only outside that scope (d = 160, d % 8 != 0, unaligned rows, the tiny
+SFA+ at d = 4) and under ``route="template"``.
 
 Kernel wrappers take the plain PyTorch version for tensors on the CPU, which
 is what the CPU tests run.  A CUDA tensor either launches the kernel or
@@ -154,9 +154,10 @@ CAPPED_LSE_WARPS = 8
 HEADPACK_MAX_LQ = 32
 # Largest head_dim the CUDA kernels take (80 and 160 reach them at HD).
 MAX_KERNEL_HEAD_DIM = 160
-# Largest head_dim of the sm90 kernels: one 64-wide, 128-byte swizzled TMA
-# box per row.
-SM90_MAX_HEAD_DIM = 64
+# Largest head_dim of the sm90 kernels: a 64-wide, 128-byte swizzled TMA
+# box per row, and above 64 a second, 16-wide, 32-byte swizzled one (HD's
+# second level, d = 80).
+SM90_MAX_HEAD_DIM = 80
 
 
 def _default_scale(scale: Optional[float], d: int) -> float:

@@ -5,8 +5,10 @@ and clip paths' shapes plus ragged ones, the training kernels also at the
 video training step's ST-Attn (12 x 1400 x 2800, capped forward), and the
 split-layout kernels at the SFA+ stage-2 shapes (24 and 6 x 1400 x 1400,
 d = 40), the tiny models' d = 4 and head dims that are not multiples of 8,
-and at HD the ring over 5184 tokens and the second level's d = 80;
-the plain version computes in float32 and rounds once.  Tolerance 2^-7 of the output's magnitude + 1e-3: the kernels
+and at HD the ring over 5184 tokens and the second level's d = 80 (the
+sm90 kernels' second TMA box, columns 64..79, also at d = 72 and alone,
+with columns 0..63 zero); the plain version computes in float32 and rounds
+once.  Tolerance 2^-7 of the output's magnitude + 1e-3: the kernels
 round one MMA operand to bf16 (P for P.V and dV, dS for dQ and dK) and the
 output to bf16.  lse is float32 on both sides: 1e-3 absolute.  The camera
 ring's sm90 kernel is also held against a planted fault (one neighbour
@@ -74,8 +76,7 @@ def test_packed_attention_kernel(cuda, b, lq, lk, c, heads):
     (1, 6, 5184, 320, 8),       # HD 432x768's top level, one sample
 ])
 def test_neighbor_attention_kernel(cuda, b, n_cam, l, c, heads):
-    """The ring wrapper: d = 40 takes the sm90 ring, HD's d = 80 stays on
-    the template."""
+    """The ring wrapper: d = 40 and HD's d = 80 take the sm90 ring."""
     q, k, v = _qkv(b * n_cam, l, l, c, cuda, seed=1)
     A.reset_launch_counts()
     got = A.packed_attention_nbr_fwd(q, k, v, heads, n_cam)
@@ -367,7 +368,7 @@ SM90_LK = (1, 158, 238, 1400, 2800, 2801)
 
 
 @pytest.mark.parametrize("lk", SM90_LK)
-@pytest.mark.parametrize("d", (8, 16, 24, 32, 40, 48, 56, 64))
+@pytest.mark.parametrize("d", (8, 16, 24, 32, 40, 48, 56, 64, 72, 80))
 def test_sm90_kernel_against_plain(cuda, d, lk):
     """``sm90_attention_fwd`` at every in-scope head_dim, against the
     float32 plain version: query counts around its 128-row blocks and the
@@ -382,7 +383,7 @@ def test_sm90_kernel_against_plain(cuda, d, lk):
         _check(got, A.attention_packed_plain(q, k, v, heads))
 
 
-@pytest.mark.parametrize("d", (8, 40, 64))
+@pytest.mark.parametrize("d", (8, 40, 64, 72, 80))
 def test_sm90_kernel_with_very_negative_logits_is_exact(cuda, d):
     """Every logit near -80 (and a ragged last key tile): exact key masks
     and a finite running max keep the output finite and right."""
@@ -399,14 +400,15 @@ def test_sm90_kernel_with_very_negative_logits_is_exact(cuda, d):
     _check(got, want)
 
 
-def test_sm90_kernel_reads_the_split_view_of_the_same_memory(cuda):
+@pytest.mark.parametrize("d", (40, 72, 80))
+def test_sm90_kernel_reads_the_split_view_of_the_same_memory(cuda, d):
     """``flash_attention_fwd`` on a (B, L, H, D) view and
     ``packed_attention_fwd`` on its packed memory launch the one kernel and
     agree bit for bit."""
-    q, k, v = _qkv4(3, 777, 1111, 8, 40, cuda, seed=41)
+    q, k, v = _qkv4(3, 777, 1111, 8, d, cuda, seed=41)
     A.reset_launch_counts()
     split = A.flash_attention_fwd(q, k, v)
-    packed = A.packed_attention_fwd(*(t.reshape(3, t.shape[1], 320)
+    packed = A.packed_attention_fwd(*(t.reshape(3, t.shape[1], 8 * d)
                                       for t in (q, k, v)), 8)
     torch.cuda.synchronize()
     assert A.sm90_attention_fwd.launches == 2
@@ -424,8 +426,9 @@ def _unaligned(t):
 @pytest.mark.parametrize("call, sm90", [
     ("packed d=40", 1), ("capped d=40", 1), ("split d=40", 1),
     ("packed d=8", 1), ("split d=64", 1),
-    ("packed d=80", 0), ("packed d=160", 0), ("capped d=80", 0),
-    ("split d=20", 0), ("split d=40 unaligned", 0), ("split d=80", 0),
+    ("packed d=80", 1), ("packed d=160", 0), ("capped d=80", 1),
+    ("split d=20", 0), ("split d=40 unaligned", 0), ("split d=80", 1),
+    ("packed d=72", 1), ("split d=72", 1), ("split d=80 unaligned", 0),
 ])
 def test_sm90_routing_on_the_card(cuda, call, sm90):
     """In-scope calls launch the sm90 kernel, the others the template; the
@@ -483,7 +486,7 @@ def _check_lse(got, want):
 
 
 @pytest.mark.parametrize("lk", SM90_LK)
-@pytest.mark.parametrize("d", (8, 16, 24, 32, 40, 48, 56, 64))
+@pytest.mark.parametrize("d", (8, 16, 24, 32, 40, 48, 56, 64, 72, 80))
 def test_sm90_lse_kernel_against_plain(cuda, d, lk):
     """``sm90_attention_lse_fwd`` at every in-scope head_dim against the
     float32 plain version, o and lse (B*H, Lq): query counts around its
@@ -502,7 +505,7 @@ def test_sm90_lse_kernel_against_plain(cuda, d, lk):
         _check_lse(lse, lse_want)
 
 
-@pytest.mark.parametrize("d", (8, 40, 64))
+@pytest.mark.parametrize("d", (8, 40, 64, 72, 80))
 def test_sm90_lse_kernel_with_very_negative_logits(cuda, d):
     """Every logit near -80 (and a ragged last key tile): lse = m s + ln l
     keeps the scale's units, so lse is near -80 and right to 1e-3."""
@@ -525,6 +528,7 @@ def test_sm90_lse_kernel_with_very_negative_logits(cuda, d):
     (12, 1400, 2800, 320, 8),   # video ST-Attn under grad
     (6, 1400, 158, 320, 8),     # attn2
     (12, 512, 512, 32, 4),      # the tiny models' d = 8
+    (6, 1296, 1296, 640, 8),    # HD 432x768's second level, d = 80
 ])
 def test_sm90_lse_kernel_output_is_the_inference_kernels(cuda, b, lq, lk, c,
                                                          heads):
@@ -543,15 +547,16 @@ def test_sm90_lse_kernel_output_is_the_inference_kernels(cuda, b, lq, lk, c,
     _check_lse(lse, lse_want)
 
 
-def test_sm90_lse_kernel_reads_the_split_view_of_the_same_memory(cuda):
+@pytest.mark.parametrize("d", (40, 72, 80))
+def test_sm90_lse_kernel_reads_the_split_view_of_the_same_memory(cuda, d):
     """``flash_attention_lse_fwd`` on a (B, L, H, D) view and
     ``packed_attention_lse_fwd`` on its packed memory launch the one kernel
     and agree bit for bit, o and lse."""
-    q, k, v = _qkv4(3, 777, 1111, 8, 40, cuda, seed=83)
+    q, k, v = _qkv4(3, 777, 1111, 8, d, cuda, seed=83)
     A.reset_launch_counts()
     o_split, lse_split = A.flash_attention_lse_fwd(q, k, v)
     o_packed, lse_packed = A.packed_attention_lse_fwd(
-        *(t.reshape(3, t.shape[1], 320) for t in (q, k, v)), 8)
+        *(t.reshape(3, t.shape[1], 8 * d) for t in (q, k, v)), 8)
     torch.cuda.synchronize()
     assert A.sm90_attention_lse_fwd.launches == 2
     assert o_split.shape == q.shape
@@ -565,9 +570,9 @@ def test_sm90_lse_kernel_reads_the_split_view_of_the_same_memory(cuda):
 @pytest.mark.parametrize("call, sm90", [
     ("packed d=40", 1), ("capped d=40", 1), ("split d=40", 1),
     ("packed d=8", 1), ("split d=64", 1),
-    ("packed d=80", 0), ("packed d=160", 0), ("capped d=80", 0),
+    ("packed d=80", 1), ("packed d=160", 0), ("capped d=80", 1),
     ("split d=20", 0), ("split d=4", 0), ("split d=40 unaligned", 0),
-    ("split d=80", 0),
+    ("split d=80", 1), ("packed d=72", 1), ("split d=72", 1),
 ])
 def test_sm90_lse_routing_on_the_card(cuda, call, sm90):
     """In-scope training forwards launch ``sm90_attention_lse_fwd``, the
@@ -687,7 +692,7 @@ def _check_sm90_backward(args, heads):
 
 
 @pytest.mark.parametrize("lk", SM90_LK)
-@pytest.mark.parametrize("d", (8, 16, 24, 32, 40, 48, 56, 64))
+@pytest.mark.parametrize("d", (8, 16, 24, 32, 40, 48, 56, 64, 72, 80))
 def test_sm90_backward_against_plain(cuda, d, lk):
     """``sm90_attention_bwd_dq`` and ``_dkv`` at every in-scope head_dim,
     against the float32 plain versions: query counts around the 128-query
@@ -705,6 +710,8 @@ def test_sm90_backward_against_plain(cuda, d, lk):
     (6, 1400, 158, 320, 8),     # attn2
     (12, 1400, 2800, 320, 8),   # video ST-Attn under grad
     (12, 512, 512, 32, 4),      # the tiny models' d = 8
+    (6, 1296, 1296, 640, 8),    # HD 432x768's second level, d = 80
+    (6, 704, 704, 640, 8),      # HD 256x704's, d = 80
 ])
 def test_sm90_backward_at_the_main_shapes_is_deterministic(cuda, b, lq, lk,
                                                            c, heads):
@@ -720,7 +727,7 @@ def test_sm90_backward_at_the_main_shapes_is_deterministic(cuda, b, lq, lk,
         assert torch.equal(x, y)
 
 
-@pytest.mark.parametrize("d", (8, 40, 64))
+@pytest.mark.parametrize("d", (8, 40, 64, 72, 80))
 def test_sm90_backward_with_very_negative_logits(cuda, d):
     """Every logit near -80 (and ragged last tiles): the key mask and the
     queries' lse past Lq keep dq, dk and dv finite and right.
@@ -764,11 +771,12 @@ def test_sm90_backward_with_very_negative_logits(cuda, d):
         _check(got, want)
 
 
-def test_sm90_backward_reads_the_split_view_of_the_same_memory(cuda):
+@pytest.mark.parametrize("d", (40, 72, 80))
+def test_sm90_backward_reads_the_split_view_of_the_same_memory(cuda, d):
     """``flash_attention_bwd_dq`` / ``_dkv`` on (B, L, H, D) views and the
     packed wrappers on their packed memory launch the same two kernels and
     agree bit for bit."""
-    b, lq, lk, heads, d = 3, 777, 1111, 8, 40
+    b, lq, lk, heads = 3, 777, 1111, 8
     q, k, v, do, lse, delta = _grad_inputs(b, lq, lk, heads * d, heads, cuda, 72)
     sp = lambda t: t.view(b, t.shape[1], heads, d)
     A.reset_launch_counts()
@@ -790,9 +798,9 @@ def test_sm90_backward_reads_the_split_view_of_the_same_memory(cuda):
 
 @pytest.mark.parametrize("call, sm90", [
     ("packed d=40", 1), ("split d=40", 1), ("packed d=8", 1),
-    ("split d=64", 1), ("packed d=80", 0), ("packed d=160", 0),
+    ("split d=64", 1), ("packed d=80", 1), ("packed d=160", 0),
     ("split d=20", 0), ("split d=4", 0), ("split d=40 unaligned", 0),
-    ("split d=80", 0),
+    ("split d=80", 1), ("packed d=72", 1), ("split d=72", 1),
 ])
 def test_sm90_backward_routing_on_the_card(cuda, call, sm90):
     """In-scope backward calls launch the sm90 kernels, the others the
@@ -888,6 +896,10 @@ def _ring_inputs(b, n_cam, l, c, device, seed):
     (2, 6, 300, 32, 4),      # d = 8, the tiny models'
     (2, 6, 300, 64, 4),      # d = 16
     (2, 6, 300, 256, 4),     # d = 64
+    (2, 6, 300, 288, 4),     # d = 72: columns 72..79 of the second box zero
+    (2, 3, 701, 320, 4),     # ragged, d = 80
+    (4, 6, 1296, 640, 8),    # HD 432x768's second level, d = 80
+    (4, 6, 704, 640, 8),     # HD 256x704's, d = 80
     (3, 1, 300, 320, 8),     # one view: its own left and right neighbour
     (3, 2, 300, 320, 8),     # two views: left == right
 ])
@@ -905,7 +917,7 @@ def test_sm90_ring_against_plain(cuda, b, n_cam, l, c, heads):
     _check(got, A.attention_packed_neighbors_plain(q, k, v, heads, n_cam))
 
 
-@pytest.mark.parametrize("d", (8, 40, 64))
+@pytest.mark.parametrize("d", (8, 40, 64, 72, 80))
 def test_sm90_ring_with_very_negative_logits(cuda, d):
     """Every logit near -80 in both passes (and a ragged last key tile):
     each half's softmax starts afresh at the pass boundary, so the output
@@ -1030,3 +1042,66 @@ def test_generation_gate_reading_of_a_ring_without_its_left_neighbour(
           f"{bad['mean_abs_err']:.3e} (limit {bad['tol_mean']})")
     assert sound["mean_abs_err"] <= sound["tol_mean"]
     assert bad["mean_abs_err"] > sound["mean_abs_err"]
+
+
+# ------------------------------- the sm90 kernels' second box (d > 64) --
+
+def _second_box_only(t, heads):
+    """``t`` (B, L, H*d) with each head's columns 0..63 zeroed."""
+    b, l, c = t.shape
+    t = t.view(b, l, heads, c // heads).clone()
+    t[..., :64] = 0
+    return t.view(b, l, c)
+
+
+@pytest.mark.parametrize("d", (72, 80))
+@pytest.mark.parametrize("kind", ["fwd", "lse", "ring", "backward"])
+def test_sm90_second_box_carries_columns_64_and_up(cuda, kind, d):
+    """q, k, v (and dO) zero in each head's columns 0..63: every signal is
+    in the second TMA box (columns 64..d-1).  A kernel that never loads,
+    multiplies or stores that box gives uniform softmaxes or leaves
+    columns 64.. unwritten, and disagrees with the plain version; ragged
+    lengths, each wrapper's sm90 launch counted."""
+    heads, lq, lk = 4, 333, 301
+    q, k, v = (_second_box_only(t, heads)
+               for t in _qkv(6, lq, lk, heads * d, cuda, seed=120 + d))
+    q = (q.float() * 2).bfloat16()  # sharper softmaxes from 16 columns
+    A.reset_launch_counts()
+    if kind == "fwd":
+        got = A.packed_attention_fwd(q, k, v, heads)
+        torch.cuda.synchronize()
+        assert A.sm90_attention_fwd.launches == 1
+        want = A.attention_packed_plain(q, k, v, heads)
+    elif kind == "lse":
+        got, lse = A.packed_attention_lse_fwd(q, k, v, heads)
+        torch.cuda.synchronize()
+        assert A.sm90_attention_lse_fwd.launches == 1
+        want, lse_want = A.attention_packed_lse_plain(q, k, v, heads)
+        _check_lse(lse, lse_want)
+    elif kind == "ring":
+        q, k, v = (_second_box_only(t, heads) for t in _ring_inputs(
+            2, 3, lq, heads * d, cuda, seed=121 + d))
+        got = A.packed_attention_nbr_fwd(q, k, v, heads, 3)
+        torch.cuda.synchronize()
+        assert A.sm90_attention_nbr_fwd.launches == 1
+        want = A.attention_packed_neighbors_plain(q, k, v, heads, 3)
+    else:
+        do = _second_box_only(_qkv(6, lq, 1, heads * d, cuda, 122)[0], heads)
+        o, lse = A.packed_attention_lse_fwd(q, k, v, heads)
+        args = (q, k, v, do, lse, A.attention_delta(o, do, heads))
+        A.reset_launch_counts()
+        got = A.packed_attention_bwd_dq(*args, heads)
+        dk, dv = A.packed_attention_bwd_dkv(*args, heads)
+        torch.cuda.synchronize()
+        assert A.sm90_attention_bwd_dq.launches == 1
+        assert A.sm90_attention_bwd_dkv.launches == 1
+        want = A.attention_packed_bwd_dq_plain(*args, heads)
+        dk_want, dv_want = A.attention_packed_bwd_dkv_plain(*args, heads)
+        for g, w in ((dk, dk_want), (dv, dv_want)):
+            assert w.float().abs().max().item() > 0.05
+            _check(g, w)
+    # the signal is there, and only past column 64
+    want4 = want.view(*want.shape[:2], heads, d).float()
+    assert want4[..., 64:].abs().max().item() > 0.05
+    assert want4[..., :64].abs().max().item() == 0
+    _check(got, want)

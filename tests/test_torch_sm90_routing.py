@@ -23,9 +23,10 @@ from dualdiff_tpu_torch.ops import cuda_lib
 
 @pytest.mark.parametrize("d, aligned, want", [
     (8, True, True), (16, True, True), (40, True, True), (64, True, True),
-    (72, True, False), (80, True, False), (160, True, False),
-    (20, True, False), (4, True, False), (0, True, False),
-    (40, False, False), (8, False, False),
+    (72, True, True), (80, True, True), (88, True, False),
+    (160, True, False), (20, True, False), (4, True, False),
+    (0, True, False), (40, False, False), (8, False, False),
+    (80, False, False),
 ])
 def test_scope_rule(d, aligned, want):
     assert A.sm90_in_scope(d, aligned) is want
@@ -201,8 +202,8 @@ def test_the_sm90_backward_library_is_built_like_the_others():
     assert path.startswith(cuda_lib.BUILD_DIR) and path.endswith(".so")
 
 
-# an HD generation: packed_attention_fwd carries 180 in-scope calls (d =
-# 40) and 360 at d = 80, which take the template
+# a generation whose packed_attention_fwd carries 180 in-scope calls and
+# 360 outside sm90_in_scope (as d = 160 would be), which take the template
 HD_GEN = {"packed_attention_fwd": 540, "packed_attention_capped_fwd": 180}
 
 
@@ -214,8 +215,8 @@ HD_GEN = {"packed_attention_fwd": 540, "packed_attention_capped_fwd": 180}
     ({"packed_attention_fwd": 520, "packed_attention_capped_fwd": 200}, 720,
      {}, True),
     (HD_GEN, 360, {"packed_attention_fwd": 360}, True),
-    (HD_GEN, 720, {"packed_attention_fwd": 360}, False),  # sm90 took d = 80
-    (HD_GEN, 359, {"packed_attention_fwd": 360}, False),  # one d = 40 call
+    (HD_GEN, 720, {"packed_attention_fwd": 360}, False),  # sm90 took them
+    (HD_GEN, 359, {"packed_attention_fwd": 360}, False),  # one in-scope call
                                                           # took the template
     (HD_GEN, 360, {}, False),
 ])
@@ -319,8 +320,8 @@ def test_sm90_lse_kernel_refuses_a_tensor_off_the_cpu_and_the_card(fn):
 
 
 @pytest.mark.parametrize("c, heads, match", [
-    (320, 4, "sm90 kernel"),      # d = 80
-    (288, 4, "sm90 kernel"),      # d = 72
+    (352, 4, "sm90 kernel"),      # d = 88
+    (640, 4, "sm90 kernel"),      # d = 160
     (160, 8, "multiples of 8"),   # d = 20
 ])
 def test_sm90_lse_kernel_refuses_a_head_dim_outside_its_scope(
@@ -351,15 +352,17 @@ def test_sm90_backward_refuses_a_tensor_off_the_cpu_and_the_card(fn):
 
 
 def _kernels_line(generate_sm90=360, train_dq=None, train_lse=None,
-                  clip_ring=None, hd_sm90=None):
+                  clip_ring=None, hd_sm90=None, hd_out_of_scope=None):
     """``chip_smoke.kernels_line`` on made-up phase-3 rows and path counts:
     every wrapper's row at 1.0 ms on its own kernel, the template at 0.5,
     the sm90 forward at 0.25, with lse at 0.0625, the ring at 0.5 (no
     library call, the stacked yardstick at 0.75) and the sm90 backward at
     0.125.  ``clip_ring``: the sm90 ring's launches in the clip (the
     wrapper's 200 by default).  ``hd_sm90``: with it, an HD generation
-    path whose d = 80 calls (360 whole-K, 100 rings) are template
-    launches, and the sm90 forward's launches there."""
+    path (540 whole-K, 180 capped and 200 ring calls, every ring on the
+    sm90 ring but ``hd_out_of_scope``'s) and the sm90 forward's launches
+    there; ``hd_out_of_scope``: that path's calls outside
+    ``sm90_in_scope`` ({wrapper: calls}, none by default, as at HD)."""
     row = lambda ms, **kw: dict(
         dict(max_abs_err=1e-3, kernel_ms=ms, plain_ms=9.0, bound_ms=0.06,
              bound_by="operations", library_ms=0.24, shape={}), **kw)
@@ -408,12 +411,12 @@ def _kernels_line(generate_sm90=360, train_dq=None, train_lse=None,
                                     flash_attention_bwd_dkv=6)}
     paths = {p: (units.get(p, p), c, {}) for p, c in path.items()}
     if hd_sm90 is not None:
+        oos = hd_out_of_scope or {}
         paths["hd_432x768"] = (
             "432x768 generation",
-            counts(hd_sm90, nbr=100, packed_attention_fwd=540,
-                   packed_attention_capped_fwd=180,
-                   packed_attention_nbr_fwd=200),
-            {"packed_attention_fwd": 360, "packed_attention_nbr_fwd": 100})
+            counts(hd_sm90, nbr=200 - oos.get("packed_attention_nbr_fwd", 0),
+                   packed_attention_fwd=540, packed_attention_capped_fwd=180,
+                   packed_attention_nbr_fwd=200), oos)
     return chip_smoke.kernels_line(results, paths,
                                    {"flagship": (per_step, {})})
 
@@ -441,11 +444,36 @@ def test_kernels_line_refuses_a_path_where_the_template_ran():
         _kernels_line(generate_sm90=359)
 
 
-def test_kernels_line_credits_hd_d80_calls_to_the_template():
-    """At HD one wrapper carries in-scope calls (d = 40, on the sm90
-    kernel) and d = 80 ones (on the template): each entry gets its
+# the out-of-scope share of _kernels_line's HD path: 360 whole-K calls and
+# 100 rings on the templates (as d = 160 or d % 8 != 0 would be)
+HD_OUT_OF_SCOPE = {"packed_attention_fwd": 360,
+                   "packed_attention_nbr_fwd": 100}
+
+
+def test_kernels_line_credits_hd_d80_calls_to_the_sm90_kernels():
+    """At HD every call is in scope, the d = 80 level's too: each
+    wrapper's launches there are credited to its sm90 kernel, none to the
+    template, and one d = 80 call on the template is refused."""
+    got = {e["name"]: e for e in _kernels_line(hd_sm90=720)["kernels"]}
+    hd = "432x768 generation"
+    for w, sm90 in (("packed_attention_fwd", 540),
+                    ("packed_attention_capped_fwd", 180),
+                    ("packed_attention_nbr_fwd", 200)):
+        kern = chip_smoke._sm90_kernel_of(w)
+        assert got[w]["launches_by_path"][hd] == 0, w
+        assert got[f"{kern}:{w}"]["launches_by_path"][hd] == sm90, w
+    assert got[f"{chip_smoke.SM90}:packed_attention_fwd"][
+        "sm90_launches_by_path"][hd] == 720
+    with pytest.raises(AssertionError, match="sm90_attention_fwd"):
+        _kernels_line(hd_sm90=719)
+
+
+def test_kernels_line_credits_out_of_scope_calls_to_the_template():
+    """A wrapper that carries in-scope calls (on the sm90 kernel) and
+    out-of-scope ones (on the template) on one path: each entry gets its
     share."""
-    got = {e["name"]: e for e in _kernels_line(hd_sm90=360)["kernels"]}
+    got = {e["name"]: e for e in _kernels_line(
+        hd_sm90=360, hd_out_of_scope=HD_OUT_OF_SCOPE)["kernels"]}
     hd = "432x768 generation"
     for w, tmpl, sm90 in (("packed_attention_fwd", 360, 180),
                           ("packed_attention_capped_fwd", 0, 180),
@@ -459,10 +487,31 @@ def test_kernels_line_credits_hd_d80_calls_to_the_template():
 
 @pytest.mark.parametrize("hd_sm90", [720, 359])
 def test_kernels_line_refuses_an_hd_path_with_a_misrouted_call(hd_sm90):
-    """The sm90 forward took a d = 80 call (720), or a d = 40 call took
-    the template (359)."""
+    """With ``HD_OUT_OF_SCOPE``'s calls on the path: the sm90 forward took
+    out-of-scope calls (720), or an in-scope call took the template
+    (359)."""
     with pytest.raises(AssertionError, match="sm90_attention_fwd"):
-        _kernels_line(hd_sm90=hd_sm90)
+        _kernels_line(hd_sm90=hd_sm90, hd_out_of_scope=HD_OUT_OF_SCOPE)
+
+
+@pytest.mark.parametrize("latent_hw", [(32, 88), (54, 96)])
+def test_hd_derivation_leaves_no_level_to_the_templates(latent_hw):
+    """At 256x704 and 432x768 (SD v1.5's widths, 8 heads) the two levels
+    that reach the kernels are d = 40 and d = 80, both in
+    ``sm90_in_scope``: ``template_only`` yields no level, and the derived
+    generation and training step launch no template."""
+    levels = chip_smoke.attention_levels(latent_hw, (320, 640, 1280, 1280),
+                                         8)
+    assert [d for _, d in levels] == [40, 80, 160]
+    assert [i for i, _ in chip_smoke._kernel_levels(levels, False)] == [0, 1]
+    assert chip_smoke._kernel_levels(levels, True) == []
+    gen = chip_smoke.generate_launches_per_generation(2, 2, 20, levels,
+                                                      template_only=True)
+    step = chip_smoke.train_launches_per_step(2, 2, True, levels,
+                                              template_only=True)
+    assert not any(gen.values()) and not any(step.values())
+    assert any(chip_smoke.generate_launches_per_generation(
+        2, 2, 20, levels).values())
 
 
 def test_kernels_line_credits_in_scope_backward_calls_to_the_sm90_kernels():
@@ -587,7 +636,7 @@ def test_sm90_ring_refuses_grad():
 
 
 @pytest.mark.parametrize("c, heads, n_cam, match", [
-    (320, 4, 3, "sm90 kernel"),      # d = 80: the template's
+    (352, 4, 3, "sm90 kernel"),      # d = 88: the template's
     (160, 8, 3, "multiples of 8"),   # d = 20
     (320, 8, 4, "n_cam=4"),          # 6 rows are not views of 4
 ])

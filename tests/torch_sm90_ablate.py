@@ -58,14 +58,15 @@ __device__ __forceinline__ void wgmma_rk(float (&d)[32],
 template <int KSTEPS>
 __device__ __forceinline__ void issue_rk(float (&acc)[32],
                                          const uint32_t (&a)[4][4],
-                                         uint64_t db) {
+                                         uint64_t db, uint64_t, uint64_t) {
 #pragma unroll
-  for (int kt = 0; kt < KSTEPS; ++kt) wgmma_rk(acc, a[kt], db + 2 * kt, kt);
+  for (int kt = 0; kt < (KSTEPS < 4 ? KSTEPS : 4); ++kt)
+    wgmma_rk(acc, a[kt], db + 2 * kt, kt);
 }
 '''
 _DQ = "// " + "-" * 70 + " dq"  # the source's dq section rule
 _NO_PRODUCTS = [("issue_ss<KSTEPS>(", "if (0) issue_ss<KSTEPS>("),
-                ("issue_rs(a", "if (0) issue_rs(a")]
+                ("issue_rs<kWide>(a", "if (0) issue_rs<kWide>(a")]
 # variant -> (old, new) replacements in the source
 VARIANTS = {
     "base": [],
@@ -77,7 +78,7 @@ VARIANTS = {
                  "        prev = st;"),
                 ("        pack_a(pa, s);\n        pack_a(dsa, dp);\n"
                  "        prev = st;", "        prev = st;")],
-    "no_rs": [("issue_rs(a", "if (0) issue_rs(a")],
+    "no_rs": [("issue_rs<kWide>(a", "if (0) issue_rs<kWide>(a")],
     "no_ss": [("issue_ss<KSTEPS>(", "if (0) issue_ss<KSTEPS>(")],
     "register_a": [(_DQ, _RK + _DQ),
                    ("issue_ss<KSTEPS>(s, dqa,", "issue_rk<KSTEPS>(s, ds,"),
