@@ -91,6 +91,21 @@ Phases, in order; any failure exits non-zero:
             ``T_SCORE_CAP`` on the capped routes, the second at d = 80;
             every call on the sm90 kernels).  Alone: ``python3 -c "import chip_smoke as s;
             s.phase_device(); s.phase_build(); s.phase_hd(None)"``.
+15. cache   the flagship training step at ``bench.py``'s training point:
+            B = 2 x 6 views, the conditioning cache on, seeded random
+            weights, bf16, remat, AdamW.  One batch through the cached and
+            the uncached loss with the same draws (within
+            ``CACHE_LOSS_RTOL``); then ``run()`` over three epochs of a
+            4-sample set: the precompute runs in the first epoch only, the
+            later epochs are served the first's entries bit for bit, and
+            every step's launches equal ``train_launches_per_step``.
+16. bench   ``python -m dualdiff_tpu_torch.bench`` in a subprocess with
+            ``BENCH_ENV`` (no video sections, 3 training steps): its line
+            parsed, the headline and the training section above 0 with
+            ``0 < mfu_corrected <= 1``, the numerics pin ``ok``, and the
+            generation's recorded kernel FLOPs and launches equal to their
+            derivations (``generate_kernel_flops``,
+            ``generate_launches_per_generation``).
 
 On the CPU, ``VideoTrainer(cfg, clips, device="cpu", models=...)`` runs the
 same training with the plain versions; README.md says how to rehearse
@@ -167,6 +182,13 @@ B_TRAIN = 1
 FRAMES = 16
 # video training: one clip of 2 frames x 6 views per step
 TRAIN_FRAMES = 2
+# phase cache: bench.py's training batch with the conditioning cache on,
+# three epochs of a 4-sample set; the cached loss within JAX's own
+# tolerance of the uncached one (test_conditioning_cache_matches_uncached_step)
+B_CACHE, CACHE_SAMPLES, CACHE_EPOCHS = 2, 4, 3
+CACHE_LOSS_RTOL = 2e-4
+# phase bench: the port bench without its video sections, 3 training steps
+BENCH_ENV = {"BENCH_SKIP_VIDEO": "1", "BENCH_TRAIN_STEPS": "3"}
 # the TPU kernel each CUDA kernel replaces, and its source here
 REPLACES = {
     "packed_attention_fwd": "dualdiff_tpu/ops/attention.py:468",      # _fwd_kernel_t
@@ -362,6 +384,32 @@ def generate_launches_per_generation(layers: int, n_controlnets: int,
             counts["flash_attention_fwd"] += int(
                 _sfa_plus_on_kernels(fusionp, t))
     return counts
+
+
+def generate_kernel_flops(layers: int, n_controlnets: int, steps: int,
+                          levels: list, channels, rows: int) -> dict:
+    """Hand-counted FLOPs of one image generation's kernel calls per
+    wrapper, with ``ops.attention.recorded_kernel_flops``' formulas (4 x
+    rows x Lq x Lk x C a forward, 8 x rows x L x L x C the ring), over the
+    calls ``generate_launches_per_generation`` derives (no SFA+): at each
+    level with at least ``PACKED_MIN_LQ`` tokens ``t`` (C =
+    ``channels[level]``), attn1 (``t`` keys) and attn2 (``KV_CROSS``) of the
+    UNet's and the ControlNets' blocks and the UNet's rings, on ``rows``
+    rows (2 x B x views with batched CFG)."""
+    from dualdiff_tpu_torch.ops.attention import over_score_cap
+
+    blocks = 2 * layers + 1
+    cn = n_controlnets * layers
+    flops = _launches()
+    for i, t in _kernel_levels(levels, False):
+        c = channels[i]
+        for lk in (t, KV_CROSS):
+            kern = "packed_attention_capped_fwd" if over_score_cap(t, lk) \
+                else "packed_attention_fwd"
+            flops[kern] += (blocks + cn) * steps * 4 * rows * t * lk * c
+        flops["packed_attention_nbr_fwd"] += blocks * steps * 8 * rows * t \
+            * t * c
+    return flops
 
 
 def train_launches_per_step(layers: int, n_controlnets: int,
@@ -2128,6 +2176,218 @@ def phase_video_train_reference():
         SM90_DQ, SM90_DKV))
 
 
+def phase_cache(profile_dir):
+    """The flagship training step at ``bench.py``'s training point (phase
+    ``cache``): ``B_CACHE`` x 6 views, the conditioning cache on, seeded
+    random weights, bf16, remat, AdamW.
+
+    1. The first planned batch through the uncached loss (its raw batch)
+       and the cached one with the same draws, forward only: the losses
+       within ``CACHE_LOSS_RTOL``.
+    2. ``run()`` over ``CACHE_EPOCHS`` epochs of ``CACHE_SAMPLES`` samples
+       (the cache emptied first): the precompute runs once a batch in the
+       first epoch and never after, and every later epoch is served each
+       sample's first-epoch moments and rays bit for bit.
+    3. Every step's launches equal ``train_launches_per_step``
+       (``check_sm90_launches`` too), with a finite loss and grad_norm > 0.
+    4. s/step (median of the steps after the first epoch), images/s, peak
+       GiB (after the first epoch) and the cache's MB.
+
+    -> as ``phase_train``."""
+    import numpy as np
+
+    from dualdiff_tpu_torch.ops import attention as A
+    from dualdiff_tpu_torch.runner.conds import prepare_batch
+    from dualdiff_tpu_torch.runner.factory import (build_models,
+                                                   randomize_weights)
+    from dualdiff_tpu_torch.runner.train_state import named_roots
+    from dualdiff_tpu_torch.runner.trainer import (MultiviewTrainer,
+                                                   make_draws, make_loss_fn)
+    from dualdiff_tpu_torch.utils.config import load_config
+
+    t0 = time.perf_counter()
+    cfg = load_config(overrides=["runner.cache_conditioning=true",
+                                 f"runner.train_batch_size={B_CACHE}"])
+    models = build_models(cfg, device="cuda")
+    for _, m in named_roots(models):
+        randomize_weights(m, SEED)
+    ds = _train_batch(cfg, CACHE_SAMPLES)
+    trainer = MultiviewTrainer(cfg, ds, models=models)
+    torch.cuda.synchronize()
+    log(f"# cached training built in {time.perf_counter() - t0:.1f} s")
+
+    epoch, i, idxs = plan = next(trainer._batch_plan(0))
+    rng = np.random.default_rng([int(cfg.seed), epoch, i])
+    raw = prepare_batch(trainer._collate_items([ds[j] for j in idxs], rng),
+                        trainer.device)
+    cached = trainer._build_batch(plan)
+    draws = make_draws(trainer.generator, cfg, B_CACHE, N_CAM,
+                       trainer.latent_hw, trainer.schedule.num_train_timesteps,
+                       trainer.device)
+    uncached_fn = make_loss_fn(models, cfg, trainer.schedule,
+                               trainer.latent_hw, trainer.image_hw)
+    with torch.no_grad():
+        want = float(uncached_fn(raw, draws)[0])
+        got = float(trainer.loss_fn(cached, draws)[0])
+    rel = abs(got - want) / abs(want)
+    log(f"# cached loss {got!r}, uncached {want!r}: {rel:.3e} relative "
+        f"(limit {CACHE_LOSS_RTOL})")
+    if not rel <= CACHE_LOSS_RTOL:
+        raise AssertionError(f"cached loss {got} against uncached {want}")
+    del raw, cached
+
+    trainer._cond_cache.clear()
+    trainer._cond_cache_bytes = 0
+    calls = [0]
+    precompute, build = trainer._precompute, trainer._build_batch
+
+    def counting(batch):
+        calls[0] += 1
+        return precompute(batch)
+
+    served = [{} for _ in range(CACHE_EPOCHS)]
+
+    def recording(plan):
+        batch = build(plan)
+        for row, j in enumerate(plan[2]):
+            served[plan[0]][j] = (batch["latent_moments"][row].cpu(),
+                                  batch["ors_rays"][row].cpu())
+        return batch
+
+    trainer._precompute, trainer._build_batch = counting, recording
+    layers = len(models["unet"].down_blocks[0].resnets)
+    h, w = cfg.dataset.image_size
+    derive = functools.partial(
+        train_launches_per_step, layers, len(models["controlnets"]),
+        bool(cfg.runner.enable_unet_checkpointing)
+        and bool(cfg.runner.enable_controlnet_checkpointing),
+        model_levels(models["unet"], (h // 8, w // 8)))
+    expect, template = derive(), derive(template_only=True)
+    spe = trainer.steps_per_epoch
+    first_epoch_calls, steps = [], []
+    run_counts = dict.fromkeys(launch_counts(A), 0)
+
+    def on_metrics(step, m):
+        counts = launch_counts(A)
+        A.reset_launch_counts()
+        for k, v in counts.items():
+            run_counts[k] += v
+        log(f"# cached train step {step}: loss {m['loss']:.6f}, grad_norm "
+            f"{m['grad_norm']:.6f}, {m['step_time_s']:.3f} s (batch "
+            f"assembly {m['data_time_s']:.3f} s), precompute calls "
+            f"{calls[0]}")
+        if _wrappers(counts) != expect:
+            raise AssertionError(f"kernel launches {counts} != {expect}")
+        check_sm90_launches(counts, template)
+        if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+                and m["grad_norm"] > 0):
+            raise AssertionError(f"step {step}: {m}")
+        steps.append(m)
+        if step == spe:
+            first_epoch_calls.append(calls[0])
+            torch.cuda.reset_peak_memory_stats()
+
+    A.reset_launch_counts()
+    trainer.run(CACHE_EPOCHS * spe, on_metrics)
+    if first_epoch_calls != [spe] or calls[0] != spe:
+        raise AssertionError(f"precompute calls: {first_epoch_calls} in the "
+                             f"first epoch, {calls[0]} in all, not {spe}")
+    for e in range(1, CACHE_EPOCHS):
+        if set(served[e]) != set(served[0]) or not all(
+                torch.equal(a, b) for j in served[0]
+                for a, b in zip(served[e][j], served[0][j])):
+            raise AssertionError(f"epoch {e} was not served the first "
+                                 f"epoch's entries bit for bit")
+    times = sorted(m["step_time_s"] for m in steps[spe:])
+    s = times[len(times) // 2]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    cache_mb = trainer._cond_cache_bytes / 2 ** 20
+    row = {"phase": "cache", "config": f"{cfg.task_id} {h}x{w}, "
+           f"runner.cache_conditioning=true", "batch": B_CACHE,
+           "views": N_CAM, "steps": len(steps),
+           "cached_loss": got, "uncached_loss": want,
+           "loss_rel_err": rel, "precompute_calls": calls[0],
+           "s_per_step": s, "s_per_step_all": [m["step_time_s"]
+                                              for m in steps],
+           "images_per_s": B_CACHE * N_CAM / s, "peak_mem_gib": peak,
+           "cache_entries": len(trainer._cond_cache), "cache_mb": cache_mb,
+           "loss": [m["loss"] for m in steps],
+           "launches_per_step": expect, "launches_run": run_counts}
+    log(json.dumps(row))
+    log(f"cache s/step: {s}")
+    log(f"cache train images/s: {B_CACHE * N_CAM / s}")
+    log(f"cache peak GiB: {peak}")
+    log(f"cache MB: {cache_mb}")
+    if profile_dir:
+        batch = build(next(trainer._batch_plan(0)))
+        profile_run(lambda: trainer.train_step(batch), s, profile_dir,
+                    "cache_train_step")
+    del trainer, models
+    torch.cuda.empty_cache()
+    return {"run": run_counts, "step": expect, "step_template": template,
+            "run_template": {k: v * len(steps) for k, v in template.items()}}
+
+
+def phase_bench() -> dict:
+    """``python -m dualdiff_tpu_torch.bench`` with ``BENCH_ENV`` in a
+    subprocess (phase ``bench``); its sections' output goes to the log.
+    Checks the line: the headline (frames/s) and the training section's
+    value above 0, each ``0 < mfu_corrected <= 1`` against the card's
+    bf16 peak (``utils.flops.device_peak_flops``: this card must have
+    one), the numerics pin ``ok``, and the generation's recorded kernel
+    FLOPs and launches equal to ``generate_kernel_flops`` and
+    ``generate_launches_per_generation`` at the bench's point.  -> the
+    line."""
+    from dualdiff_tpu_torch.runner.factory import build_models
+    from dualdiff_tpu_torch.utils.config import load_config
+    from dualdiff_tpu_torch.utils.flops import device_peak_flops
+
+    if device_peak_flops() is None:
+        raise AssertionError(f"no bf16 peak for "
+                             f"{torch.cuda.get_device_name(0)}")
+    torch.cuda.empty_cache()
+    env = dict(os.environ, **BENCH_ENV)
+    env.pop("BENCH_MODE", None)
+    p = subprocess.run([sys.executable, "-m", "dualdiff_tpu_torch.bench"],
+                       env=env, cwd=os.path.dirname(os.path.abspath(
+                           __file__)), capture_output=True, text=True,
+                       timeout=900)
+    for text in (p.stderr, p.stdout):
+        for ln in (text or "").strip().splitlines():
+            log(f"#   bench: {ln}")
+    if p.returncode != 0:
+        raise AssertionError(f"the bench exited {p.returncode}")
+    line = json.loads(p.stdout.strip().splitlines()[-1])
+    det = line["detail"]
+    train = det["train"]
+    for name, sec in (("gen", line), ("train", train)):
+        u = (sec["detail"] if sec is line else sec).get("mfu_corrected")
+        if not (sec.get("value") or 0) > 0 or u is None or not 0 < u <= 1:
+            raise AssertionError(f"bench {name}: value {sec.get('value')}, "
+                                 f"mfu_corrected {u}")
+    if det["numerics_pin"]["status"] != "ok":
+        raise AssertionError(f"numerics pin: {det['numerics_pin']}")
+    cfg = load_config()
+    h, w = cfg.dataset.image_size
+    unet = build_models(cfg, device="meta")["unet"]
+    levels = model_levels(unet, (h // 8, w // 8))
+    layers, n_cn = len(unet.down_blocks[0].resnets), 2
+    steps = int(cfg.runner.pipeline_param.num_inference_steps)
+    flops = generate_kernel_flops(layers, n_cn, steps, levels,
+                                  unet.block_out_channels, 2 * B * N_CAM)
+    launches = generate_launches_per_generation(layers, n_cn, steps, levels)
+    want = {k: v for k, v in launches.items() if v}
+    if det["kernel_flops"] != sum(flops.values()) or det["launches"] != want:
+        raise AssertionError(f"bench kernel FLOPs {det['kernel_flops']} "
+                             f"and launches {det['launches']}, derived "
+                             f"{sum(flops.values())} and {want}")
+    log(json.dumps({"phase": "bench", "line": line}))
+    log(f"bench frames/s: {line['value']}, mfu_corrected "
+        f"{det['mfu_corrected']}; train images/s: {train['value']}, "
+        f"mfu_corrected {train['mfu_corrected']}")
+    return line
+
+
 # the path each kernel serves, whose launches the kernels line reports
 KERNEL_PATH = {"packed_attention_fwd": "generate",
                "packed_attention_nbr_fwd": "generate",
@@ -2249,6 +2509,11 @@ def main() -> int:
     more_paths, more_steps = timed("hd", phase_hd, profile_dir)
     paths.update(more_paths)
     per_step.update(more_steps)
+    cache = timed("cache", phase_cache, profile_dir)
+    paths["cache"] = (f"cached training run of {CACHE_EPOCHS} epochs at "
+                      f"B = {B_CACHE}", cache["run"], cache["run_template"])
+    per_step["cache"] = (cache["step"], cache["step_template"])
+    timed("bench", phase_bench)
     log(f"# all phases: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line(results, paths, per_step)))
     print(smi)

@@ -212,7 +212,14 @@ class AutoencoderKL(nn.Module):
     def encode(self, x: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
         """Sample the posterior and apply the SD scaling factor.  ``noise``
         (B, 4, H/8, W/8) is the standard-normal draw."""
-        mean, logvar = self.encode_moments(x).chunk(2, dim=1)
+        return self.sample(self.encode_moments(x), noise)
+
+    def sample(self, moments: torch.Tensor,
+               noise: torch.Tensor) -> torch.Tensor:
+        """Posterior moments (B, 8, h, w) and the standard-normal draw
+        ``noise`` (B, 4, h, w) -> scaled latents, as ``encode`` gives them
+        (the conditioning cache stores the moments)."""
+        mean, logvar = moments.chunk(2, dim=1)
         std = torch.exp(0.5 * logvar.clamp(-30.0, 20.0))
         return (mean + std * noise.to(mean.dtype)) * self.scaling_factor
 

@@ -85,14 +85,16 @@ Kernel wrappers take the plain PyTorch version for tensors on the CPU, which
 is what the CPU tests run.  A CUDA tensor either launches the kernel or
 raises; nothing falls back.  The inference wrappers raise under grad: their
 output has no ``grad_fn``.  Each wrapper counts its launches in
-``<wrapper>.launches``.
+``<wrapper>.launches`` and reports the hand-counted FLOPs of every call to
+``recorded_kernel_flops`` (the JAX package's recorder of the same name).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
-from typing import Optional
+from typing import Dict, Iterator, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -120,7 +122,8 @@ __all__ = ["PACKED_MIN_LQ", "FLASH_MIN_LEN", "mha_einsum",
            "KERNEL_WRAPPERS", "SM90_KERNELS", "reset_launch_counts",
            "SM90_MAX_HEAD_DIM", "sm90_in_scope", "sm90_attention_fwd",
            "sm90_attention_lse_fwd", "sm90_attention_nbr_fwd",
-           "sm90_attention_bwd_dq", "sm90_attention_bwd_dkv"]
+           "sm90_attention_bwd_dq", "sm90_attention_bwd_dkv",
+           "KernelFlops", "recorded_kernel_flops"]
 
 # Queries at least this long take the kernels.  Carried over from the JAX
 # package's _PACKED_MIN_LQ (a TPU measurement); to be decided again on the
@@ -158,6 +161,58 @@ MAX_KERNEL_HEAD_DIM = 160
 # box per row, and above 64 a second, 16-wide, 32-byte swizzled one (HD's
 # second level, d = 80).
 SM90_MAX_HEAD_DIM = 80
+
+# ---------------------------------------------------------------- flops --
+# The torch FLOP counter (utils/flops.py) sees aten ops only, never the
+# ctypes kernels, so each kernel wrapper reports the hand-counted logical
+# FLOPs of its call to the active recorders, with the JAX package's
+# formulas (its _record_flops): 2 FLOPs a multiply-add, Q K^T and P V for a
+# forward (4 B Lq Lk C, C = heads x head_dim; the split layout's B H Lq Lk D
+# is the same product), both neighbours for the camera ring (8 B L L C),
+# and the backward's five products, 10 B Lq Lk C, split between its two
+# kernels: dq 4 (dP = dO V^T, dQ = dS K), dk/dv 6 (S = Q K^T, dV = P^T dO,
+# dK = dS^T Q).  The einsum paths record nothing: the torch counter sees
+# their GEMMs.  A wrapper records on either route, the plain version's for
+# CPU tensors too, once per call; a forward that remat replays in the
+# backward runs, and is counted, twice (launches likewise).
+
+
+class KernelFlops:
+    """What ``recorded_kernel_flops`` yields: ``total`` FLOPs and
+    ``by_wrapper`` {wrapper name: FLOPs} of the kernel calls made while it
+    was active."""
+
+    def __init__(self):
+        self.total = 0.0
+        self.by_wrapper: Dict[str, float] = {}
+
+    def add(self, name: str, flops: float) -> None:
+        self.total += flops
+        self.by_wrapper[name] = self.by_wrapper.get(name, 0.0) + flops
+
+
+_RECORDERS: list = []
+
+
+@contextlib.contextmanager
+def recorded_kernel_flops() -> Iterator[KernelFlops]:
+    """``with recorded_kernel_flops() as rec:`` every kernel wrapper call
+    inside adds its hand-counted FLOPs to ``rec`` (recorders nest)."""
+    rec = KernelFlops()
+    _RECORDERS.append(rec)
+    try:
+        yield rec
+    finally:
+        _RECORDERS.remove(rec)
+
+
+def _record(wrapper: str, factor: int, q: torch.Tensor, lk: int) -> None:
+    """``factor`` x (the batch, query and channel product of ``q``) x
+    ``lk`` to every active recorder, under ``wrapper``."""
+    if _RECORDERS:
+        flops = float(factor * q.numel() * lk)
+        for rec in _RECORDERS:
+            rec.add(wrapper, flops)
 
 
 def _default_scale(scale: Optional[float], d: int) -> float:
@@ -637,6 +692,7 @@ def packed_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (``route="template"``: not), else ``packed_attention_fwd``
     (``csrc/attention.cu``), the port of the TPU kernel ``_fwd_kernel_t``.
     CPU tensors take ``attention_packed_plain``."""
+    _record("packed_attention_fwd", 4, q, k.shape[1])
     if q.device.type == "cpu":
         return attention_packed_plain(q, k, v, heads, scale)
     _refuse_grad(q, k, v)
@@ -670,6 +726,7 @@ def packed_attention_nbr_fwd(q: torch.Tensor, k: torch.Tensor,
     16-byte aligned whenever ``_check_kernel_args`` lets a call through (an
     aligned base, d % 8 == 0), so alignment splits nothing here.  CPU
     tensors take ``attention_packed_neighbors_plain``."""
+    _record("packed_attention_nbr_fwd", 8, q, q.shape[1])
     if q.device.type == "cpu":
         return attention_packed_neighbors_plain(q, k, v, heads, n_cam, scale)
     _refuse_grad(q, k, v)
@@ -702,6 +759,7 @@ def packed_attention_lse_fwd(q: torch.Tensor, k: torch.Tensor,
     (``csrc/attention.cu``), the port of the TPU kernel
     ``_fwd_kernel_t_lse``.  CPU tensors take
     ``attention_packed_lse_plain``."""
+    _record("packed_attention_lse_fwd", 4, q, k.shape[1])
     if q.device.type == "cpu":
         return attention_packed_lse_plain(q, k, v, heads, scale)
     d = _check_kernel_args(q, k, v, heads)
@@ -736,6 +794,7 @@ def packed_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
     (``csrc/attention_train.cu``), the port of the TPU kernel
     ``_bwd_dq_kernel_t``.  CPU tensors take
     ``attention_packed_bwd_dq_plain``."""
+    _record("packed_attention_bwd_dq", 4, q, k.shape[1])
     if q.device.type == "cpu":
         return attention_packed_bwd_dq_plain(q, k, v, do, lse, delta, heads,
                                              scale)
@@ -770,6 +829,7 @@ def packed_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
     (``csrc/attention_train.cu``), the port of the TPU kernel
     ``_bwd_dkv_kernel_t``.  CPU tensors take
     ``attention_packed_bwd_dkv_plain``."""
+    _record("packed_attention_bwd_dkv", 6, q, k.shape[1])
     if q.device.type == "cpu":
         return attention_packed_bwd_dkv_plain(q, k, v, do, lse, delta, heads,
                                               scale)
@@ -804,6 +864,7 @@ def packed_attention_capped_fwd(q: torch.Tensor, k: torch.Tensor,
     (``csrc/attention.cu``) with ``warps`` per block, 4 or 8, the port of
     the TPU kernel ``_fwd_kernel_t_capped``.  CPU tensors take
     ``attention_packed_capped_plain``."""
+    _record("packed_attention_capped_fwd", 4, q, k.shape[1])
     if q.device.type == "cpu":
         return attention_packed_capped_plain(q, k, v, heads, scale)
     _refuse_grad(q, k, v)
@@ -839,6 +900,7 @@ def packed_attention_capped_lse_fwd(q: torch.Tensor, k: torch.Tensor,
     (``csrc/attention.cu``) with ``warps`` per block, 4 or 8, the port of
     the TPU kernel ``_fwd_kernel_t_capped_lse``.  CPU tensors take
     ``attention_packed_capped_lse_plain``."""
+    _record("packed_attention_capped_lse_fwd", 4, q, k.shape[1])
     if q.device.type == "cpu":
         return attention_packed_capped_lse_plain(q, k, v, heads, scale)
     d = _check_kernel_args(q, k, v, heads)
@@ -891,6 +953,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``flash_attention_fwd`` (``csrc/attention.cu``), the port of the TPU
     kernel ``_fwd_kernel_nolse``.  CPU tensors take
     ``flash_attention_plain``."""
+    _record("flash_attention_fwd", 4, q, k.shape[1])
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale)
     _refuse_grad(q, k, v)
@@ -923,6 +986,7 @@ def flash_attention_lse_fwd(q: torch.Tensor, k: torch.Tensor,
     ``flash_attention_lse_fwd`` (``csrc/attention.cu``), the port of the TPU
     kernel ``_fwd_kernel``.  CPU tensors take
     ``flash_attention_lse_plain``."""
+    _record("flash_attention_lse_fwd", 4, q, k.shape[1])
     if q.device.type == "cpu":
         return flash_attention_lse_plain(q, k, v, scale)
     d = _check_split_args(q, k, v)
@@ -958,6 +1022,7 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
     ``flash_attention_bwd_dq`` (``csrc/attention_train.cu``), the port of
     the TPU kernel ``_bwd_dq_kernel``.  CPU tensors take
     ``flash_attention_bwd_dq_plain``."""
+    _record("flash_attention_bwd_dq", 4, q, k.shape[1])
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, scale)
     d = _check_split_args(q, k, v)
@@ -992,6 +1057,7 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
     ``flash_attention_bwd_dkv`` (``csrc/attention_train.cu``), the port of
     the TPU kernel ``_bwd_dkv_kernel``.  CPU tensors take
     ``flash_attention_bwd_dkv_plain``."""
+    _record("flash_attention_bwd_dkv", 6, q, k.shape[1])
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, scale)
     d = _check_split_args(q, k, v)

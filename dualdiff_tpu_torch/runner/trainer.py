@@ -26,9 +26,24 @@ checkpoint (``torch.utils.checkpoint`` for ``jax.checkpoint``) as a whole:
 only its latent input is saved and the decode is replayed in the backward,
 so its image-size activations are not alive through the UNet's backward.
 
-Not ported (raise ``NotImplementedError``): tone guidance, the conditioning
-cache, flip augmentation, gradient accumulation.  Checkpoint save/load is
-not ported either.
+The conditioning cache (``runner.cache_conditioning``, the JAX package's
+``make_precompute_cond``): the frozen, parameter-independent conditioning
+of a sample, its VAE posterior moments (bf16 in the compute dtype) and its
+ORS ray labels (int8), is computed once per ``(sample, flipped)`` (clips:
+``(clip, frame, flipped)``) and served from the host on every later epoch,
+so a cached step runs neither the VAE encoder nor the ORS gather.  The
+entries are CPU tensors; each batch stacks its rows into a pinned buffer
+and copies it to the device.  Sizes, from the shapes: one 224x400 sample is
+6 x 28 x 50 x 320 int8 rays (2,688,000 B) plus 6 x 8 x 28 x 50 bf16
+moments (134,400 B), about 2.7 MB, so the default 4096 MB cap
+(``runner.cond_cache_max_mb``) holds about 1,500 samples; a 432x768
+sample is about 10.5 MB.  Past the cap the cache stops filling and later
+samples recompute every epoch.  Flip augmentation
+(``dataset.augment3d.flip_ratio``, ``data/augment.py``) runs before the
+collate on the batch's own numpy generator, as in the JAX package.
+
+Not ported (raise ``NotImplementedError``): tone guidance, gradient
+accumulation.  Checkpoint save/load is not ported either.
 """
 
 from __future__ import annotations
@@ -43,17 +58,20 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
+from ..data.augment import random_flip_3d_with_views
 from ..data.collate import collate_fn
 from ..data.tokenizer import build_tokenizer
 from ..diffusion.schedule import DiffusionSchedule
 from ..ops.fgm import fgm_heatmap
-from .conds import compute_branch_conds, prepare_batch
+from ..ops.ors import occupancy_ray_sample
+from .conds import compute_branch_conds, prepare_batch, to_device
 from .factory import build_models
 from .train_state import build_optimizer, partition_params, \
     trainable_predicate
 
-__all__ = ["sample_uncond_switch", "make_draws", "make_loss_fn",
-           "train_step", "set_category_tokens", "MultiviewTrainer"]
+__all__ = ["sample_uncond_switch", "make_draws", "make_precompute_cond",
+           "batch_rows", "make_loss_fn", "train_step", "set_category_tokens",
+           "MultiviewTrainer"]
 
 log = logging.getLogger(__name__)
 
@@ -108,15 +126,59 @@ def make_draws(generator: torch.Generator, cfg, B: int, N: int,
     return draws
 
 
+def make_precompute_cond(models: Dict, latent_hw: Tuple[int, int],
+                         image_hw: Tuple[int, int]
+                         ) -> Callable[[Dict], Dict[str, torch.Tensor]]:
+    """precompute(batch) -> the frozen, parameter-independent conditioning
+    of each row of a ``prepare_batch`` batch, under ``torch.no_grad()`` in
+    the models' compute dtype: ``latent_moments`` (B, N, 8, h, w), the VAE
+    posterior mean || logvar, and, when a branch is ORS (``occ_3d``) and
+    the batch has the occupancy, ``ors_rays`` (B, N, h, w, S) int8, the ray
+    labels 0..17 of ``occupancy_ray_sample``."""
+    vae = models["vae"]
+    need_ors = any(s.cond_kind == "occ_3d" for s in models["specs"])
+    sample_point = int(models["unet"].block_out_channels[0])
+
+    @torch.no_grad()
+    def precompute(batch: Dict) -> Dict[str, torch.Tensor]:
+        px = batch["pixel_values"]
+        B, N = px.shape[:2]
+        m = vae.encode_moments(
+            px.reshape(B * N, *px.shape[2:]).permute(0, 3, 1, 2))
+        out = {"latent_moments": m.reshape(B, N, *m.shape[1:])}
+        if need_ors and "occ_labels" in batch:
+            out["ors_rays"] = occupancy_ray_sample(
+                batch["occ_labels"], batch["occ_cam_K"], batch["occ_cam_T"],
+                latent_hw, image_hw, sample_point=sample_point
+            ).to(torch.int8)
+        return out
+
+    return precompute
+
+
+def batch_rows(batch: Dict) -> Tuple[int, int]:
+    """(B, N) of a training batch: from its pixels, or from the cached
+    moments when the conditioning cache dropped them."""
+    x = batch["pixel_values"] if "pixel_values" in batch \
+        else batch["latent_moments"]
+    return int(x.shape[0]), int(x.shape[1])
+
+
 def make_loss_fn(models: Dict, cfg, schedule: DiffusionSchedule,
                  latent_hw: Tuple[int, int], occ_image_hw: Tuple[int, int],
                  frames: int = 1, reward_fn=None, reward_weight: float = 0.0,
-                 reward_frames: int = 0
+                 reward_frames: int = 0, cached_cond: bool = False
                  ) -> Callable[[Dict, Draws], Tuple[torch.Tensor, Dict]]:
     """loss_fn(batch, draws) -> (loss, metrics): ``mse`` of the noise
     prediction plus, with ``use_aug_loss``, the FGM heatmap-weighted
     ``aug_loss``.  ``batch`` is ``prepare_batch`` output; for clips
     (``frames > 1``) its batch dim folds clips x frames, frame outer.
+
+    With ``cached_cond`` the batch carries ``latent_moments`` (and
+    ``ors_rays``) from ``make_precompute_cond`` in place of running the VAE
+    encoder: the posterior is sampled from the moments with the same
+    ``vae_noise`` draw (``AutoencoderKL.sample``), so a cached and an
+    uncached loss with the same draws compute the same latents.
 
     With ``reward_fn`` and ``reward_weight > 0`` (RGD): the denoised
     prediction x0 of the first ``reward_frames`` frames of each clip (all
@@ -133,11 +195,18 @@ def make_loss_fn(models: Dict, cfg, schedule: DiffusionSchedule,
     noise_offset = float(cfg.runner.noise_offset)
 
     def loss_fn(batch: Dict, draws: Draws):
-        px = batch["pixel_values"]  # (B, N, H, W, 3) in [-1, 1]
-        B, N = px.shape[:2]
+        # (B, N, H, W, 3) in [-1, 1]; absent when the conditioning cache
+        # carries the moments and no loss term reads pixels
+        px = batch.get("pixel_values")
+        B, N = batch_rows(batch)
         with torch.no_grad():
-            img = px.reshape(B * N, *px.shape[2:]).permute(0, 3, 1, 2)
-            latents = vae.encode(img, draws["vae_noise"])
+            if cached_cond:
+                mo = batch["latent_moments"]
+                latents = vae.sample(mo.reshape(B * N, *mo.shape[2:]),
+                                     draws["vae_noise"])
+            else:
+                img = px.reshape(B * N, *px.shape[2:]).permute(0, 3, 1, 2)
+                latents = vae.encode(img, draws["vae_noise"])
             text, _ = text_encoder(batch["input_ids"])
             uncond, _ = text_encoder(batch["uncond_ids"])
         latents = latents.reshape(B, N, *latents.shape[1:]).float()
@@ -260,11 +329,17 @@ class MultiviewTrainer:
         self.cfg = cfg
         self.train_set = train_set
         r = cfg.runner
-        if bool(r.get("cache_conditioning", False)):
-            raise NotImplementedError("the conditioning cache is not ported")
-        if float((cfg.dataset.get("augment3d") or {}).get("flip_ratio")
-                 or 0.0) > 0:
-            raise NotImplementedError("flip augmentation is not ported")
+        # the conditioning cache: {key: {name: CPU tensor}}, keys from
+        # _cond_keys; it stops filling at runner.cond_cache_max_mb
+        self.cache_cond = bool(r.get("cache_conditioning", False))
+        self._cond_cache: Dict[tuple, Dict[str, torch.Tensor]] = {}
+        self._cond_cache_bytes = 0
+        self._cond_cache_full = False
+        # cached batches drop the pixels unless a loss term reads them (the
+        # RGD reward compares with the ground-truth images)
+        self._needs_px = bool(cfg.get("use_tone_guidance", False)) or (
+            bool(cfg.get("use_video", False))
+            and bool((cfg.get("video") or {}).get("rgd", {}).get("enable")))
         self.tokenizer = build_tokenizer(
             str(cfg.model.pretrained_model_name_or_path))
         fresh = models is None
@@ -297,15 +372,35 @@ class MultiviewTrainer:
         self.optimizer = build_optimizer(r, self.trainable,
                                          self.max_train_steps, master)
         self.loss_fn = self._make_loss_fn()
+        self._precompute = make_precompute_cond(self.models, self.latent_hw,
+                                                self.image_hw)
         self.generator = torch.Generator(device=self.device).manual_seed(
             int(cfg.seed))
         self.step = 0
 
     def _make_loss_fn(self):
         return make_loss_fn(self.models, self.cfg, self.schedule,
-                            self.latent_hw, self.image_hw)
+                            self.latent_hw, self.image_hw,
+                            cached_cond=self.cache_cond)
 
-    def _collate_items(self, items, rng) -> Dict:
+    def _flip_ratio(self) -> float:
+        return float((self.cfg.dataset.get("augment3d") or {})
+                     .get("flip_ratio") or 0.0)
+
+    def _augment_items(self, items, rng):
+        """-> (items, flipped flags): ``random_flip_3d_with_views`` on each
+        sample, one draw of ``rng`` each; no draw at ``flip_ratio`` 0.
+        Kept apart from the collate so the conditioning cache can key its
+        entries by (sample, flipped)."""
+        flip = self._flip_ratio()
+        if flip <= 0:
+            return items, [False] * len(items)
+        out = [random_flip_3d_with_views(s, rng, flip) for s in items]
+        return out, [o is not s for o, s in zip(out, items)]
+
+    def _collate_items(self, items, rng, pre_augmented: bool = False) -> Dict:
+        if not pre_augmented:
+            items, _ = self._augment_items(items, rng)
         return collate_fn(items, self.cfg, self.tokenizer, rng=rng)
 
     def _compute_steps(self) -> None:
@@ -326,16 +421,75 @@ class MultiviewTrainer:
             if n >= skip:
                 yield epoch, i, [int(j) for j in order[i:i + bs]]
 
+    def _cond_keys(self, idxs, flips) -> list:
+        """Cache keys of one planned batch, one per row of its tensors:
+        (sample, flipped); ``VideoTrainer`` keys each frame."""
+        return list(zip(idxs, flips))
+
+    def _attach_cond(self, keys, batch: Dict) -> Dict:
+        """A host ``prepare_batch`` batch with its raw frozen-conditioning
+        inputs (pixels for the VAE encoder, the occupancy for ORS) swapped
+        for their precomputed tensors: stacked from the cache when every
+        row is there, else computed on the device (and cached until the
+        cap).  The precomputed tensors come back in pinned memory when
+        the trainer runs on the card."""
+        cache = self._cond_cache
+        if all(k in cache for k in keys):
+            pinned = self.device.type == "cuda"
+            pre = {}
+            for name, first in cache[keys[0]].items():
+                buf = torch.empty((len(keys), *first.shape), dtype=first.dtype,
+                                  pin_memory=pinned)
+                pre[name] = torch.stack([cache[k][name] for k in keys],
+                                        out=buf)
+        else:
+            inputs = {k: batch[k].to(self.device) for k in (
+                "pixel_values", "occ_labels", "occ_cam_K", "occ_cam_T")
+                if k in batch}
+            pre = {n: v.cpu() for n, v in self._precompute(inputs).items()}
+            if not self._cond_cache_full:
+                for row, k in enumerate(keys):
+                    entry = {n: v[row].clone() for n, v in pre.items()}
+                    cache[k] = entry
+                    self._cond_cache_bytes += sum(
+                        v.numel() * v.element_size() for v in entry.values())
+                cap = int(self.cfg.runner.get(
+                    "cond_cache_max_mb", 4096)) * (1 << 20)
+                if self._cond_cache_bytes > cap:
+                    self._cond_cache_full = True
+                    log.warning(
+                        "conditioning cache hit its %d MB cap after %d "
+                        "entries; further samples recompute every epoch "
+                        "(raise runner.cond_cache_max_mb to cache more)",
+                        cap >> 20, len(cache))
+        out = dict(batch)
+        out.update(pre)
+        for k in ("occ_labels", "occ_cam_K", "occ_cam_T"):
+            out.pop(k, None)
+        if not self._needs_px:
+            out.pop("pixel_values", None)
+        return out
+
     def _build_batch(self, plan) -> Dict:
+        """One planned batch on the device: the samples, flipped and
+        collated with the plan's own numpy generator (``default_rng([seed,
+        epoch, offset])``, the JAX package's stream), and with the cache
+        their precomputed conditioning (augmented first, so each key
+        carries the flip its entry was computed under)."""
         epoch, i, idxs = plan
         rng = np.random.default_rng([int(self.cfg.seed), epoch, i])
         items = [self.train_set[j] for j in idxs]
-        return prepare_batch(self._collate_items(items, rng), self.device)
+        if not self.cache_cond:
+            return prepare_batch(self._collate_items(items, rng), self.device)
+        items, flips = self._augment_items(items, rng)
+        batch = prepare_batch(
+            self._collate_items(items, rng, pre_augmented=True), "cpu")
+        return to_device(self._attach_cond(self._cond_keys(idxs, flips),
+                                           batch), self.device)
 
     def train_step(self, batch: Dict) -> Dict[str, float]:
-        px = batch["pixel_values"]
-        draws = make_draws(self.generator, self.cfg, px.shape[0],
-                           px.shape[1], self.latent_hw,
+        B, N = batch_rows(batch)
+        draws = make_draws(self.generator, self.cfg, B, N, self.latent_hw,
                            self.schedule.num_train_timesteps, self.device,
                            frames=self.frames)
         metrics = train_step(self.loss_fn, self.optimizer, batch, draws)

@@ -14,13 +14,16 @@ clip.
   denoised prediction (``make_rgd_reward``: the FGM foreground reward plus
   the temporal-consistency reward).
 
-Flip augmentation raises, as in ``MultiviewTrainer``.
+Flip augmentation is clip-consistent: one draw per clip, applied to every
+frame.  The conditioning cache keys each row by (clip, frame, flipped);
+stage 2 keeps the pixels in a cached batch for the reward.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional
 
+from ..data.augment import random_flip_3d_with_views
 from ..data.video import collate_video
 from .rewards import make_rgd_reward
 from .trainer import MultiviewTrainer, make_loss_fn
@@ -50,7 +53,32 @@ class VideoTrainer(MultiviewTrainer):
                       reward_frames=int(rgd.get("reward_frames") or 0))
         return make_loss_fn(self.models, self.cfg, self.schedule,
                             self.latent_hw, self.image_hw, frames=self.frames,
-                            **kw)
+                            cached_cond=self.cache_cond, **kw)
 
-    def _collate_items(self, items, rng) -> Dict:
+    def _collate_items(self, items, rng, pre_augmented: bool = False) -> Dict:
+        if not pre_augmented:
+            items, _ = self._augment_items(items, rng)
         return collate_video(items, self.cfg, self.tokenizer, rng=rng)
+
+    def _augment_items(self, items, rng):
+        """-> (clips, flipped flags): one draw of ``rng`` per clip decides
+        its flip, applied to every frame (``flip_ratio=1.0``), so the frames
+        ST-Attn couples stay one scene; no draw at ``flip_ratio`` 0."""
+        flip = self._flip_ratio()
+        if flip <= 0:
+            return items, [False] * len(items)
+        out, flags = [], []
+        for clip in items:
+            do = bool(rng.random() < flip)
+            if do:
+                clip = [random_flip_3d_with_views(fr, rng, flip_ratio=1.0)
+                        for fr in clip]
+            out.append(clip)
+            flags.append(do)
+        return out, flags
+
+    def _cond_keys(self, idxs, flips) -> list:
+        """One key per row, frame outer per clip as ``collate_video`` lays
+        them out: (clip, frame, flipped)."""
+        return [(i, f, fl) for i, fl in zip(idxs, flips)
+                for f in range(self.frames)]

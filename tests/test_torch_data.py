@@ -153,3 +153,29 @@ def test_synthetic_clips_and_collate_video_equal():
     assert got["num_frames"] == 3 and got["clip_batch"] == 2
     assert got["pixel_values"].shape[0] == 6
     _assert_tree_equal(got, want)
+
+
+def test_augment_equals_the_original():
+    """dualdiff_tpu_torch/data/augment.py is a copy of the JAX package's:
+    the same flip of a synthetic sample (views reordered, images, boxes,
+    cameras and BEV masks mirrored) and the same range filter."""
+    from dualdiff_tpu.data import augment as jax_augment
+    from dualdiff_tpu_torch.data import augment
+
+    sample = SyntheticNuScenes(num_samples=1, image_size=(256, 128))[0]
+    for ratio, seed in ((1.0, 0), (0.5, 3), (0.0, 0)):
+        want = jax_augment.random_flip_3d_with_views(
+            sample, np.random.default_rng(seed), ratio)
+        got = augment.random_flip_3d_with_views(
+            sample, np.random.default_rng(seed), ratio)
+        assert (got is sample) == (want is sample)
+        _assert_tree_equal(got, want)
+    assert augment.random_flip_3d_with_views(
+        sample, np.random.default_rng(0), 1.0) is not sample
+    pcr = [-20.0, -20.0, -5.0, 20.0, 20.0, 3.0]
+    boxes = np.asarray(sample["gt_bboxes_3d"], np.float32)
+    for a, b in zip(augment.object_range_filter(boxes,
+                                                sample["gt_labels_3d"], pcr),
+                    jax_augment.object_range_filter(
+                        boxes, sample["gt_labels_3d"], pcr)):
+        np.testing.assert_array_equal(a, b)
