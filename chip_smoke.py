@@ -14,7 +14,9 @@
                                          # DIR/profile_video_train_step.txt,
                                          # ..._video_train_step_rgd.txt,
                                          # DIR/profile_fusionp_generation.txt,
-                                         # ..._fusionp_train_step.txt and
+                                         # ..._fusionp_train_step.txt, the
+                                         # variants' (profile_baseline_...,
+                                         # profile_occ_bg_adapter_..., ...) and
                                          # DIR/profile_hd_<h>x<w>_generation
                                          # .txt, ..._train_step.txt
 
@@ -83,7 +85,22 @@ Phases, in order; any failure exits non-zero:
 13. fusionp_reference  the tiny ``occ_bg_fusionp`` set with SFA+ stage 2
             at d = 4 on the split-layout kernels: phase 5's gate at 224x400,
             phase 7's at 256x128 with ``FLASH_MIN_LEN`` lowered to 512.
-14. hd      the flagship at HD (``+exp-hd=256x704`` and ``432x768``) at
+14. variants  the shipped exp variants at full SD v1.5 width (``VARIANTS``):
+            the ``+exp=224x400`` baseline (one ControlNet on the BEV map),
+            ``occ_bg_adapter`` (the box adapter), ``occ_bg_camtemb_fusion``
+            (the camera token in the time embedding) and ``occ_bg_tone``
+            (tone guidance): phase 4's generation (not for tone guidance)
+            and phase 6's training step on each, with launches derived for
+            one ControlNet, every call on the sm90 kernels, the
+            generations' kernel FLOPs equal to ``generate_kernel_flops``,
+            the adapter's projections copied from their base ones at init
+            and moved by the steps, and tone guidance's ``tone`` above 0.
+            Alone: ``python3 -c "import chip_smoke as s; s.phase_device();
+            s.phase_build(); s.phase_variants(None)"``.
+15. variants_reference  phase 5's gate on the tiny ``+exp=224x400`` set and
+            phase 7's on the tiny ``occ_bg`` set with the box adapter, the
+            camera token in the time embedding and tone guidance on.
+16. hd      the flagship at HD (``+exp-hd=256x704`` and ``432x768``) at
             full SD v1.5 width: phase 4's generation, its UNet, VAE and CLIP
             weights loaded through the checkpoint loader by their SD v1.5
             names (``load_sd15_shaped``), and phase 6's training step, each
@@ -91,7 +108,7 @@ Phases, in order; any failure exits non-zero:
             ``T_SCORE_CAP`` on the capped routes, the second at d = 80;
             every call on the sm90 kernels).  Alone: ``python3 -c "import chip_smoke as s;
             s.phase_device(); s.phase_build(); s.phase_hd(None)"``.
-15. cache   the flagship training step at ``bench.py``'s training point:
+17. cache   the flagship training step at ``bench.py``'s training point:
             B = 2 x 6 views, the conditioning cache on, seeded random
             weights, bf16, remat, AdamW.  One batch through the cached and
             the uncached loss with the same draws (within
@@ -99,7 +116,7 @@ Phases, in order; any failure exits non-zero:
             4-sample set: the precompute runs in the first epoch only, the
             later epochs are served the first's entries bit for bit, and
             every step's launches equal ``train_launches_per_step``.
-16. bench   ``python -m dualdiff_tpu_torch.bench`` in a subprocess with
+18. bench   ``python -m dualdiff_tpu_torch.bench`` in a subprocess with
             ``BENCH_ENV`` (no video sections, 3 training steps): its line
             parsed, the headline and the training section above 0 with
             ``0 < mfu_corrected <= 1``, the numerics pin ``ok``, and the
@@ -187,6 +204,21 @@ TRAIN_FRAMES = 2
 # tolerance of the uncached one (test_conditioning_cache_matches_uncached_step)
 B_CACHE, CACHE_SAMPLES, CACHE_EPOCHS = 2, 4, 3
 CACHE_LOSS_RTOL = 2e-4
+# phase variants: the shipped exp variants at full width, each with its
+# generation (B x 6, UniPC-20, CFG 2) and training step (B_TRAIN x 6):
+# config name -> (timed generations, timed steps); the configs live in
+# dualdiff_tpu_torch.utils.config
+VARIANTS = {"baseline_224x400": (2, 2), "occ_bg_adapter_224x400": (1, 2),
+            "occ_bg_camtemb_fusion_224x400": (1, 2),
+            "occ_bg_tone_224x400": (0, 2)}
+# phase variants_reference's training set: occ_bg with the box adapter, the
+# camera token in the time embedding and tone guidance all on
+VARIANTS_TRAIN = ["use_box_adapter=true",
+                  "model.controlnet.use_cam_in_temb=true",
+                  "use_tone_guidance=true"]
+# the ControlNets' attn2 keys with the box adapter: camera + 77 text tokens
+# (the box and class tokens take einsum)
+KV_ADAPTER = 1 + 77
 # phase bench: the port bench without its video sections, 3 training steps
 BENCH_ENV = {"BENCH_SKIP_VIDEO": "1", "BENCH_TRAIN_STEPS": "3"}
 # the TPU kernel each CUDA kernel replaces, and its source here
@@ -387,15 +419,17 @@ def generate_launches_per_generation(layers: int, n_controlnets: int,
 
 
 def generate_kernel_flops(layers: int, n_controlnets: int, steps: int,
-                          levels: list, channels, rows: int) -> dict:
+                          levels: list, channels, rows: int,
+                          cn_kv: int = KV_CROSS) -> dict:
     """Hand-counted FLOPs of one image generation's kernel calls per
     wrapper, with ``ops.attention.recorded_kernel_flops``' formulas (4 x
     rows x Lq x Lk x C a forward, 8 x rows x L x L x C the ring), over the
     calls ``generate_launches_per_generation`` derives (no SFA+): at each
     level with at least ``PACKED_MIN_LQ`` tokens ``t`` (C =
-    ``channels[level]``), attn1 (``t`` keys) and attn2 (``KV_CROSS``) of the
-    UNet's and the ControlNets' blocks and the UNet's rings, on ``rows``
-    rows (2 x B x views with batched CFG)."""
+    ``channels[level]``), attn1 (``t`` keys) and attn2 (``KV_CROSS``; the
+    ControlNets' ``cn_kv``, 1 + 77 with the box adapter, whose box and
+    class tokens take einsum) of the UNet's and the ControlNets' blocks and
+    the UNet's rings, on ``rows`` rows (2 x B x views with batched CFG)."""
     from dualdiff_tpu_torch.ops.attention import over_score_cap
 
     blocks = 2 * layers + 1
@@ -403,10 +437,10 @@ def generate_kernel_flops(layers: int, n_controlnets: int, steps: int,
     flops = _launches()
     for i, t in _kernel_levels(levels, False):
         c = channels[i]
-        for lk in (t, KV_CROSS):
+        for lk, n in ((t, blocks + cn), (KV_CROSS, blocks), (cn_kv, cn)):
             kern = "packed_attention_capped_fwd" if over_score_cap(t, lk) \
                 else "packed_attention_fwd"
-            flops[kern] += (blocks + cn) * steps * 4 * rows * t * lk * c
+            flops[kern] += n * steps * 4 * rows * t * lk * c
         flops["packed_attention_nbr_fwd"] += blocks * steps * 8 * rows * t \
             * t * c
     return flops
@@ -649,6 +683,9 @@ def kernel_cases():
          0),
         ("packed_attention_fwd", "attn2 cross (UNet, ControlNet 0 and 1)",
          2 * B * N_CAM, L, KV_CROSS, C, HEADS, 0),
+        # occ_bg_adapter: the ControlNet's attn2 over camera + text only
+        ("packed_attention_fwd", "attn2 cross, box adapter (ControlNet)",
+         2 * B * N_CAM, L, KV_ADAPTER, C, HEADS, 0),
         # the clip's ControlNet attn1: 16 frames x 6 views
         ("packed_attention_fwd", "ControlNet attn1 in the clip",
          FRAMES * N_CAM, L, L, C, HEADS, 0),
@@ -721,6 +758,8 @@ def train_kernel_cases():
         ("d=20 (d % 8 != 0), ragged", 3, 777, 1111, 160, 8, True),
         ("attn4 stacked neighbours", 2 * rows, L, L, C, HEADS),
         ("attn2 cross", rows, L, KV_CROSS, C, HEADS),
+        ("attn2 cross, box adapter (ControlNet)", rows, L, KV_ADAPTER, C,
+         HEADS),
         ("ragged, d=80", 3, 777, 333, 320, 4),
         ("ragged, d=72", 3, 777, 333, 288, 4),
         ("d=160", 2, 513, 65, 1280, 8),
@@ -1291,10 +1330,16 @@ def _flagship(device, tiny=False, extra=(), weights_from=None,
 
 def _tag(cfg) -> str:
     """The phase tag of a config: "" for the flagship at 224x400,
-    ``fusionp`` for ``occ_bg_fusionp``, ``hd_<h>x<w>`` at HD."""
+    ``fusionp`` for ``occ_bg_fusionp``, ``hd_<h>x<w>`` at HD, ``baseline``
+    for ``+exp=224x400`` and the task for the other variants."""
     h, w = cfg.dataset.image_size
+    task = str(cfg.task_id)
     if cfg.model.controlnet.use_txt_con_fusionp:
         return "fusionp"
+    if task == "224x400":
+        return "baseline"
+    if task not in ("dual_branch_augloss_fusion", f"{h}x{w}"):
+        return task
     return "" if (h, w) == (224, 400) else f"hd_{h}x{w}"
 
 
@@ -1365,7 +1410,7 @@ def model_levels(unet, latent_hw) -> list:
 
 
 def phase_generate(profile_dir, name=None, timed_calls=TIMED_GENERATIONS,
-                   loader=False):
+                   loader=False, cn_kv=None):
     """Image generation at full SD v1.5 width, B=2 x 6 views: the flagship
     (phase 4), or the config ``name`` (``occ_bg_fusionp`` in phase
     ``fusionp``, the HD geometries in phase ``hd``, there with ``loader``:
@@ -1373,7 +1418,10 @@ def phase_generate(profile_dir, name=None, timed_calls=TIMED_GENERATIONS,
     warm-up call, then ``timed_calls`` timed calls, each checked for
     shape, finiteness, range and the kernels' launches per generation
     (``generate_launches_per_generation``, per latent level; the calls
-    outside ``sm90_in_scope`` on the templates, none at full width).
+    outside ``sm90_in_scope`` on the templates, none at full width).  With
+    ``cn_kv`` (the ControlNets' attn2 keys: 78 with the box adapter) the
+    warm-up call's recorded kernel FLOPs must equal
+    ``generate_kernel_flops``' per wrapper.
     -> (launches of the last call, those of them on the templates)."""
     from dualdiff_tpu_torch.ops import attention as A
 
@@ -1395,14 +1443,25 @@ def phase_generate(profile_dir, name=None, timed_calls=TIMED_GENERATIONS,
     gen = torch.Generator(device="cuda")
     times, counts = [], None
     torch.cuda.reset_peak_memory_stats()
+    flops = None
     for i in range(1 + timed_calls):
         gen.manual_seed(SEED + i)
         A.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = pipe(batch, generator=gen)
+        with A.recorded_kernel_flops() if i == 0 and cn_kv \
+                else contextlib.nullcontext() as rec:
+            out = pipe(batch, generator=gen)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        if rec is not None:
+            flops = rec.by_wrapper
+            want = generate_kernel_flops(
+                len(models["unet"].down_blocks[0].resnets),
+                len(models["controlnets"]), steps, levels,
+                models["unet"].block_out_channels, 2 * B * N_CAM, cn_kv)
+            if flops != {k: float(v) for k, v in want.items() if v}:
+                raise AssertionError(f"kernel FLOPs {flops} != {want}")
         counts = launch_counts(A)
         if _wrappers(counts) != expect:
             raise AssertionError(f"kernel launches {counts} != {expect}")
@@ -1429,6 +1488,8 @@ def phase_generate(profile_dir, name=None, timed_calls=TIMED_GENERATIONS,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "launches_per_generation": counts,
            "template_launches_per_generation": template}
+    if flops is not None:
+        row["kernel_flops_per_generation"] = flops
     log(json.dumps(row))
     if tag:
         log(f"{tag} s/generation: {s}")
@@ -1498,7 +1559,7 @@ def profile_run(run, wall_unprofiled: float, out_dir: str,
     return row
 
 
-def phase_reference(video=False, fusionp=False):
+def phase_reference(video=False, fusionp=False, name=None):
     """Tiny models, 256x128, 3 steps: bf16 on the card (kernels) against
     float32 on the CPU (plain versions), same weights and noise.  Mean
     absolute error on the [0, 1] images at most 1e-2: bf16 weights and
@@ -1509,7 +1570,8 @@ def phase_reference(video=False, fusionp=False):
     ``occ_bg_fusionp`` set at 224x400 (28x50 latents), so that SFA+ stage 2
     is 1400 x 1400 at d = 4 on ``flash_attention_fwd`` and the UNet's
     1400-token attention (d = 8) on the packed kernels; each of those must
-    launch (phase ``fusionp_reference``)."""
+    launch (phase ``fusionp_reference``).  ``name``: another config at
+    256x128 (``+exp=224x400`` in phase ``variants_reference``)."""
     from dualdiff_tpu_torch.ops import attention as A
     from dualdiff_tpu_torch.utils.config import FUSIONP
 
@@ -1518,7 +1580,8 @@ def phase_reference(video=False, fusionp=False):
         extra.append("dataset.image_size=[256, 128]")
     if video:
         extra += ["video.num_frames=2", "runner.pipeline_param.vae_slicing=5"]
-    name = FUSIONP if fusionp else None
+    variant = name is not None
+    name = FUSIONP if fusionp else name
     _, batch, cpu_pipe = _flagship(
         "cpu", tiny=True, extra=extra + ["runner.mixed_precision=fp32"],
         video=video, name=name)
@@ -1541,7 +1604,7 @@ def phase_reference(video=False, fusionp=False):
     got = gpu_pipe(batch, latents=lat).cpu()
     err = (got - want).abs()
     phase = "fusionp_reference" if fusionp else "video_reference" if video \
-        else "reference"
+        else "variants_reference" if variant else "reference"
     row = {"phase": phase, "shape": list(got.shape),
            "max_abs_err": err.max().item(),
            "mean_abs_err": err.mean().item(), "tol_mean": 1e-2,
@@ -1638,7 +1701,8 @@ def _train_batch(cfg, n: int):
                              seed=int(cfg.seed))
 
 
-def phase_train(profile_dir, name=None, timed_steps=TIMED_TRAIN_STEPS):
+def phase_train(profile_dir, name=None, timed_steps=TIMED_TRAIN_STEPS,
+                extra=()):
     """The flagship training step (or that of the config ``name``:
     ``occ_bg_fusionp`` in phase ``fusionp``, the HD geometries in phase
     ``hd``) at full SD v1.5 width: seeded random weights, B = 1 x 6 views,
@@ -1649,21 +1713,42 @@ def phase_train(profile_dir, name=None, timed_steps=TIMED_TRAIN_STEPS):
     ``sm90_in_scope`` on the templates), and that the trainables (float32
     master copies) moved while every frozen parameter stayed as it was.
     The learning rate of step 0 is exactly 0 (warmup from 0), so the
-    comparison starts after step 1.  -> {"run": the run's launches,
+    comparison starts after step 1.  ``extra``: config overrides.  With
+    the box adapter its projections start as copies of their base ones,
+    bit for bit (``init_box_adapter_from_base``, as a fresh trainer), and
+    every one of them must move; with tone guidance every step's ``tone``
+    must be finite and above 0.  -> {"run": the run's launches,
     "step": one step's, "run_template", "step_template": those of them on
     the templates}."""
     from dualdiff_tpu_torch.ops import attention as A
     from dualdiff_tpu_torch.runner.factory import (build_models,
                                                    randomize_weights)
+    from dualdiff_tpu_torch.runner.train_state import (
+        BOX_ADAPTER_BASE, init_box_adapter_from_base)
     from dualdiff_tpu_torch.runner.trainer import MultiviewTrainer
-    from dualdiff_tpu_torch.utils.config import load_config
+    from dualdiff_tpu_torch.utils.config import FLAGSHIP, load_config
 
     t0 = time.perf_counter()
-    cfg = load_config(name) if name else load_config()
+    cfg = load_config(name or FLAGSHIP, list(extra))
     models = build_models(cfg, device="cuda")
     for m in (models["unet"], models["vae"], models["text_encoder"],
               *models["controlnets"]):
         randomize_weights(m, SEED)
+    adapter = bool(cfg.get("use_box_adapter", False))
+    if adapter:
+        copied = init_box_adapter_from_base(models)
+        differ = [f"{name}.{proj}" for cn in models["controlnets"]
+                  for name, m in cn.named_modules()
+                  if getattr(m, "box_adapter", False)
+                  for proj, base in BOX_ADAPTER_BASE.items()
+                  if not torch.equal(getattr(m, proj).weight,
+                                     getattr(m, base).weight)]
+        if not copied or differ:
+            raise AssertionError(f"box adapter init: {copied} copied, "
+                                 f"differ from their base {differ[:5]}")
+        log(f"# box adapter: {copied} projections start as their base "
+            f"ones, bit for bit")
+    tone = bool(cfg.get("use_tone_guidance", False))
     n_steps = 1 + timed_steps
     trainer = MultiviewTrainer(cfg, _train_batch(cfg, n_steps + 2),
                                models=models)
@@ -1692,7 +1777,7 @@ def phase_train(profile_dir, name=None, timed_steps=TIMED_TRAIN_STEPS):
         for k, v in counts.items():
             run_counts[k] += v
         log(f"# train step {step}: " + ", ".join(
-            f"{k} {m[k]:.6f}" for k in ("loss", "mse", "aug_loss",
+            f"{k} {m[k]:.6f}" for k in ("loss", "mse", "aug_loss", "tone",
                                         "grad_norm") if k in m)
             + f", {m['step_time_s']:.3f} s (batch assembly "
             f"{m['data_time_s']:.3f} s)")
@@ -1703,6 +1788,8 @@ def phase_train(profile_dir, name=None, timed_steps=TIMED_TRAIN_STEPS):
                 and m["grad_norm"] > 0):
             raise AssertionError(f"step {step}: loss {m['loss']}, grad_norm "
                                  f"{m['grad_norm']}")
+        if tone and not (math.isfinite(m["tone"]) and m["tone"] > 0):
+            raise AssertionError(f"step {step}: tone {m['tone']}")
         steps.append(dict(m, step=step))
         if step == 1:  # snapshot after the lr = 0 step, on the host
             snap["frozen"] = {k: p.detach().to("cpu", copy=True)
@@ -1738,6 +1825,7 @@ def phase_train(profile_dir, name=None, timed_steps=TIMED_TRAIN_STEPS):
            "images_per_s": B_TRAIN * N_CAM / s,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "loss": [m["loss"] for m in steps],
+           **({"tone": [m["tone"] for m in steps]} if tone else {}),
            "grad_norm": [m["grad_norm"] for m in steps],
            "trainable_tensors": len(opt.master),
            "trainable_tensors_with_grad": len(got_grad),
@@ -1758,6 +1846,11 @@ def phase_train(profile_dir, name=None, timed_steps=TIMED_TRAIN_STEPS):
     if must_move - moved:
         raise AssertionError(f"trainables that did not move: "
                              f"{sorted(must_move - moved)[:5]}")
+    still = [k for k in opt.master if k.split(".")[-2] in BOX_ADAPTER_BASE
+             and k not in moved]
+    if adapter and still:
+        raise AssertionError(f"box adapter leaves that did not move: "
+                             f"{still[:5]}")
     # a few trainables see a gradient only in some steps (the learned
     # uncond camera only when the CFG switch drops a sample); 844 of 844
     # did in the flagship's seeded run on an H100 80GB HBM3 at 700 W
@@ -1810,7 +1903,8 @@ def leaf_grad_errors(want: dict, got: dict) -> dict:
 
 
 def train_reference_readings(device: str = "cuda", video: bool = False,
-                             fusionp: bool = False) -> dict:
+                             fusionp: bool = False,
+                             variants: bool = False) -> dict:
     """One tiny loss + gradient on ``device`` in bf16 and on the CPU in
     float32: the loss of each, and each trainable leaf's relative gradient
     error (``leaf_grad_errors``).  ``video``: the tiny RGD stage-2 model
@@ -1828,7 +1922,9 @@ def train_reference_readings(device: str = "cuda", video: bool = False,
     8400 latent positions in bf16 (the ControlNets' first
     ``time_emb_proj``, SFA+'s projections) read over ``LEAF_TOL``
     (``tests/test_torch_grad_gate_cuda.py::test_gate_readings_at_224x400``
-    prints the readings)."""
+    prints the readings).  ``variants``: the tiny ``occ_bg`` set with
+    ``VARIANTS_TRAIN`` (the box adapter, the camera token in the time
+    embedding, tone guidance's decode under grad)."""
     import numpy as np
 
     from dualdiff_tpu_torch.data.collate import collate_fn
@@ -1845,11 +1941,14 @@ def train_reference_readings(device: str = "cuda", video: bool = False,
                                                        partition_params,
                                                        trainable_predicate)
     from dualdiff_tpu_torch.runner.trainer import make_draws, make_loss_fn
-    from dualdiff_tpu_torch.utils.config import (FLAGSHIP, FUSIONP,
+    from dualdiff_tpu_torch.utils.config import (FLAGSHIP, FUSIONP, OCC_BG,
                                                  RGD_STAGE2, load_config)
 
-    name = RGD_STAGE2 if video else FUSIONP if fusionp else FLAGSHIP
+    name = RGD_STAGE2 if video else FUSIONP if fusionp else \
+        OCC_BG if variants else FLAGSHIP
     extra = ["dataset.image_size=[256, 128]"]
+    if variants:
+        extra += VARIANTS_TRAIN
     frames = TRAIN_FRAMES if video else 1
     if video:
         extra.append(f"video.num_frames={frames}")
@@ -1918,7 +2017,8 @@ def train_reference_readings(device: str = "cuda", video: bool = False,
     errs = leaf_grad_errors(g_cpu, g_gpu)
     worst = sorted(errs.items(), key=lambda kv: -kv[1])
     phase = "video_train_reference" if video else \
-        "fusionp_train_reference" if fusionp else "train_reference"
+        "fusionp_train_reference" if fusionp else \
+        "variants_train_reference" if variants else "train_reference"
     return {"phase": phase,
             "loss_cpu_f32": loss_cpu, "loss_gpu_bf16": loss_gpu,
             "loss_rel_err": abs(loss_gpu - loss_cpu) / abs(loss_cpu),
@@ -2032,6 +2132,53 @@ def phase_fusionp_reference():
     _reference_gate(row, split + (
         "packed_attention_lse_fwd", SM90_LSE, SM90_DQ, SM90_DKV),
         {k: row["launches"][k] for k in split})
+
+
+def phase_variants(profile_dir):
+    """The shipped exp variants at full SD v1.5 width, seeded random
+    weights, bf16, 224x400 (``VARIANTS``): the ``+exp=224x400`` baseline
+    (one ControlNet on the BEV map, per-view boxes), ``occ_bg_adapter``
+    (the box adapter: the ControlNet's attn2 over the 78 text keys on the
+    kernels, the box and class tokens on einsum), ``occ_bg_camtemb_fusion``
+    (the camera token in the time embedding, SFA) and ``occ_bg_tone`` (the
+    MSCN loss through the VAE decode under grad): phase 4's generation and
+    phase 6's training step at B = 1 x 6 on each config (no generation for
+    tone guidance, a training loss), each with its launches derived for one
+    ControlNet and every call on the sm90 kernels, the generations' kernel
+    FLOPs equal to ``generate_kernel_flops`` (the adapter's attn2 at
+    ``KV_ADAPTER`` keys).  -> (paths, per_step) for ``kernels_line``."""
+    from dualdiff_tpu_torch.utils.config import load_config
+
+    paths, per_step = {}, {}
+    for name, (gens, steps) in VARIANTS.items():
+        cfg = load_config(name)
+        tag = _tag(cfg)
+        if gens:
+            adapter = bool(cfg.get("use_box_adapter", False))
+            gen = timed(f"{tag} generate", phase_generate, profile_dir, name,
+                        gens, cn_kv=KV_ADAPTER if adapter else KV_CROSS)
+            paths[tag] = (f"{cfg.task_id} generation", *gen)
+        train = timed(f"{tag} train", phase_train, profile_dir, name, steps,
+                      [f"runner.train_batch_size={B_TRAIN}"])
+        paths[f"{tag}_train"] = (f"{cfg.task_id} training run of "
+                                 f"{1 + steps} steps", train["run"],
+                                 train["run_template"])
+        per_step[str(cfg.task_id)] = (train["step"], train["step_template"])
+    return paths, per_step
+
+
+def phase_variants_reference():
+    """Phase 5's generation gate on the tiny ``+exp=224x400`` set (the
+    BEV map resized to the 32x16 latents) and phase 7's training gate on the
+    tiny ``occ_bg`` set with ``VARIANTS_TRAIN``: the adapter's and
+    ``adm_proj``'s leaves and the tone term's gradient through the decode
+    among the leaves held to ``LEAF_TOL``."""
+    from dualdiff_tpu_torch.utils.config import BASELINE
+
+    phase_reference(name=BASELINE)
+    _reference_gate(train_reference_readings(variants=True), (
+        "packed_attention_lse_fwd", "packed_attention_bwd_dq",
+        "packed_attention_bwd_dkv", SM90_LSE, SM90_DQ, SM90_DKV))
 
 
 def phase_video_train(profile_dir):
@@ -2506,6 +2653,10 @@ def main() -> int:
     paths.update(more_paths)
     per_step.update(more_steps)
     timed("fusionp_reference", phase_fusionp_reference)
+    more_paths, more_steps = timed("variants", phase_variants, profile_dir)
+    paths.update(more_paths)
+    per_step.update(more_steps)
+    timed("variants_reference", phase_variants_reference)
     more_paths, more_steps = timed("hd", phase_hd, profile_dir)
     paths.update(more_paths)
     per_step.update(more_steps)

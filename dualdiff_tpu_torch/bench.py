@@ -29,7 +29,8 @@ With no ``BENCH_MODE`` all four run, each in a subprocess;
 ``BENCH_SKIP_TRAIN=1`` drops ``train``, ``BENCH_SKIP_VIDEO=1`` drops both
 video sections.  The other knobs are ``bench.py``'s: ``BENCH_BATCH``,
 ``BENCH_MAX_BOXES``, ``BENCH_OVERLAY`` (``+exp=dual_branch_augloss_fusion``,
-``+exp-hd=256x704`` or ``+exp-hd=432x768``; gen and train),
+``+exp-hd=256x704``, ``+exp-hd=432x768`` or any other shipped image exp,
+``OVERLAYS``; gen and train; the numerics pin is the flagship's),
 ``BENCH_TRAIN_BATCH``, ``BENCH_TRAIN_STEPS``, ``BENCH_CACHE_COND``,
 ``BENCH_FRAMES``, ``BENCH_SEQ_CFG``, ``BENCH_VAE_SLICING``,
 ``BENCH_VIDEO_ITERS``, ``BENCH_VIDEO_EXP``, ``BENCH_SAVE_PIN`` and the
@@ -58,6 +59,8 @@ import time
 import numpy as np
 import torch
 
+from .utils.config import EXP_CONFIGS
+
 A100_BASELINE_FPS = 0.5  # bench.py's estimate for the reference on an A100
 STEPS = 20
 GUIDANCE = 2.0
@@ -67,9 +70,16 @@ SEED = 0  # of the random weights
 TIMED_GENERATIONS = 5
 FLAGSHIP_OVERLAY = "+exp=dual_branch_augloss_fusion"
 # BENCH_OVERLAY -> the port's composed config (utils.config)
+# and every other shipped image exp (EXP_CONFIGS: the 224x400 baseline, the
+# occ_bg ablations, occ_fg, occ3d, exp-drive-wm/192x384, ...)
 OVERLAYS = {FLAGSHIP_OVERLAY: "dual_branch_augloss_fusion_224x400",
             "+exp-hd=256x704": "dual_branch_augloss_fusion_256x704",
-            "+exp-hd=432x768": "dual_branch_augloss_fusion_432x768"}
+            "+exp-hd=432x768": "dual_branch_augloss_fusion_432x768",
+            "+exp=occ_bg_fusionp": "occ_bg_fusionp_224x400",
+            **EXP_CONFIGS}
+# the flagship at its three geometries: its metric text and its pin keys
+FLAGSHIP_CONFIGS = {OVERLAYS[k] for k in (FLAGSHIP_OVERLAY, "+exp-hd=256x704",
+                                          "+exp-hd=432x768")}
 VIDEO_EXPS = {"video_16f": "video_16f_224x400",
               "rgd_stage2": "rgd_stage2_224x400"}
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -116,14 +126,28 @@ def _device() -> dict:
 
 
 def _models(cfg) -> dict:
-    """``build_models`` on the card with seeded random weights."""
+    """``build_models`` on the card with seeded random weights (the box
+    adapter's projections copied from their base ones, as a fresh trainer
+    starts them)."""
     from .runner.factory import build_models, randomize_weights
-    from .runner.train_state import named_roots
+    from .runner.train_state import init_box_adapter_from_base, named_roots
 
     models = build_models(cfg)
     for _, module in named_roots(models):
         randomize_weights(module, SEED)
+    if cfg.get("use_box_adapter"):
+        init_box_adapter_from_base(models)
     return models
+
+
+def _branches(cfg, name: str) -> str:
+    """The metric's model words: ``dual-branch`` for the flagship's
+    configs (``FLAGSHIP_CONFIGS``), else the config's task and branch
+    count."""
+    if name in FLAGSHIP_CONFIGS:
+        return "dual-branch"
+    kind = "dual-branch" if cfg.use_dual_controlnet else "single-branch"
+    return f"{cfg.task_id}, {kind}"
 
 
 def _flops_detail(model: float, kernel: float, seconds: float,
@@ -209,6 +233,8 @@ def main_gen() -> dict:
     # the seed-1 images of the seed-0 batch and weights are deterministic
     # per card and library; drift beyond the band is a numerics regression
     pin_key = f"cuda/gen_{h}x{w}_b{B}_boxes{MAX_BOXES}"
+    if name not in FLAGSHIP_CONFIGS:  # another model at the same geometry
+        pin_key += f"_{cfg.task_id}"
     stats = output_stats(run["out"])
     pin = check_pin(stats, pin_key)
     if pin["status"] == "drift":
@@ -220,7 +246,7 @@ def main_gen() -> dict:
     dt = run["dt"]
     return {
         "metric": f"6-view {h}x{w} frames/sec/chip (UniPC-20, CFG 2, "
-                  "dual-branch)",
+                  f"{_branches(cfg, name)})",
         "value": B / dt,
         "unit": "frames/s/chip",
         # the A100 estimate describes the reference's 224x400 default
@@ -294,8 +320,8 @@ def main_train() -> dict:
     steps = int(os.environ.get("BENCH_TRAIN_STEPS", "20"))
     tb = int(os.environ.get("BENCH_TRAIN_BATCH", "2"))
     cache = os.environ.get("BENCH_CACHE_COND", "1") != "0"
-    cfg = load_config(config_name(os.environ.get("BENCH_OVERLAY",
-                                                 FLAGSHIP_OVERLAY)), [
+    name = config_name(os.environ.get("BENCH_OVERLAY", FLAGSHIP_OVERLAY))
+    cfg = load_config(name, [
         "dataset.num_samples=4", "runner.max_train_steps=1000",
         "runner.num_workers=0",
         f"runner.cache_conditioning={'true' if cache else 'false'}",
@@ -305,8 +331,9 @@ def main_train() -> dict:
                            seed=int(cfg.seed))
     run = _time_steps(MultiviewTrainer(cfg, ds, models=_models(cfg)), steps)
     return {
-        "metric": f"train images/sec/chip ({h}x{w}, dual-branch + FGM aug "
-                  "loss, full SD scale"
+        "metric": f"train images/sec/chip ({h}x{w}, {_branches(cfg, name)}"
+                  f"{' + FGM aug loss' if cfg.use_aug_loss else ''}"
+                  ", full SD scale"
                   f"{', conditioning cache' if cache else ''})",
         "value": 6 * tb / run["dt"],
         "unit": "images/s/chip",

@@ -1,14 +1,13 @@
-"""Conditioning embedders: camera, box / map-vector tokens, occupancy image,
-SFA text-condition fusion.
+"""Conditioning embedders: camera, box / map-vector tokens, BEV map,
+occupancy image, SFA text-condition fusion.
 
-Port of ``dualdiff_tpu/models/embedders.py`` (the parts the flagship and
-``occ_bg_fusionp`` paths run).  Feature maps are NCHW; token tensors are
-``(B, L, C)``.
+Port of ``dualdiff_tpu/models/embedders.py``.  Feature maps are NCHW; token
+tensors are ``(B, L, C)``.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -18,8 +17,14 @@ from ..ops.attention import multi_head_attention
 from ..ops.fourier import fourier_embed, fourier_out_dim
 from .layers import Conv2d, Linear, zero_module
 
-__all__ = ["embed_camera_param", "BBoxEmbedder",
-           "OccImageConditionEmbedder", "SFATxtCon", "SFATxtConPlus"]
+__all__ = ["embed_camera_param", "BBoxEmbedder", "BEVMapConditionEmbedder",
+           "OccImageConditionEmbedder", "SFATxtCon", "SFATxtConPlus",
+           "XYZ_MIN", "XYZ_RANGE"]
+
+# box-corner normalisation of ``minmax_normalize`` (reference
+# bbox_embedder.py:10-11)
+XYZ_MIN = (-200.0, -300.0, -20.0)
+XYZ_RANGE = (350.0, 650.0, 80.0)
 
 
 def embed_camera_param(camera_param: torch.Tensor,
@@ -36,9 +41,11 @@ class BBoxEmbedder(nn.Module):
     def __init__(self, n_classes: int = 10, class_token_dim: int = 768,
                  embedder_num_freq: int = 4,
                  proj_dims: Sequence[int] = (768, 512, 512, 768),
-                 mode: str = "all-xyz", num_points: Optional[int] = None):
+                 mode: str = "all-xyz", num_points: Optional[int] = None,
+                 minmax_normalize: bool = False):
         super().__init__()
         self.n_classes = n_classes
+        self.minmax_normalize = minmax_normalize
         self.num_freq = embedder_num_freq
         n_points = num_points if num_points is not None else \
             {"cxyz": 4, "all-xyz": 8}[mode]
@@ -55,22 +62,76 @@ class BBoxEmbedder(nn.Module):
             Linear(proj_dims[2], proj_dims[3]))
 
     def forward(self, bboxes: torch.Tensor, classes: torch.Tensor,
-                masks: Optional[torch.Tensor] = None) -> torch.Tensor:
+                masks: Optional[torch.Tensor] = None,
+                return_cls: bool = False):
         """bboxes (B', M, P, 3), classes (B', M) (-1 = padding), masks
         (B', M) -> (B', M, proj_dims[-1]).  Masked-out boxes embed the null
-        features, which is how CFG's unconditional box tokens are made."""
+        features, which is how CFG's unconditional box tokens are made.
+        ``return_cls``: -> (tokens, the masked class tokens (B', M,
+        class_token_dim)) for the box adapter.  With ``minmax_normalize``
+        the points are mapped by ``(p - XYZ_MIN) / XYZ_RANGE`` before the
+        Fourier embedding."""
         b, n = classes.shape
         if masks is None:
             masks = torch.ones(b, n, device=classes.device)
         m = masks.float()[..., None]
-        pos = fourier_embed(bboxes.float(), num_freqs=self.num_freq)
+        pts = bboxes.float()
+        if self.minmax_normalize:
+            pts = (pts - pts.new_tensor(XYZ_MIN)) / pts.new_tensor(XYZ_RANGE)
+        pos = fourier_embed(pts, num_freqs=self.num_freq)
         pos = pos.reshape(b, n, -1)
         pos = pos * m + self.null_pos_feature.float() * (1.0 - m)
         cls = self._class_tokens[classes.long().clamp(0, self.n_classes - 1)]
         cls = cls.float() * m + self.null_class_feature.float() * (1.0 - m)
         dtype = self.bbox_proj.weight.dtype
         emb = F.silu(self.bbox_proj(pos))
-        return self.second_linear(torch.cat([emb, cls.to(dtype)], dim=-1))
+        emb = self.second_linear(torch.cat([emb, cls.to(dtype)], dim=-1))
+        return (emb, cls.to(emb.dtype)) if return_cls else emb
+
+
+class BEVMapConditionEmbedder(nn.Module):
+    """(B, 200, 200, C_map) channels-last BEV mask -> (B*n_cam, 320, h, w),
+    the map feature shared by all views (reference map_embedder.py:67).
+
+    The conv stack is fixed for 200x200 -> 28x50 (224x400 latents): the
+    stride-2 convs pad (2, 2) rows and (1, 1) columns, as flax's
+    ``padding=((2, 2), (1, 1))``, and the last one strides (2, 1)
+    (200 -> 101x100 -> 52x50 -> 54x50 -> 28x50).  Any other ``target_hw``
+    is resized to after ``conv_out`` as ``jax.image.resize(...,
+    "bilinear")`` does: antialiased where an axis shrinks, plain bilinear
+    (half-pixel centres) where it grows, which is ``F.interpolate``'s
+    ``antialias=True`` bilinear (float32 here)."""
+
+    def __init__(self, conditioning_embedding_channels: int = 320,
+                 block_out_channels: Sequence[int] = (16, 32, 96, 256),
+                 n_cam: int = 6, map_channels: int = 8):
+        super().__init__()
+        chs = list(block_out_channels)
+        self.n_cam = n_cam
+        self.conv_in = Conv2d(map_channels, chs[0], 3, padding=1)
+        blocks = []
+        for i in range(len(chs) - 2):
+            blocks.append(Conv2d(chs[i], chs[i], 3, padding=1))
+            blocks.append(Conv2d(chs[i], chs[i + 1], 3, stride=2))
+        blocks.append(Conv2d(chs[-2], chs[-2], 3))
+        blocks.append(Conv2d(chs[-2], chs[-1], 3, stride=(2, 1)))
+        self.blocks = nn.ModuleList(blocks)
+        self.conv_out = zero_module(
+            Conv2d(chs[-1], conditioning_embedding_channels, 3, padding=1))
+
+    def forward(self, cond: torch.Tensor,
+                target_hw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        x = F.silu(self.conv_in(cond.permute(0, 3, 1, 2)))
+        for conv in self.blocks:
+            if conv.padding == (0, 0):  # flax's ((2, 2), (1, 1))
+                x = F.pad(x, (1, 1, 2, 2))
+            x = F.silu(conv(x))
+        x = self.conv_out(x)
+        if target_hw is not None and tuple(x.shape[2:]) != tuple(target_hw):
+            x = F.interpolate(x.float(), size=tuple(target_hw),
+                              mode="bilinear", align_corners=False,
+                              antialias=True).to(x.dtype)
+        return x.repeat_interleave(self.n_cam, dim=0)
 
 
 class OccImageConditionEmbedder(nn.Module):

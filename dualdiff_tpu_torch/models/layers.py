@@ -20,7 +20,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.attention import attention_packed, attention_packed_neighbors
+from ..ops.attention import (attention_packed, attention_packed_neighbors,
+                             multi_head_attention)
 from ..ops.fourier import timestep_embedding
 from .norms import GroupNorm, LayerNorm
 
@@ -118,10 +119,23 @@ class Attention(nn.Module):
     (out x rank, zero at init), no rank scale.  The output projection's
     adapters are ``to_out_0_lora_a`` / ``to_out_0_lora_b`` (the JAX
     exporter's ``to_out.0_lora_a`` is no path inside ``to_out``, a
-    ``ModuleList``)."""
+    ``ModuleList``).
+
+    ``box_adapter`` (the decoupled box cross-attention of
+    ``+exp=occ_bg_adapter``, ControlNets only): a call with
+    ``num_box_tokens = M > 0`` splits its K/V tokens into ``[text | box
+    (M) | cls (M)]``.  The text tokens go through the packed attention as
+    usual; ``to_k_box`` / ``to_v_box`` project the box tokens and
+    ``to_k_cls`` / ``to_v_cls`` the class tokens; the box K and V each add
+    their attention over the class K/V, and the queries' attention over the
+    box K/V is added to the text attention's output before ``to_out`` (the
+    JAX package's ``box_scale``, 1.0 in every config).  Padded boxes are
+    null-feature tokens and take part in every softmax, as in the JAX
+    package."""
 
     def __init__(self, query_dim: int, heads: int = 8,
-                 kv_dim: Optional[int] = None, lora_rank: int = 0):
+                 kv_dim: Optional[int] = None, lora_rank: int = 0,
+                 box_adapter: bool = False):
         super().__init__()
         self.heads = heads
         self.lora_rank = lora_rank
@@ -130,6 +144,10 @@ class Attention(nn.Module):
         self.to_k = Linear(kv_dim, query_dim, bias=False)
         self.to_v = Linear(kv_dim, query_dim, bias=False)
         self.to_out = nn.ModuleList([Linear(query_dim, query_dim)])
+        self.box_adapter = box_adapter
+        if box_adapter:
+            for proj in ("to_k_box", "to_v_box", "to_k_cls", "to_v_cls"):
+                setattr(self, proj, Linear(kv_dim, query_dim, bias=False))
         if lora_rank:
             for proj, d_in in (("to_q", query_dim), ("to_k", kv_dim),
                                ("to_v", kv_dim), ("to_out_0", query_dim)):
@@ -148,13 +166,21 @@ class Attention(nn.Module):
 
     def forward(self, hidden_states: torch.Tensor,
                 encoder_hidden_states: Optional[torch.Tensor] = None,
-                ring_views: int = 0) -> torch.Tensor:
+                ring_views: int = 0, num_box_tokens: int = 0) -> torch.Tensor:
         """``ring_views=N``: attn4 camera-ring mode.  The leading dim folds
         (batch, view); each view attends to its left and right neighbors
         with neighbor selection inside the kernel, so K/V projections run
-        once per view."""
+        once per view.  ``num_box_tokens``: the box adapter's split (see
+        the class)."""
         kv = hidden_states if encoder_hidden_states is None \
             else encoder_hidden_states
+        adapter = self.box_adapter and num_box_tokens > 0 \
+            and encoder_hidden_states is not None
+        if adapter:
+            n_txt = kv.shape[1] - 2 * num_box_tokens
+            box_tok = kv[:, n_txt:n_txt + num_box_tokens]
+            cls_tok = kv[:, n_txt + num_box_tokens:]
+            kv = kv[:, :n_txt]
         q = self._proj("to_q", self.to_q, hidden_states)
         k = self._proj("to_k", self.to_k, kv)
         v = self._proj("to_v", self.to_v, kv)
@@ -162,7 +188,23 @@ class Attention(nn.Module):
             out = attention_packed_neighbors(q, k, v, self.heads, ring_views)
         else:
             out = attention_packed(q, k, v, self.heads)
+        if adapter:
+            out = out + self._box_attention(q, box_tok, cls_tok)
         return self._proj("to_out_0", self.to_out[0], out)
+
+    def _box_attention(self, q: torch.Tensor, box_tok: torch.Tensor,
+                       cls_tok: torch.Tensor) -> torch.Tensor:
+        """The queries' attention over the box K/V enriched by the class
+        K/V, (B, Lq, C).  Every length here is ``bbox_max_length`` or the
+        queries', so ``multi_head_attention`` takes einsum."""
+        b, lq, c = q.shape
+        split = lambda t: t.reshape(t.shape[0], t.shape[1], self.heads,
+                                    c // self.heads)
+        bk, bv = split(self.to_k_box(box_tok)), split(self.to_v_box(box_tok))
+        ck, cv = split(self.to_k_cls(cls_tok)), split(self.to_v_cls(cls_tok))
+        bk = bk + multi_head_attention(bk, ck, cv)
+        bv = bv + multi_head_attention(bv, ck, cv)
+        return multi_head_attention(split(q), bk, bv).reshape(b, lq, c)
 
 
 class GEGLU(nn.Module):
@@ -210,12 +252,15 @@ class BasicTransformerBlock(nn.Module):
       axis, per (view, pixel) -> the zero-init ``temporal_connector`` ->
       residual, after attn4 and before the feed-forward.
 
-    ``lora_rank``: LoRA adapters on attn1 and attn2 only (RGD stage 2)."""
+    ``lora_rank``: LoRA adapters on attn1 and attn2 only (RGD stage 2).
+    ``box_adapter``: attn2 carries the decoupled box cross-attention
+    (``Attention``), split by the forward's ``num_box_tokens``."""
 
     def __init__(self, dim: int, heads: int = 8,
                  cross_attention_dim: int = 768, multiview: bool = False,
                  st_attn: bool = False, temporal: bool = False,
-                 num_frames: int = 1, lora_rank: int = 0):
+                 num_frames: int = 1, lora_rank: int = 0,
+                 box_adapter: bool = False):
         super().__init__()
         self.multiview = multiview
         self.st_attn = st_attn and num_frames > 1
@@ -225,7 +270,7 @@ class BasicTransformerBlock(nn.Module):
         self.attn1 = Attention(dim, heads, lora_rank=lora_rank)
         self.norm2 = LayerNorm(dim)
         self.attn2 = Attention(dim, heads, kv_dim=cross_attention_dim,
-                               lora_rank=lora_rank)
+                               lora_rank=lora_rank, box_adapter=box_adapter)
         if multiview:
             self.norm4 = LayerNorm(dim)
             self.attn4 = Attention(dim, heads)
@@ -239,12 +284,13 @@ class BasicTransformerBlock(nn.Module):
 
     def forward(self, hidden_states: torch.Tensor,
                 encoder_hidden_states: torch.Tensor,
-                n_cam: int = 1) -> torch.Tensor:
+                n_cam: int = 1, num_box_tokens: int = 0) -> torch.Tensor:
         h = hidden_states
         norm_h = self.norm1(h)
         kv = self._st_attn_kv(norm_h, n_cam) if self.st_attn else None
         h = h + self.attn1(norm_h, kv)
-        h = h + self.attn2(self.norm2(h), encoder_hidden_states)
+        h = h + self.attn2(self.norm2(h), encoder_hidden_states,
+                           num_box_tokens=num_box_tokens)
         if self.multiview:
             h = h + self.connector(
                 self.attn4(self.norm4(h), ring_views=n_cam))
@@ -283,24 +329,24 @@ class Transformer2DModel(nn.Module):
                  cross_attention_dim: int = 768, num_layers: int = 1,
                  multiview: bool = False, st_attn: bool = False,
                  temporal: bool = False, num_frames: int = 1,
-                 lora_rank: int = 0):
+                 lora_rank: int = 0, box_adapter: bool = False):
         super().__init__()
         self.norm = GroupNorm(min(32, channels), channels, eps=1e-6)
         self.proj_in = Conv2d(channels, channels, 1)
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(channels, heads, cross_attention_dim,
                                   multiview, st_attn, temporal, num_frames,
-                                  lora_rank)
+                                  lora_rank, box_adapter)
             for _ in range(num_layers)])
         self.proj_out = Conv2d(channels, channels, 1)
 
     def forward(self, x: torch.Tensor, encoder_hidden_states: torch.Tensor,
-                n_cam: int = 1) -> torch.Tensor:
+                n_cam: int = 1, num_box_tokens: int = 0) -> torch.Tensor:
         b, c, h, w = x.shape
         hs = self.proj_in(self.norm(x))
         hs = hs.permute(0, 2, 3, 1).reshape(b, h * w, c)
         for block in self.transformer_blocks:
-            hs = block(hs, encoder_hidden_states, n_cam)
+            hs = block(hs, encoder_hidden_states, n_cam, num_box_tokens)
         hs = hs.reshape(b, h, w, c).permute(0, 3, 1, 2)
         return self.proj_out(hs) + x
 

@@ -46,7 +46,7 @@ class CrossAttnDownBlock2D(nn.Module):
                  heads: int = 8, cross_attention_dim: int = 768,
                  multiview: bool = False, st_attn: bool = False,
                  temporal: bool = False, num_frames: int = 1,
-                 lora_rank: int = 0):
+                 lora_rank: int = 0, box_adapter: bool = False):
         super().__init__()
         self.resnets = nn.ModuleList([
             ResnetBlock2D(in_channels if i == 0 else out_channels,
@@ -55,15 +55,17 @@ class CrossAttnDownBlock2D(nn.Module):
             Transformer2DModel(out_channels, heads, cross_attention_dim,
                                multiview=multiview, st_attn=st_attn,
                                temporal=temporal, num_frames=num_frames,
-                               lora_rank=lora_rank)
+                               lora_rank=lora_rank, box_adapter=box_adapter)
             for _ in range(num_layers)])
         self.downsamplers = (nn.ModuleList([Downsample2D(out_channels)])
                              if add_downsample else None)
 
-    def forward(self, x, temb, encoder_hidden_states, n_cam: int = 1):
+    def forward(self, x, temb, encoder_hidden_states, n_cam: int = 1,
+                num_box_tokens: int = 0):
         res = []
         for resnet, attn in zip(self.resnets, self.attentions):
-            x = attn(resnet(x, temb), encoder_hidden_states, n_cam)
+            x = attn(resnet(x, temb), encoder_hidden_states, n_cam,
+                     num_box_tokens)
             res.append(x)
         if self.downsamplers is not None:
             x = self.downsamplers[0](x)
@@ -91,7 +93,8 @@ class UNetMidBlock2DCrossAttn(nn.Module):
     def __init__(self, channels: int, temb_dim: int, heads: int = 8,
                  cross_attention_dim: int = 768, multiview: bool = False,
                  st_attn: bool = False, temporal: bool = False,
-                 num_frames: int = 1, lora_rank: int = 0):
+                 num_frames: int = 1, lora_rank: int = 0,
+                 box_adapter: bool = False):
         super().__init__()
         self.resnets = nn.ModuleList([
             ResnetBlock2D(channels, channels, temb_dim) for _ in range(2)])
@@ -99,11 +102,13 @@ class UNetMidBlock2DCrossAttn(nn.Module):
             Transformer2DModel(channels, heads, cross_attention_dim,
                                multiview=multiview, st_attn=st_attn,
                                temporal=temporal, num_frames=num_frames,
-                               lora_rank=lora_rank)])
+                               lora_rank=lora_rank, box_adapter=box_adapter)])
 
-    def forward(self, x, temb, encoder_hidden_states, n_cam: int = 1):
+    def forward(self, x, temb, encoder_hidden_states, n_cam: int = 1,
+                num_box_tokens: int = 0):
         x = self.resnets[0](x, temb)
-        x = self.attentions[0](x, encoder_hidden_states, n_cam)
+        x = self.attentions[0](x, encoder_hidden_states, n_cam,
+                               num_box_tokens)
         return self.resnets[1](x, temb)
 
 

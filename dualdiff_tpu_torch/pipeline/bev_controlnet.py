@@ -17,8 +17,9 @@ yet).  Kept from the JAX pipeline:
   after the other (half the activation peak).  Clips split into contiguous
   halves; images split by CFG pair, also for the per-view ``(2B*N, ...)``
   precomputed tensors, so no half takes another row's conditioning;
-* step-constant conditioning (embedders, SFA fusion, context tokens) is
-  computed once, outside the denoising loop;
+* step-constant conditioning (embedders, SFA fusion, context tokens, the
+  camera token of ``use_cam_in_temb``) is computed once, outside the
+  denoising loop;
 * the ControlNets' residuals are summed, and the first ControlNet's context
   tokens are the UNet's cross-attention KV;
 * one initial noise map per sample (per frame for clips) shared by every
@@ -134,7 +135,8 @@ class BEVControlNetPipeline:
             pre.append(cn(None, None, cfg2(cam, cam), cfg2(text, text), c2,
                           bboxes_3d=boxes2,
                           encoder_hidden_states_uncond=uncond,
-                          uncond_switch=switch, precompute_only=True))
+                          uncond_switch=switch, precompute_only=True,
+                          latent_hw=self.latent_hw))
         cam2 = cfg2(cam, cam)
 
         def evaluate(xb, step_t, cam_b, pre_b):
@@ -143,7 +145,8 @@ class BEVControlNetPipeline:
             tb = torch.full((nb,), step_t, device=self.device)
             downs = mid = kv = None
             for cn, p in zip(controlnets, pre_b):
-                d, m, k = cn(xb, tb, cam_b, None, None, precomputed=p,
+                # the text only gives the box adapter its context length
+                d, m, k = cn(xb, tb, cam_b, text, None, precomputed=p,
                              conditioning_scale=cond_scale)
                 if downs is None:
                     downs, mid, kv = d, m, k

@@ -2,10 +2,14 @@
 
 Port of ``dualdiff_tpu/runner/factory.py``, remat settings included.
 ``tiny=True`` uses the JAX package's tiny sizes, which keep every
-architectural feature on.  A ``use_video`` config builds the DualDiff+ video
-UNet (ST-Attn and temporal attention, ``video.num_frames`` frames), with
-LoRA adapters of rank ``video.lora_rank`` on its attn1 and attn2 exactly
-when ``video.rgd.enable`` (RGD stage 2), as the JAX factory builds it.
+architectural feature on.  The ControlNets take the config's conditioning
+kind (BEV map, occupancy image, ORS rays), ``use_cam_in_temb``, the box
+embedder's ``minmax_normalize`` and ``use_box_adapter``; the UNet never
+carries the box adapter, as in the JAX factory.  A ``use_video`` config
+builds the DualDiff+ video UNet (ST-Attn and temporal attention,
+``video.num_frames`` frames), with LoRA adapters of rank
+``video.lora_rank`` on its attn1 and attn2 exactly when
+``video.rgd.enable`` (RGD stage 2), as the JAX factory builds it.
 """
 
 from __future__ import annotations
@@ -32,14 +36,10 @@ def compute_dtype(cfg) -> torch.dtype:
 
 
 def _check_ported(cfg) -> None:
-    c = cfg.model.controlnet
-    if c.get("use_cam_in_temb"):
-        raise NotImplementedError(
-            "model.controlnet.use_cam_in_temb is not ported")
-    if cfg.get("use_box_adapter"):
-        raise NotImplementedError("the box adapter is not ported")
-    if c.bbox_embedder_param.get("minmax_normalize"):
-        raise NotImplementedError("bbox minmax_normalize is not ported")
+    """Refuse what no shipped config reaches and the port lacks: attn4
+    other than ``add`` with the ``zero_linear`` connector (``concat`` /
+    ``self``, the ``gated`` connector).  The UNet refuses non-ring
+    neighbour pairs."""
     u = cfg.model.unet
     if (str(u.neighboring_attn_type), str(u.zero_module_type)) != (
             "add", "zero_linear"):
@@ -103,16 +103,21 @@ def build_models(cfg, tiny: bool = False, device=None) -> Dict:
             uncond_cam_in_dim=tuple(c.uncond_cam_in_dim),
             cam_num_freqs=int(c.cam_embedder_param.num_freqs),
             cond_embedder=spec.cond_kind,
+            map_channels=int(c.map_size[0]),
             conditioning_embedding_out_channels=cond_chs,
             n_cam=len(pairs),
             use_txt_con_fusion=bool(c.use_txt_con_fusion),
             use_txt_con_fusionp=bool(c.use_txt_con_fusionp),
+            use_cam_in_temb=bool(c.get("use_cam_in_temb", False)),
             bbox_mode=str(cfg.model.bbox_mode),
             bbox_num_points=spec.map_vec_points if spec.use_map_vec else None,
             bbox_n_classes=int(c.bbox_embedder_param.n_classes),
+            bbox_minmax_normalize=bool(
+                c.bbox_embedder_param.get("minmax_normalize", False)),
             bbox_proj_dims=bbox_proj,
             bbox_class_token_dim=xdim if tiny else int(
                 c.bbox_embedder_param.class_token_dim),
+            use_box_adapter=bool(cfg.get("use_box_adapter", False)),
             remat=bool(cfg.runner.get("enable_controlnet_checkpointing",
                                       False)),
             remat_min_tokens=_remat_min_tokens(

@@ -24,7 +24,9 @@ import torch
 from ..models.unet import is_new_multiview_param
 
 __all__ = ["trainable_predicate", "named_roots", "partition_params",
-           "build_schedule", "AdamW", "build_optimizer"]
+           "BOX_ADAPTER_BASE", "init_box_adapter_from_base",
+           "build_schedule", "AdamW",
+           "build_optimizer"]
 
 Predicate = Callable[[str, str], bool]
 
@@ -77,6 +79,33 @@ def partition_params(models: Dict, pred: Predicate):
             p.requires_grad_(keep)
             (trainable if keep else frozen)[f"{root}/{name}"] = p
     return trainable, frozen
+
+
+# each box-adapter projection -> the base projection it starts from
+BOX_ADAPTER_BASE = {"to_k_box": "to_k", "to_k_cls": "to_k",
+                    "to_v_box": "to_v", "to_v_cls": "to_v"}
+
+
+@torch.no_grad()
+def init_box_adapter_from_base(models: Dict) -> int:
+    """The box adapter's projections start as copies of their attention's
+    base projections (``BOX_ADAPTER_BASE``; the JAX package's
+    ``init_box_adapter_from_base``, reference box_adapter.py:433-440),
+    where the shapes match.  -> the number of tensors copied."""
+    src_of = BOX_ADAPTER_BASE
+    copied = 0
+    for _, module in named_roots(models):
+        params = dict(module.named_parameters())
+        for name, p in params.items():
+            parts = name.split(".")
+            if len(parts) < 2 or parts[-2] not in src_of:
+                continue
+            src = params.get(".".join(parts[:-2] + [src_of[parts[-2]],
+                                                    parts[-1]]))
+            if src is not None and src.shape == p.shape:
+                p.copy_(src)
+                copied += 1
+    return copied
 
 
 # ------------------------------------------------------------ schedules --

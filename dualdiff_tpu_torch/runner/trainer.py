@@ -21,10 +21,12 @@ Differences from the JAX package, by design:
 * Latents are NCHW, ``(B, N, 4, h, w)``; the FGM weight broadcasts over the
   channel axis and the means run over the same element count.
 
-As in the JAX package, the reward's VAE decode runs under grad inside a
-checkpoint (``torch.utils.checkpoint`` for ``jax.checkpoint``) as a whole:
-only its latent input is saved and the decode is replayed in the backward,
-so its image-size activations are not alive through the UNet's backward.
+As in the JAX package, the VAE decode of the reward and of tone guidance
+(``use_tone_guidance``: ``2 * mean((mscn(decoded x0) - mscn(pixels))^2)``,
+``ops/mscn.py``, metric ``tone``) runs under grad inside a checkpoint
+(``torch.utils.checkpoint`` for ``jax.checkpoint``) as a whole: only its
+latent input is saved and the decode is replayed in the backward, so its
+image-size activations are not alive through the UNet's backward.
 
 The conditioning cache (``runner.cache_conditioning``, the JAX package's
 ``make_precompute_cond``): the frozen, parameter-independent conditioning
@@ -42,8 +44,8 @@ samples recompute every epoch.  Flip augmentation
 (``dataset.augment3d.flip_ratio``, ``data/augment.py``) runs before the
 collate on the batch's own numpy generator, as in the JAX package.
 
-Not ported (raise ``NotImplementedError``): tone guidance, gradient
-accumulation.  Checkpoint save/load is not ported either.
+Not ported (raises ``NotImplementedError``): gradient accumulation.
+Checkpoint save/load is not ported either.
 """
 
 from __future__ import annotations
@@ -63,11 +65,12 @@ from ..data.collate import collate_fn
 from ..data.tokenizer import build_tokenizer
 from ..diffusion.schedule import DiffusionSchedule
 from ..ops.fgm import fgm_heatmap
+from ..ops.mscn import mscn_luminance
 from ..ops.ors import occupancy_ray_sample
 from .conds import compute_branch_conds, prepare_batch, to_device
 from .factory import build_models
-from .train_state import build_optimizer, partition_params, \
-    trainable_predicate
+from .train_state import build_optimizer, init_box_adapter_from_base, \
+    partition_params, trainable_predicate
 
 __all__ = ["sample_uncond_switch", "make_draws", "make_precompute_cond",
            "batch_rows", "make_loss_fn", "train_step", "set_category_tokens",
@@ -171,8 +174,11 @@ def make_loss_fn(models: Dict, cfg, schedule: DiffusionSchedule,
                  ) -> Callable[[Dict, Draws], Tuple[torch.Tensor, Dict]]:
     """loss_fn(batch, draws) -> (loss, metrics): ``mse`` of the noise
     prediction plus, with ``use_aug_loss``, the FGM heatmap-weighted
-    ``aug_loss``.  ``batch`` is ``prepare_batch`` output; for clips
-    (``frames > 1``) its batch dim folds clips x frames, frame outer.
+    ``aug_loss`` and, with ``use_tone_guidance``, twice the ``tone`` term:
+    the mean squared difference of ``mscn_luminance`` of the decoded
+    denoised prediction x0 and of the pixels.  ``batch`` is
+    ``prepare_batch`` output; for clips (``frames > 1``) its batch dim
+    folds clips x frames, frame outer.
 
     With ``cached_cond`` the batch carries ``latent_moments`` (and
     ``ors_rays``) from ``make_precompute_cond`` in place of running the VAE
@@ -185,14 +191,18 @@ def make_loss_fn(models: Dict, cfg, schedule: DiffusionSchedule,
     when 0), decoded by the VAE under grad, gives ``reward =
     mean(reward_fn(images, ground truth, batch))`` (NCHW images), and the
     loss is ``mse + aug_loss - reward_weight * reward``."""
-    if cfg.get("use_tone_guidance"):
-        raise NotImplementedError("tone guidance (MSCN) is not ported")
     unet, controlnets = models["unet"], models["controlnets"]
     vae, text_encoder = models["vae"], models["text_encoder"]
     same_noise = bool(cfg.model.train_with_same_noise)
     use_aug_loss = bool(cfg.use_aug_loss)
     aug_text = bool(cfg.use_aug_text)
+    use_tone = bool(cfg.get("use_tone_guidance", False))
     noise_offset = float(cfg.runner.noise_offset)
+
+    def decode(x0):
+        """(n, N, 4, h, w) -> (n*N, 3, H, W) under grad, rematerialised."""
+        flat = x0.reshape(-1, *x0.shape[2:])
+        return checkpoint(vae.decode, flat, use_reentrant=False)
 
     def loss_fn(batch: Dict, draws: Draws):
         # (B, N, H, W, 3) in [-1, 1]; absent when the conditioning cache
@@ -252,6 +262,12 @@ def make_loss_fn(models: Dict, cfg, schedule: DiffusionSchedule,
             aug = (sq * heat[:, :, None]).mean()  # NCHW: over channels
             loss = loss + aug
             metrics["aug_loss"] = aug.detach()
+        if use_tone:
+            images = decode(schedule.pred_x0_from_eps(noisy, eps, timesteps))
+            gt = px.reshape(B * N, *px.shape[2:]).permute(0, 3, 1, 2)
+            tone = ((mscn_luminance(images) - mscn_luminance(gt)) ** 2).mean()
+            loss = loss + 2.0 * tone
+            metrics["tone"] = tone.detach()
         if reward_fn is not None and reward_weight > 0:
             reward = _reward(noisy, eps, timesteps, px, batch)
             loss = loss - reward_weight * reward
@@ -275,8 +291,7 @@ def make_loss_fn(models: Dict, cfg, schedule: DiffusionSchedule,
                 if key in rbatch:
                     rbatch[key] = take(rbatch[key])
         n = x0.shape[0] * x0.shape[1]
-        images = checkpoint(vae.decode, x0.reshape(n, *x0.shape[2:]),
-                            use_reentrant=False)
+        images = decode(x0)
         gt = px.reshape(n, *px.shape[2:]).permute(0, 3, 1, 2)
         return reward_fn(images, gt, rbatch).mean()
 
@@ -315,10 +330,12 @@ class MultiviewTrainer:
 
     ``MultiviewTrainer(cfg, train_set).run(max_steps, on_metrics)`` trains
     on the card; ``device="cpu"`` runs the plain path.  ``models`` (a
-    ``build_models`` dict with weights) replaces the fresh initialisation.
+    ``build_models`` dict with weights) replaces the fresh initialisation,
+    which copies the box adapter's projections from their base ones
+    (``init_box_adapter_from_base``) and sets the class tokens.
     ``on_metrics(step, metrics)`` gets ``loss``, ``mse``, ``aug_loss``,
-    ``grad_norm``, ``step_time_s`` (host clock from batch assembly to the
-    metrics on the host, which synchronises the device) and
+    ``tone``, ``grad_norm``, ``step_time_s`` (host clock from batch
+    assembly to the metrics on the host, which synchronises the device) and
     ``data_time_s`` (the batch assembly part of it)."""
 
     frames = 1  # frames per clip; VideoTrainer sets video.num_frames
@@ -344,6 +361,8 @@ class MultiviewTrainer:
             str(cfg.model.pretrained_model_name_or_path))
         fresh = models is None
         self.models = models or build_models(cfg, device=self.device)
+        if fresh and bool(cfg.get("use_box_adapter", False)):
+            init_box_adapter_from_base(self.models)
         if fresh and bool(cfg.model.controlnet.bbox_embedder_param.get(
                 "use_text_encoder_init", True)):
             set_category_tokens(self.models, self.tokenizer,

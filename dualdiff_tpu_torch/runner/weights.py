@@ -17,7 +17,12 @@ attention's output projection, which the exporter names
 ``to_out.0_lora_a`` / ``to_out.0_lora_b``, are ``to_out_0_lora_a`` /
 ``to_out_0_lora_b`` here (``to_out`` is a ``ModuleList``; its ``0`` is the
 projection itself).  The adapters of ``to_q``, ``to_k`` and ``to_v`` keep
-the exporter's ``to_q_lora_a`` etc.
+the exporter's ``to_q_lora_a`` etc.  Flat names the exporter emits stay flat
+here too: the ControlNet's camera projection of ``use_cam_in_temb`` is
+``adm_proj_0`` / ``adm_proj_2`` (``adm_proj`` is no list the exporter
+splits), and the box adapter's ``attn2.to_{k,v}_{box,cls}`` and the BEV-map
+embedder's ``controlnet_cond_embedding.{conv_in,blocks.N,conv_out}`` are
+the exporter's names as they are.
 
 Released checkpoints (the import side of the JAX package's
 ``runner/weight_import.py`` and ``tools/import_weights.py``): a diffusers
@@ -133,10 +138,13 @@ def from_diffusers(state_dict: Mapping[str, torch.Tensor],
     (``LEGACY_VAE_NAMES``) become the current ones; CLIP's
     ``position_ids`` buffer is dropped (``weight_import.py:147``); the
     JAX exporter's ``to_out.0_lora_*`` adapters become ``to_out_0_lora_*``
-    (see above).  UNet and ControlNet names are otherwise the port's own:
-    the ControlNet's ``bbox_embedder._class_tokens`` and
-    ``uncond_cam.weight`` are the exporter's names, which the port keeps.
-    Values become tensors, unconverted."""
+    (see above); a ControlNet's ``adm_proj.0`` / ``adm_proj.2`` (the
+    reference's ``Sequential``, which ``import_controlnet`` takes as the
+    exporter's ``adm_proj_0`` / ``adm_proj_2``) become those flat names.
+    UNet and ControlNet names are otherwise the port's own: the
+    ControlNet's ``bbox_embedder._class_tokens`` and ``uncond_cam.weight``
+    are the exporter's names, which the port keeps.  Values become
+    tensors, unconverted."""
     if kind not in _KINDS:
         raise ValueError(f"unknown kind {kind!r}")
     legacy = re.compile(r"attentions\.0\.(" + "|".join(LEGACY_VAE_NAMES)
@@ -149,6 +157,8 @@ def from_diffusers(state_dict: Mapping[str, torch.Tensor],
             name = legacy.sub(lambda m: f"attentions.0."
                               f"{LEGACY_VAE_NAMES[m.group(1)]}.", name)
         name = name.replace("to_out.0_lora_", "to_out_0_lora_")
+        if kind == "controlnet":
+            name = re.sub(r"^adm_proj\.(\d+)\.", r"adm_proj_\1.", name)
         out[name] = torch.as_tensor(value)
     return out
 

@@ -13,7 +13,12 @@ import os
 from typing import Any, Iterable
 
 __all__ = ["ConfigNode", "load_config", "FLAGSHIP", "HD_256X704",
-           "HD_432X768", "VIDEO_16F", "RGD_STAGE2", "FUSIONP"]
+           "HD_432X768", "VIDEO_16F", "RGD_STAGE2", "FUSIONP", "BASELINE",
+           "DUAL_BRANCH", "DUAL_BRANCH_8PTS", "OCC_BG", "OCC_BG_FUSION",
+           "OCC_BG_AUGLOSS", "OCC_BG_AUGLOSS_FUSION", "OCC_BG_AUGTEXT",
+           "OCC_BG_CAMTEMB", "OCC_BG_CAMTEMB_FUSION", "OCC_BG_ADAPTER",
+           "OCC_BG_TONE", "OCC_FG", "OCC_FG_40PTS", "OCC3D",
+           "DRIVE_WM_192X384", "EXP_CONFIGS"]
 
 CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)),
                           "configs")
@@ -35,6 +40,47 @@ RGD_STAGE2 = "rgd_stage2_224x400"
 # +exp=occ_bg_fusionp with FLAGSHIP's other overrides: one ControlNet on the
 # occupancy image with per-view boxes and two-stage SFA+
 FUSIONP = "occ_bg_fusionp_224x400"
+# Every other shipped configs/exp/<exp>.yaml, each +exp=<exp> with
+# FLAGSHIP's other overrides:
+# +exp=224x400: the MagicDrive-style baseline, one ControlNet on the BEV map
+BASELINE = "baseline_224x400"
+# both ControlNets (occupancy image; ORS + 40-point map vectors), no aug loss
+# or SFA
+DUAL_BRANCH = "dual_branch_224x400"
+# the flagship with 8-point map vectors
+DUAL_BRANCH_8PTS = "dual_branch_augloss_fusion_8pts_224x400"
+# the occupancy-image branch alone, and its ablations: SFA, the FGM aug
+# loss, per-view class-list captions, the camera token in the time
+# embedding, the box adapter, tone guidance
+OCC_BG = "occ_bg_224x400"
+OCC_BG_FUSION = "occ_bg_fusion_224x400"
+OCC_BG_AUGLOSS = "occ_bg_augloss_224x400"
+OCC_BG_AUGLOSS_FUSION = "occ_bg_augloss_fusion_224x400"
+OCC_BG_AUGTEXT = "occ_bg_augtext_224x400"
+OCC_BG_CAMTEMB = "occ_bg_camtemb_224x400"
+OCC_BG_CAMTEMB_FUSION = "occ_bg_camtemb_fusion_224x400"
+OCC_BG_ADAPTER = "occ_bg_adapter_224x400"
+OCC_BG_TONE = "occ_bg_tone_224x400"
+# ORS foreground rays (+ 8- or 40-point map vectors) and ORS on both
+OCC_FG = "occ_fg_224x400"
+OCC_FG_40PTS = "occ_fg_40pts_224x400"
+OCC3D = "occ3d_224x400"
+# +exp-drive-wm=192x384: occ_bg at Drive-WM's 192x384
+DRIVE_WM_192X384 = "drive_wm_192x384"
+# the overlay each of those configs composes
+EXP_CONFIGS = {
+    "+exp=224x400": BASELINE, "+exp=dual_branch": DUAL_BRANCH,
+    "+exp=dual_branch_augloss_fusion_8pts": DUAL_BRANCH_8PTS,
+    "+exp=occ_bg": OCC_BG, "+exp=occ_bg_fusion": OCC_BG_FUSION,
+    "+exp=occ_bg_augloss": OCC_BG_AUGLOSS,
+    "+exp=occ_bg_augloss_fusion": OCC_BG_AUGLOSS_FUSION,
+    "+exp=occ_bg_augtext": OCC_BG_AUGTEXT,
+    "+exp=occ_bg_camtemb": OCC_BG_CAMTEMB,
+    "+exp=occ_bg_camtemb_fusion": OCC_BG_CAMTEMB_FUSION,
+    "+exp=occ_bg_adapter": OCC_BG_ADAPTER, "+exp=occ_bg_tone": OCC_BG_TONE,
+    "+exp=occ_fg": OCC_FG, "+exp=occ_fg_40pts": OCC_FG_40PTS,
+    "+exp=occ3d": OCC3D, "+exp-drive-wm=192x384": DRIVE_WM_192X384,
+}
 
 
 class ConfigNode(dict):

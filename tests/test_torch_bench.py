@@ -19,6 +19,7 @@ from dualdiff_tpu.ops import attention as JA
 from dualdiff_tpu_torch import bench
 from dualdiff_tpu_torch.ops import attention as A
 from dualdiff_tpu_torch.utils import flops as F
+from dualdiff_tpu_torch.utils.config import EXP_CONFIGS, load_config
 from dualdiff_tpu_torch.utils.pins import check_pin, output_stats, save_pin
 
 # b x lq x lk at c = heads x d: tiny, d % 8 == 0, under the TPU score cap
@@ -226,7 +227,7 @@ def test_bench_overlay_maps_to_configs_and_refuses_the_rest(monkeypatch):
         assert cfg.dataset.image_size == hw
         assert cfg.use_dual_controlnet and cfg.use_aug_loss
     with pytest.raises(ValueError, match="BENCH_OVERLAY"):
-        bench.config_name("+exp=occ_bg_tone")
+        bench.config_name("+exp=video_16f")  # clips: BENCH_VIDEO_EXP
     monkeypatch.setattr(bench, "_device", lambda: {})
     monkeypatch.setenv("BENCH_CN_CACHE", "2")
     with pytest.raises(NotImplementedError, match="cn_cache_interval"):
@@ -234,6 +235,20 @@ def test_bench_overlay_maps_to_configs_and_refuses_the_rest(monkeypatch):
     monkeypatch.setenv("BENCH_VIDEO_EXP", "occ_bg")
     with pytest.raises(ValueError, match="BENCH_VIDEO_EXP"):
         bench.main_video_train()
+
+
+@pytest.mark.parametrize("overlay", sorted(EXP_CONFIGS))
+def test_bench_takes_every_shipped_image_exp(overlay):
+    """``BENCH_OVERLAY`` takes every other shipped image exp, as
+    ``bench.py`` takes any overlay: each resolves to its composed config
+    (its task is the overlay's exp), and only the flagship's configs keep
+    the flagship's metric text and pin keys."""
+    name = bench.config_name(overlay)
+    assert name == EXP_CONFIGS[overlay]
+    cfg = load_config(name)
+    assert str(cfg.task_id) == overlay.split("=", 1)[1]
+    assert name not in bench.FLAGSHIP_CONFIGS
+    assert bench._branches(cfg, name).startswith(f"{cfg.task_id}, ")
 
 
 def test_bench_refuses_to_run_without_a_card(monkeypatch):

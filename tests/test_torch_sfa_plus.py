@@ -97,9 +97,14 @@ def test_build_models_accepts_fusionp(tiny):
     assert cn.txt_con_fusion is None
     assert cn.txt_con_fusionp.heads == 8  # its own, not the UNet's 4
     assert [s.cond_kind for s in tiny["pmodels"]["specs"]] == ["occ_image"]
+    # the camera token in the time embedding builds beside SFA+; the gated
+    # attn4 connector, which no shipped config reaches, is refused
     cfg = tp.port_config(["model.controlnet.use_cam_in_temb=true"],
                          fusionp=True)
-    with pytest.raises(NotImplementedError, match="use_cam_in_temb"):
+    cn, = build_models(cfg, tiny=True, device="cpu")["controlnets"]
+    assert cn.use_cam_in_temb and cn.txt_con_fusionp is not None
+    cfg = tp.port_config(["model.unet.zero_module_type=gated"], fusionp=True)
+    with pytest.raises(NotImplementedError, match="zero_linear"):
         build_models(cfg, tiny=True, device="cpu")
 
 

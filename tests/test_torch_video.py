@@ -166,7 +166,9 @@ def test_clip_kernel_calls_match_chip_smoke_derivation(runs):
 def test_factory_builds_the_video_unet_and_refuses_rgd():
     """The video UNet has ST-Attn and temporal attention; with RGD on
     (stage 2) its attn1 and attn2, and nothing else, carry LoRA adapters of
-    ``video.lora_rank``.  The box adapter is still refused."""
+    ``video.lora_rank``.  With the box adapter on, only the ControlNets
+    carry it, as the JAX factory builds them; attn4 ``concat`` is
+    refused."""
     cfg = tp.port_config(tp.TINY_VIDEO_OVERRIDES, video=True)
     unet = build_models(cfg, tiny=True, device="cpu")["unet"]
     block = unet.down_blocks[0].attentions[0].transformer_blocks[0]
@@ -178,7 +180,14 @@ def test_factory_builds_the_video_unet_and_refuses_rgd():
     block = rgd.down_blocks[0].attentions[0].transformer_blocks[0]
     assert block.attn1.lora_rank == block.attn2.lora_rank == 16
     assert block.attn4.lora_rank == block.attn_temporal.lora_rank == 0
+    boxed = build_models(tp.port_config(
+        tp.TINY_VIDEO_OVERRIDES + ["use_box_adapter=true"], video=True),
+        tiny=True, device="cpu")
+    assert all(cn.use_box_adapter for cn in boxed["controlnets"])
+    assert not any("_box" in n for n, _ in
+                   boxed["unet"].named_parameters())
     with pytest.raises(NotImplementedError):
-        build_models(tp.port_config(tp.TINY_VIDEO_OVERRIDES
-                                    + ["use_box_adapter=true"], video=True),
-                     tiny=True, device="cpu")
+        build_models(tp.port_config(
+            tp.TINY_VIDEO_OVERRIDES
+            + ["model.unet.neighboring_attn_type=concat"], video=True),
+            tiny=True, device="cpu")

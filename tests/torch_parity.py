@@ -44,27 +44,41 @@ RGD = ["+exp=rgd_stage2"] + VIDEO[1:]
 # projection: a trained adapter is a small perturbation of the projection
 LORA_B = {f"{p}_lora_b": 0.1 for p in ("to_q", "to_k", "to_v", "to_out_0")}
 
+# the variants' combined training set, on +exp=occ_bg: the box adapter, the
+# camera token in the time embedding and tone guidance
+VARIANTS_TRAIN = ("use_box_adapter=true",
+                  "model.controlnet.use_cam_in_temb=true",
+                  "use_tone_guidance=true")
+
 # the port's test modules run 6 to a machine under xdist
 torch.set_num_threads(2)
 
 
-def jax_config(extra=(), video=False, fusionp=False):
+def exp_overrides(overlay):
+    """The JAX loader's overrides of a shipped exp overlay
+    (``"+exp=<name>"`` or ``"+exp-drive-wm=192x384"``) under the flagship's
+    other overrides, which the port's composed JSONs carry."""
+    return [overlay] + FLAGSHIP[1:]
+
+
+def jax_config(extra=(), video=False, fusionp=False, exp=None):
     """``video``: False (the flagship), True (``video_16f``) or ``"rgd"``
-    (``rgd_stage2``); ``fusionp``: ``occ_bg_fusionp``."""
+    (``rgd_stage2``); ``fusionp``: ``occ_bg_fusionp``; ``exp``: the overlay
+    of another shipped exp config (``exp_overrides``)."""
     from dualdiff_tpu.utils.config import load_config
 
-    base = RGD if video == "rgd" else VIDEO if video else \
-        FUSIONP if fusionp else FLAGSHIP
+    base = exp_overrides(exp) if exp else RGD if video == "rgd" else \
+        VIDEO if video else FUSIONP if fusionp else FLAGSHIP
     return load_config(CONFIG_DIR, overrides=base + list(extra))
 
 
-def port_config(extra=(), video=False, fusionp=False):
-    from dualdiff_tpu_torch.utils.config import (FLAGSHIP, FUSIONP,
-                                                 RGD_STAGE2, VIDEO_16F,
-                                                 load_config)
+def port_config(extra=(), video=False, fusionp=False, exp=None):
+    from dualdiff_tpu_torch.utils.config import (EXP_CONFIGS, FLAGSHIP,
+                                                 FUSIONP, RGD_STAGE2,
+                                                 VIDEO_16F, load_config)
 
-    name = RGD_STAGE2 if video == "rgd" else VIDEO_16F if video else \
-        FUSIONP if fusionp else FLAGSHIP
+    name = EXP_CONFIGS[exp] if exp else RGD_STAGE2 if video == "rgd" else \
+        VIDEO_16F if video else FUSIONP if fusionp else FLAGSHIP
     return load_config(name, overrides=list(extra))
 
 
@@ -108,10 +122,12 @@ def load_port(module: torch.nn.Module, params, kind: str) -> torch.nn.Module:
 
 
 @functools.lru_cache(maxsize=2)
-def tiny_setup(fusionp=False):
+def tiny_setup(fusionp=False, exp=None, extra=()):
     """Tiny JAX and port model sets with equal weights, the seed-0 synthetic
-    batch of 1 sample at 256x128, and the tokenizer; the flagship's, or with
-    ``fusionp`` the single-branch ``occ_bg_fusionp`` set."""
+    batch of 1 sample at 256x128, and the tokenizer; the flagship's, with
+    ``fusionp`` the single-branch ``occ_bg_fusionp`` set, or with ``exp``
+    that shipped exp overlay's (``"+exp=224x400"``), each under the
+    overrides ``extra`` (a tuple) too."""
     from dualdiff_tpu.data.collate import collate_fn
     from dualdiff_tpu.data.synthetic import SyntheticNuScenes
     from dualdiff_tpu.data.tokenizer import HashTokenizer
@@ -119,8 +135,10 @@ def tiny_setup(fusionp=False):
     from dualdiff_tpu.runner.trainer import init_full_params, prepare_batch
     from dualdiff_tpu_torch.runner.factory import build_models as port_build
 
-    jcfg = jax_config(TINY_OVERRIDES, fusionp=fusionp)
-    pcfg = port_config(TINY_OVERRIDES, fusionp=fusionp)
+    jcfg = jax_config(TINY_OVERRIDES + list(extra), fusionp=fusionp,
+                      exp=exp)
+    pcfg = port_config(TINY_OVERRIDES + list(extra), fusionp=fusionp,
+                       exp=exp)
     h, w = jcfg.dataset.image_size
     tok = HashTokenizer()
     ds = SyntheticNuScenes(num_samples=2, image_size=(h, w), seed=0)
