@@ -100,7 +100,22 @@ Phases, in order; any failure exits non-zero:
 15. variants_reference  phase 5's gate on the tiny ``+exp=224x400`` set and
             phase 7's on the tiny ``occ_bg`` set with the box adapter, the
             camera token in the time embedding and tone guidance on.
-16. hd      the flagship at HD (``+exp-hd=256x704`` and ``432x768``) at
+16. options the pipeline's generation options and attn4's other forms at
+            full SD v1.5 width: on the flagship's models DDIM-20, the
+            ControlNet cache at k = 2 and 3, a per-call override (10 steps,
+            guidance 3.5) and views 0 and 3 pinned to their VAE-encoded
+            images; a generation with each of attn4 ``concat``, ``self``,
+            ``add`` over non-ring pairs and the ring with the ``gated`` and
+            with no connector, and a training step with ``self`` and with
+            the non-ring pairs; each with its launches derived (the
+            ``self`` form's d = 160 calls on the templates) and, for the
+            generations, its kernel FLOPs; and every new attention shape
+            (the sm90 forward at 4 x 8400 x 8400, the templates at d = 160
+            and 546 tokens, forward, lse, dq and dk/dv) against its plain
+            version, timed beside its bound and SDPA.  Alone: ``python3
+            -c "import chip_smoke as s; s.phase_device(); s.phase_build();
+            s.phase_options(None)"``.
+17. hd      the flagship at HD (``+exp-hd=256x704`` and ``432x768``) at
             full SD v1.5 width: phase 4's generation, its UNet, VAE and CLIP
             weights loaded through the checkpoint loader by their SD v1.5
             names (``load_sd15_shaped``), and phase 6's training step, each
@@ -108,7 +123,7 @@ Phases, in order; any failure exits non-zero:
             ``T_SCORE_CAP`` on the capped routes, the second at d = 80;
             every call on the sm90 kernels).  Alone: ``python3 -c "import chip_smoke as s;
             s.phase_device(); s.phase_build(); s.phase_hd(None)"``.
-17. cache   the flagship training step at ``bench.py``'s training point:
+18. cache   the flagship training step at ``bench.py``'s training point:
             B = 2 x 6 views, the conditioning cache on, seeded random
             weights, bf16, remat, AdamW.  One batch through the cached and
             the uncached loss with the same draws (within
@@ -116,7 +131,7 @@ Phases, in order; any failure exits non-zero:
             4-sample set: the precompute runs in the first epoch only, the
             later epochs are served the first's entries bit for bit, and
             every step's launches equal ``train_launches_per_step``.
-18. bench   ``python -m dualdiff_tpu_torch.bench`` in a subprocess with
+19. bench   ``python -m dualdiff_tpu_torch.bench`` in a subprocess with
             ``BENCH_ENV`` (no video sections, 3 training steps): its line
             parsed, the headline and the training section above 0 with
             ``0 < mfu_corrected <= 1``, the numerics pin ``ok``, and the
@@ -140,6 +155,7 @@ of JAX.
 from __future__ import annotations
 
 import contextlib
+import fractions
 import functools
 import json
 import math
@@ -221,6 +237,32 @@ VARIANTS_TRAIN = ["use_box_adapter=true",
 KV_ADAPTER = 1 + 77
 # phase bench: the port bench without its video sections, 3 training steps
 BENCH_ENV = {"BENCH_SKIP_VIDEO": "1", "BENCH_TRAIN_STEPS": "3"}
+# phase options: the pipeline's generation options on the flagship's model
+# set, tag -> (config overrides, call arguments); given-view pinning
+# (``PINNED_VIEWS``) comes beside them.  One warm-up and
+# ``TIMED_OPTION_CALLS`` timed calls each.
+OPTION_GENERATIONS = {
+    "ddim": (["runner.pipeline_param.scheduler=ddim"], {}),
+    "cn_cache_2": (["runner.pipeline_param.cn_cache_interval=2"], {}),
+    "cn_cache_3": (["runner.pipeline_param.cn_cache_interval=3"], {}),
+    "override": ([], {"num_inference_steps": 10, "guidance_scale": 3.5}),
+}
+PINNED_VIEWS = (0, 3)
+TIMED_OPTION_CALLS = 1
+# attn4's other forms and connectors on the flagship: tag -> (config
+# overrides, whether a training step runs too); a generation each, and
+# for self and add over other pairs (each view with (i - 2) % 6 and
+# (i + 2) % 6) also a training step at B_TRAIN (one warm-up, two timed)
+NON_RING_PAIRS = [f"dataset.neighboring_view_pair.{i}=[{(i - 2) % 6}, "
+                  f"{(i + 2) % 6}]" for i in range(6)]
+OPTION_ATTN4 = {
+    "attn4_concat": (["model.unet.neighboring_attn_type=concat"], False),
+    "attn4_self": (["model.unet.neighboring_attn_type=self"], True),
+    "attn4_add_pairs": (NON_RING_PAIRS, True),
+    "attn4_gated": (["model.unet.zero_module_type=gated"], False),
+    "attn4_none": (["model.unet.zero_module_type=none"], False),
+}
+TIMED_OPTION_STEPS = 2
 # the TPU kernel each CUDA kernel replaces, and its source here
 REPLACES = {
     "packed_attention_fwd": "dualdiff_tpu/ops/attention.py:468",      # _fwd_kernel_t
@@ -334,7 +376,8 @@ def _sfa_plus_on_kernels(fusionp: bool, tokens: int) -> bool:
     return fusionp and tokens >= FLASH_MIN_LEN
 
 
-def attention_levels(latent_hw, channels, heads: int) -> list:
+def attention_levels(latent_hw, channels, heads: int,
+                     self_views: int = 0) -> list:
     """(tokens, head_dim) of each latent level that holds transformer
     blocks, top first: the UNet's and each ControlNet's down blocks 0-2
     (and the UNet's up blocks 3-1) at ``channels[i] / heads``, each level
@@ -342,7 +385,10 @@ def attention_levels(latent_hw, channels, heads: int) -> list:
     block's level holds one more block of each; it stays under
     ``PACKED_MIN_LQ`` at every size the configs give (4x7 tokens at
     224x400, 7x12 at 432x768), so it reaches no kernel, and a size where
-    it would is refused."""
+    it would is refused.  ``self_views``: the views of attn4's ``self``
+    form, whose mid-block call attends over that many times the mid
+    block's tokens (168 at 224x400, 504 at 432x768): refused too where
+    that reaches the kernels."""
     from dualdiff_tpu_torch.ops.attention import PACKED_MIN_LQ
 
     h, w = latent_hw
@@ -350,7 +396,7 @@ def attention_levels(latent_hw, channels, heads: int) -> list:
     for c in channels[:-1]:
         levels.append((h * w, c // heads))
         h, w = -(-h // 2), -(-w // 2)
-    if h * w >= PACKED_MIN_LQ:
+    if h * w * max(self_views, 1) >= PACKED_MIN_LQ:
         raise NotImplementedError(f"the mid block's {h}x{w} tokens would "
                                   f"reach the kernels")
     return levels
@@ -375,10 +421,69 @@ def _kernel_levels(levels, template_only: bool):
     return out
 
 
+def attn4_form(unet) -> str:
+    """attn4's form in a built UNet, as the derivations name it: ``ring``
+    (``add`` over the camera ring's pairs), ``add`` (over other pairs),
+    ``concat`` or ``self``."""
+    from dualdiff_tpu_torch.models.layers import is_camera_ring
+
+    kind = unet.neighboring_attn_type
+    if kind == "add" and is_camera_ring(unet.neighboring_view_pair, N_CAM):
+        return "ring"
+    return kind
+
+
+def _fwd_kernel(lq: int, lk: int, lse: bool = False) -> str:
+    """The packed forward wrapper a call of ``lq`` x ``lk`` takes: the
+    capped one where its padded score tile is over ``T_SCORE_CAP``."""
+    from dualdiff_tpu_torch.ops.attention import over_score_cap
+
+    capped = "_capped" if over_score_cap(lq, lk) else ""
+    return f"packed_attention{capped}{'_lse' if lse else ''}_fwd"
+
+
+def attn4_calls(levels, form: str, template_only: bool = False,
+                n_cam: int = N_CAM) -> list:
+    """(level, lq, lk, rows factor) of the one attention call attn4 makes
+    per transformer block, at each level whose call reaches the packed
+    kernels (at least ``PACKED_MIN_LQ`` queries), by ``form``: the ring
+    and ``add`` over other pairs ``t`` x ``t`` (``add`` stacks ``[q; q]``
+    over both neighbours: twice the rows), ``concat`` ``t`` x ``2t``,
+    ``self`` ``n_cam t`` x ``n_cam t`` on one row per sample (so it also
+    reaches the kernels at levels under ``PACKED_MIN_LQ``).  With
+    ``template_only`` only the calls outside ``sm90_in_scope``."""
+    from dualdiff_tpu_torch.ops.attention import PACKED_MIN_LQ, sm90_in_scope
+
+    shape = {"ring": lambda t: (t, t, 1), "add": lambda t: (t, t, 2),
+             "concat": lambda t: (t, 2 * t, 1),
+             "self": lambda t: (n_cam * t, n_cam * t,
+                                fractions.Fraction(1, n_cam))}[form]
+    out = []
+    for i, (t, d) in enumerate(levels):
+        lq, lk, rows = shape(t)
+        if lq < PACKED_MIN_LQ:
+            continue
+        if d % 8:
+            raise NotImplementedError(f"head_dim {d}: the split-layout route"
+                                      f" is not derived here")
+        if template_only and sm90_in_scope(d, True):
+            continue
+        out.append((i, lq, lk, rows))
+    return out
+
+
+def cn_evaluations(steps: int, cn_cache: int = 0) -> int:
+    """ControlNet evaluations of a generation: every step, or with
+    ``cn_cache_interval = k > 1`` the steps ``i % k == 0``."""
+    return -(-steps // cn_cache) if cn_cache > 1 else steps
+
+
 def generate_launches_per_generation(layers: int, n_controlnets: int,
                                      steps: int, levels: list,
                                      fusionp: bool = False,
-                                     template_only: bool = False) -> dict:
+                                     template_only: bool = False,
+                                     attn4: str = "ring",
+                                     cn_cache: int = 0) -> dict:
     """Kernel launches of one image generation, derived from the code.
     ``levels``: (tokens, head_dim) of each latent level, top first
     (``attention_levels``; at 224x400 and in the tiny 256x128 models only
@@ -387,40 +492,48 @@ def generate_launches_per_generation(layers: int, n_controlnets: int,
     with at least ``PACKED_MIN_LQ`` tokens:
 
     * the UNet's ``2 * layers + 1`` transformer blocks there (``layers`` in
-      the down block, ``layers + 1`` in the up block) run attn1 (self),
-      attn2 (over the ``KV_CROSS`` context tokens) and attn4 (the ring
-      kernel, at any length);
+      the down block, ``layers + 1`` in the up block) run attn1 (self) and
+      attn2 (over the ``KV_CROSS`` context tokens);
     * each ControlNet's ``layers`` blocks there run attn1 and attn2;
     * attn1 and attn2 take ``packed_attention_capped_fwd`` where their
       padded score tile is over ``T_SCORE_CAP`` (HD's top level: 2816 and
       5184 tokens), else ``packed_attention_fwd``.
+
+    Each of the UNet's blocks also runs attn4 (``attn4``, as
+    ``attn4_form`` names it; ``attn4_calls``): the camera ring on the ring
+    kernel, every other form on ``packed_attention_fwd`` or, over the cap,
+    ``packed_attention_capped_fwd`` (``concat`` at 1400 x 2800, ``self``
+    at 8400 and 2100 tokens at 224x400), ``self`` also at levels whose own
+    tokens are under ``PACKED_MIN_LQ``.  The UNet runs every step; the
+    ControlNets at ``cn_evaluations(steps, cn_cache)`` of them.
 
     Nothing is differentiated.  With SFA+ (``fusionp``) its stage 2 over
     the top level's tokens runs once per generation, in the ControlNet's
     step-constant precompute over the whole CFG batch: one
     ``flash_attention_fwd`` when it reaches the kernels (its head_dim is
     the top level's).  ``template_only``: only the calls outside
-    ``sm90_in_scope`` (the templates' launches)."""
-    from dualdiff_tpu_torch.ops.attention import over_score_cap
-
+    ``sm90_in_scope`` (the templates' launches: ``self``'s d = 160 at
+    224x400)."""
     blocks = 2 * layers + 1
-    cn = n_controlnets * layers
+    cn = n_controlnets * layers * cn_evaluations(steps, cn_cache)
     counts = _launches()
     for i, t in _kernel_levels(levels, template_only):
         for lk in (t, KV_CROSS):  # attn1, attn2
-            kern = "packed_attention_capped_fwd" if over_score_cap(t, lk) \
-                else "packed_attention_fwd"
-            counts[kern] += (blocks + cn) * steps
-        counts["packed_attention_nbr_fwd"] += blocks * steps
+            counts[_fwd_kernel(t, lk)] += blocks * steps + cn
         if i == 0:
             counts["flash_attention_fwd"] += int(
                 _sfa_plus_on_kernels(fusionp, t))
+    for _, lq, lk, _ in attn4_calls(levels, attn4, template_only):
+        kern = "packed_attention_nbr_fwd" if attn4 == "ring" \
+            else _fwd_kernel(lq, lk)
+        counts[kern] += blocks * steps
     return counts
 
 
 def generate_kernel_flops(layers: int, n_controlnets: int, steps: int,
                           levels: list, channels, rows: int,
-                          cn_kv: int = KV_CROSS) -> dict:
+                          cn_kv: int = KV_CROSS, attn4: str = "ring",
+                          cn_cache: int = 0) -> dict:
     """Hand-counted FLOPs of one image generation's kernel calls per
     wrapper, with ``ops.attention.recorded_kernel_flops``' formulas (4 x
     rows x Lq x Lk x C a forward, 8 x rows x L x L x C the ring), over the
@@ -428,27 +541,33 @@ def generate_kernel_flops(layers: int, n_controlnets: int, steps: int,
     level with at least ``PACKED_MIN_LQ`` tokens ``t`` (C =
     ``channels[level]``), attn1 (``t`` keys) and attn2 (``KV_CROSS``; the
     ControlNets' ``cn_kv``, 1 + 77 with the box adapter, whose box and
-    class tokens take einsum) of the UNet's and the ControlNets' blocks and
-    the UNet's rings, on ``rows`` rows (2 x B x views with batched CFG)."""
-    from dualdiff_tpu_torch.ops.attention import over_score_cap
-
+    class tokens take einsum) of the UNet's blocks every step and the
+    ControlNets' at ``cn_evaluations(steps, cn_cache)``, and the UNet's
+    attn4 calls (``attn4_calls``), on ``rows`` rows (2 x B x views with
+    batched CFG)."""
     blocks = 2 * layers + 1
-    cn = n_controlnets * layers
+    cn = n_controlnets * layers * cn_evaluations(steps, cn_cache)
     flops = _launches()
     for i, t in _kernel_levels(levels, False):
         c = channels[i]
-        for lk, n in ((t, blocks + cn), (KV_CROSS, blocks), (cn_kv, cn)):
-            kern = "packed_attention_capped_fwd" if over_score_cap(t, lk) \
-                else "packed_attention_fwd"
-            flops[kern] += n * steps * 4 * rows * t * lk * c
-        flops["packed_attention_nbr_fwd"] += blocks * steps * 8 * rows * t \
-            * t * c
+        for lk, n in ((t, blocks * steps + cn), (KV_CROSS, blocks * steps),
+                      (cn_kv, cn)):
+            flops[_fwd_kernel(t, lk)] += n * 4 * rows * t * lk * c
+    for i, lq, lk, r in attn4_calls(levels, attn4):
+        c = channels[i]
+        if attn4 == "ring":
+            flops["packed_attention_nbr_fwd"] += blocks * steps * 8 * rows \
+                * lq * lk * c
+        else:
+            flops[_fwd_kernel(lq, lk)] += blocks * steps * 4 * int(
+                rows * r) * lq * lk * c  # rows * r: whole rows
     return flops
 
 
 def train_launches_per_step(layers: int, n_controlnets: int,
                             remat: bool, levels: list, fusionp: bool = False,
-                            template_only: bool = False) -> dict:
+                            template_only: bool = False,
+                            attn4: str = "ring") -> dict:
     """Kernel launches of one training step, derived from the code.
     ``levels`` and ``template_only`` as in
     ``generate_launches_per_generation``.  At each level with at least
@@ -465,9 +584,13 @@ def train_launches_per_step(layers: int, n_controlnets: int,
       each.
     * each ControlNet's down block there: ``layers`` blocks of attn1 and
       attn2 (no attn4), all trainable.
-    * attn4 under grad is one stacked ``PackedAttention`` call per block
-      (both neighbours on the batch axis, the view's own length); the ring
-      kernel never runs.
+    * attn4 (trainable norm4 and projections) under grad is one
+      ``PackedAttention`` call per block, at each level of
+      ``attn4_calls``: the ring and ``add`` over other pairs the stacked
+      call (both neighbours on the batch axis, the view's own length; the
+      ring kernel never runs), ``concat`` the view's tokens over both
+      neighbours' (2L keys), ``self`` the sample's ``n_cam`` x L tokens
+      (also at levels under ``PACKED_MIN_LQ``).
     * a call whose padded score tile is over ``T_SCORE_CAP`` (attn1 and
       attn4 at HD's top level) takes the capped kernels:
       ``packed_attention_capped_fwd`` frozen,
@@ -481,31 +604,29 @@ def train_launches_per_step(layers: int, n_controlnets: int,
     A differentiated call is one forward with lse, one dq and one dk/dv;
     remat replays every block's forward in the backward, so the forward
     kernels run twice."""
-    from dualdiff_tpu_torch.ops.attention import over_score_cap
-
     blocks = 2 * layers + 1
     cn = n_controlnets * layers
     replay = 2 if remat else 1
     counts = _launches()
+
+    def differentiated(n, lq, lk):
+        counts[_fwd_kernel(lq, lk, lse=True)] += n * replay
+        counts["packed_attention_bwd_dq"] += n
+        counts["packed_attention_bwd_dkv"] += n
+
     for i, t in _kernel_levels(levels, template_only):
-        capped = over_score_cap(t, t)
         frozen = 1 if i == 0 else 0  # the UNet's first attn1
         if frozen:
-            counts["packed_attention_capped_fwd" if capped
-                   else "packed_attention_fwd"] += replay
-        # (differentiated calls, their lk): attn1, attn4, attn2
-        for n, lk in ((blocks - frozen + cn, t), (blocks, t),
-                      (blocks + cn, KV_CROSS)):
-            kern = "packed_attention_capped_lse_fwd" \
-                if over_score_cap(t, lk) else "packed_attention_lse_fwd"
-            counts[kern] += n * replay
-            counts["packed_attention_bwd_dq"] += n
-            counts["packed_attention_bwd_dkv"] += n
+            counts[_fwd_kernel(t, t)] += replay
+        differentiated(blocks - frozen + cn, t, t)  # attn1
+        differentiated(blocks + cn, t, KV_CROSS)  # attn2
         if i == 0:
             sfa = int(_sfa_plus_on_kernels(fusionp, t))
             for kern in ("flash_attention_lse_fwd", "flash_attention_bwd_dq",
                          "flash_attention_bwd_dkv"):
                 counts[kern] += sfa
+    for _, lq, lk, _ in attn4_calls(levels, attn4, template_only):
+        differentiated(blocks, lq, lk)
     return counts
 
 
@@ -1151,128 +1272,142 @@ def phase_kernels():
             results.setdefault(kern, []).append(row)
         torch.cuda.empty_cache()
     for kern, label, b, lq, lk, c, heads, n_cam in kernel_cases():
-        q = torch.randn(b, lq, c, generator=g, device="cuda").bfloat16()
-        k = torch.randn(b, lk, c, generator=g, device="cuda").bfloat16()
-        v = torch.randn(b, lk, c, generator=g, device="cuda").bfloat16()
-        d = c // heads
-        split = lambda t: t.view(b, t.shape[1], heads, d).transpose(1, 2)
-        library = lambda: torch.nn.functional.scaled_dot_product_attention(
-            split(q), split(k), split(v))
-        flops = 4 * b * lq * lk * c
-        variants = {}  # label -> launch; the first is the one the path runs
-        extra = {}  # further yardsticks
-        stacked = None
-        # in scope, the path's route is the sm90 kernel, timed beside the
-        # template instance it replaces
-        sm90_kern = _sm90_kernel_of(kern)
-        sm90 = sm90_kern is not None and A.sm90_in_scope(d, True)
-        if n_cam:
-            ring = functools.partial(A.packed_attention_nbr_fwd, q, k, v,
-                                     heads, n_cam)
-            if sm90:
-                variants["sm90"] = ring
-                variants["template"] = functools.partial(ring,
-                                                         route="template")
-            else:
-                variants[""] = ring
-            plain = lambda: by_rows(A.attention_packed_neighbors_plain, b,
-                                    heads, lq, lk, n_cam)(q, k, v, heads,
-                                                          n_cam)
-            library = None  # no single PyTorch call computes the ring sum
-            stacked = stacked_sdpa_call(q, k, v, heads, n_cam)
-            flops *= 2
-        elif kern == "flash_attention_fwd":
-            fl = split_on_packed(A)
-            if sm90:
-                variants["sm90"] = lambda: fl["fwd"](q, k, v, heads)
-                variants["template"] = lambda: fl["fwd"](q, k, v, heads,
-                                                         route="template")
-            else:
-                variants[""] = lambda: fl["fwd"](q, k, v, heads)
-            plain = lambda: by_rows(fl["plain"], b, heads, lq, lk)(
-                q, k, v, heads)
-            extra["einsum_ms"] = cuda_ms(lambda: A.mha_einsum(
-                *(t.view(b, t.shape[1], heads, d) for t in (q, k, v))), 5)
-        elif kern == "packed_attention_capped_fwd":
-            if sm90:
-                variants["sm90"] = functools.partial(
-                    A.packed_attention_capped_fwd, q, k, v, heads)
-            for w in sorted((4, 8), key=lambda w: w != A.CAPPED_WARPS):
-                variants[f"template {w} warps" if sm90 else f"{w} warps"] = \
-                    functools.partial(A.packed_attention_capped_fwd, q, k, v,
-                                      heads, warps=w, route="template")
-            plain = lambda: by_rows(A.attention_packed_capped_plain, b,
-                                    heads, lq, lk)(q, k, v, heads)
-        elif sm90:
-            variants["sm90"] = lambda: A.packed_attention_fwd(q, k, v, heads)
-            variants["template"] = lambda: A.packed_attention_fwd(
-                q, k, v, heads, route="template")
-            plain = lambda: by_rows(A.attention_packed_plain, b, heads, lq,
-                                    lk)(q, k, v, heads)
-        else:
-            variants[""] = lambda: A.packed_attention_fwd(q, k, v, heads)
-            plain = lambda: by_rows(A.attention_packed_plain, b, heads, lq,
-                                    lk)(q, k, v, heads)
-        want = plain()
-        # bf16 output: one rounding of |o| <= max|v| is 2^-8 relative; the
-        # kernel also rounds P to bf16 for the P.V product (2^-9 relative
-        # per term, averaging out over the keys)
-        tol = 2.0 ** -7 * want.float().abs().max().item() + 1e-3
-        errs = {}
-        for name, run in variants.items():
-            got = run()
-            torch.cuda.synchronize()
-            errs[name] = (got.float() - want.float()).abs().max().item()
-            del got
-        if stacked is not None:
-            # the yardstick's own error, recorded (it gates nothing)
-            extra["stacked_sdpa_max_abs_err"] = _max_err(stacked(), want)
-            by_backend = sdpa_ms(stacked, (2 * b, heads, lq, lk))
-            name, ms = fastest(by_backend)
-            extra.update(stacked_sdpa_ms=ms,
-                         stacked_sdpa=f"_nbr_stacked gather + SDPA ({name}) "
-                                      f"+ sum of the halves",
-                         stacked_sdpa_ms_by_backend=by_backend)
-        del want
-        nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
-        bound_ms, bound_by = bound(nbytes, flops)
-        times = {name: graph_ms(run) for name, run in variants.items()}
-        exp_floor_ms = b * heads * lq * lk * (2 if n_cam else 1) / (
-            H100_SMS * EXP_PER_CLOCK * clock_hz) * 1e3
-        # the row of kern is attention.cu's instance (the template one where
-        # the sm90 kernel takes the shape), and the sm90 row is the sm90 one
-        own = [n for n in variants if n != "sm90"]
-        row = {
-            "kernel": kern, "replaces": REPLACES[kern], "case": label,
-            "shape": {
-                "b": b, "lq": lq, "lk": lk, "c": c, "heads": heads,
-                "head_dim": d, "n_cam": n_cam},
-            "max_abs_err": max(errs[n] for n in own), "tol": tol,
-            "kernel_ms": times[own[0]],
-            "plain_ms": cuda_ms(plain, 3),
-            **library_row(library, (b, heads, lq, lk)),
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "exp_floor_ms": exp_floor_ms, **extra,
-        }
-        if len(variants) > 1:
-            row["kernel_ms_by_variant"] = times
-            row["max_abs_err_by_variant"] = errs
-        log(json.dumps(row))
-        for name, err in errs.items():
-            if not (err <= tol and math.isfinite(err)):
-                raise AssertionError(
-                    f"{kern} {name} [{label}] disagrees with its plain "
-                    f"version: max abs err {err} > {tol}")
-        results.setdefault(kern, []).append(row)
-        if sm90:
-            sm90_row = dict(row, kernel=sm90_kern, wrapper=kern,
-                            replaces=SM90_REPLACES[kern],
-                            kernel_ms=times["sm90"], max_abs_err=errs["sm90"])
-            log(json.dumps(sm90_row))
-            results.setdefault(sm90_kern, []).append(sm90_row)
-        del q, k, v
-        torch.cuda.empty_cache()
+        for name, row in forward_kernel_rows(
+                A, g, kern, label, b, lq, lk, c, heads, n_cam,
+                clock_hz).items():
+            results.setdefault(name, []).append(row)
     return results
+
+
+def forward_kernel_rows(A, g, kern, label, b, lq, lk, c, heads, n_cam,
+                        clock_hz) -> dict:
+    """One inference kernel (``kern``, a wrapper) on one shape against its
+    plain version, with its times (``kernel_cases`` gives the shapes):
+    ``{kern: row}``, and in ``sm90_in_scope`` also ``{sm90 kernel: row}``
+    (the wrapper's own row is then the template instance's).  Raises when
+    a variant disagrees with the plain version."""
+    q = torch.randn(b, lq, c, generator=g, device="cuda").bfloat16()
+    k = torch.randn(b, lk, c, generator=g, device="cuda").bfloat16()
+    v = torch.randn(b, lk, c, generator=g, device="cuda").bfloat16()
+    d = c // heads
+    split = lambda t: t.view(b, t.shape[1], heads, d).transpose(1, 2)
+    library = lambda: torch.nn.functional.scaled_dot_product_attention(
+        split(q), split(k), split(v))
+    flops = 4 * b * lq * lk * c
+    variants = {}  # label -> launch; the first is the one the path runs
+    extra = {}  # further yardsticks
+    stacked = None
+    # in scope, the path's route is the sm90 kernel, timed beside the
+    # template instance it replaces
+    sm90_kern = _sm90_kernel_of(kern)
+    sm90 = sm90_kern is not None and A.sm90_in_scope(d, True)
+    if n_cam:
+        ring = functools.partial(A.packed_attention_nbr_fwd, q, k, v,
+                                 heads, n_cam)
+        if sm90:
+            variants["sm90"] = ring
+            variants["template"] = functools.partial(ring,
+                                                     route="template")
+        else:
+            variants[""] = ring
+        plain = lambda: by_rows(A.attention_packed_neighbors_plain, b,
+                                heads, lq, lk, n_cam)(q, k, v, heads,
+                                                      n_cam)
+        library = None  # no single PyTorch call computes the ring sum
+        stacked = stacked_sdpa_call(q, k, v, heads, n_cam)
+        flops *= 2
+    elif kern == "flash_attention_fwd":
+        fl = split_on_packed(A)
+        if sm90:
+            variants["sm90"] = lambda: fl["fwd"](q, k, v, heads)
+            variants["template"] = lambda: fl["fwd"](q, k, v, heads,
+                                                     route="template")
+        else:
+            variants[""] = lambda: fl["fwd"](q, k, v, heads)
+        plain = lambda: by_rows(fl["plain"], b, heads, lq, lk)(
+            q, k, v, heads)
+        extra["einsum_ms"] = cuda_ms(lambda: A.mha_einsum(
+            *(t.view(b, t.shape[1], heads, d) for t in (q, k, v))), 5)
+    elif kern == "packed_attention_capped_fwd":
+        if sm90:
+            variants["sm90"] = functools.partial(
+                A.packed_attention_capped_fwd, q, k, v, heads)
+        for w in sorted((4, 8), key=lambda w: w != A.CAPPED_WARPS):
+            variants[f"template {w} warps" if sm90 else f"{w} warps"] = \
+                functools.partial(A.packed_attention_capped_fwd, q, k, v,
+                                  heads, warps=w, route="template")
+        plain = lambda: by_rows(A.attention_packed_capped_plain, b,
+                                heads, lq, lk)(q, k, v, heads)
+    elif sm90:
+        variants["sm90"] = lambda: A.packed_attention_fwd(q, k, v, heads)
+        variants["template"] = lambda: A.packed_attention_fwd(
+            q, k, v, heads, route="template")
+        plain = lambda: by_rows(A.attention_packed_plain, b, heads, lq,
+                                lk)(q, k, v, heads)
+    else:
+        variants[""] = lambda: A.packed_attention_fwd(q, k, v, heads)
+        plain = lambda: by_rows(A.attention_packed_plain, b, heads, lq,
+                                lk)(q, k, v, heads)
+    want = plain()
+    # bf16 output: one rounding of |o| <= max|v| is 2^-8 relative; the
+    # kernel also rounds P to bf16 for the P.V product (2^-9 relative
+    # per term, averaging out over the keys)
+    tol = 2.0 ** -7 * want.float().abs().max().item() + 1e-3
+    errs = {}
+    for name, run in variants.items():
+        got = run()
+        torch.cuda.synchronize()
+        errs[name] = (got.float() - want.float()).abs().max().item()
+        del got
+    if stacked is not None:
+        # the yardstick's own error, recorded (it gates nothing)
+        extra["stacked_sdpa_max_abs_err"] = _max_err(stacked(), want)
+        by_backend = sdpa_ms(stacked, (2 * b, heads, lq, lk))
+        name, ms = fastest(by_backend)
+        extra.update(stacked_sdpa_ms=ms,
+                     stacked_sdpa=f"_nbr_stacked gather + SDPA ({name}) "
+                                  f"+ sum of the halves",
+                     stacked_sdpa_ms_by_backend=by_backend)
+    del want
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+    bound_ms, bound_by = bound(nbytes, flops)
+    times = {name: graph_ms(run) for name, run in variants.items()}
+    exp_floor_ms = b * heads * lq * lk * (2 if n_cam else 1) / (
+        H100_SMS * EXP_PER_CLOCK * clock_hz) * 1e3
+    # the row of kern is attention.cu's instance (the template one where
+    # the sm90 kernel takes the shape), and the sm90 row is the sm90 one
+    own = [n for n in variants if n != "sm90"]
+    row = {
+        "kernel": kern, "replaces": REPLACES[kern], "case": label,
+        "shape": {
+            "b": b, "lq": lq, "lk": lk, "c": c, "heads": heads,
+            "head_dim": d, "n_cam": n_cam},
+        "max_abs_err": max(errs[n] for n in own), "tol": tol,
+        "kernel_ms": times[own[0]],
+        "plain_ms": cuda_ms(plain, 3),
+        **library_row(library, (b, heads, lq, lk)),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "exp_floor_ms": exp_floor_ms, **extra,
+    }
+    if len(variants) > 1:
+        row["kernel_ms_by_variant"] = times
+        row["max_abs_err_by_variant"] = errs
+    log(json.dumps(row))
+    for name, err in errs.items():
+        if not (err <= tol and math.isfinite(err)):
+            raise AssertionError(
+                f"{kern} {name} [{label}] disagrees with its plain "
+                f"version: max abs err {err} > {tol}")
+    out = {kern: row}
+    if sm90:
+        sm90_row = dict(row, kernel=sm90_kern, wrapper=kern,
+                        replaces=SM90_REPLACES[kern],
+                        kernel_ms=times["sm90"], max_abs_err=errs["sm90"])
+        log(json.dumps(sm90_row))
+        out[sm90_kern] = sm90_row
+    del q, k, v
+    torch.cuda.empty_cache()
+    return out
 
 
 def _flagship(device, tiny=False, extra=(), weights_from=None,
@@ -1331,9 +1466,21 @@ def _flagship(device, tiny=False, extra=(), weights_from=None,
 def _tag(cfg) -> str:
     """The phase tag of a config: "" for the flagship at 224x400,
     ``fusionp`` for ``occ_bg_fusionp``, ``hd_<h>x<w>`` at HD, ``baseline``
-    for ``+exp=224x400`` and the task for the other variants."""
+    for ``+exp=224x400``, the task for the other variants, and
+    ``attn4_<form>`` or ``attn4_<connector>`` for attn4's other forms and
+    connectors (``OPTION_ATTN4``)."""
     h, w = cfg.dataset.image_size
     task = str(cfg.task_id)
+    from dualdiff_tpu_torch.models.layers import is_camera_ring
+
+    u = cfg.model.unet
+    pairs = cfg.dataset.neighboring_view_pair
+    if u.neighboring_attn_type != "add":
+        return f"attn4_{u.neighboring_attn_type}"
+    if not is_camera_ring([pairs[str(i)] for i in range(N_CAM)], N_CAM):
+        return "attn4_add_pairs"
+    if u.zero_module_type != "zero_linear":
+        return f"attn4_{u.zero_module_type}"
     if cfg.model.controlnet.use_txt_con_fusionp:
         return "fusionp"
     if task == "224x400":
@@ -1403,45 +1550,74 @@ def load_sd15_shaped(cfg, models, seed: int) -> dict:
 
 def model_levels(unet, latent_hw) -> list:
     """``attention_levels`` of a built UNet (its block widths and head
-    count) at latent size ``latent_hw``."""
+    count, its attn4 form) at latent size ``latent_hw``."""
     heads = unet.down_blocks[0].attentions[0].transformer_blocks[0] \
         .attn1.heads
-    return attention_levels(latent_hw, unet.block_out_channels, heads)
+    return attention_levels(
+        latent_hw, unet.block_out_channels, heads,
+        N_CAM if unet.neighboring_attn_type == "self" else 0)
 
 
 def phase_generate(profile_dir, name=None, timed_calls=TIMED_GENERATIONS,
-                   loader=False, cn_kv=None):
+                   loader=False, cn_kv=None, extra=()):
     """Image generation at full SD v1.5 width, B=2 x 6 views: the flagship
     (phase 4), or the config ``name`` (``occ_bg_fusionp`` in phase
     ``fusionp``, the HD geometries in phase ``hd``, there with ``loader``:
-    the UNet, VAE and CLIP weights through the checkpoint loader).  One
-    warm-up call, then ``timed_calls`` timed calls, each checked for
-    shape, finiteness, range and the kernels' launches per generation
-    (``generate_launches_per_generation``, per latent level; the calls
-    outside ``sm90_in_scope`` on the templates, none at full width).  With
-    ``cn_kv`` (the ControlNets' attn2 keys: 78 with the box adapter) the
-    warm-up call's recorded kernel FLOPs must equal
-    ``generate_kernel_flops``' per wrapper.
-    -> (launches of the last call, those of them on the templates)."""
-    from dualdiff_tpu_torch.ops import attention as A
-
+    the UNet, VAE and CLIP weights through the checkpoint loader), under
+    the config overrides ``extra`` (attn4's forms in phase ``options``).
+    One warm-up call, then ``timed_calls`` timed calls, each checked by
+    ``run_generations``.  -> (launches of the last call, those of them on
+    the templates)."""
     t0 = time.perf_counter()
-    cfg, batch, pipe = _flagship("cuda", name=name, loader=loader)
+    cfg, batch, pipe = _flagship("cuda", name=name, loader=loader,
+                                 extra=extra)
     torch.cuda.synchronize()
     log(f"# models built and cast in {time.perf_counter() - t0:.1f} s")
-    steps = int(cfg.runner.pipeline_param.num_inference_steps)
+    tag = _tag(cfg)
+    counts, template, s, _ = run_generations(pipe, batch, tag, timed_calls,
+                                             cn_kv)
+    if profile_dir:
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        profile_run(lambda: pipe(batch, generator=gen), s, profile_dir,
+                    _named(tag, "generation"))
+    del pipe
+    torch.cuda.empty_cache()
+    return counts, template
+
+
+def run_generations(pipe, batch, tag: str, timed_calls: int, cn_kv=None,
+                    **call):
+    """One warm-up call of ``pipe(batch, generator, **call)`` (seed
+    ``SEED``), then ``timed_calls`` timed calls (seeds ``SEED + i``), each
+    checked for shape, finiteness, range and the kernels' launches per
+    generation (``generate_launches_per_generation``, per latent level,
+    with the UNet's attn4 form, the pipeline's ControlNet cache and the
+    call's steps; the calls outside ``sm90_in_scope`` on the templates:
+    none at full width but the ``self`` form's d = 160).  With ``cn_kv``
+    (the ControlNets' attn2 keys: 78 with the box adapter) the warm-up
+    call's recorded kernel FLOPs must equal ``generate_kernel_flops``' per
+    wrapper.  Logs the phase row.  -> (launches of the last call, those of
+    them on the templates, median s / generation, the warm-up's
+    images)."""
+    from dualdiff_tpu_torch.ops import attention as A
+
+    from dualdiff_tpu_torch.pipeline.bev_controlnet import OVERRIDES
+
+    cfg, models = pipe.cfg, pipe.models
+    run = pipe.settings({k: v for k, v in call.items() if k in OVERRIDES})
+    steps = run["num_inference_steps"]
     h, w = cfg.dataset.image_size
     lh, lw = h // 8, w // 8
-    models = pipe.models
-    tag = _tag(cfg)
-    levels = model_levels(models["unet"], (lh, lw))
+    unet = models["unet"]
+    layers, n_cn = len(unet.down_blocks[0].resnets), len(models["controlnets"])
+    levels = model_levels(unet, (lh, lw))
+    form, cache = attn4_form(unet), pipe.cn_cache_interval
     derive = functools.partial(
-        generate_launches_per_generation,
-        len(models["unet"].down_blocks[0].resnets), len(models["controlnets"]),
-        steps, levels, fusionp=tag == "fusionp")
+        generate_launches_per_generation, layers, n_cn, steps, levels,
+        fusionp=tag == "fusionp", attn4=form, cn_cache=cache)
     expect, template = derive(), derive(template_only=True)
     gen = torch.Generator(device="cuda")
-    times, counts = [], None
+    times, counts, first = [], None, None
     torch.cuda.reset_peak_memory_stats()
     flops = None
     for i in range(1 + timed_calls):
@@ -1451,15 +1627,14 @@ def phase_generate(profile_dir, name=None, timed_calls=TIMED_GENERATIONS,
         t0 = time.perf_counter()
         with A.recorded_kernel_flops() if i == 0 and cn_kv \
                 else contextlib.nullcontext() as rec:
-            out = pipe(batch, generator=gen)
+            out = pipe(batch, generator=gen, **call)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         if rec is not None:
             flops = rec.by_wrapper
             want = generate_kernel_flops(
-                len(models["unet"].down_blocks[0].resnets),
-                len(models["controlnets"]), steps, levels,
-                models["unet"].block_out_channels, 2 * B * N_CAM, cn_kv)
+                layers, n_cn, steps, levels, unet.block_out_channels,
+                2 * B * N_CAM, cn_kv, attn4=form, cn_cache=cache)
             if flops != {k: float(v) for k, v in want.items() if v}:
                 raise AssertionError(f"kernel FLOPs {flops} != {want}")
         counts = launch_counts(A)
@@ -1477,11 +1652,15 @@ def phase_generate(profile_dir, name=None, timed_calls=TIMED_GENERATIONS,
             f"std {out.std().item():.4f}")
         if i:
             times.append(dt)
+        else:
+            first = out
     s = sorted(times)[len(times) // 2]
     row = {"phase": f"{tag} generate".strip(),
            "config": f"{cfg.task_id} {h}x{w}",
-           "batch": B, "views": N_CAM, "steps": steps, "cfg_scale": float(
-               cfg.runner.pipeline_param.guidance_scale),
+           "batch": B, "views": N_CAM, "steps": steps,
+           "cfg_scale": run["guidance_scale"], "scheduler": run["scheduler"],
+           "cn_cache_interval": cache, "attn4": form,
+           "connector": unet.zero_module_type,
            "latent_hw": [lh, lw], "levels": levels, "s_per_generation": s,
            "s_per_generation_all": times, "samples_per_s": B / s,
            "images_per_s": B * N_CAM / s,
@@ -1494,13 +1673,7 @@ def phase_generate(profile_dir, name=None, timed_calls=TIMED_GENERATIONS,
     if tag:
         log(f"{tag} s/generation: {s}")
         log(f"{tag} images/s: {B * N_CAM / s}")
-    if profile_dir:
-        gen.manual_seed(SEED)
-        profile_run(lambda: pipe(batch, generator=gen), s, profile_dir,
-                    _named(tag, "generation"))
-    del pipe
-    torch.cuda.empty_cache()
-    return counts, template
+    return counts, template, s, first
 
 
 _CATEGORIES = (  # kernel-name fragment -> category, first match wins
@@ -1766,7 +1939,7 @@ def phase_train(profile_dir, name=None, timed_steps=TIMED_TRAIN_STEPS,
         bool(cfg.runner.enable_unet_checkpointing)
         and bool(cfg.runner.enable_controlnet_checkpointing),
         model_levels(models["unet"], (h // 8, w // 8)),
-        fusionp=tag == "fusionp")
+        fusionp=tag == "fusionp", attn4=attn4_form(models["unet"]))
     expect, template = derive(), derive(template_only=True)
     steps, snap = [], {}
     run_counts = dict.fromkeys(launch_counts(A), 0)
@@ -2179,6 +2352,140 @@ def phase_variants_reference():
     _reference_gate(train_reference_readings(variants=True), (
         "packed_attention_lse_fwd", "packed_attention_bwd_dq",
         "packed_attention_bwd_dkv", SM90_LSE, SM90_DQ, SM90_DKV))
+
+
+def option_kernel_cases():
+    """The attention shapes attn4's other forms give the kernels at 224x400
+    (``attention_levels``: 1400, 350 and 91 tokens a view at d = 40, 80
+    and 160), with batched CFG (2 x B samples of ``N_CAM`` views) and,
+    under grad, ``B_TRAIN`` samples: -> (inference cases as
+    ``kernel_cases``, training cases as ``train_kernel_cases``)."""
+    levels = attention_levels((28, 50), (C, 2 * C, 4 * C, 4 * C), HEADS)
+    rows, train = 2 * B * N_CAM, B_TRAIN * N_CAM
+    fwd = [
+        ("packed_attention_fwd", "attn4 add over other pairs: [q; q] over "
+         "both neighbours", 2 * rows, L, L, C, HEADS, 0),
+        ("packed_attention_capped_fwd", "attn4 concat: both neighbours' "
+         "keys", rows, L, 2 * L, C, HEADS, 0),
+    ]
+    grad = [("attn4 concat under grad", train, L, 2 * L, C, HEADS)]
+    for i, (t, d) in enumerate(levels):
+        lq = N_CAM * t
+        fwd.append((_fwd_kernel(lq, lq), f"attn4 self, level {i}, d={d}",
+                    2 * B, lq, lq, d * HEADS, HEADS, 0))
+        grad.append((f"attn4 self under grad, level {i}, d={d}", B_TRAIN, lq,
+                     lq, d * HEADS, HEADS))
+    return fwd, grad
+
+
+def phase_options(profile_dir):
+    """The pipeline's generation options and attn4's other forms at full
+    SD v1.5 width (phase ``options``), seeded random weights, bf16,
+    224x400, B = 2 x 6 views:
+
+    * on the flagship's model set (``OPTION_GENERATIONS``): DDIM-20,
+      UniPC-20 with the ControlNet cache at k = 2 and 3, a per-call
+      override (10 steps, guidance 3.5) and views ``PINNED_VIEWS`` pinned
+      to the VAE-encoded synthetic images (``encode_mode``), whose
+      unpinned views must differ from the same seed's unpinned call;
+    * attn4's forms and connectors (``OPTION_ATTN4``): a generation each
+      and, for ``self`` and ``add`` over other pairs, a training step
+      (phase 6's checks, ``TIMED_OPTION_STEPS`` timed steps);
+    * every attention shape those forms give the kernels
+      (``option_kernel_cases``: the sm90 forward at 4 x 8400 x 8400, the
+      templates at d = 160 among them), each held to its plain version at
+      phase 3's tolerance and timed from a CUDA graph beside its bound and
+      SDPA's fastest dispatch.
+
+    Each generation's launches equal ``generate_launches_per_generation``
+    with its attn4 form, cache and steps, its kernel FLOPs
+    ``generate_kernel_flops``; each step's ``train_launches_per_step``.
+    Alone: ``python3 -c "import chip_smoke as s; s.phase_device();
+    s.phase_build(); s.phase_options(None)"``.  -> (paths, per_step, kernel
+    rows) for ``kernels_line``."""
+    from dualdiff_tpu_torch.ops import attention as A
+
+    rows = {}
+    clock_hz = sm_clock_hz()
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    fwd_cases, grad_cases = option_kernel_cases()
+    for case in fwd_cases:
+        for kern, row in forward_kernel_rows(A, g, *case,
+                                             clock_hz=clock_hz).items():
+            rows.setdefault(kern, []).append(row)
+    for case in grad_cases:
+        for kern, row in train_kernel_rows(A, g, *case,
+                                           clock_hz=clock_hz).items():
+            rows.setdefault(kern, []).append(row)
+        torch.cuda.empty_cache()
+    # the flagship's models live only inside this call, so that the forms'
+    # peaks do not hold them
+    paths, per_step = _option_generations(), {}
+    torch.cuda.empty_cache()
+    for tag, (extra, train) in OPTION_ATTN4.items():
+        gen_counts = timed(f"{tag} generate", phase_generate, profile_dir,
+                           None, TIMED_OPTION_CALLS, cn_kv=KV_CROSS,
+                           extra=extra)
+        paths[tag] = (f"{tag} generation", *gen_counts)
+        if train:
+            step = timed(f"{tag} train", phase_train, profile_dir, None,
+                         TIMED_OPTION_STEPS,
+                         extra + [f"runner.train_batch_size={B_TRAIN}"])
+            paths[f"{tag}_train"] = (f"{tag} training run of "
+                                     f"{1 + TIMED_OPTION_STEPS} steps",
+                                     step["run"], step["run_template"])
+            per_step[tag] = (step["step"], step["step_template"])
+    return paths, per_step, rows
+
+
+def _option_generations() -> dict:
+    """Phase ``options``' generations on the flagship's model set:
+    ``OPTION_GENERATIONS`` and the views ``PINNED_VIEWS`` given, each
+    through ``run_generations``; the pinned call's unpinned views must
+    differ from the same seed's unpinned call.  -> {tag: (unit, launches,
+    those on the templates)}."""
+    from dualdiff_tpu_torch.pipeline.bev_controlnet import \
+        BEVControlNetPipeline
+    from dualdiff_tpu_torch.runner.conds import prepare_batch
+    from dualdiff_tpu_torch.utils.config import FLAGSHIP, load_config
+
+    t0 = time.perf_counter()
+    _, batch, pipe = _flagship("cuda")
+    models = pipe.models
+    gen = torch.Generator(device="cuda")
+    unpinned = pipe(batch, generator=gen.manual_seed(SEED))
+    log(f"# options: models built, unpinned reference in "
+        f"{time.perf_counter() - t0:.1f} s")
+    paths = {}
+    for tag, (extra, call) in OPTION_GENERATIONS.items():
+        opt = BEVControlNetPipeline(load_config(FLAGSHIP, extra), models,
+                                    device="cuda")
+        counts, template, _, _ = timed(
+            tag, run_generations, opt, batch, tag, TIMED_OPTION_CALLS,
+            KV_CROSS, **call)
+        paths[tag] = (f"{tag} generation", counts, template)
+    # given views: the synthetic images through the VAE encoder's mode
+    t = prepare_batch(batch, pipe.device)
+    px = t["pixel_values"]
+    with torch.no_grad():
+        lat = models["vae"].encode_mode(
+            px.reshape(-1, *px.shape[2:]).permute(0, 3, 1, 2)
+            .to(models["dtype"]))
+    lat = lat.float().reshape(B, N_CAM, *lat.shape[1:]).permute(0, 1, 3, 4,
+                                                                2)
+    mask = torch.zeros(B, N_CAM, device=pipe.device)
+    mask[:, list(PINNED_VIEWS)] = 1.0
+    counts, template, _, pinned = timed(
+        "pinned", run_generations, pipe, t, "pinned", TIMED_OPTION_CALLS,
+        KV_CROSS, conditional_latents=lat, conditional_mask=mask)
+    paths["pinned"] = ("pinned generation", counts, template)
+    free = [n for n in range(N_CAM) if n not in PINNED_VIEWS]
+    moved = (pinned[:, free] - unpinned[:, free]).abs().max().item()
+    log(json.dumps({"phase": "pinned views", "views": list(PINNED_VIEWS),
+                    "unpinned_views_max_abs_change": moved}))
+    if not moved > 1e-6:
+        raise AssertionError("pinning did not move the unpinned views")
+    return paths
 
 
 def phase_video_train(profile_dir):
@@ -2657,6 +2964,12 @@ def main() -> int:
     paths.update(more_paths)
     per_step.update(more_steps)
     timed("variants_reference", phase_variants_reference)
+    more_paths, more_steps, more_rows = timed("options", phase_options,
+                                              profile_dir)
+    paths.update(more_paths)
+    per_step.update(more_steps)
+    for kern, rows in more_rows.items():
+        results.setdefault(kern, []).extend(rows)
     more_paths, more_steps = timed("hd", phase_hd, profile_dir)
     paths.update(more_paths)
     per_step.update(more_steps)

@@ -35,8 +35,11 @@ video sections.  The other knobs are ``bench.py``'s: ``BENCH_BATCH``,
 ``BENCH_FRAMES``, ``BENCH_SEQ_CFG``, ``BENCH_VAE_SLICING``,
 ``BENCH_VIDEO_ITERS``, ``BENCH_VIDEO_EXP``, ``BENCH_SAVE_PIN`` and the
 section timeouts ``BENCH_GEN_TIMEOUT``, ``BENCH_TRAIN_TIMEOUT`` and
-``BENCH_VIDEO_TIMEOUT`` (both video sections).  ``BENCH_CN_CACHE`` above 1
-raises: ``cn_cache_interval`` is not ported.
+``BENCH_VIDEO_TIMEOUT`` (both video sections).  ``BENCH_CN_CACHE=k`` above 1
+(gen only) sets ``cn_cache_interval=k``: the ControlNets run at every k-th
+step, a secondary probe as in ``bench.py``; its numerics pin has a key of
+its own (``..._cn<k>``), so a cached run is never held to the uncached
+pin.
 
 Times are host clock around work that ends in ``torch.cuda.synchronize()``;
 a training section synchronises once after its loop.  FLOPs come from one
@@ -204,25 +207,48 @@ def _generate(cfg, batch, warm_seed: int, seeds) -> dict:
             "kernel": kernel, "launches": _launches(), "peak_mem_gib": peak}
 
 
+def gen_config(name: str):
+    """The generation section's config of the port's config ``name``:
+    ``bench.py``'s operating point, with ``BENCH_CN_CACHE`` above 1 as
+    ``cn_cache_interval``."""
+    from .utils.config import load_config
+
+    overrides = [f"dataset.num_samples={max(B, 2)}",
+                 f"runner.pipeline_param.num_inference_steps={STEPS}",
+                 f"runner.pipeline_param.guidance_scale={GUIDANCE}",
+                 f"runner.pipeline_param.bbox_max_length={MAX_BOXES}"]
+    cn_cache = int(os.environ.get("BENCH_CN_CACHE", "0"))
+    if cn_cache > 1:
+        overrides.append(f"runner.pipeline_param.cn_cache_interval="
+                         f"{cn_cache}")
+    return load_config(name, overrides)
+
+
+def gen_pin_key(cfg, name: str) -> str:
+    """The numerics pin's key of a generation: the geometry, batch and box
+    cap, the task for a model other than the flagship's, and the
+    ControlNet cache's interval where it is on."""
+    h, w = cfg.dataset.image_size
+    key = f"cuda/gen_{h}x{w}_b{B}_boxes{MAX_BOXES}"
+    if name not in FLAGSHIP_CONFIGS:  # another model at the same geometry
+        key += f"_{cfg.task_id}"
+    cn_cache = int(cfg.runner.pipeline_param.get("cn_cache_interval", 0))
+    if cn_cache > 1:
+        key += f"_cn{cn_cache}"
+    return key
+
+
 def main_gen() -> dict:
     """The headline: the flagship generation (``bench.py::main``)."""
     from .data.collate import collate_fn
     from .data.synthetic import SyntheticNuScenes
     from .data.tokenizer import build_tokenizer
-    from .utils.config import load_config
     from .utils.pins import check_pin, output_stats, save_pin
 
     info = _device()
     overlay = os.environ.get("BENCH_OVERLAY", FLAGSHIP_OVERLAY)
     name = config_name(overlay)
-    if int(os.environ.get("BENCH_CN_CACHE", "0")) > 1:
-        raise NotImplementedError("BENCH_CN_CACHE: cn_cache_interval is not "
-                                  "ported")
-    cfg = load_config(name, [
-        f"dataset.num_samples={max(B, 2)}",
-        f"runner.pipeline_param.num_inference_steps={STEPS}",
-        f"runner.pipeline_param.guidance_scale={GUIDANCE}",
-        f"runner.pipeline_param.bbox_max_length={MAX_BOXES}"])
+    cfg = gen_config(name)
     h, w = cfg.dataset.image_size
     ds = SyntheticNuScenes(num_samples=max(B, 2), image_size=(h, w),
                            seed=int(cfg.seed))
@@ -232,9 +258,7 @@ def main_gen() -> dict:
     run = _generate(cfg, batch, 1, list(range(2, 2 + TIMED_GENERATIONS)))
     # the seed-1 images of the seed-0 batch and weights are deterministic
     # per card and library; drift beyond the band is a numerics regression
-    pin_key = f"cuda/gen_{h}x{w}_b{B}_boxes{MAX_BOXES}"
-    if name not in FLAGSHIP_CONFIGS:  # another model at the same geometry
-        pin_key += f"_{cfg.task_id}"
+    pin_key = gen_pin_key(cfg, name)
     stats = output_stats(run["out"])
     pin = check_pin(stats, pin_key)
     if pin["status"] == "drift":
@@ -244,17 +268,21 @@ def main_gen() -> dict:
         save_pin(stats, pin_key)
         pin["status"] = "pinned_now"
     dt = run["dt"]
+    cn_cache = int(cfg.runner.pipeline_param.cn_cache_interval)
+    cached = f", ControlNets every {cn_cache} steps" if cn_cache > 1 else ""
     return {
         "metric": f"6-view {h}x{w} frames/sec/chip (UniPC-20, CFG 2, "
-                  f"{_branches(cfg, name)})",
+                  f"{_branches(cfg, name)}{cached})",
         "value": B / dt,
         "unit": "frames/s/chip",
         # the A100 estimate describes the reference's 224x400 default
         "vs_baseline": (B / dt / A100_BASELINE_FPS
-                        if overlay == FLAGSHIP_OVERLAY else None),
+                        if overlay == FLAGSHIP_OVERLAY and cn_cache <= 1
+                        else None),
         "detail": {
             "sec_per_frame": dt, "first_call_s": run["first_s"],
             "batch": B, "bbox_max_length": MAX_BOXES,
+            "cn_cache_interval": cn_cache,
             "baseline_assumption_fps": A100_BASELINE_FPS,
             **_flops_detail(run["model"], run["kernel"], dt),
             "launches": run["launches"],

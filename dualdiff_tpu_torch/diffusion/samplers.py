@@ -1,26 +1,90 @@
-"""UniPC sampler (bh2, data prediction, corrector on, lower-order final).
+"""Samplers: DDIM ("leading" spacing) and UniPC (bh2, data prediction,
+corrector on, lower-order final).
 
-Port of ``unipc_sample`` from ``dualdiff_tpu/diffusion/samplers.py``.  The
-JAX version is one ``lax.scan``; here it is a Python loop with one model
-evaluation per step.  Every coefficient depends only on the static timestep
-grid, so the B(h) systems are solved on the host in float64 and rounded to
+Port of ``dualdiff_tpu/diffusion/samplers.py``.  The JAX versions are one
+``lax.scan`` each; here each is a Python loop with one model evaluation per
+step.  Every coefficient depends only on the static timestep grid, so it is
+computed on the host (UniPC's B(h) systems in float64) and rounded to
 float32 once, as in the JAX package; the loop does only tensor
 multiply-adds.
 
 ``model_fn(x, t) -> eps`` with ``t`` a Python int timestep; conditioning and
-CFG live inside ``model_fn``.
+CFG live inside ``model_fn``.  Stateful form, as in the JAX package: with
+``model_state0`` given, ``model_fn(x, t, i, state) -> (eps, state)``, where
+``i`` is the 0-based step index and the state is threaded from step to step
+(the pipeline's model function, whose state holds the ControlNet residuals
+between refreshes).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .schedule import DiffusionSchedule
 
-__all__ = ["unipc_timesteps", "unipc_tables", "unipc_sample"]
+__all__ = ["ddim_timesteps", "ddim_sample", "unipc_timesteps",
+           "unipc_tables", "unipc_sample"]
+
+
+def _evaluate(model_fn, x, t: int, i: int, stateful: bool, state):
+    """One model evaluation -> (eps in float32, the next state)."""
+    if stateful:
+        eps, state = model_fn(x, t, i, state)
+    else:
+        eps = model_fn(x, t)
+    return eps.float(), state
+
+
+def ddim_timesteps(num_inference_steps: int, num_train_timesteps: int = 1000,
+                   steps_offset: int = 1) -> np.ndarray:
+    """'leading' spacing used by the SD v1.5 DDIM config."""
+    step_ratio = num_train_timesteps // num_inference_steps
+    ts = (np.arange(num_inference_steps) * step_ratio).round()[::-1] \
+        .astype(np.int64) + steps_offset
+    return np.clip(ts, 0, num_train_timesteps - 1)
+
+
+def ddim_sample(schedule: DiffusionSchedule, model_fn: Callable,
+                latents: torch.Tensor, num_inference_steps: int = 20,
+                eta: float = 0.0, generator: Optional[torch.Generator] = None,
+                noise: Optional[Sequence[torch.Tensor]] = None,
+                model_state0: Any = None) -> torch.Tensor:
+    """Deterministic (``eta=0``) or stochastic DDIM.  Below step 0 the
+    previous cumulative alpha is 1.  With ``eta > 0`` step ``i`` adds
+    ``sigma_i * noise[i]`` when ``noise`` (one tensor per step, the
+    latents' shape) is given, else a draw from ``generator``."""
+    ts = ddim_timesteps(num_inference_steps, schedule.num_train_timesteps)
+    step_ratio = schedule.num_train_timesteps // num_inference_steps
+    ac = np.asarray(schedule.alphas_cumprod, np.float32)
+    prev = ts - step_ratio
+    a_t = ac[ts]
+    a_prev = np.where(prev >= 0, ac[np.maximum(prev, 0)],
+                      np.float32(1.0)).astype(np.float32)
+    one = np.float32(1.0)
+    # float32 coefficients, computed as the JAX scan body computes them
+    sq_1mat, sq_at = np.sqrt(one - a_t), np.sqrt(a_t)
+    sq_aprev, sq_1maprev = np.sqrt(a_prev), np.sqrt(one - a_prev)
+    sigma = (np.float32(eta) * np.sqrt((one - a_prev) / (one - a_t))
+             * np.sqrt(one - a_t / a_prev)).astype(np.float32)
+    sq_dir = np.sqrt(one - a_prev - sigma ** 2)
+    stateful = model_state0 is not None
+    state = model_state0
+    x = latents.float()
+    for i in range(num_inference_steps):
+        eps, state = _evaluate(model_fn, x, int(ts[i]), i, stateful, state)
+        x0 = (x - float(sq_1mat[i]) * eps) / float(sq_at[i])
+        if eta > 0.0:
+            z = noise[i].to(x.device, torch.float32) if noise is not None \
+                else torch.randn(x.shape, generator=generator,
+                                 device=x.device)
+            x = float(sq_aprev[i]) * x0 + float(sq_dir[i]) * eps \
+                + float(sigma[i]) * z
+        else:
+            x = float(sq_aprev[i]) * x0 + float(sq_1maprev[i]) * eps
+    return x
 
 
 def unipc_timesteps(num_inference_steps: int,
@@ -130,19 +194,22 @@ def unipc_tables(schedule: DiffusionSchedule, n: int, order: int,
             for k, v in tables.items()}
 
 
-def unipc_sample(schedule: DiffusionSchedule,
-                 model_fn: Callable[[torch.Tensor, int], torch.Tensor],
+def unipc_sample(schedule: DiffusionSchedule, model_fn: Callable,
                  latents: torch.Tensor, num_inference_steps: int = 20,
-                 order: int = 2, final_sigma: str = "zero") -> torch.Tensor:
+                 order: int = 2, final_sigma: str = "zero",
+                 model_state0: Any = None) -> torch.Tensor:
     """UniPC orders 1-3.  ``final_sigma="zero"``: the last step lands on
     the predicted x0 (modern diffusers); ``"default"``/``"sigma_min"``: it
     steps to train timestep 0, as the reference's older diffusers does."""
     tb = unipc_tables(schedule, num_inference_steps, order, final_sigma)
     f = lambda name, i: float(tb[name][i])  # float32 values, exact in float
+    stateful = model_state0 is not None
+    state = model_state0
     x = latents.float()
     last_sample = m0 = m1 = m2 = torch.zeros_like(x)
     for i in range(num_inference_steps):
-        eps = model_fn(x, int(tb["t"][i])).float()
+        eps, state = _evaluate(model_fn, x, int(tb["t"][i]), i, stateful,
+                               state)
         x0 = (x - f("sqrt_1mac", i) * eps) / f("sqrt_ac", i)
         if i > 0:  # corrector: refine x with the fresh evaluation
             d1_c = (m1 - m0) * f("c_rk1_inv", i)

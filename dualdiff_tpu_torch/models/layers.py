@@ -27,8 +27,13 @@ from .norms import GroupNorm, LayerNorm
 
 __all__ = ["Linear", "Conv2d", "zero_module", "TimestepEmbedding",
            "ResnetBlock2D", "Downsample2D", "Upsample2D", "Attention",
-           "GEGLUFeedForward", "BasicTransformerBlock", "Transformer2DModel",
-           "get_timestep_embedding", "is_camera_ring", "remat_call"]
+           "GEGLUFeedForward", "GatedConnector", "BasicTransformerBlock",
+           "Transformer2DModel", "get_timestep_embedding", "is_camera_ring",
+           "remat_call", "ATTN4_TYPES", "CONNECTOR_TYPES"]
+
+# attn4 forms and connector types of the JAX package's BasicTransformerBlock
+ATTN4_TYPES = ("add", "concat", "self")
+CONNECTOR_TYPES = ("zero_linear", "gated", "none")
 
 
 class Linear(nn.Linear):
@@ -229,6 +234,18 @@ class GEGLUFeedForward(nn.Module):
         return self.net[2](self.net[0](x))
 
 
+class GatedConnector(nn.Module):
+    """``tanh(alpha) * x`` with ``alpha`` of shape ``(dim,)``, zero at init
+    (the JAX package's ``GatedConnector``, attn4's ``gated`` connector)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.alpha = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.tanh(self.alpha).to(x.dtype) * x
+
+
 def is_camera_ring(pairs: Optional[Sequence[Sequence[int]]],
                    n_cam: int) -> bool:
     return pairs is not None and len(pairs) == n_cam and all(
@@ -236,12 +253,35 @@ def is_camera_ring(pairs: Optional[Sequence[Sequence[int]]],
         for i in range(n_cam))
 
 
+def _connector(kind: str, dim: int) -> Optional[nn.Module]:
+    if kind == "zero_linear":
+        return zero_module(Linear(dim, dim))
+    if kind == "gated":
+        return GatedConnector(dim)
+    if kind == "none":
+        return None
+    raise ValueError(f"zero_module_type {kind!r}: one of {CONNECTOR_TYPES}")
+
+
 class BasicTransformerBlock(nn.Module):
     """self-attn -> cross-attn -> (multiview attn4 + connector) ->
     (temporal attn + connector) -> FF.
 
-    attn4 runs each camera against its two ring neighbors and sums the
-    outputs ('add'), gated through a zero-init linear connector.
+    attn4 (the JAX package's ``_multiview_attn``), by
+    ``neighboring_attn_type``:
+
+    * ``add``: each view attends to its two neighbours
+      (``neighboring_view_pair``) and the two outputs are summed.  On the
+      camera ring that is the ring kernel (``attention_packed_neighbors``);
+      over other pairs the left and right neighbours' tokens are gathered
+      and one attention runs the stacked ``[q; q]`` over ``[kv_left;
+      kv_right]``, its halves summed;
+    * ``concat``: each view attends to ``[kv_left | kv_right]`` (2L keys);
+    * ``self``: one attention over all ``n_cam * L`` tokens of a sample.
+
+    Its output goes through the connector ``zero_module_type``: a zero-init
+    linear (``zero_linear``), ``tanh(alpha) * x`` (``gated``) or nothing
+    (``none``).
 
     Video hooks (DualDiff+), active when ``num_frames > 1``; the leading dim
     then folds (clip, frame, camera), frame outer, camera inner:
@@ -260,9 +300,23 @@ class BasicTransformerBlock(nn.Module):
                  cross_attention_dim: int = 768, multiview: bool = False,
                  st_attn: bool = False, temporal: bool = False,
                  num_frames: int = 1, lora_rank: int = 0,
-                 box_adapter: bool = False):
+                 box_adapter: bool = False,
+                 neighboring_view_pair: Optional[
+                     Sequence[Sequence[int]]] = None,
+                 neighboring_attn_type: str = "add",
+                 zero_module_type: str = "zero_linear"):
         super().__init__()
+        if neighboring_attn_type not in ATTN4_TYPES:
+            raise ValueError(f"neighboring_attn_type "
+                             f"{neighboring_attn_type!r}: one of "
+                             f"{ATTN4_TYPES}")
+        if multiview and neighboring_attn_type != "self" and \
+                neighboring_view_pair is None:
+            raise ValueError(f"attn4 {neighboring_attn_type!r} attends over "
+                             "neighboring_view_pair, which is None")
         self.multiview = multiview
+        self.neighboring_view_pair = neighboring_view_pair
+        self.neighboring_attn_type = neighboring_attn_type
         self.st_attn = st_attn and num_frames > 1
         self.temporal = temporal and num_frames > 1
         self.num_frames = num_frames
@@ -274,7 +328,7 @@ class BasicTransformerBlock(nn.Module):
         if multiview:
             self.norm4 = LayerNorm(dim)
             self.attn4 = Attention(dim, heads)
-            self.connector = zero_module(Linear(dim, dim))
+            self.connector = _connector(zero_module_type, dim)
         if self.temporal:
             self.norm_temporal = LayerNorm(dim)
             self.attn_temporal = Attention(dim, heads)
@@ -292,12 +346,34 @@ class BasicTransformerBlock(nn.Module):
         h = h + self.attn2(self.norm2(h), encoder_hidden_states,
                            num_box_tokens=num_box_tokens)
         if self.multiview:
-            h = h + self.connector(
-                self.attn4(self.norm4(h), ring_views=n_cam))
+            out = self._multiview_attn(self.norm4(h), n_cam)
+            h = h + (out if self.connector is None else self.connector(out))
         if self.temporal:
             h = h + self.temporal_connector(
                 self._temporal_attn(self.norm_temporal(h), n_cam))
         return h + self.ff(self.norm3(h))
+
+    def _multiview_attn(self, norm_h: torch.Tensor,
+                        n_cam: int) -> torch.Tensor:
+        """attn4 on (B*n_cam, L, C) tokens, by ``neighboring_attn_type``."""
+        bn, l, c = norm_h.shape
+        b = bn // n_cam
+        if self.neighboring_attn_type == "self":
+            return self.attn4(norm_h.reshape(b, n_cam * l, c)).reshape(
+                bn, l, c)
+        pairs = self.neighboring_view_pair
+        if self.neighboring_attn_type == "add" and is_camera_ring(pairs,
+                                                                  n_cam):
+            return self.attn4(norm_h, ring_views=n_cam)
+        h = norm_h.reshape(b, n_cam, l, c)
+        take = lambda side: h[:, [pairs[i][side] for i in range(n_cam)]] \
+            .reshape(bn, l, c)
+        kv_left, kv_right = take(0), take(1)
+        if self.neighboring_attn_type == "add":
+            out2 = self.attn4(torch.cat([norm_h, norm_h]),
+                              torch.cat([kv_left, kv_right]))
+            return out2[:bn] + out2[bn:]
+        return self.attn4(norm_h, torch.cat([kv_left, kv_right], dim=1))
 
     def _st_attn_kv(self, norm_h: torch.Tensor, n_cam: int) -> torch.Tensor:
         """(B', L, C) -> (B', 2L, C): per row, the first frame's tokens then
@@ -329,14 +405,17 @@ class Transformer2DModel(nn.Module):
                  cross_attention_dim: int = 768, num_layers: int = 1,
                  multiview: bool = False, st_attn: bool = False,
                  temporal: bool = False, num_frames: int = 1,
-                 lora_rank: int = 0, box_adapter: bool = False):
+                 lora_rank: int = 0, box_adapter: bool = False,
+                 **attn4):
+        """``attn4``: ``BasicTransformerBlock``'s ``neighboring_view_pair``,
+        ``neighboring_attn_type`` and ``zero_module_type``."""
         super().__init__()
         self.norm = GroupNorm(min(32, channels), channels, eps=1e-6)
         self.proj_in = Conv2d(channels, channels, 1)
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(channels, heads, cross_attention_dim,
                                   multiview, st_attn, temporal, num_frames,
-                                  lora_rank, box_adapter)
+                                  lora_rank, box_adapter, **attn4)
             for _ in range(num_layers)])
         self.proj_out = Conv2d(channels, channels, 1)
 

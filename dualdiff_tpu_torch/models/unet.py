@@ -1,10 +1,13 @@
-"""SD v1.5 conditional UNet with camera-ring multiview attention, PyTorch.
+"""SD v1.5 conditional UNet with multiview attention, PyTorch.
 
 Port of ``dualdiff_tpu/models/unet.py``.  Every transformer block carries
-the attn4 camera-ring path; ControlNet residuals are added to the skip
-connections and the mid block.  With ``remat`` each down, mid and up block
-whose input has at least ``remat_min_tokens`` spatial tokens is
-rematerialised in the backward (``enable_unet_checkpointing``).  NCHW; the
+attn4 in one of the JAX package's forms (``add`` over the neighbour pairs,
+the camera ring on its own kernel; ``concat``; ``self``) with its
+connector (``zero_linear``, ``gated`` or ``none``); ControlNet residuals
+are added to the skip connections and the mid block.  With ``remat`` each
+down, mid and up block whose input has at least ``remat_min_tokens``
+spatial tokens is rematerialised in the backward
+(``enable_unet_checkpointing``).  NCHW; the
 leading batch dim folds (batch, camera), or (clip, frame, camera) for the
 video UNet (DualDiff+: ST-Attn and temporal attention in every transformer
 block).
@@ -20,7 +23,7 @@ from torch import nn
 
 from .layers import (Conv2d, Downsample2D, ResnetBlock2D, TimestepEmbedding,
                      Transformer2DModel, Upsample2D, get_timestep_embedding,
-                     is_camera_ring, remat_call)
+                     remat_call)
 from .norms import GroupNorm
 
 __all__ = ["UNet2DConditionMultiview", "CrossAttnDownBlock2D", "DownBlock2D",
@@ -46,7 +49,7 @@ class CrossAttnDownBlock2D(nn.Module):
                  heads: int = 8, cross_attention_dim: int = 768,
                  multiview: bool = False, st_attn: bool = False,
                  temporal: bool = False, num_frames: int = 1,
-                 lora_rank: int = 0, box_adapter: bool = False):
+                 lora_rank: int = 0, box_adapter: bool = False, **attn4):
         super().__init__()
         self.resnets = nn.ModuleList([
             ResnetBlock2D(in_channels if i == 0 else out_channels,
@@ -55,7 +58,8 @@ class CrossAttnDownBlock2D(nn.Module):
             Transformer2DModel(out_channels, heads, cross_attention_dim,
                                multiview=multiview, st_attn=st_attn,
                                temporal=temporal, num_frames=num_frames,
-                               lora_rank=lora_rank, box_adapter=box_adapter)
+                               lora_rank=lora_rank, box_adapter=box_adapter,
+                               **attn4)
             for _ in range(num_layers)])
         self.downsamplers = (nn.ModuleList([Downsample2D(out_channels)])
                              if add_downsample else None)
@@ -94,7 +98,7 @@ class UNetMidBlock2DCrossAttn(nn.Module):
                  cross_attention_dim: int = 768, multiview: bool = False,
                  st_attn: bool = False, temporal: bool = False,
                  num_frames: int = 1, lora_rank: int = 0,
-                 box_adapter: bool = False):
+                 box_adapter: bool = False, **attn4):
         super().__init__()
         self.resnets = nn.ModuleList([
             ResnetBlock2D(channels, channels, temb_dim) for _ in range(2)])
@@ -102,7 +106,8 @@ class UNetMidBlock2DCrossAttn(nn.Module):
             Transformer2DModel(channels, heads, cross_attention_dim,
                                multiview=multiview, st_attn=st_attn,
                                temporal=temporal, num_frames=num_frames,
-                               lora_rank=lora_rank, box_adapter=box_adapter)])
+                               lora_rank=lora_rank, box_adapter=box_adapter,
+                               **attn4)])
 
     def forward(self, x, temb, encoder_hidden_states, n_cam: int = 1,
                 num_box_tokens: int = 0):
@@ -120,7 +125,7 @@ class UpBlock(nn.Module):
                  add_upsample: bool, cross_attn: bool, heads: int = 8,
                  cross_attention_dim: int = 768, multiview: bool = False,
                  st_attn: bool = False, temporal: bool = False,
-                 num_frames: int = 1, lora_rank: int = 0):
+                 num_frames: int = 1, lora_rank: int = 0, **attn4):
         super().__init__()
         chans = [in_channels] + [out_channels] * (len(skip_channels) - 1)
         self.resnets = nn.ModuleList([
@@ -130,7 +135,7 @@ class UpBlock(nn.Module):
             Transformer2DModel(out_channels, heads, cross_attention_dim,
                                multiview=multiview, st_attn=st_attn,
                                temporal=temporal, num_frames=num_frames,
-                               lora_rank=lora_rank)
+                               lora_rank=lora_rank, **attn4)
             for _ in skip_channels]) if cross_attn else None
         self.upsamplers = (nn.ModuleList([Upsample2D(out_channels)])
                            if add_upsample else None)
@@ -153,11 +158,15 @@ class UNet2DConditionMultiview(nn.Module):
                  cross_attention_dim: int = 768, multiview: bool = True,
                  neighboring_view_pair: Optional[Sequence[Sequence[int]]] = (
                      (5, 1), (0, 2), (1, 3), (2, 4), (3, 5), (4, 0)),
+                 neighboring_attn_type: str = "add",
+                 zero_module_type: str = "zero_linear",
                  st_attn: bool = False, temporal: bool = False,
                  num_frames: int = 1, lora_rank: int = 0,
                  remat: bool = False, remat_min_tokens: int = 0):
-        """attn4 is the 'add' type with a zero_linear connector (the only
-        ones ported).  ``st_attn``, ``temporal`` and ``num_frames``: the
+        """attn4: ``neighboring_attn_type`` (``add`` over
+        ``neighboring_view_pair``, ``concat`` or ``self``) with the
+        ``zero_module_type`` connector (``BasicTransformerBlock``).
+        ``st_attn``, ``temporal`` and ``num_frames``: the
         video hooks of every transformer block (``BasicTransformerBlock``);
         the batch then folds (clip, frame, camera), frame outer.
         ``lora_rank``: LoRA adapters on every block's attn1 and attn2 (RGD
@@ -171,9 +180,14 @@ class UNet2DConditionMultiview(nn.Module):
         self.neighboring_view_pair = neighboring_view_pair
         self.multiview = multiview
         temb = chs[0] * 4
+        self.neighboring_attn_type = neighboring_attn_type
+        self.zero_module_type = zero_module_type
         tx = dict(heads=heads, cross_attention_dim=cross_attention_dim,
                   multiview=multiview, st_attn=st_attn, temporal=temporal,
-                  num_frames=num_frames, lora_rank=lora_rank)
+                  num_frames=num_frames, lora_rank=lora_rank,
+                  neighboring_view_pair=neighboring_view_pair,
+                  neighboring_attn_type=neighboring_attn_type,
+                  zero_module_type=zero_module_type)
 
         self.time_embedding = TimestepEmbedding(chs[0], temb)
         self.conv_in = Conv2d(in_channels, chs[0], 3, padding=1)
@@ -213,10 +227,6 @@ class UNet2DConditionMultiview(nn.Module):
                 n_cam: int = 6) -> torch.Tensor:
         """sample (B', 4, h, w), timesteps (B',), encoder_hidden_states
         (B', L, D) -> eps (B', 4, h, w) in the compute dtype."""
-        if self.multiview and not is_camera_ring(self.neighboring_view_pair,
-                                                 n_cam):
-            raise NotImplementedError(
-                "only camera-ring neighbor pairs are ported for attn4")
         chs = self.block_out_channels
         temb = self.time_embedding(get_timestep_embedding(timesteps, chs[0]))
         x = self.conv_in(sample)

@@ -1,9 +1,9 @@
-"""Generation pipeline: text encode, UniPC denoising with CFG over the
-ControlNets and the multiview UNet, VAE decode.
+"""Generation pipeline: text encode, UniPC or DDIM denoising with CFG over
+the ControlNets and the multiview UNet, VAE decode.
 
 Port of ``dualdiff_tpu/pipeline/bev_controlnet.py`` for the image path and
-the DualDiff+ clip path (no ControlNet caching, given-view pinning or DDIM
-yet).  Kept from the JAX pipeline:
+the DualDiff+ clip path, eager (the JAX package jits the call).  Kept from
+the JAX pipeline:
 
 * weights cast to the compute dtype (bf16 by default);
 * the CFG batch layout.  Images: rows interleaved per sample, (uncond, cond)
@@ -25,7 +25,21 @@ yet).  Kept from the JAX pipeline:
 * one initial noise map per sample (per frame for clips) shared by every
   view;
 * decode, in chunks of ``vae_slicing`` images when it is set (the last
-  chunk may be short), then ``/ 2 + 0.5`` clipped to [0, 1].
+  chunk may be short), then ``/ 2 + 0.5`` clipped to [0, 1];
+* ``scheduler``: ``unipc`` or ``ddim`` (eta 0: the JAX pipeline does not
+  read ``pipeline_param.eta``);
+* ``cn_cache_interval = k > 1`` (Faster-Diffusion-style ControlNet
+  caching): the ControlNets' residuals are computed on the full CFG batch
+  at the steps ``i`` with ``i % k == 0`` and reused until the next such
+  step; the UNet runs every step.  With ``sequential_cfg`` it raises, as
+  in the JAX package;
+* given-view pinning (the reference's GivenViewPipeline):
+  ``conditional_latents`` (B, N, h, w, 4) and ``conditional_mask`` (B, N)
+  set the masked views of every model input to
+  ``add_noise(conditional_latents, noise_t, t)``; the sampler's own state
+  is not pinned;
+* per-call overrides of ``num_inference_steps``, ``guidance_scale``,
+  ``scheduler`` and ``conditioning_scale``.
 
 Images are channels-last, ``(B, N, H, W, 3)``; for a clip batch B counts
 frames (``collate_video`` flattens clips frame-outer).
@@ -33,16 +47,27 @@ frames (``collate_video`` flattens clips frame-outer).
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Mapping, Optional
 
 import torch
 
 from .. import resolve_device
-from ..diffusion.samplers import unipc_sample
+from ..diffusion.samplers import ddim_sample, unipc_sample
 from ..diffusion.schedule import DiffusionSchedule
 from ..runner.conds import compute_branch_conds, prepare_batch
 
-__all__ = ["BEVControlNetPipeline"]
+__all__ = ["BEVControlNetPipeline", "SCHEDULERS", "OVERRIDES"]
+
+SCHEDULERS = ("unipc", "ddim")
+# what a call may override (the JAX pipeline's ``**overrides``)
+OVERRIDES = ("num_inference_steps", "guidance_scale", "scheduler",
+             "conditioning_scale")
+
+
+def _scheduler(name) -> str:
+    if str(name) not in SCHEDULERS:
+        raise ValueError(f"scheduler {name!r}: one of {SCHEDULERS}")
+    return str(name)
 
 
 class BEVControlNetPipeline:
@@ -65,20 +90,52 @@ class BEVControlNetPipeline:
         # the frame the ORS intrinsics refer to
         self.image_hw = tuple(cfg.model.get("ors_frame_hw", (896, 1600)))
         pp = cfg.runner.pipeline_param
-        if int(pp.get("cn_cache_interval", 0)) > 1:
-            raise NotImplementedError(
-                "pipeline_param.cn_cache_interval is not ported")
-        if str(pp.get("scheduler", "unipc")) != "unipc":
-            raise NotImplementedError("only the UniPC scheduler is ported")
+        _scheduler(pp.get("scheduler", "unipc"))
+        self.cn_cache_interval = int(pp.get("cn_cache_interval", 0))
+        if self.cn_cache_interval > 1 and bool(
+                pp.get("sequential_cfg", False)):
+            raise ValueError(
+                "pipeline_param.cn_cache_interval>1 requires "
+                "sequential_cfg=false (the cached CN residuals are computed "
+                "on the full CFG batch)")
+
+    def settings(self, overrides: Mapping) -> Dict:
+        """(steps, guidance, scheduler, conditioning scale) of a call:
+        the config's, or with any override given, the overridden ones."""
+        pp = self.cfg.runner.pipeline_param
+        unknown = set(overrides) - set(OVERRIDES)
+        if unknown:
+            raise TypeError(f"unknown overrides {sorted(unknown)}: the "
+                            f"pipeline takes {OVERRIDES}")
+        out = {"num_inference_steps": int(pp.num_inference_steps),
+               "guidance_scale": float(pp.guidance_scale),
+               "scheduler": str(pp.get("scheduler", "unipc")),
+               "conditioning_scale": float(pp.controlnet_conditioning_scale)}
+        if overrides:
+            # as the JAX pipeline: an overridden call that does not give
+            # conditioning_scale runs at 1.0, not at the config's
+            # controlnet_conditioning_scale
+            out = {**out, "conditioning_scale": 1.0, **overrides}
+        return {"num_inference_steps": int(out["num_inference_steps"]),
+                "guidance_scale": float(out["guidance_scale"]),
+                "scheduler": _scheduler(out["scheduler"]),
+                "conditioning_scale": float(out["conditioning_scale"])}
 
     @torch.no_grad()
     def __call__(self, batch: Dict,
                  generator: Optional[torch.Generator] = None,
-                 latents: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 latents: Optional[torch.Tensor] = None,
+                 conditional_latents: Optional[torch.Tensor] = None,
+                 conditional_mask: Optional[torch.Tensor] = None,
+                 pin_noise: Optional[Mapping[int, torch.Tensor]] = None,
+                 **overrides) -> torch.Tensor:
         """batch: collate output (or its ``prepare_batch`` tensors).
         ``latents``: initial noise (B, 1 or N, h, w, 4), float32; drawn from
-        ``generator`` when not given.  -> images (B, N, H, W, 3) in [0, 1],
-        float32."""
+        ``generator`` when not given.  ``conditional_latents`` (B, N, h, w,
+        4) and ``conditional_mask`` (B, N): given-view pinning; the noise of
+        the pinned views at timestep ``t`` is ``pin_noise[t]`` when given,
+        else a draw from ``generator`` each step.  ``overrides``: any of
+        ``OVERRIDES``.  -> images (B, N, H, W, 3) in [0, 1], float32."""
         models, cfg = self.models, self.cfg
         pp = cfg.runner.pipeline_param
         unet, controlnets = models["unet"], models["controlnets"]
@@ -88,8 +145,8 @@ class BEVControlNetPipeline:
         cam = t["camera_param"]
         B, N = cam.shape[:2]
         lh, lw = self.latent_hw
-        guidance = float(pp.guidance_scale)
-        cond_scale = float(pp.controlnet_conditioning_scale)
+        run = self.settings(overrides)
+        guidance, cond_scale = run["guidance_scale"], run["conditioning_scale"]
 
         text, _ = text_encoder(t["input_ids"])
         uncond, _ = text_encoder(t["uncond_ids"])
@@ -139,10 +196,10 @@ class BEVControlNetPipeline:
                           latent_hw=self.latent_hw))
         cam2 = cfg2(cam, cam)
 
-        def evaluate(xb, step_t, cam_b, pre_b):
-            """ControlNets + UNet on (nb, N, 4, h, w) -> eps, float32."""
-            nb = xb.shape[0]
-            tb = torch.full((nb,), step_t, device=self.device)
+        def run_cns(xb, step_t, cam_b, pre_b):
+            """The ControlNets' summed residuals on (nb, N, 4, h, w) ->
+            (downs, mid, the UNet's context tokens)."""
+            tb = torch.full((xb.shape[0],), step_t, device=self.device)
             downs = mid = kv = None
             for cn, p in zip(controlnets, pre_b):
                 # the text only gives the box adapter its context length
@@ -153,43 +210,88 @@ class BEVControlNetPipeline:
                 else:
                     downs = [a + b for a, b in zip(downs, d)]
                     mid = mid + m
-            eps = unet(xb.reshape(nb * N, 4, lh, lw),
-                       tb.repeat_interleave(N), kv,
+            return downs, mid, kv
+
+        def run_unet(xb, step_t, residuals):
+            """The UNet on (nb, N, 4, h, w) with the ControlNets' residuals
+            -> eps, float32."""
+            nb = xb.shape[0]
+            downs, mid, kv = residuals
+            tb = torch.full((nb * N,), step_t, device=self.device)
+            eps = unet(xb.reshape(nb * N, 4, lh, lw), tb, kv,
                        down_block_additional_residuals=downs,
                        mid_block_additional_residual=mid, n_cam=N)
             return eps.float().reshape(nb, N, 4, lh, lw)
 
-        # x: (B, N, h, w, 4) float32; the networks take per-view NCHW
+        # x: (B, N, h, w, 4) float32; the networks take per-view NCHW.
+        # fn is the sampler's stateful form, (x, t, i, state) -> (eps,
+        # state); the state holds the last refresh's ControlNet residuals
+        # and nothing else, so the old set is let go before the new one is
+        # computed
         to_nchw = lambda a: a.permute(0, 1, 4, 2, 3)
+        guide = lambda eps_u, eps_c: (eps_u + guidance * (eps_c - eps_u)) \
+            .permute(0, 1, 3, 4, 2)
         if bool(pp.get("sequential_cfg", False)):
             cam_h = halves(cam2)
             pre_h = [{k: halves(v) for k, v in p.items()} for p in pre]
 
-            def guided_eps(x, step_t):
-                eps_u, eps_c = (
-                    evaluate(to_nchw(x), step_t, cam_h[i],
-                             [{k: v[i] for k, v in p.items()}
-                              for p in pre_h]) for i in (0, 1))
-                return eps_u + guidance * (eps_c - eps_u)
+            def fn(x, step_t, i, state):
+                """Uncond half, then cond half (no cache: refused above)."""
+                eps = []
+                for j in (0, 1):
+                    pre_j = [{k: v[j] for k, v in p.items()} for p in pre_h]
+                    xb = to_nchw(x)
+                    eps.append(run_unet(xb, step_t,
+                                        run_cns(xb, step_t, cam_h[j], pre_j)))
+                return guide(*eps), state
         else:
-            def guided_eps(x, step_t):
-                eps_u, eps_c = halves(evaluate(to_nchw(cfg2(x, x)), step_t,
-                                               cam2, pre))
-                return eps_u + guidance * (eps_c - eps_u)
+            every = max(self.cn_cache_interval, 1)
 
-        def model_fn(x: torch.Tensor, step_t: int) -> torch.Tensor:
-            return guided_eps(x, step_t).permute(0, 1, 3, 4, 2)
+            def fn(x, step_t, i, cache):
+                """The full CFG batch; the ControlNets at the steps ``i``
+                with ``i % cn_cache_interval == 0`` (every step without the
+                cache)."""
+                x2 = to_nchw(cfg2(x, x))
+                if i % every == 0:
+                    cache["residuals"] = None
+                    cache["residuals"] = run_cns(x2, step_t, cam2, pre)
+                return guide(*halves(run_unet(x2, step_t,
+                                              cache["residuals"]))), cache
+        state0 = {"residuals": None}
 
         if latents is None:
             latents = torch.randn((B, 1, lh, lw, 4), generator=generator,
                                   device=self.device)
         lat0 = latents.to(self.device, torch.float32).expand(
             B, N, lh, lw, 4).contiguous()
-        lat = unipc_sample(
-            self.schedule, model_fn, lat0,
-            num_inference_steps=int(pp.num_inference_steps),
-            order=int(pp.get("solver_order", 2)),
-            final_sigma=str(pp.get("unipc_final_sigma", "zero")))
+        if conditional_latents is not None and conditional_mask is not None:
+            gt = conditional_latents.to(self.device, torch.float32)
+            mask = conditional_mask.to(self.device, torch.float32).reshape(
+                B, N, 1, 1, 1)
+            base_fn = fn
+
+            def fn(x, step_t, i, state):
+                """The model input with the given views pinned to their
+                latents noised to ``step_t``."""
+                noise = pin_noise[step_t] if pin_noise is not None else \
+                    torch.randn(gt.shape, generator=generator,
+                                device=self.device)
+                gt_t = self.schedule.add_noise(gt, noise.to(gt.device),
+                                               torch.full((B,), step_t,
+                                                          device=self.device))
+                return base_fn(x * (1 - mask) + gt_t * mask, step_t, i, state)
+
+        steps = run["num_inference_steps"]
+        if run["scheduler"] == "ddim":
+            lat = ddim_sample(self.schedule, fn, lat0,
+                              num_inference_steps=steps, model_state0=state0)
+        else:
+            lat = unipc_sample(
+                self.schedule, fn, lat0, num_inference_steps=steps,
+                order=int(pp.get("solver_order", 2)),
+                final_sigma=str(pp.get("unipc_final_sigma", "zero")),
+                model_state0=state0)
+        del state0  # the cached residuals go before the decode
 
         flat = lat.reshape(B * N, lh, lw, 4).permute(0, 3, 1, 2)
         chunk = int(pp.get("vae_slicing", 0))

@@ -5,7 +5,9 @@ Port of ``dualdiff_tpu/runner/factory.py``, remat settings included.
 architectural feature on.  The ControlNets take the config's conditioning
 kind (BEV map, occupancy image, ORS rays), ``use_cam_in_temb``, the box
 embedder's ``minmax_normalize`` and ``use_box_adapter``; the UNet never
-carries the box adapter, as in the JAX factory.  A ``use_video`` config
+carries the box adapter, as in the JAX factory, and takes attn4's form
+and connector (``model.unet.neighboring_attn_type``, ``zero_module_type``)
+and the neighbour pairs (``dataset.neighboring_view_pair``).  A ``use_video`` config
 builds the DualDiff+ video UNet (ST-Attn and temporal attention,
 ``video.num_frames`` frames), with LoRA adapters of rank
 ``video.lora_rank`` on its attn1 and attn2 exactly when
@@ -35,18 +37,6 @@ def compute_dtype(cfg) -> torch.dtype:
     return _DTYPES[str(cfg.runner.mixed_precision)]
 
 
-def _check_ported(cfg) -> None:
-    """Refuse what no shipped config reaches and the port lacks: attn4
-    other than ``add`` with the ``zero_linear`` connector (``concat`` /
-    ``self``, the ``gated`` connector).  The UNet refuses non-ring
-    neighbour pairs."""
-    u = cfg.model.unet
-    if (str(u.neighboring_attn_type), str(u.zero_module_type)) != (
-            "add", "zero_linear"):
-        raise NotImplementedError(
-            "only attn4 'add' with the zero_linear connector is ported")
-
-
 def _remat_min_tokens(cfg, key: str) -> int:
     """Per-network remat threshold (``unet_remat_min_tokens`` /
     ``controlnet_remat_min_tokens``), falling back to the shared
@@ -65,7 +55,6 @@ def build_models(cfg, tiny: bool = False, device=None) -> Dict:
     leaves at zero; load weights (``runner/weights.py``) or call
     ``randomize_weights``.  The pipeline casts them to ``dtype``."""
     dev = resolve_device(device)
-    _check_ported(cfg)
     specs: List[BranchSpec] = branch_specs_from_cfg(cfg)
     u = cfg.model.unet
     c = cfg.model.controlnet
@@ -89,6 +78,8 @@ def build_models(cfg, tiny: bool = False, device=None) -> Dict:
             block_out_channels=chs, layers_per_block=layers, heads=heads,
             cross_attention_dim=xdim, multiview=True,
             neighboring_view_pair=pairs,
+            neighboring_attn_type=str(u.neighboring_attn_type),
+            zero_module_type=str(u.zero_module_type),
             st_attn=video and bool(cfg.video.use_st_attn),
             temporal=video and bool(cfg.video.use_temporal_attn),
             num_frames=int(cfg.video.num_frames) if video else 1,

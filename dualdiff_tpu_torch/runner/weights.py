@@ -118,7 +118,8 @@ def from_jax(flat: Mapping[str, np.ndarray],
 
 
 # the modules DualDiff adds to each transformer block of SD v1.5's UNet
-# (the camera-ring attention and its zero-init connector): an SD v1.5
+# (the multiview attention, its norm and its connector: a zero-init linear's
+# weight and bias, a gated connector's alpha, or no connector): an SD v1.5
 # checkpoint holds none of their leaves, which keep the module's init
 MULTIVIEW_MODULES = ("attn4", "norm4", "connector")
 # legacy -> current names of the VAE's mid-block attention (diffusers

@@ -128,10 +128,9 @@ def test_backward_flops_split_into_dq_and_dkv():
     assert outer.total == 18.0 * unit
 
 
-def test_tiny_generation_records_the_derived_flops():
-    """One tiny generation (B = 1, 3 steps, batched CFG: 12 rows) records,
-    per wrapper, ``chip_smoke.generate_kernel_flops``: the launch
-    derivation's calls times their per-launch FLOPs."""
+def _tiny_generation_flops(extra=()):
+    """(recorded, derived) kernel FLOPs per wrapper of one tiny generation
+    under the overrides ``extra``."""
     from dualdiff_tpu_torch.data.collate import collate_fn
     from dualdiff_tpu_torch.data.synthetic import SyntheticNuScenes
     from dualdiff_tpu_torch.data.tokenizer import HashTokenizer
@@ -141,7 +140,7 @@ def test_tiny_generation_records_the_derived_flops():
                                                    randomize_weights)
     from dualdiff_tpu_torch.runner.train_state import named_roots
 
-    cfg = tp.port_config(tp.TINY_OVERRIDES)
+    cfg = tp.port_config(tp.TINY_OVERRIDES + list(extra))
     h, w = cfg.dataset.image_size
     ds = SyntheticNuScenes(num_samples=1, image_size=(h, w), seed=0)
     batch = collate_fn([ds[0]], cfg, HashTokenizer(), is_train=False,
@@ -157,7 +156,34 @@ def test_tiny_generation_records_the_derived_flops():
         len(unet.down_blocks[0].resnets), len(models["controlnets"]),
         int(cfg.runner.pipeline_param.num_inference_steps),
         chip_smoke.model_levels(unet, (h // 8, w // 8)),
-        unet.block_out_channels, 2 * 1 * 6)
+        unet.block_out_channels, 2 * 1 * 6,
+        attn4=chip_smoke.attn4_form(unet),
+        cn_cache=int(cfg.runner.pipeline_param.cn_cache_interval))
+    return rec, want
+
+
+def test_tiny_generation_records_the_derived_flops():
+    """One tiny generation (B = 1, 3 steps, batched CFG: 12 rows) records,
+    per wrapper, ``chip_smoke.generate_kernel_flops``: the launch
+    derivation's calls times their per-launch FLOPs."""
+    rec, want = _tiny_generation_flops()
+    assert rec.by_wrapper == {k: float(v) for k, v in want.items() if v}
+    assert rec.total == sum(want.values()) > 0
+
+
+@pytest.mark.parametrize("extra", [
+    ("runner.pipeline_param.cn_cache_interval=2",),
+    ("model.unet.neighboring_attn_type=self",),
+    ("model.unet.neighboring_attn_type=concat",),
+    tuple(f"dataset.neighboring_view_pair.{i}=[{(i - 2) % 6}, {(i + 2) % 6}]"
+          for i in range(6))], ids=["cache 2", "self", "concat",
+                                    "add over other pairs"])
+def test_tiny_generation_options_record_the_derived_flops(extra):
+    """As above with the ControlNets at ``ceil(steps / k)`` evaluations
+    under the cache, and with each attn4 form's calls (``self`` on 2 rows
+    of 6 x 512 and 6 x 128 tokens, ``add`` over other pairs on 24 stacked
+    rows)."""
+    rec, want = _tiny_generation_flops(extra)
     assert rec.by_wrapper == {k: float(v) for k, v in want.items() if v}
     assert rec.total == sum(want.values()) > 0
 
@@ -208,13 +234,15 @@ def test_numerics_pin_trips_on_perturbation(tmp_path):
 
 def test_committed_pin_holds_the_bench_key():
     """``utils/bench_pins.json`` holds the card's pin for the bench's
-    default point, four finite statistics of images in [0, 1]."""
+    default point and for it with the ControlNet cache every 2 steps
+    (``BENCH_CN_CACHE=2``), four finite statistics of images in [0, 1]."""
     pins = json.load(open(bench.__file__.replace(
         "bench.py", "utils/bench_pins.json")))
-    pin = pins[f"cuda/gen_224x400_b{bench.B}_boxes{bench.MAX_BOXES}"]
-    assert set(pin) == {"mean", "std", "min", "max"}
-    assert all(math.isfinite(v) for v in pin.values())
-    assert 0.0 <= pin["min"] < pin["mean"] < pin["max"] <= 1.0
+    key = f"cuda/gen_224x400_b{bench.B}_boxes{bench.MAX_BOXES}"
+    for pin in (pins[key], pins[key + "_cn2"]):
+        assert set(pin) == {"mean", "std", "min", "max"}
+        assert all(math.isfinite(v) for v in pin.values())
+        assert 0.0 <= pin["min"] < pin["mean"] < pin["max"] <= 1.0
 
 
 def test_bench_overlay_maps_to_configs_and_refuses_the_rest(monkeypatch):
@@ -228,10 +256,21 @@ def test_bench_overlay_maps_to_configs_and_refuses_the_rest(monkeypatch):
         assert cfg.use_dual_controlnet and cfg.use_aug_loss
     with pytest.raises(ValueError, match="BENCH_OVERLAY"):
         bench.config_name("+exp=video_16f")  # clips: BENCH_VIDEO_EXP
+    # BENCH_CN_CACHE above 1 turns the ControlNet cache on, with a pin key
+    # of its own; 0 and 1 leave the operating point as it is
+    name = bench.config_name("+exp=dual_branch_augloss_fusion")
+    plain = f"cuda/gen_224x400_b{bench.B}_boxes{bench.MAX_BOXES}"
+    for k, want, key in (("0", 0, plain), ("1", 0, plain),
+                         ("2", 2, plain + "_cn2"), ("3", 3, plain + "_cn3")):
+        monkeypatch.setenv("BENCH_CN_CACHE", k)
+        cfg = bench.gen_config(name)
+        assert cfg.runner.pipeline_param.cn_cache_interval == want
+        assert cfg.runner.pipeline_param.num_inference_steps == bench.STEPS
+        assert bench.gen_pin_key(cfg, name) == key
+    cfg = bench.gen_config(bench.config_name("+exp=224x400"))
+    assert bench.gen_pin_key(cfg, "baseline_224x400") == \
+        plain + "_224x400_cn3"
     monkeypatch.setattr(bench, "_device", lambda: {})
-    monkeypatch.setenv("BENCH_CN_CACHE", "2")
-    with pytest.raises(NotImplementedError, match="cn_cache_interval"):
-        bench.main_gen()
     monkeypatch.setenv("BENCH_VIDEO_EXP", "occ_bg")
     with pytest.raises(ValueError, match="BENCH_VIDEO_EXP"):
         bench.main_video_train()

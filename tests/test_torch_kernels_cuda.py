@@ -1105,3 +1105,92 @@ def test_sm90_second_box_carries_columns_64_and_up(cuda, kind, d):
     assert want4[..., 64:].abs().max().item() > 0.05
     assert want4[..., :64].abs().max().item() == 0
     _check(got, want)
+
+
+# attn4's other forms at 224x400 (B = 2 x 6 with batched CFG: 4 samples):
+# ``self`` attends over a sample's six views at each level, ``concat`` over
+# both neighbours' tokens, ``add`` over other pairs stacks [q; q]
+ATTN4_FORWARD_SHAPES = [
+    (4, 8400, 8400, 320, 8),    # self, top level: the longest yet, d = 40
+    (4, 2100, 2100, 640, 8),    # self, second level, d = 80
+    (24, 1400, 2800, 320, 8),   # concat
+    (48, 1400, 1400, 320, 8),   # add over other pairs
+]
+
+
+def _by_rows(fn, b, heads, lq, lk):
+    """``fn`` (a plain version) on slices of rows whose float32 scores stay
+    under phase 3's limit (``chip_smoke.by_rows``)."""
+    return chip_smoke.by_rows(fn, b, heads, lq, lk)
+
+
+@pytest.mark.parametrize("b, lq, lk, c, heads", ATTN4_FORWARD_SHAPES)
+def test_attn4_form_forward_takes_the_sm90_kernel(cuda, b, lq, lk, c,
+                                                  heads):
+    """The inference route of each new attn4 shape: over ``T_SCORE_CAP``
+    the capped wrapper, else the whole-K one, both on the sm90 forward
+    (d = 40 and 80); 4 x 8400 x 8400's float32 scores (9 GB) are compared
+    on slices of rows."""
+    q, k, v = _qkv(b, lq, lk, c, cuda, seed=130)
+    A.reset_launch_counts()
+    with torch.no_grad():
+        got = A.attention_packed(q, k, v, heads)
+    torch.cuda.synchronize()
+    kern = chip_smoke._fwd_kernel(lq, lk)
+    assert _launched() == {kern: 1}
+    assert A.sm90_attention_fwd.launches == 1
+    _check(got, _by_rows(A.attention_packed_capped_plain, b, heads, lq,
+                         lk)(q, k, v, heads))
+
+
+def test_self_form_third_level_forward_on_the_template(cuda):
+    """``self`` at the third level: 4 samples x 6 x 91 = 546 tokens at
+    d = 160, outside ``sm90_in_scope``: ``packed_attention_fwd``'s
+    template (``csrc/attention.cu``), the first full-width call there."""
+    q, k, v = _qkv(4, 546, 546, 1280, cuda, seed=131)
+    A.reset_launch_counts()
+    with torch.no_grad():
+        got = A.attention_packed(q, k, v, 8)
+    torch.cuda.synchronize()
+    assert _launched() == {"packed_attention_fwd": 1}
+    assert A.sm90_attention_fwd.launches == 0
+    _check(got, A.attention_packed_plain(q, k, v, 8))
+
+
+@pytest.mark.parametrize("b, lq, lk, c, heads", [
+    (1, 546, 546, 1280, 8),     # self, third level, d = 160: templates
+    (1, 8400, 8400, 320, 8),    # self, top level, under grad
+    (1, 2100, 2100, 640, 8),    # self, second level, d = 80
+    (6, 1400, 2800, 320, 8),    # concat under grad
+])
+def test_attn4_form_training_kernels(cuda, b, lq, lk, c, heads):
+    """``PackedAttention`` at each new attn4 training shape: the forward
+    with lse (capped over ``T_SCORE_CAP``), dq and dk/dv, on the sm90
+    kernels in scope and on the templates (``csrc/attention.cu``,
+    ``csrc/attention_train.cu``) at d = 160, each against its plain
+    version."""
+    q, k, v = _qkv(b, lq, lk, c, cuda, seed=132)
+    do = _qkv(b, lq, 1, c, cuda, seed=133)[0]
+    qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+    A.reset_launch_counts()
+    out = A.attention_packed(qr, kr, vr, heads)
+    out.backward(do)
+    torch.cuda.synchronize()
+    fwd = chip_smoke._fwd_kernel(lq, lk, lse=True)
+    assert _launched() == {fwd: 1, "packed_attention_bwd_dq": 1,
+                           "packed_attention_bwd_dkv": 1}
+    sm90 = int(A.sm90_in_scope(c // heads, True))
+    assert (A.sm90_attention_lse_fwd.launches, A.sm90_attention_bwd_dq
+            .launches, A.sm90_attention_bwd_dkv.launches) == (sm90,) * 3
+    o, lse = getattr(A, fwd)(q, k, v, heads)
+    o_want, lse_want = _by_rows(A.attention_packed_lse_plain, b, heads, lq,
+                                lk)(q, k, v, heads)
+    _check(out, o_want)
+    _check_lse(lse, lse_want)
+    args = (q, k, v, do, lse, A.attention_delta(o, do, heads), heads)
+    _check(qr.grad, _by_rows(A.attention_packed_bwd_dq_plain, b, heads, lq,
+                             lk)(*args))
+    dk_want, dv_want = _by_rows(A.attention_packed_bwd_dkv_plain, b, heads,
+                                lq, lk)(*args)
+    _check(kr.grad, dk_want)
+    _check(vr.grad, dv_want)

@@ -113,7 +113,8 @@ def test_transformer_block_with_camera_ring(tokens):
                                   neighboring_view_pair=RING)
     params = _init(jm, x, ctx)
     want = jax.jit(jm.apply)({"params": params}, x, ctx)
-    pm = tp.load_port(PL.BasicTransformerBlock(32, 4, 96, multiview=True),
+    pm = tp.load_port(PL.BasicTransformerBlock(32, 4, 96, multiview=True,
+                                               neighboring_view_pair=RING),
                       params, "unet")
     with torch.no_grad():
         got = pm(tp.t(x), tp.t(ctx), n_cam=6)

@@ -35,6 +35,7 @@ from dualdiff_tpu.pipeline.bev_controlnet import \
     BEVControlNetPipeline as JaxPipeline
 from dualdiff_tpu.runner import trainer as JT
 from dualdiff_tpu_torch.models import embedders as PE
+from dualdiff_tpu_torch.models.layers import GatedConnector
 from dualdiff_tpu_torch.ops import attention as A
 from dualdiff_tpu_torch.pipeline.bev_controlnet import BEVControlNetPipeline
 from dualdiff_tpu_torch.runner import conds as PC
@@ -97,15 +98,17 @@ def test_build_models_accepts_fusionp(tiny):
     assert cn.txt_con_fusion is None
     assert cn.txt_con_fusionp.heads == 8  # its own, not the UNet's 4
     assert [s.cond_kind for s in tiny["pmodels"]["specs"]] == ["occ_image"]
-    # the camera token in the time embedding builds beside SFA+; the gated
-    # attn4 connector, which no shipped config reaches, is refused
+    # the camera token in the time embedding builds beside SFA+, and so does
+    # the gated attn4 connector, which no shipped config reaches
     cfg = tp.port_config(["model.controlnet.use_cam_in_temb=true"],
                          fusionp=True)
     cn, = build_models(cfg, tiny=True, device="cpu")["controlnets"]
     assert cn.use_cam_in_temb and cn.txt_con_fusionp is not None
     cfg = tp.port_config(["model.unet.zero_module_type=gated"], fusionp=True)
-    with pytest.raises(NotImplementedError, match="zero_linear"):
-        build_models(cfg, tiny=True, device="cpu")
+    built = build_models(cfg, tiny=True, device="cpu")
+    block = built["unet"].down_blocks[0].attentions[0].transformer_blocks[0]
+    assert isinstance(block.connector, GatedConnector)
+    assert built["controlnets"][0].txt_con_fusionp is not None
 
 
 def test_controlnet_precompute_and_encode(tiny, flash_at_512):

@@ -65,7 +65,7 @@ def test_video_transformer_block_matches_jax(tokens):
     want = jax.jit(jm.apply)({"params": params}, x, ctx)
     pm = tp.load_port(PL.BasicTransformerBlock(
         32, 4, 96, multiview=True, st_attn=True, temporal=True,
-        num_frames=f), params, "unet")
+        num_frames=f, neighboring_view_pair=RING), params, "unet")
     with torch.no_grad():
         got = pm(tp.t(x), tp.t(ctx), n_cam=n)
     tp.assert_close(got, want, RTOL, ATOL)
@@ -167,8 +167,8 @@ def test_factory_builds_the_video_unet_and_refuses_rgd():
     """The video UNet has ST-Attn and temporal attention; with RGD on
     (stage 2) its attn1 and attn2, and nothing else, carry LoRA adapters of
     ``video.lora_rank``.  With the box adapter on, only the ControlNets
-    carry it, as the JAX factory builds them; attn4 ``concat`` is
-    refused."""
+    carry it, as the JAX factory builds them; attn4 ``concat`` builds on
+    the video UNet too."""
     cfg = tp.port_config(tp.TINY_VIDEO_OVERRIDES, video=True)
     unet = build_models(cfg, tiny=True, device="cpu")["unet"]
     block = unet.down_blocks[0].attentions[0].transformer_blocks[0]
@@ -186,8 +186,9 @@ def test_factory_builds_the_video_unet_and_refuses_rgd():
     assert all(cn.use_box_adapter for cn in boxed["controlnets"])
     assert not any("_box" in n for n, _ in
                    boxed["unet"].named_parameters())
-    with pytest.raises(NotImplementedError):
-        build_models(tp.port_config(
-            tp.TINY_VIDEO_OVERRIDES
-            + ["model.unet.neighboring_attn_type=concat"], video=True),
-            tiny=True, device="cpu")
+    concat = build_models(tp.port_config(
+        tp.TINY_VIDEO_OVERRIDES
+        + ["model.unet.neighboring_attn_type=concat"], video=True),
+        tiny=True, device="cpu")["unet"]
+    block = concat.down_blocks[0].attentions[0].transformer_blocks[0]
+    assert block.neighboring_attn_type == "concat" and block.st_attn
