@@ -138,6 +138,22 @@ Phases, in order; any failure exits non-zero:
             generation's recorded kernel FLOPs and launches equal to their
             derivations (``generate_kernel_flops``,
             ``generate_launches_per_generation``).
+20. tools   a training run through the port's own entry points at full SD
+            v1.5 width (``phase_tools``): ``python -m
+            dualdiff_tpu_torch.tools.train`` in a subprocess (the flagship,
+            runner=debug, 4 micro-steps at gradient_accumulation_steps=2,
+            checkpoints at 2 and 4, a validation at 4), the resume from
+            checkpoint-2 in this process against checkpoint-4 bit for bit,
+            the export back through ``load_pretrained_dir``, ``tools.test``
+            and ``tools.val_set_gen`` (JPEGs at 900 x 1600, a rerun that
+            skips), every micro-step's and generation's launches against
+            their derivations; checkpoint and export bytes and seconds,
+            s per micro-step and the peak with the accumulators.  Alone:
+            ``python3 -c "import chip_smoke as s; s.phase_device();
+            s.phase_build(); s.phase_tools()"``.
+
+An early line lists which of ``OPTIONAL_PACKAGES`` (PIL, cv2, PyYAML,
+h5py, tensorboardX, orbax) import on the card; the port needs none.
 
 On the CPU, ``VideoTrainer(cfg, clips, device="cpu", models=...)`` runs the
 same training with the plain versions; README.md says how to rehearse
@@ -160,6 +176,7 @@ import functools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -237,6 +254,17 @@ VARIANTS_TRAIN = ["use_box_adapter=true",
 KV_ADAPTER = 1 + 77
 # phase bench: the port bench without its video sections, 3 training steps
 BENCH_ENV = {"BENCH_SKIP_VIDEO": "1", "BENCH_TRAIN_STEPS": "3"}
+# phase tools: the train tool's words (the flagship, 4 micro-steps at k = 2,
+# checkpoints at 2 and 4, a validation at 4), val_set_gen's samples, each
+# tool's time limit, and the packages probed on the card
+TOOLS_ARGS = ["+exp=dual_branch_augloss_fusion", "runner=debug",
+              "runner.max_train_steps=4",
+              "runner.gradient_accumulation_steps=2",
+              "runner.checkpointing_steps=2", "runner.validation_steps=4",
+              "dataset.num_samples=4"]
+TOOLS_VAL_SAMPLES = 2
+TOOLS_TIMEOUT = 600
+OPTIONAL_PACKAGES = ("PIL", "cv2", "yaml", "h5py", "tensorboardX", "orbax")
 # phase options: the pipeline's generation options on the flagship's model
 # set, tag -> (config overrides, call arguments); given-view pinning
 # (``PINNED_VIEWS``) comes beside them.  One warm-up and
@@ -2842,6 +2870,379 @@ def phase_bench() -> dict:
     return line
 
 
+def package_probe() -> dict:
+    """{package: whether it imports here} for the packages the port does
+    not assume (``OPTIONAL_PACKAGES``)."""
+    import importlib
+
+    out = {}
+    for name in OPTIONAL_PACKAGES:
+        try:
+            importlib.import_module(name)
+            out[name] = True
+        except Exception:  # absent, or broken on import: not there
+            out[name] = False
+    return out
+
+
+def _tool(name: str, args, timeout: int = TOOLS_TIMEOUT):
+    """``python -m dualdiff_tpu_torch.tools.<name> <args>`` in a
+    subprocess from the checkout's root, its output to the log.  Raises on
+    a non-zero exit and on a logged validation failure.  -> (its standard
+    output, then its standard error; wall seconds)."""
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", f"dualdiff_tpu_torch.tools."
+                        f"{name}", *args], cwd=os.path.dirname(
+                            os.path.abspath(__file__)),
+                       capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    for text in (p.stderr, p.stdout):
+        for ln in (text or "").strip().splitlines():
+            log(f"#   {name}: {ln}")
+    if p.returncode != 0:
+        raise AssertionError(f"tools.{name} exited {p.returncode}")
+    if "validation failed" in (p.stderr or "") + (p.stdout or ""):
+        raise AssertionError(f"tools.{name} logged a failed validation")
+    return (p.stdout or "") + (p.stderr or ""), wall
+
+
+def _printed_launches(stdout: str) -> list:
+    """The ``launches {...}`` lines the test and val_set_gen tools print,
+    one per generation."""
+    return [json.loads(ln.split(" ", 1)[1]) for ln in stdout.splitlines()
+            if ln.startswith("launches ")]
+
+
+def _check_launches(counts: dict, expect: dict, what: str) -> None:
+    got = _launches(**{k: v for k, v in counts.items() if k in REPLACES})
+    if got != expect:
+        raise AssertionError(f"{what}: kernel launches {counts} != {expect}")
+    check_sm90_launches(counts)
+
+
+def _add(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _differs(a: dict, b: dict) -> list:
+    """Names whose tensors are not equal bit for bit (on the host)."""
+    return [k for k in a if not torch.equal(a[k].cpu(), b[k].cpu())]
+
+
+def _max_diff(a: dict, b: dict) -> float:
+    return max((float((a[k].cpu() - b[k].cpu()).abs().max()) for k in a),
+               default=0.0)
+
+
+def phase_tools():
+    """A training run through the port's own entry points at full SD v1.5
+    width (the flagship, 224x400, bf16, seeded random weights), in a
+    temporary directory that it deletes (free disk checked first against
+    the reckoned bytes):
+
+    1. ``tools.train`` (``TOOLS_ARGS``: runner=debug, 4 micro-steps at
+       ``gradient_accumulation_steps=2``, checkpoints at 2 and 4, a
+       validation at 4) in a subprocess: ``checkpoint-2`` and
+       ``checkpoint-4`` with ``count`` 1 and 2, four finite
+       ``metrics.jsonl`` lines, the 448 x 1200 validation grid, the export
+       directories, no logged validation failure.
+    2. Resume in this process: a fresh trainer loads ``checkpoint-2`` and
+       runs steps 3-4; its masters must equal ``checkpoint-4``'s bit for
+       bit.  Where they do not, the same two steps run twice more from
+       ``checkpoint-2``: if those two differ too, the card is not
+       deterministic there and the resumed masters must lie within 4x the
+       spread of the repeats (logged as such); else the phase fails.
+       Times the load and reads the step's peak with the accumulators
+       (the saves' and the export's bytes and seconds come from the train
+       tool's log).
+    3. The export through ``load_pretrained_dir`` into a fresh full-width
+       model set: no unknown key, nothing missing, every tensor equal to
+       the exported one, the trainables equal to ``checkpoint-4``'s
+       masters.
+    4. ``tools.test`` from ``checkpoint-4``: the 448 x 1200 grid.
+    5. ``tools.val_set_gen`` over ``TOOLS_VAL_SAMPLES`` samples with
+       ``gen_naming=original``: every JPEG's frame header 900 x 1600
+       (``back_resize`` 896 x 1600 plus ``back_pad``'s 4 rows); a rerun
+       skips both samples and rewrites no file.
+    6. Every micro-step's launches (the subprocess's and the resumed
+       ones) equal ``train_launches_per_step``, every generation's (the
+       validation, the test tool's, val_set_gen's) equal
+       ``generate_launches_per_generation`` at runner=debug's steps, each
+       through ``check_sm90_launches``.
+
+    -> (launches of the whole phase, one micro-step's derivation)."""
+    import shutil
+    import statistics
+    import tempfile
+
+    from dualdiff_tpu_torch.data.wrappers import build_dataset
+    from dualdiff_tpu_torch.ops import attention as A
+    from dualdiff_tpu_torch.runner.factory import build_models
+    from dualdiff_tpu_torch.runner.train_state import (partition_params,
+                                                       trainable_predicate)
+    from dualdiff_tpu_torch.runner.trainer import (CHECKPOINT_FILE,
+                                                   EXPORT_FILE,
+                                                   MultiviewTrainer)
+    from dualdiff_tpu_torch.runner.weights import (from_diffusers,
+                                                   load_pretrained_dir,
+                                                   read_checkpoint)
+    from dualdiff_tpu_torch.utils.config import compose
+    from dualdiff_tpu_torch.utils.image_io import jpeg_size, read_png
+
+    cfg, _ = compose(TOOLS_ARGS)
+    r = cfg.runner
+    k = int(r.gradient_accumulation_steps)
+    h, w = cfg.dataset.image_size
+    tiny = bool(cfg.get("tiny_models", False))  # a CPU rehearsal's
+    meta = build_models(cfg, tiny=tiny, device="meta")
+    trainable, _ = partition_params(meta, trainable_predicate(
+        str(cfg.model.unet.trainable_state),
+        bool(cfg.model.controlnet.bbox_embedder_param.get(
+            "trainable_class_token", False))))
+    n_t = sum(p.numel() for p in trainable.values())
+    mu_bytes = 2 if str(r.adam_mu_dtype) == "bf16" else 4
+    ckpt_bytes = n_t * (4 + mu_bytes + 4 + (4 if k > 1 else 0))
+    export_bytes = 4 * sum(p.numel() for m in (meta["unet"],
+                                               *meta["controlnets"])
+                           for p in m.parameters())
+    need = 2 * ckpt_bytes + export_bytes
+    layers = len(meta["unet"].down_blocks[0].resnets)
+    levels = model_levels(meta["unet"], (h // 8, w // 8))
+    remat = bool(r.enable_unet_checkpointing) and bool(
+        r.enable_controlnet_checkpointing)
+    step_want = train_launches_per_step(layers, len(meta["controlnets"]),
+                                        remat, levels,
+                                        attn4=attn4_form(meta["unet"]))
+    gen_want = generate_launches_per_generation(
+        layers, len(meta["controlnets"]),
+        int(r.pipeline_param.num_inference_steps), levels)
+    del meta, trainable
+    total: dict = {}
+    row = {"phase": "tools", "config": " ".join(TOOLS_ARGS),
+           "trainable_params": n_t, "reckoned_checkpoint_bytes": ckpt_bytes,
+           "reckoned_export_bytes": export_bytes}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        row["disk_free_bytes"] = free
+        log(f"# tools: {tmp}, {free / 1e9:.1f} GB free, {need / 1e9:.1f} GB "
+            f"reckoned ({n_t / 1e6:.1f}M trainables: a checkpoint "
+            f"{ckpt_bytes / 1e9:.2f} GB, the export {export_bytes / 1e9:.2f}"
+            f" GB)")
+        if free < 1.1 * need:
+            raise AssertionError(f"{free} bytes free in {tmp}: under the "
+                                 f"{need} bytes the run writes, and 10%")
+        torch.cuda.empty_cache()
+        run = os.path.join(tmp, "run")
+
+        # 1. the train tool
+        log_text, row["train_tool_s"] = _tool("train", TOOLS_ARGS
+                                              + [f"log_root={run}"])
+        saves = re.findall(r"saved checkpoint \S+ \((\d+) bytes, ([\d.]+) s\)",
+                           log_text)
+        export = re.findall(r"exported \S+ \((\d+) bytes, ([\d.]+) s\)",
+                            log_text)
+        if len(saves) != 2 or len(export) != 1:
+            raise AssertionError(f"train tool: saves {saves}, export "
+                                 f"{export}")
+        row["checkpoint_bytes"] = int(saves[0][0])
+        row["save_s"] = [float(t) for _, t in saves]
+        row["export_bytes"], row["export_s"] = int(export[0][0]), float(
+            export[0][1])
+        states = {}
+        for step in (2, 4):
+            path = os.path.join(run, f"checkpoint-{step}", CHECKPOINT_FILE)
+            states[step] = torch.load(path, map_location="cpu",
+                                      weights_only=True, mmap=True)
+            opt = states[step]["optimizer"]
+            if (states[step]["step"], opt["count"], opt["mini_step"]) != (
+                    step, step // k, 0):
+                raise AssertionError(f"checkpoint-{step}: step "
+                                     f"{states[step]['step']}, count "
+                                     f"{opt['count']}, mini_step "
+                                     f"{opt['mini_step']}")
+            row[f"checkpoint_{step}_bytes"] = os.path.getsize(path)
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            lines = [json.loads(ln) for ln in f]
+        if [ln["step"] for ln in lines] != [1, 2, 3, 4] or not all(
+                math.isfinite(ln[f"train/{m}"]) for ln in lines
+                for m in ("loss", "grad_norm")):
+            raise AssertionError(f"metrics.jsonl: {lines}")
+        for ln in lines:
+            _check_launches(ln["launches"], step_want,
+                            f"train tool step {ln['step']}")
+            _add(total, ln["launches"])
+        row["tool_s_per_micro_step"] = [ln["train/step_time_s"]
+                                        for ln in lines]
+        row["loss"] = [ln["train/loss"] for ln in lines]
+        val_dir = os.path.join(run, "val", "step-4")
+        grid = read_png(os.path.join(val_dir, "0_gen0.png"))
+        if grid.shape != (2 * h, 3 * w, 3):
+            raise AssertionError(f"validation grid {grid.shape}")
+        with open(os.path.join(val_dir, "launches.json")) as f:
+            val_launches = json.load(f)
+        _check_launches(val_launches, gen_want, "validation generation")
+        _add(total, val_launches)
+        cdirs = list(cfg.model.controlnet_dir)
+        exports = {f"controlnet_{i}": d for i, d in enumerate(cdirs)}
+        exports["unet"] = str(cfg.model.unet_dir)
+        for d in exports.values():
+            if not os.path.exists(os.path.join(run, d, EXPORT_FILE)):
+                raise AssertionError(f"no export in {d}")
+
+        # 2. resume in this process
+        rcfg, _ = compose(TOOLS_ARGS + [f"log_root={run}",
+                                        "runner.checkpointing_steps=0"])
+        trainer = MultiviewTrainer(rcfg, build_dataset(rcfg, "train"),
+                                   device=rcfg.get("device"))
+        ckpt2 = os.path.join(run, "checkpoint-2")
+        resumed_steps = []
+
+        def on_metrics(step, m):
+            counts = launch_counts(A)
+            A.reset_launch_counts()
+            _check_launches(counts, step_want, f"resumed step {step}")
+            _add(total, {k_: v for k_, v in counts.items() if v})
+            resumed_steps.append(m["step_time_s"])
+
+        def resume():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.load_checkpoint(ckpt2)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()
+            A.reset_launch_counts()
+            trainer.run(4, on_metrics)
+            return load_s, {n: v.to("cpu", copy=True)
+                            for n, v in trainer.optimizer.master.items()}
+
+        row["load_s"], got = resume()
+        row["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        want = states[4]["optimizer"]["master"]
+        differ = _differs(got, want)
+        row["resumed_masters_differ"] = len(differ)
+        if differ:
+            log(f"# tools: resumed masters differ from checkpoint-4's in "
+                f"{len(differ)} of {len(got)} tensors (max "
+                f"{_max_diff(got, want):.3e}); two more runs from "
+                f"checkpoint-2")
+            _, a = resume()
+            _, b = resume()
+            spread = _max_diff(a, b)
+            row["repeat_spread"] = spread
+            row["resumed_max_diff"] = _max_diff(got, want)
+            if spread == 0.0:
+                raise AssertionError(
+                    f"the card repeats steps 3-4 bit for bit, but the "
+                    f"resumed masters differ from checkpoint-4's: "
+                    f"{differ[:5]}")
+            log(f"# tools: NOT DETERMINISTIC on this card: two runs of "
+                f"steps 3-4 from checkpoint-2 differ by up to {spread:.3e}")
+            if row["resumed_max_diff"] > 4 * spread:
+                raise AssertionError(
+                    f"resumed masters off checkpoint-4's by "
+                    f"{row['resumed_max_diff']} beyond 4x the card's "
+                    f"repeat spread {spread}")
+        row["resume_bit_equal"] = not differ
+        row["resumed_s_per_micro_step"] = resumed_steps[:2]
+        shutil.rmtree(ckpt2)
+        del trainer, got, states[2]
+        torch.cuda.empty_cache()
+
+        # 3. the export round trip
+        fresh = build_models(cfg, tiny=tiny,
+                             device=cfg.get("device") or "cuda")
+        report = load_pretrained_dir(fresh, run)
+        nets = {"unet": fresh["unet"], **{
+            f"controlnet_{i}": cn for i, cn in enumerate(fresh["controlnets"])}}
+        for key, module in nets.items():
+            info = report[key]
+            if info is None or not info["file"].endswith(
+                    os.path.join(exports[key], EXPORT_FILE)) \
+                    or info["missing"]:
+                raise AssertionError(f"export of {key}: {info}")
+            src = from_diffusers(read_checkpoint(info["file"]),
+                                 "unet" if key == "unet" else "controlnet")
+            own = module.state_dict()
+            if set(src) != set(own) or _differs(src, own):
+                raise AssertionError(f"export of {key} did not load back "
+                                     f"bit for bit")
+            masters = {n.split("/", 1)[1]: v for n, v in want.items()
+                       if n.startswith(key + "/")}
+            if _differs(masters, {n: src[n] for n in masters}):
+                raise AssertionError(f"export of {key}: trainables differ "
+                                     f"from checkpoint-4's masters")
+        row["export_tensors"] = {k_: len(m.state_dict())
+                                 for k_, m in nets.items()}
+        del fresh, nets, states, want
+        torch.cuda.empty_cache()
+
+        # 4. the test tool
+        out, row["test_tool_s"] = _tool("test", [
+            f"resume_from_checkpoint={run}/checkpoint-4",
+            f"log_root={os.path.join(tmp, 'test')}",
+            "runner.validation_index=[0]"])
+        printed = _printed_launches(out)
+        if len(printed) != 1:
+            raise AssertionError(f"test tool: {len(printed)} generations")
+        _check_launches(printed[0], gen_want, "test tool generation")
+        _add(total, printed[0])
+        grid = read_png(os.path.join(tmp, "test", "test_out", "0_gen.png"))
+        if grid.shape != (2 * h, 3 * w, 3):
+            raise AssertionError(f"test tool grid {grid.shape}")
+
+        # 5. val_set_gen
+        vsg = os.path.join(tmp, "vsg")
+        args = TOOLS_ARGS + [f"resume_from_checkpoint={run}/checkpoint-4",
+                             f"log_root={vsg}", "gen_naming=original",
+                             f"dataset.num_samples={TOOLS_VAL_SAMPLES}"]
+        out, row["val_set_gen_s"] = _tool("val_set_gen", args)
+        printed = _printed_launches(out)
+        if len(printed) != TOOLS_VAL_SAMPLES:
+            raise AssertionError(f"val_set_gen: {len(printed)} generations")
+        for c in printed:
+            _check_launches(c, gen_want, "val_set_gen generation")
+            _add(total, c)
+        samples = os.path.join(vsg, "val_set_gen", "samples")
+        files = sorted(os.path.join(samples, cam, f)
+                       for cam in os.listdir(samples)
+                       for f in os.listdir(os.path.join(samples, cam)))
+        back = tuple(a + b for a, b in zip(
+            cfg.dataset.back_resize, (cfg.dataset.back_pad[1]
+                                      + cfg.dataset.back_pad[3],
+                                      cfg.dataset.back_pad[0]
+                                      + cfg.dataset.back_pad[2])))
+        sizes = {jpeg_size(f) for f in files}
+        if len(files) != TOOLS_VAL_SAMPLES * N_CAM or sizes != {back} \
+                or not all(f.endswith(".jpg") for f in files):
+            raise AssertionError(f"val_set_gen wrote {len(files)} files of "
+                                 f"{sizes}, want {back}")
+        mtimes = {f: os.path.getmtime(f) for f in files}
+        out, row["val_set_gen_rerun_s"] = _tool("val_set_gen", args)
+        if f"0 generated, {TOOLS_VAL_SAMPLES} skipped" not in out or any(
+                os.path.getmtime(f) != t for f, t in mtimes.items()):
+            raise AssertionError("val_set_gen's rerun did not skip")
+        row["val_set_gen_files"] = len(files)
+        row["jpeg_size"] = list(back)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    row["s_per_micro_step"] = statistics.median(
+        row["tool_s_per_micro_step"][1:] + row["resumed_s_per_micro_step"])
+    row["launches_per_micro_step"] = step_want
+    row["launches_per_generation"] = gen_want
+    total = {**dict.fromkeys(list(REPLACES) + list(SM90_ROUTES), 0), **total}
+    row["launches_run"] = total
+    log(json.dumps(row))
+    log(f"tools s/micro-step (k = {k}): {row['s_per_micro_step']}")
+    log(f"tools peak GiB with the accumulators: {row['peak_mem_gib']}")
+    log(f"tools checkpoint bytes {row['checkpoint_bytes']}, save "
+        f"{row['save_s']} s, load {row['load_s']:.2f} s; export bytes "
+        f"{row['export_bytes']}, {row['export_s']:.2f} s")
+    return total, step_want
+
+
 # the path each kernel serves, whose launches the kernels line reports
 KERNEL_PATH = {"packed_attention_fwd": "generate",
                "packed_attention_nbr_fwd": "generate",
@@ -2928,6 +3329,7 @@ def main() -> int:
         if "--profile" in args else None
     t_start = time.perf_counter()
     smi = phase_device()
+    log(f"# packages: {json.dumps(package_probe())}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2978,6 +3380,10 @@ def main() -> int:
                       f"B = {B_CACHE}", cache["run"], cache["run_template"])
     per_step["cache"] = (cache["step"], cache["step_template"])
     timed("bench", phase_bench)
+    tools, tools_step = timed("tools", phase_tools)
+    paths["tools"] = ("tools phase: 4 micro-steps at k = 2 in the train "
+                      "tool, 2 resumed, 4 generations at 2 steps", tools, {})
+    per_step["tools micro-step"] = (tools_step, {})
     log(f"# all phases: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line(results, paths, per_step)))
     print(smi)

@@ -62,7 +62,7 @@ import time
 import numpy as np
 import torch
 
-from .utils.config import EXP_CONFIGS
+from .utils.config import VARIANTS
 
 A100_BASELINE_FPS = 0.5  # bench.py's estimate for the reference on an A100
 STEPS = 20
@@ -73,13 +73,13 @@ SEED = 0  # of the random weights
 TIMED_GENERATIONS = 5
 FLAGSHIP_OVERLAY = "+exp=dual_branch_augloss_fusion"
 # BENCH_OVERLAY -> the port's composed config (utils.config)
-# and every other shipped image exp (EXP_CONFIGS: the 224x400 baseline, the
+# and every other shipped image exp (VARIANTS: the 224x400 baseline, the
 # occ_bg ablations, occ_fg, occ3d, exp-drive-wm/192x384, ...)
 OVERLAYS = {FLAGSHIP_OVERLAY: "dual_branch_augloss_fusion_224x400",
             "+exp-hd=256x704": "dual_branch_augloss_fusion_256x704",
             "+exp-hd=432x768": "dual_branch_augloss_fusion_432x768",
             "+exp=occ_bg_fusionp": "occ_bg_fusionp_224x400",
-            **EXP_CONFIGS}
+            **VARIANTS}
 # the flagship at its three geometries: its metric text and its pin keys
 FLAGSHIP_CONFIGS = {OVERLAYS[k] for k in (FLAGSHIP_OVERLAY, "+exp-hd=256x704",
                                           "+exp-hd=432x768")}

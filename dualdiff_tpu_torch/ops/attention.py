@@ -120,6 +120,7 @@ __all__ = ["PACKED_MIN_LQ", "FLASH_MIN_LEN", "mha_einsum",
            "PackedAttention", "T_SCORE_CAP", "CAPPED_WARPS",
            "CAPPED_LSE_WARPS", "HEADPACK_MAX_LQ", "over_score_cap",
            "KERNEL_WRAPPERS", "SM90_KERNELS", "reset_launch_counts",
+           "take_launch_counts",
            "SM90_MAX_HEAD_DIM", "sm90_in_scope", "sm90_attention_fwd",
            "sm90_attention_lse_fwd", "sm90_attention_nbr_fwd",
            "sm90_attention_bwd_dq", "sm90_attention_bwd_dkv",
@@ -1100,6 +1101,15 @@ def reset_launch_counts() -> None:
     """Every wrapper's count and the sm90 kernels' to 0."""
     for fn in KERNEL_WRAPPERS + SM90_KERNELS:
         fn.launches = 0
+
+
+def take_launch_counts() -> dict:
+    """{name: launches} of every wrapper and sm90 kernel that launched
+    since the last reset, then all counts to 0."""
+    out = {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS + SM90_KERNELS
+           if fn.launches}
+    reset_launch_counts()
+    return out
 
 
 class PackedAttention(torch.autograd.Function):

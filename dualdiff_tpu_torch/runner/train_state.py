@@ -2,10 +2,11 @@
 
 Port of ``dualdiff_tpu/runner/train_state.py``.  The JAX package keeps the
 trainables in float32, casts them to the compute dtype at each use, and
-steps them with ``optax.chain(clip_by_global_norm, adamw)``.  Here every
-module stays in the compute dtype (bf16); ``AdamW`` keeps a float32 master
-copy of each trainable, upcasts the gradients, steps the master copy exactly
-as optax does and copies it back rounded.  ``torch.optim.AdamW`` is not
+steps them with ``optax.chain(clip_by_global_norm, adamw)``, wrapped in
+``optax.MultiSteps`` when ``gradient_accumulation_steps`` is above 1.  Here
+every module stays in the compute dtype (bf16); ``AdamW`` keeps a float32
+master copy of each trainable, upcasts the gradients, steps the master copy
+exactly as optax does and copies it back rounded.  ``torch.optim.AdamW`` is not
 used: it has no low-precision first moment, and ``clip_grad_norm_`` adds
 1e-6 to the norm.
 
@@ -164,9 +165,10 @@ def build_schedule(cfg_runner, max_train_steps: int):
 class AdamW:
     """``optax.chain(clip_by_global_norm(max_norm), adamw(schedule, b1, b2,
     eps, weight_decay, mu_dtype))`` over float32 master copies of
-    ``params``.
+    ``params``; with ``accumulate = k > 1``, wrapped as by
+    ``optax.MultiSteps(..., every_k_schedule=k)``.
 
-    Per step: g = the upcast gradients; norm = their global norm;
+    Per update: g = the upcast gradients; norm = their global norm;
     g <- (g / norm) * max_norm when norm >= max_norm; mu, nu updated as
     optax does (the first moment stored in ``mu_dtype``, and ``b1 * mu``
     taken in that dtype with ``b1`` itself rounded to it, as JAX's weak
@@ -174,19 +176,29 @@ class AdamW:
     + wd * p;
     p <- p - lr(count) * u; then each live parameter gets its master copy
     rounded to its own dtype.  ``master``: the float32 starting values,
-    when the live parameters were already rounded."""
+    when the live parameters were already rounded.
+
+    Gradient accumulation (``MultiSteps``' ``update``): each micro-step
+    folds its upcast gradients into float32 accumulators by Welford's mean,
+    ``acc += (g - acc) / (mini_step + 1)``; the k-th runs the update above
+    on ``acc`` (so ``count``, and with it the schedule, advances once per k
+    micro-steps) and zeroes ``acc`` and ``mini_step``.  The other
+    micro-steps leave the masters, the moments, ``count`` and the live
+    parameters as they are.  The accumulators exist only when k > 1."""
 
     def __init__(self, params: Dict[str, torch.nn.Parameter], schedule,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                  weight_decay: float = 1e-2, max_grad_norm: float = 1.0,
                  mu_dtype: torch.dtype = torch.float32,
-                 master: Optional[Dict[str, torch.Tensor]] = None):
+                 master: Optional[Dict[str, torch.Tensor]] = None,
+                 accumulate: int = 1):
         self.params = params
         self.schedule = schedule
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay = weight_decay
         self.max_grad_norm = max_grad_norm
         self.mu_dtype = mu_dtype
+        self.accumulate = max(int(accumulate), 1)
         self._b1_mu = float(torch.tensor(b1, dtype=mu_dtype))
         self.master = {k: (master[k] if master is not None
                            else p.detach()).float().clone().to(p.device)
@@ -195,6 +207,9 @@ class AdamW:
                    for k, m in self.master.items()}
         self.nu = {k: torch.zeros_like(m) for k, m in self.master.items()}
         self.count = 0
+        self.acc = {k: torch.zeros_like(m) for k, m in self.master.items()} \
+            if self.accumulate > 1 else None
+        self.mini_step = 0
 
     def grads(self) -> Dict[str, torch.Tensor]:
         """The live parameters' gradients (zero where none reached)."""
@@ -208,10 +223,30 @@ class AdamW:
     @torch.no_grad()
     def step(self, grads: Optional[Dict[str, torch.Tensor]] = None
              ) -> torch.Tensor:
-        """One update from ``grads`` (default: the parameters' ``.grad``).
-        Returns the global norm of the gradients before clipping."""
+        """One micro-step from ``grads`` (default: the parameters'
+        ``.grad``): an update, or with accumulation a fold into the
+        accumulators and an update every ``accumulate``-th call.  Returns
+        the global norm of the given gradients before clipping."""
         g = {k: v.float() for k, v in (grads or self.grads()).items()}
         norm = global_norm(list(g.values()))
+        if self.acc is None:
+            self._update(g, norm)
+            return norm
+        n = self.mini_step
+        for k, gk in g.items():
+            self.acc[k].add_((gk - self.acc[k]).div_(n + 1))
+        del g
+        if n + 1 < self.accumulate:
+            self.mini_step = n + 1
+            return norm
+        self._update(self.acc, global_norm(list(self.acc.values())))
+        for a in self.acc.values():
+            a.zero_()
+        self.mini_step = 0
+        return norm
+
+    def _update(self, g: Dict[str, torch.Tensor], norm: torch.Tensor
+                ) -> None:
         if not bool(norm < self.max_grad_norm):
             g = {k: (v / norm) * self.max_grad_norm for k, v in g.items()}
         lr = float(self.schedule(self.count))
@@ -229,7 +264,50 @@ class AdamW:
             self.nu[k] = nu
             self.params[k].copy_(self.master[k])
         self.count += 1
-        return norm
+
+    def state_dict(self) -> Dict:
+        """``master``, ``mu`` (in ``mu_dtype``), ``nu`` and ``count``; with
+        accumulation also ``acc`` and ``mini_step``.  The tensors are the
+        optimizer's own, on its device."""
+        out = {"master": dict(self.master), "mu": dict(self.mu),
+               "nu": dict(self.nu), "count": self.count,
+               "accumulate": self.accumulate}
+        if self.acc is not None:
+            out.update(acc=dict(self.acc), mini_step=self.mini_step)
+        return out
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict) -> None:
+        """Copy a ``state_dict()`` into this optimizer's tensors (on its own
+        device and dtypes), then set the live parameters from the masters,
+        rounded to their dtype.  The trainable names and the accumulation
+        must be this optimizer's."""
+        if int(state.get("accumulate", 1)) != self.accumulate:
+            raise ValueError(
+                f"the state was taken with gradient accumulation over "
+                f"{state.get('accumulate', 1)} micro-steps, this optimizer "
+                f"accumulates {self.accumulate}")
+        for key in ("master", "mu", "nu") + (("acc",) if self.acc is not None else ()):
+            own, src = getattr(self, key), state[key]
+            if set(src) != set(own):
+                raise KeyError(f"{key}: the state's trainables differ: "
+                               f"{sorted(set(src) ^ set(own))[:5]}")
+            for k, v in src.items():
+                own[k].copy_(v)
+        self.count = int(state["count"])
+        self.mini_step = int(state.get("mini_step", 0))
+        for k, p in self.params.items():
+            p.copy_(self.master[k])
+
+    @torch.no_grad()
+    def reset_state(self) -> None:
+        """The moments, ``count`` and the accumulators back to zero, as
+        ``tx.init(params)`` starts them; the masters stay."""
+        for d in (self.mu, self.nu) + ((self.acc,) if self.acc is not None else ()):
+            for v in d.values():
+                v.zero_()
+        self.count = 0
+        self.mini_step = 0
 
 
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
@@ -243,9 +321,8 @@ def build_optimizer(cfg_runner, params: Dict[str, torch.nn.Parameter],
                     ) -> AdamW:
     """The JAX package's ``build_optimizer`` for the port: AdamW with a
     global-norm clip, the configured schedule and a bf16 first moment when
-    ``adam_mu_dtype`` is ``bf16``."""
-    if int(cfg_runner.gradient_accumulation_steps) > 1:
-        raise NotImplementedError("gradient accumulation is not ported")
+    ``adam_mu_dtype`` is ``bf16``, accumulating the gradients of
+    ``gradient_accumulation_steps`` micro-steps per update when above 1."""
     mu_dtype = {"bf16": torch.bfloat16}.get(
         str(cfg_runner.get("adam_mu_dtype", "bf16")), torch.float32)
     return AdamW(params, build_schedule(cfg_runner, max_train_steps),
@@ -254,4 +331,5 @@ def build_optimizer(cfg_runner, params: Dict[str, torch.nn.Parameter],
                  eps=float(cfg_runner.adam_epsilon),
                  weight_decay=float(cfg_runner.adam_weight_decay),
                  max_grad_norm=float(cfg_runner.max_grad_norm),
-                 mu_dtype=mu_dtype, master=master)
+                 mu_dtype=mu_dtype, master=master,
+                 accumulate=int(cfg_runner.gradient_accumulation_steps))

@@ -44,14 +44,33 @@ samples recompute every epoch.  Flip augmentation
 (``dataset.augment3d.flip_ratio``, ``data/augment.py``) runs before the
 collate on the batch's own numpy generator, as in the JAX package.
 
-Not ported (raises ``NotImplementedError``): gradient accumulation.
-Checkpoint save/load is not ported either.
+Gradient accumulation (``runner.gradient_accumulation_steps = k``) is the
+optimizer's (``train_state.AdamW``, ``optax.MultiSteps``' semantics):
+``step`` and ``max_train_steps`` count micro-steps, as in the JAX package,
+whose schedule is built over ``max_train_steps`` and advanced once per
+update.  ``run()`` builds batches on ``runner.num_workers`` threads
+(``data/prefetch.py``, ``runner.prefetch_factor`` ahead) and draws every
+random number of a step from ``generator`` on the calling thread, so the
+workers change no draw.
+
+Checkpoints are the port's own format (the JAX package's is orbax):
+``<log_root>/checkpoint-<step>/trainer_state.pt``, a ``torch.save`` of
+tensors, ints and dicts that ``torch.load(weights_only=True)`` reads: the
+optimizer's ``state_dict()`` (the float32 masters, the moments, ``count``
+and, with accumulation, the accumulators), ``step``, and the state of
+``generator``, so that a resumed run draws what an uninterrupted one
+draws.  ``export_model`` writes float32 diffusers-named state dicts
+(``<model.controlnet_dir[i]>/`` and ``<model.unet_dir>/``
+``diffusion_pytorch_model.bin``) that ``runner/weights.py``'s
+``load_pretrained_dir`` reads back.
 """
 
 from __future__ import annotations
 
 import logging
 import math
+import os
+import threading
 import time
 from typing import Callable, Dict, Optional, Tuple
 
@@ -62,6 +81,7 @@ from torch.utils.checkpoint import checkpoint
 from .. import resolve_device
 from ..data.augment import random_flip_3d_with_views
 from ..data.collate import collate_fn
+from ..data.prefetch import prefetch_map
 from ..data.tokenizer import build_tokenizer
 from ..diffusion.schedule import DiffusionSchedule
 from ..ops.fgm import fgm_heatmap
@@ -74,7 +94,12 @@ from .train_state import build_optimizer, init_box_adapter_from_base, \
 
 __all__ = ["sample_uncond_switch", "make_draws", "make_precompute_cond",
            "batch_rows", "make_loss_fn", "train_step", "set_category_tokens",
-           "MultiviewTrainer"]
+           "MultiviewTrainer", "CHECKPOINT_FILE", "EXPORT_FILE"]
+
+# the file of a checkpoint directory
+CHECKPOINT_FILE = "trainer_state.pt"
+# the weights file of each exported model directory (diffusers' name)
+EXPORT_FILE = "diffusion_pytorch_model.bin"
 
 log = logging.getLogger(__name__)
 
@@ -330,9 +355,11 @@ class MultiviewTrainer:
 
     ``MultiviewTrainer(cfg, train_set).run(max_steps, on_metrics)`` trains
     on the card; ``device="cpu"`` runs the plain path.  ``models`` (a
-    ``build_models`` dict with weights) replaces the fresh initialisation,
-    which copies the box adapter's projections from their base ones
-    (``init_box_adapter_from_base``) and sets the class tokens.
+    ``build_models`` dict with weights) replaces the fresh initialisation:
+    ``build_models`` (the tiny sizes with ``cfg.tiny_models``) under
+    ``torch.manual_seed(cfg.seed)``, so every process builds the same
+    frozen weights, then the box adapter's projections copied from their
+    base ones (``init_box_adapter_from_base``) and the class tokens set.
     ``on_metrics(step, metrics)`` gets ``loss``, ``mse``, ``aug_loss``,
     ``tone``, ``grad_norm``, ``step_time_s`` (host clock from batch
     assembly to the metrics on the host, which synchronises the device) and
@@ -352,6 +379,7 @@ class MultiviewTrainer:
         self._cond_cache: Dict[tuple, Dict[str, torch.Tensor]] = {}
         self._cond_cache_bytes = 0
         self._cond_cache_full = False
+        self._cond_cache_lock = threading.Lock()
         # cached batches drop the pixels unless a loss term reads them (the
         # RGD reward compares with the ground-truth images)
         self._needs_px = bool(cfg.get("use_tone_guidance", False)) or (
@@ -360,7 +388,15 @@ class MultiviewTrainer:
         self.tokenizer = build_tokenizer(
             str(cfg.model.pretrained_model_name_or_path))
         fresh = models is None
-        self.models = models or build_models(cfg, device=self.device)
+        if fresh:
+            cuda = self.device.type == "cuda"
+            with torch.random.fork_rng(devices=[self.device.index or 0]
+                                       if cuda else []):
+                torch.manual_seed(int(cfg.seed))
+                tiny = bool(cfg.get("tiny_models", False))
+                models = build_models(cfg, device=self.device,
+                                      **({"tiny": True} if tiny else {}))
+        self.models = models
         if fresh and bool(cfg.get("use_box_adapter", False)):
             init_box_adapter_from_base(self.models)
         if fresh and bool(cfg.model.controlnet.bbox_embedder_param.get(
@@ -396,6 +432,7 @@ class MultiviewTrainer:
         self.generator = torch.Generator(device=self.device).manual_seed(
             int(cfg.seed))
         self.step = 0
+        self.saved_step = None  # the step of the last save_checkpoint()
 
     def _make_loss_fn(self):
         return make_loss_fn(self.models, self.cfg, self.schedule,
@@ -466,21 +503,7 @@ class MultiviewTrainer:
                 "pixel_values", "occ_labels", "occ_cam_K", "occ_cam_T")
                 if k in batch}
             pre = {n: v.cpu() for n, v in self._precompute(inputs).items()}
-            if not self._cond_cache_full:
-                for row, k in enumerate(keys):
-                    entry = {n: v[row].clone() for n, v in pre.items()}
-                    cache[k] = entry
-                    self._cond_cache_bytes += sum(
-                        v.numel() * v.element_size() for v in entry.values())
-                cap = int(self.cfg.runner.get(
-                    "cond_cache_max_mb", 4096)) * (1 << 20)
-                if self._cond_cache_bytes > cap:
-                    self._cond_cache_full = True
-                    log.warning(
-                        "conditioning cache hit its %d MB cap after %d "
-                        "entries; further samples recompute every epoch "
-                        "(raise runner.cond_cache_max_mb to cache more)",
-                        cap >> 20, len(cache))
+            self._cache_rows(keys, pre)
         out = dict(batch)
         out.update(pre)
         for k in ("occ_labels", "occ_cam_K", "occ_cam_T"):
@@ -488,6 +511,26 @@ class MultiviewTrainer:
         if not self._needs_px:
             out.pop("pixel_values", None)
         return out
+
+    def _cache_rows(self, keys, pre: Dict[str, torch.Tensor]) -> None:
+        """Each row of ``pre`` into the cache under its key, until the cap
+        (under the cache's lock: prefetch workers fill it concurrently)."""
+        cap = int(self.cfg.runner.get("cond_cache_max_mb", 4096)) * (1 << 20)
+        with self._cond_cache_lock:
+            if self._cond_cache_full:
+                return
+            for row, k in enumerate(keys):
+                entry = {n: v[row].clone() for n, v in pre.items()}
+                self._cond_cache[k] = entry
+                self._cond_cache_bytes += sum(
+                    v.numel() * v.element_size() for v in entry.values())
+            if self._cond_cache_bytes > cap:
+                self._cond_cache_full = True
+                log.warning(
+                    "conditioning cache hit its %d MB cap after %d entries; "
+                    "further samples recompute every epoch (raise "
+                    "runner.cond_cache_max_mb to cache more)",
+                    cap >> 20, len(self._cond_cache))
 
     def _build_batch(self, plan) -> Dict:
         """One planned batch on the device: the samples, flipped and
@@ -517,23 +560,149 @@ class MultiviewTrainer:
 
     def run(self, max_steps: Optional[int] = None,
             on_metrics=None) -> Dict[str, float]:
+        """Train up to ``max_steps`` (at most ``max_train_steps``) steps
+        from ``self.step``, the epoch's batch plan resumed at its cursor;
+        save a checkpoint at every multiple of
+        ``runner.checkpointing_steps``.  Batches are built on
+        ``runner.num_workers`` threads, ``runner.prefetch_factor`` ahead
+        (0 workers: on this thread).  ``step_time_s``: host clock from the
+        end of the last step (its ``on_metrics`` and save included) to this
+        step's metrics on the host; ``data_time_s``: the wait for the
+        batch within it."""
+        r = self.cfg.runner
         limit = min(self.max_train_steps, max_steps or self.max_train_steps)
+        ckpt_every = int(r.get("checkpointing_steps") or 0)
+        workers = int(r.get("num_workers", 0) or 0)
+        depth = int(r.get("prefetch_factor", 2) or 2)
         last: Dict[str, float] = {}
         while self.step < limit:
             spe = self.steps_per_epoch
-            for plan in self._batch_plan(self.step // spe,
-                                         skip=self.step % spe):
+            batches = prefetch_map(
+                self._build_batch, self._batch_plan(self.step // spe,
+                                                    skip=self.step % spe),
+                num_workers=workers, depth=depth)
+            try:
                 t0 = time.perf_counter()
-                batch = self._build_batch(plan)
-                t1 = time.perf_counter()
-                last = self.train_step(batch)
-                last["step_time_s"] = time.perf_counter() - t0
-                last["data_time_s"] = t1 - t0
-                if not math.isfinite(last["loss"]):
-                    raise FloatingPointError(
-                        f"NaN/Inf loss at step {self.step}")
-                if on_metrics:
-                    on_metrics(self.step, last)
-                if self.step >= limit:
-                    break
+                for batch in batches:
+                    t1 = time.perf_counter()
+                    last = self.train_step(batch)
+                    last["step_time_s"] = time.perf_counter() - t0
+                    last["data_time_s"] = t1 - t0
+                    if not math.isfinite(last["loss"]):
+                        raise FloatingPointError(
+                            f"NaN/Inf loss at step {self.step}")
+                    if on_metrics:
+                        on_metrics(self.step, last)
+                    if ckpt_every and self.step % ckpt_every == 0:
+                        self.save_checkpoint()
+                    if self.step >= limit:
+                        break
+                    t0 = time.perf_counter()
+            finally:
+                batches.close()
         return last
+
+    # ------------------------------------------------------------ checkpoints
+    def checkpoint_dir(self, step: Optional[int] = None) -> str:
+        """``<log_root>/checkpoint-<step>`` (this step by default)."""
+        root = self.cfg.get("log_root") or "./dualdiff-tpu-log"
+        step = self.step if step is None else step
+        return os.path.abspath(os.path.join(root, f"checkpoint-{step}"))
+
+    def save_checkpoint(self) -> str:
+        """Write this step's checkpoint (``CHECKPOINT_FILE`` under
+        ``checkpoint_dir()``, replaced whole: written beside it, then
+        renamed), logging its bytes and seconds.  -> its directory."""
+        t0 = time.perf_counter()
+        path = self.checkpoint_dir()
+        os.makedirs(path, exist_ok=True)
+        state = {"optimizer": self.optimizer.state_dict(), "step": self.step,
+                 "generator": self.generator.get_state()}
+        dst = os.path.join(path, CHECKPOINT_FILE)
+        torch.save(state, dst + ".tmp")
+        os.replace(dst + ".tmp", dst)
+        self.saved_step = self.step
+        log.info("saved checkpoint %s (%d bytes, %.3f s)", path,
+                 os.path.getsize(dst), time.perf_counter() - t0)
+        return path
+
+    def latest_checkpoint(self) -> Optional[str]:
+        """The ``checkpoint-<n>`` directory with the highest ``n`` under
+        ``log_root``, or None."""
+        root = self.cfg.get("log_root") or "."
+        if not os.path.isdir(root):
+            return None
+        steps = [int(d.split("-", 1)[1]) for d in os.listdir(root)
+                 if d.startswith("checkpoint-")
+                 and d.split("-", 1)[1].isdigit()]
+        if not steps:
+            return None
+        return os.path.abspath(os.path.join(root, f"checkpoint-{max(steps)}"))
+
+    def load_checkpoint(self, path: str, reset_scheduler: bool = False
+                        ) -> Optional[str]:
+        """Resume from ``path`` (a checkpoint directory, or ``"latest"``:
+        ``latest_checkpoint()``; with none, a warning and a fresh run).
+        Restores the optimizer (the live parameters from its masters),
+        ``step`` and the generator.  ``reset_scheduler`` keeps the
+        parameters and ``step`` but starts the moments, ``count`` and the
+        accumulators from zero, as ``tx.init(params)`` does.  -> the
+        directory loaded, or None."""
+        if path == "latest":
+            path = self.latest_checkpoint()
+            if path is None:
+                log.warning("no checkpoint found for resume=latest; "
+                            "fresh run")
+                return None
+        state = torch.load(os.path.join(path, CHECKPOINT_FILE),
+                           map_location="cpu", weights_only=True, mmap=True)
+        self.optimizer.load_state_dict(state["optimizer"])
+        if reset_scheduler:
+            self.optimizer.reset_state()
+        self.step = int(state["step"])
+        self.generator.set_state(state["generator"])
+        log.info("resumed from %s at step %d", path, self.step)
+        return path
+
+    @torch.no_grad()
+    def export_state_dicts(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """{"controlnet_<i>" | "unet": float32 CPU state dict in the JAX
+        exporter's names (``weight_import.export_params``; the port's names
+        but the one rename ``runner/weights.py`` documents,
+        ``to_out_0_lora_*`` -> ``to_out.0_lora_*``)}: the trainables from
+        their float32 masters, the frozen leaves from their live values."""
+        master = self.optimizer.master
+        out = {}
+        nets = [(f"controlnet_{i}", cn)
+                for i, cn in enumerate(self.models["controlnets"])]
+        for root, module in nets + [("unet", self.models["unet"])]:
+            out[root] = {
+                name.replace("to_out_0_lora_", "to_out.0_lora_"):
+                master.get(f"{root}/{name}", t).detach().to(
+                    "cpu", torch.float32, copy=True)
+                for name, t in module.state_dict().items()}
+        return out
+
+    def export_model(self, root: Optional[str] = None) -> str:
+        """Deployable weights: ControlNet ``i`` into
+        ``<root>/<model.controlnet_dir[i]>/``, the UNet into
+        ``<root>/<model.unet_dir>/``, each an ``EXPORT_FILE`` of
+        ``export_state_dicts()``, logging the bytes and seconds.  ``root``:
+        ``log_root`` by default.  -> ``root``."""
+        t0 = time.perf_counter()
+        root = root or (self.cfg.get("log_root") or "./dualdiff-tpu-log")
+        cdirs = self.cfg.model.controlnet_dir
+        if not isinstance(cdirs, list):
+            cdirs = [cdirs]
+        dirs = {f"controlnet_{i}": cdirs[i]
+                for i in range(len(self.models["controlnets"]))}
+        dirs["unet"] = str(self.cfg.model.unet_dir)
+        nbytes = 0
+        for key, sd in self.export_state_dicts().items():
+            path = os.path.join(root, dirs[key], EXPORT_FILE)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            torch.save(sd, path)
+            nbytes += os.path.getsize(path)
+        log.info("exported %s (%d bytes, %.3f s)", root, nbytes,
+                 time.perf_counter() - t0)
+        return root

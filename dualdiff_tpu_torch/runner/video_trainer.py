@@ -14,6 +14,11 @@ clip.
   denoised prediction (``make_rgd_reward``: the FGM foreground reward plus
   the temporal-consistency reward).
 
+Checkpoints, resume and export are the image trainer's: stage 2's
+checkpoint holds only the LoRA trainables' optimizer state, and its export
+carries the adapters under the JAX exporter's names
+(``to_out.0_lora_*``).
+
 Flip augmentation is clip-consistent: one draw per clip, applied to every
 frame.  The conditioning cache keys each row by (clip, frame, flipped);
 stage 2 keeps the pixels in a cached batch for the reward.

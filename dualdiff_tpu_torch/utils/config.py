@@ -4,13 +4,26 @@ The JAX package composes its YAML configs at run time, which needs PyYAML.
 The port instead ships each composed config it runs as a JSON file under
 ``dualdiff_tpu_torch/configs/`` (the ``to_dict`` of the JAX loader's output;
 a test keeps the two equal) and reads it with the standard library.
+
+``compose(argv)`` takes the JAX CLI's words: ``+exp=...`` (and
+``+exp-hd=...``, ``+exp-drive-wm=...``) picks the shipped JSON through
+``EXP_CONFIGS``; ``runner=debug`` lays ``configs/runner_debug.json`` (the
+keys of ``configs/runner/debug.yaml``) over the runner;
+``dataset=Nuscenes_synthetic`` is what every JSON holds already; dotted
+``a.b=value`` overrides as ``load_config``.  The JSONs are composed, so an
+override does not re-run the YAML's interpolations: ``load_config``
+re-derives the interpolated keys (``LINKS``) from their sources after the
+overrides.  The JSONs carry the operating point each was composed at
+(``runner.pipeline_param.bbox_max_length=80``; the clip configs also
+``vae_slicing=12`` and ``sequential_cfg=true``), which a composition of the
+same words by the JAX loader lacks.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Any, Iterable
+from typing import Any, Iterable, List, Tuple
 
 __all__ = ["ConfigNode", "load_config", "FLAGSHIP", "HD_256X704",
            "HD_432X768", "VIDEO_16F", "RGD_STAGE2", "FUSIONP", "BASELINE",
@@ -18,7 +31,8 @@ __all__ = ["ConfigNode", "load_config", "FLAGSHIP", "HD_256X704",
            "OCC_BG_AUGLOSS", "OCC_BG_AUGLOSS_FUSION", "OCC_BG_AUGTEXT",
            "OCC_BG_CAMTEMB", "OCC_BG_CAMTEMB_FUSION", "OCC_BG_ADAPTER",
            "OCC_BG_TONE", "OCC_FG", "OCC_FG_40PTS", "OCC3D",
-           "DRIVE_WM_192X384", "EXP_CONFIGS"]
+           "DRIVE_WM_192X384", "VARIANTS", "EXP_CONFIGS", "LINKS",
+           "apply_overrides", "compose", "save_config"]
 
 CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)),
                           "configs")
@@ -68,7 +82,7 @@ OCC3D = "occ3d_224x400"
 # +exp-drive-wm=192x384: occ_bg at Drive-WM's 192x384
 DRIVE_WM_192X384 = "drive_wm_192x384"
 # the overlay each of those configs composes
-EXP_CONFIGS = {
+VARIANTS = {
     "+exp=224x400": BASELINE, "+exp=dual_branch": DUAL_BRANCH,
     "+exp=dual_branch_augloss_fusion_8pts": DUAL_BRANCH_8PTS,
     "+exp=occ_bg": OCC_BG, "+exp=occ_bg_fusion": OCC_BG_FUSION,
@@ -81,6 +95,34 @@ EXP_CONFIGS = {
     "+exp=occ_fg": OCC_FG, "+exp=occ_fg_40pts": OCC_FG_40PTS,
     "+exp=occ3d": OCC3D, "+exp-drive-wm=192x384": DRIVE_WM_192X384,
 }
+# every overlay the port's CLI takes (``compose``) -> its composed config;
+# the HD overlays chain the flagship's (``configs/exp-hd/*.yaml``)
+EXP_CONFIGS = {
+    "+exp=dual_branch_augloss_fusion": FLAGSHIP,
+    "+exp-hd=256x704": HD_256X704, "+exp-hd=432x768": HD_432X768,
+    "+exp=occ_bg_fusionp": FUSIONP, "+exp=video_16f": VIDEO_16F,
+    "+exp=rgd_stage2": RGD_STAGE2, **VARIANTS,
+}
+# group swaps compose takes: runner=debug is an overlay of the runner (the
+# keys of configs/runner/debug.yaml), dataset=Nuscenes_synthetic what every
+# shipped config holds
+GROUPS = {("runner", "debug"): "runner_debug",
+          ("dataset", "Nuscenes_synthetic"): None}
+# the YAML interpolations, target <- source: (target, source, format)
+LINKS = (
+    ("model.unet.neighboring_view_pair", "dataset.neighboring_view_pair",
+     None),
+    ("model.unet.crossview_attn_type", "model.crossview_attn_type", None),
+    ("model.unet.img_size", "dataset.image_size", None),
+    ("model.controlnet.bbox_embedder_param.mode", "model.bbox_mode", None),
+    ("projname", "model.name", None),
+    ("dataset.data.train.ann_file", "dataset.dataset_process_root",
+     "{}nuscenes_infos_train.pkl"),
+    ("dataset.data.val.ann_file", "dataset.dataset_process_root",
+     "{}nuscenes_infos_val.pkl"),
+    ("dataset.data.test.ann_file", "dataset.dataset_process_root",
+     "{}nuscenes_infos_val.pkl"),
+)
 
 
 class ConfigNode(dict):
@@ -116,19 +158,120 @@ def _parse_value(text: str) -> Any:
         return text
 
 
+_MISSING = object()
+
+
+def _get(cfg, dotted: str):
+    node = cfg
+    for part in dotted.split("."):
+        if not isinstance(node, dict) or part not in node:
+            return _MISSING
+        node = node[part]
+    return node
+
+
+def _set(cfg, dotted: str, value) -> None:
+    *parents, leaf = dotted.split(".")
+    node = cfg
+    for p in parents:
+        node = node[p]
+    node[leaf] = value
+
+
+def _derive(source, fmt):
+    return json.loads(json.dumps(source)) if fmt is None \
+        else fmt.format(source)
+
+
 def load_config(name: str = FLAGSHIP,
                 overrides: Iterable[str] = ()) -> ConfigNode:
     """Load ``configs/<name>.json`` and apply dotted ``a.b.c=value``
-    overrides (values parsed as JSON, else kept as strings)."""
+    overrides (``apply_overrides``)."""
     with open(os.path.join(CONFIG_DIR, name + ".json")) as f:
         cfg = ConfigNode(json.load(f))
+    apply_overrides(cfg, overrides)
+    return cfg
+
+
+def apply_overrides(cfg: ConfigNode, overrides: Iterable[str]) -> None:
+    """Dotted ``a.b.c=value`` overrides in place (values parsed as JSON,
+    else kept as strings).  Each interpolated key of ``LINKS`` that its
+    source still gives follows the overridden source, unless it is
+    overridden itself."""
+    live = [(t, s, fmt) for t, s, fmt in LINKS
+            if _get(cfg, s) is not _MISSING
+            and _get(cfg, t) == _derive(_get(cfg, s), fmt)]
+    keys = []
     for ov in overrides:
         if "=" not in ov:
             raise ValueError(f"bad override (need key=value): {ov}")
         key, value = ov.split("=", 1)
-        *parents, leaf = key.split(".")
-        node = cfg
-        for p in parents:
-            node = node[p]
-        node[leaf] = _parse_value(value)
-    return cfg
+        _set(cfg, key, _parse_value(value))
+        keys.append(key)
+    for target, source, fmt in live:
+        if not any(k == target or target.startswith(k + ".")
+                   for k in keys):
+            _set(cfg, target, _derive(_get(cfg, source), fmt))
+
+
+def compose(argv: Iterable[str]) -> Tuple[ConfigNode, List[str]]:
+    """-> (the config of a CLI's words, the words).  ``+exp=...`` words
+    pick the shipped JSON (``EXP_CONFIGS``; the flagship's when none is
+    given; ``+exp=dual_branch_augloss_fusion`` with an ``+exp-hd=...`` the
+    HD one); ``runner=debug`` lays the debug runner over the config's
+    (before the dotted overrides, as the JAX loader applies group swaps
+    first); ``dataset=Nuscenes_synthetic`` changes nothing.  Any other
+    group swap or overlay, and ``--config-name``, raise ``ValueError``."""
+    argv = list(argv)
+    overlays, groups, dotted = [], [], []
+    for word in argv:
+        if word.startswith("-"):
+            raise ValueError(f"{word!r}: the port composes from its shipped "
+                             f"JSON configs and takes no --config-name")
+        if "=" not in word:
+            raise ValueError(f"bad override (need key=value): {word}")
+        key, value = word.split("=", 1)
+        if key.startswith("+"):
+            overlays.append(word)
+        elif "." not in key and (key, value) in GROUPS:
+            groups.append((key, value))
+        elif "." not in key and key in ("runner", "dataset", "model",
+                                        "accelerator"):
+            raise ValueError(
+                f"{word!r}: the port takes the group swaps "
+                f"{sorted(f'{k}={v}' for k, v in GROUPS)} and the "
+                f"overlays {sorted(EXP_CONFIGS)}, then dotted a.b=value "
+                f"overrides")
+        else:
+            dotted.append(word)
+    hd = [o for o in overlays if o.startswith("+exp-hd=")]
+    if hd and overlays in (hd, ["+exp=dual_branch_augloss_fusion"] + hd):
+        overlays = hd
+    if len(overlays) > 1 or any(o not in EXP_CONFIGS for o in overlays):
+        raise ValueError(f"overlays {overlays}: the port takes one of "
+                         f"{sorted(EXP_CONFIGS)} (an +exp-hd=... may follow "
+                         f"+exp=dual_branch_augloss_fusion)")
+    cfg = load_config(EXP_CONFIGS[overlays[0]] if overlays else FLAGSHIP)
+    for key, value in groups:
+        if GROUPS[(key, value)] is not None:
+            with open(os.path.join(CONFIG_DIR,
+                                   GROUPS[(key, value)] + ".json")) as f:
+                _merge(cfg[key], json.load(f))
+    apply_overrides(cfg, dotted)
+    return cfg, argv
+
+
+def _merge(node: dict, overlay: dict) -> None:
+    for k, v in overlay.items():
+        if isinstance(v, dict) and isinstance(node.get(k), dict):
+            _merge(node[k], v)
+        else:
+            node[k] = v
+
+
+def save_config(cfg, path: str) -> None:
+    """``cfg`` as indented JSON at ``path`` (its directory made)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(cfg, f, indent=1)
+        f.write("\n")

@@ -19,7 +19,7 @@ from dualdiff_tpu.ops import attention as JA
 from dualdiff_tpu_torch import bench
 from dualdiff_tpu_torch.ops import attention as A
 from dualdiff_tpu_torch.utils import flops as F
-from dualdiff_tpu_torch.utils.config import EXP_CONFIGS, load_config
+from dualdiff_tpu_torch.utils.config import VARIANTS, load_config
 from dualdiff_tpu_torch.utils.pins import check_pin, output_stats, save_pin
 
 # b x lq x lk at c = heads x d: tiny, d % 8 == 0, under the TPU score cap
@@ -276,14 +276,14 @@ def test_bench_overlay_maps_to_configs_and_refuses_the_rest(monkeypatch):
         bench.main_video_train()
 
 
-@pytest.mark.parametrize("overlay", sorted(EXP_CONFIGS))
+@pytest.mark.parametrize("overlay", sorted(VARIANTS))
 def test_bench_takes_every_shipped_image_exp(overlay):
     """``BENCH_OVERLAY`` takes every other shipped image exp, as
     ``bench.py`` takes any overlay: each resolves to its composed config
     (its task is the overlay's exp), and only the flagship's configs keep
     the flagship's metric text and pin keys."""
     name = bench.config_name(overlay)
-    assert name == EXP_CONFIGS[overlay]
+    assert name == VARIANTS[overlay]
     cfg = load_config(name)
     assert str(cfg.task_id) == overlay.split("=", 1)[1]
     assert name not in bench.FLAGSHIP_CONFIGS

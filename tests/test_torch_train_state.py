@@ -106,9 +106,17 @@ def test_adamw_matches_optax_over_steps():
 
 
 def test_gradient_accumulation_is_refused():
-    pr = tp.port_config(["runner.gradient_accumulation_steps=2"]).runner
-    with pytest.raises(NotImplementedError, match="accumulation"):
-        build_optimizer(pr, {}, 10)
+    """Accumulation is ported (``tests/test_torch_train_run.py``); what is
+    refused is an optimizer state taken under another accumulation: a
+    k = 2 state into a k = 1 optimizer and back."""
+    params = {"a": torch.nn.Parameter(torch.ones(3))}
+    opts = [build_optimizer(tp.port_config(
+        [f"runner.gradient_accumulation_steps={k}"]).runner, params, 10)
+        for k in (1, 2)]
+    assert opts[0].acc is None and set(opts[1].acc) == {"a"}
+    for src, dst in ((1, 0), (0, 1)):
+        with pytest.raises(ValueError, match="accumulation"):
+            opts[dst].load_state_dict(opts[src].state_dict())
 
 
 def test_lora_only_is_refused():

@@ -54,7 +54,7 @@ from dualdiff_tpu_torch.runner.train_state import (init_box_adapter_from_base,
                                                    named_roots)
 from dualdiff_tpu_torch.runner.trainer import make_draws, make_loss_fn
 from dualdiff_tpu_torch.runner.weights import from_jax, load_pretrained
-from dualdiff_tpu_torch.utils.config import EXP_CONFIGS, load_config
+from dualdiff_tpu_torch.utils.config import VARIANTS, load_config
 
 RTOL = ATOL = 2e-5
 BASELINE = "+exp=224x400"
@@ -305,16 +305,16 @@ def test_new_leaves_export_and_load_by_name(which):
                                    got["adm_proj_0.weight"], rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("overlay", sorted(EXP_CONFIGS))
+@pytest.mark.parametrize("overlay", sorted(VARIANTS))
 def test_composed_config_equals_jax(overlay):
     """``dualdiff_tpu_torch/configs/<name>.json`` is the JAX loader's
     composition of ``overlay`` under the flagship's other overrides
     (``tests/torch_parity.exp_overrides``)."""
     want = json.loads(json.dumps(to_dict(tp.jax_config(exp=overlay))))
-    assert dict(load_config(EXP_CONFIGS[overlay])) == want
+    assert dict(load_config(VARIANTS[overlay])) == want
 
 
-@pytest.mark.parametrize("overlay", sorted(EXP_CONFIGS))
+@pytest.mark.parametrize("overlay", sorted(VARIANTS))
 def test_each_config_builds_and_runs(overlay):
     """Every newly composed config builds its tiny model set on the CPU
     (at 128x64, for time: the models do not depend on the geometry), one
