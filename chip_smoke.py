@@ -151,9 +151,28 @@ Phases, in order; any failure exits non-zero:
             s per micro-step and the peak with the accumulators.  Alone:
             ``python3 -c "import chip_smoke as s; s.phase_device();
             s.phase_build(); s.phase_tools()"``.
+21. nuscenes  real nuScenes-format data in, scores out
+            (``phase_nuscenes``): the native binding built (``# native``
+            line) and its mask codec round trip; a small set written with
+            the port's own code (two train scenes of 3 samples, one val
+            scene of 2, 1600 x 900 frames, occupancy panoramas, Occ3D
+            labels, map vectors) and read through ``build_dataset`` with
+            ``dataset=Nuscenes``, every sample checked, the native decode
+            against the reader's own path; the batch build timed at
+            ``runner.num_workers`` 0 and 2; one full-width flagship step and
+            one UniPC-20 generation on the reader's batches with their
+            launches derived; ``tools.val_set_gen`` (2 steps) then
+            ``tools.fid_score`` in config mode over it (finite, every token
+            x sensor paired), the card's Inception against the CPU's,
+            Inception images/s and I3D clips/s, ``tools.fvd_score``.
+            Alone: ``python3 -c "import chip_smoke as s; s.phase_device();
+            s.phase_build(); s.phase_nuscenes()"``.
 
 An early line lists which of ``OPTIONAL_PACKAGES`` (PIL, cv2, PyYAML,
-h5py, tensorboardX, orbax) import on the card; the port needs none.
+h5py, tensorboardX, orbax) import on the card, and whether ``g++``,
+``make`` and libjpeg's ``jpeglib.h`` are there (``toolchain_probe``);
+the port needs none of them (without g++ and libjpeg the reader decodes
+through its own path).
 
 On the CPU, ``VideoTrainer(cfg, clips, device="cpu", models=...)`` runs the
 same training with the plain versions; README.md says how to rehearse
@@ -1605,7 +1624,7 @@ def phase_generate(profile_dir, name=None, timed_calls=TIMED_GENERATIONS,
     counts, template, s, _ = run_generations(pipe, batch, tag, timed_calls,
                                              cn_kv)
     if profile_dir:
-        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
         profile_run(lambda: pipe(batch, generator=gen), s, profile_dir,
                     _named(tag, "generation"))
     del pipe
@@ -3243,6 +3262,451 @@ def phase_tools():
     return total, step_want
 
 
+# phase nuscenes: the set it writes (create_data.py's schema), two train
+# scenes of 3 samples and one val scene of 2
+NUSC_SPLITS = {"train": (("scene-0001", 3), ("scene-0002", 3)),
+               "val": (("scene-0003", 2),)}
+NUSC_CAMS = ("CAM_FRONT_LEFT", "CAM_FRONT", "CAM_FRONT_RIGHT",
+             "CAM_BACK_RIGHT", "CAM_BACK", "CAM_BACK_LEFT")
+NUSC_WORKERS = (0, 2)  # runner.num_workers timed for the batch build
+NUSC_DECODE_MEAN = 0.03  # tests/test_native.py's bound, native vs PIL
+INCEPTION_TOL = 1e-4  # card vs CPU pool3, of the largest activation
+INCEPTION_BATCH, I3D_BATCH, I3D_FRAMES, FVD_CLIPS = 16, 4, 16, 4
+TIMED_METRIC_CALLS = 5  # Inception and I3D calls timed (cuda_ms)
+# words laid over phase nuscenes' (a CPU rehearsal adds tiny_models=true,
+# device=cpu and a small image size)
+NUSC_ARGS: list = []
+
+
+def toolchain_probe() -> dict:
+    """{g++, make, jpeglib.h: whether each is there}: the native binding's
+    build needs g++ and libjpeg's header."""
+    import shutil
+
+    gxx = shutil.which("g++")
+    out = {"g++": gxx is not None, "make": shutil.which("make") is not None,
+           "jpeglib.h": False}
+    if gxx:
+        p = subprocess.run([gxx, "-E", "-x", "c++", "-"],
+                           input="#include <jpeglib.h>\n", text=True,
+                           capture_output=True, timeout=60)
+        out["jpeglib.h"] = p.returncode == 0
+    return out
+
+
+def write_nuscenes_set(root: str, image_size=(224, 400)) -> list:
+    """A small nuScenes-format set under ``root``, written with the port's
+    own code: the infos pkls in ``tools/create_data.py``'s schema
+    (``NUSC_SPLITS``; geometry, boxes and captions from the seeded
+    synthetic samples), six 1600 x 900 camera frames (JPEGs written by
+    ``utils.image_io.write_jpeg``, quality 90), one per camera, copied into
+    every sample; per token an ``occ_proj`` ``.npy`` panorama
+    (``image_size`` a view),
+    an Occ3D ``labels.npz`` of 200 x 200 x 16 and 40-point map vectors
+    (x, y) in a ``.pkl``.  -> the roots as ``compose`` words."""
+    import pickle
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from dualdiff_tpu_torch.data.synthetic import SyntheticNuScenes
+    from dualdiff_tpu_torch.utils.config import load_config
+    from dualdiff_tpu_torch.utils.image_io import write_jpeg
+
+    classes = list(load_config().dataset.object_classes)
+    dirs = {d: os.path.join(root, d) for d in ("nusc", "infos", "occ_proj",
+                                               "occ3d", "map_vec")}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    yy, xx = np.mgrid[0:900, 0:1600]
+
+    def frame(c):
+        base = np.stack([128 + 90 * np.sin(xx / (40.0 + 9 * c) + k)
+                         * np.cos(yy / (30.0 + 5 * c)) for k in range(3)], -1)
+        noise = np.random.default_rng(SEED + c).normal(0, 12, base.shape)
+        path = os.path.join(root, f"frame{c}.jpg")
+        write_jpeg(path, np.clip(base + noise, 0, 255).astype(np.uint8),
+                   quality=90)
+        return path
+
+    with ThreadPoolExecutor(len(NUSC_CAMS)) as ex:
+        frames = list(ex.map(frame, range(len(NUSC_CAMS))))
+    geometry = SyntheticNuScenes(num_samples=8, image_size=image_size,
+                                 seed=SEED)
+    rng = np.random.default_rng(SEED)
+    i = 0
+    for split, scenes in NUSC_SPLITS.items():
+        infos = []
+        for scene, n in scenes:
+            for k in range(n):
+                s, tok = geometry[i], f"{scene}-{k:02d}"
+                cams = {}
+                for c, cam in enumerate(NUSC_CAMS):
+                    rel = os.path.join("samples", cam, tok + ".jpg")
+                    os.makedirs(os.path.dirname(os.path.join(
+                        dirs["nusc"], rel)), exist_ok=True)
+                    shutil.copyfile(frames[c], os.path.join(dirs["nusc"], rel))
+                    cams[cam] = {
+                        "data_path": rel,
+                        "cam_intrinsic": s["camera_intrinsics"][c, :3, :3]
+                        .astype(np.float64),
+                        "sensor2lidar_rotation": s["camera2lidar"][c, :3, :3]
+                        .astype(np.float64),
+                        "sensor2lidar_translation": s["camera2lidar"][c, :3, 3]
+                        .astype(np.float64)}
+                e2g = np.eye(4)
+                e2g[:3, 3] = (600.0 + 10 * i, 1600.0, 0.0)
+                infos.append({
+                    "token": tok, "scene": scene,
+                    "timestamp": 1_000_000 * (i + 1),
+                    "location": s["location"],
+                    "description": s["description"],
+                    "timeofday": s["timeofday"], "cams": cams,
+                    "lidar2ego": np.eye(4, dtype=np.float32),
+                    "ego2global": e2g.astype(np.float32),
+                    "gt_boxes": s["gt_bboxes_3d"],
+                    "gt_names": [classes[j] for j in s["gt_labels_3d"]],
+                    "visibility": s["visibility"]})
+                np.save(os.path.join(dirs["occ_proj"], tok + ".npy"),
+                        s["occ_proj_image"])
+                os.makedirs(os.path.join(dirs["occ3d"], tok))
+                np.savez(os.path.join(dirs["occ3d"], tok, "labels.npz"),
+                         semantics=s["occ_labels"])
+                n_vec = int(rng.integers(4, 12))
+                with open(os.path.join(dirs["map_vec"], tok + ".pkl"),
+                          "wb") as f:
+                    pickle.dump((rng.uniform(-40, 40, (n_vec, 40, 2))
+                                 .astype(np.float32),
+                                 rng.integers(0, 3, n_vec)), f)
+                i += 1
+        with open(os.path.join(dirs["infos"],
+                               f"nuscenes_infos_{split}.pkl"), "wb") as f:
+            pickle.dump({"infos": infos,
+                         "metadata": {"version": "v1.0-mini"}}, f)
+    return ["dataset=Nuscenes", f"dataset.dataset_root={dirs['nusc']}",
+            f"dataset.dataset_process_root={dirs['infos']}/",
+            f"dataset.occ_proj_root={dirs['occ_proj']}",
+            f"dataset.occ3d_root={dirs['occ3d']}",
+            f"dataset.map_vec_root={dirs['map_vec']}"]
+
+
+def _check_sample(s, h: int, w: int) -> None:
+    """A reader sample's keys, shapes and dtypes, finite where float."""
+    import numpy as np
+
+    want = {"img": ((N_CAM, h, w, 3), np.float32),
+            "gt_masks_bev": ((18, 200, 200), np.uint8),
+            "camera_intrinsics": ((N_CAM, 4, 4), np.float32),
+            "lidar2camera": ((N_CAM, 4, 4), np.float32),
+            "camera2lidar": ((N_CAM, 4, 4), np.float32),
+            "lidar2image": ((N_CAM, 4, 4), np.float32),
+            "img_aug_matrix": ((N_CAM, 4, 4), np.float32),
+            "occ_proj_image": ((h, N_CAM * w, 3), np.float32),
+            "occ_labels": ((200, 200, 16), np.uint8),
+            "occ_cam_K": ((N_CAM, 3, 3), np.float32),
+            "occ_cam_T": ((N_CAM, 4, 4), np.float32)}
+    for key, (shape, dtype) in want.items():
+        v = s[key]
+        if v.shape != shape or v.dtype != dtype or (
+                dtype == np.float32 and not np.isfinite(v).all()):
+            raise AssertionError(f"{s['token']} {key}: {v.shape} {v.dtype}")
+    n = len(s["gt_labels_3d"])
+    vec = s["map_vec_boxes"]
+    if s["gt_bboxes_3d"].shape != (n, 7) or s["gt_labels_3d"].dtype \
+            != np.int64 or vec.ndim != 3 or vec.shape[1:] != (40, 3) \
+            or len(s["map_vec_classes"]) != len(vec) \
+            or not (-1 <= s["img"]).all() or not (s["img"] <= 1).all():
+        raise AssertionError(f"{s['token']}: boxes {s['gt_bboxes_3d'].shape},"
+                             f" labels {n}, map vectors {vec.shape}")
+    if len(s["filenames"]) != N_CAM or s["gt_masks_bev"].any():
+        raise AssertionError(f"{s['token']}: {len(s['filenames'])} files, "
+                             f"masks not the flagship's zeros")
+
+
+def phase_nuscenes():
+    """Real nuScenes data in, scores out, on the port's own reader and
+    tools (the flagship at full width, bf16, seeded weights), in a
+    temporary directory that it deletes:
+
+    1. The native binding (``data/native.py``) built from its source:
+       ``# native`` with the compiler, libjpeg and the build time.  Where
+       g++ and ``jpeglib.h`` are there a failed build fails the phase, and
+       18 x 200 x 200 masks pack and unpack bit for bit; without libjpeg
+       the reader and the FID tool decode the JPEGs through PIL (the
+       reader's own path).
+    2. ``write_nuscenes_set``: 6 + 2 samples of 1600 x 900 frames, with
+       the occupancy panoramas, Occ3D labels and map vectors.
+    3. ``build_dataset(compose(["dataset=Nuscenes", roots]))``: every
+       sample's shapes and dtypes (``_check_sample``; the flagship's
+       ``missing_bev`` is zeros: no h5py, no devkit needed); the native
+       decode within ``NUSC_DECODE_MEAN`` of the reader's own PIL path on
+       one image.
+    4. One trainer (models built once): the batch build timed over the
+       train split at ``runner.num_workers`` 0 and 2 (sample, collate, to
+       the card; ``prefetch_map`` as ``run()`` builds them), one training
+       step on the reader's batch and one UniPC-20 generation of a val
+       sample: finite loss and grad_norm, the image's shape, range and
+       finiteness, launches equal to ``train_launches_per_step`` and
+       ``generate_launches_per_generation``, each through
+       ``check_sm90_launches``.
+    5. ``tools.val_set_gen`` (in this process, 2 sampler steps, seeded
+       weights; phase ``tools`` deleted its export) over the val split,
+       its launches per generation derived; ``tools.fid_score`` in config
+       mode over its samples and the set's real val images with seeded
+       Inception weights in a ``pretrained/`` of the temporary directory
+       (the working directory), ``fid.require_all``: finite, every token
+       x sensor paired; the card's Inception activations on the real
+       images within ``INCEPTION_TOL`` of the same model on the CPU
+       (float32, TF32 off); Inception images/s at batch 16 and I3D clips/s
+       on 16 x 224 x 224 clips (batch 4); ``tools.fvd_score`` over two
+       folders of ``FVD_CLIPS`` seeded clips with seeded I3D weights.
+
+    -> (launches of the phase, one step's derivation)."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from dualdiff_tpu_torch.data import native
+    from dualdiff_tpu_torch.data.collate import collate_fn
+    from dualdiff_tpu_torch.data.prefetch import prefetch_map
+    from dualdiff_tpu_torch.data.wrappers import build_dataset
+    from dualdiff_tpu_torch.metrics.fid import InceptionV3, seeded_init_
+    from dualdiff_tpu_torch.metrics.fid_import import export_pt_inception
+    from dualdiff_tpu_torch.metrics.i3d import InceptionI3d
+    from dualdiff_tpu_torch.ops import attention as A
+    from dualdiff_tpu_torch.pipeline.bev_controlnet import \
+        BEVControlNetPipeline
+    from dualdiff_tpu_torch.runner.trainer import MultiviewTrainer
+    from dualdiff_tpu_torch.tools import fid_score, fvd_score, val_set_gen
+    from dualdiff_tpu_torch.utils.config import compose
+
+    t_phase = time.perf_counter()
+    row = {"phase": "nuscenes"}
+    total: dict = {}
+    probe = toolchain_probe()
+    st = native.status()
+    row["native"] = {k: st[k] for k in ("path", "compiler", "libjpeg",
+                                        "build_s")}
+    log(f"# native: {json.dumps({**row['native'], **probe})}")
+    if probe["g++"] and probe["jpeglib.h"]:
+        if st["path"] == "unavailable":
+            raise AssertionError(f"native build failed with g++ and "
+                                 f"jpeglib.h there: {st['reason']}")
+        masks = (np.random.default_rng(SEED).random((18, 200, 200))
+                 > 0.5).astype(np.uint8)
+        if not np.array_equal(native.unpack_masks(native.pack_masks(masks),
+                                                  18), masks):
+            raise AssertionError("native mask codec: round trip differs")
+    else:
+        log(f"# native: no {'g++' if not probe['g++'] else 'jpeglib.h'}; "
+            f"the reader and the FID tool take their own (PIL) decode: "
+            f"{st['reason']}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nuscenes_")
+    cwd = os.getcwd()
+    try:
+        h, w = compose(NUSC_ARGS)[0].dataset.image_size
+        t0 = time.perf_counter()
+        roots = write_nuscenes_set(tmp, (h, w))
+        row["write_set_s"] = time.perf_counter() - t0
+        words = ["+exp=dual_branch_augloss_fusion"] + roots + NUSC_ARGS
+        cfg, _ = compose(words)
+        dev = cfg.get("device") or "cuda"
+        train_set, val = build_dataset(cfg, "train"), build_dataset(cfg, "val")
+        if (len(train_set), len(val)) != (6, 2) or train_set.missing_bev \
+                != "zeros":
+            raise AssertionError(f"reader: {len(train_set)} + {len(val)} "
+                                 f"samples, missing_bev "
+                                 f"{train_set.missing_bev}")
+        for ds in (train_set, val):
+            for i in range(len(ds)):
+                _check_sample(ds[i], h, w)
+        img0 = os.path.join(train_set.dataset_root,
+                            train_set.infos[0]["cams"]["CAM_FRONT"][
+                                "data_path"])
+        own = train_set._load_image(img0)
+        if native.available():
+            got = native.load_images_batch([img0], train_set.resize_ratio,
+                                           h, w)
+            if got is None:
+                raise AssertionError("native decode failed on the set")
+            row["decode_mean_abs"] = float(np.abs(got[0] - own).mean())
+            if not row["decode_mean_abs"] < NUSC_DECODE_MEAN:
+                raise AssertionError(f"native decode off the reader's own "
+                                     f"path by {row['decode_mean_abs']}")
+
+        # 4. one trainer: batch build, a step, a generation
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = MultiviewTrainer(cfg, train_set, device=dev)
+        torch.cuda.synchronize()
+        row["trainer_build_s"] = time.perf_counter() - t0
+        plan = list(trainer._batch_plan(0))
+        for workers in NUSC_WORKERS:
+            t0 = time.perf_counter()
+            for _ in prefetch_map(trainer._build_batch, plan,
+                                  num_workers=workers):
+                pass
+            torch.cuda.synchronize()
+            row[f"batch_build_s_workers_{workers}"] = (
+                time.perf_counter() - t0) / len(plan)
+        models = trainer.models
+        layers = len(models["unet"].down_blocks[0].resnets)
+        levels = model_levels(models["unet"], (h // 8, w // 8))
+        n_cn = len(models["controlnets"])
+        step_want = train_launches_per_step(
+            layers, n_cn, bool(cfg.runner.enable_unet_checkpointing)
+            and bool(cfg.runner.enable_controlnet_checkpointing), levels,
+            attn4=attn4_form(models["unet"]))
+        steps = int(cfg.runner.pipeline_param.num_inference_steps)
+        gen_want = generate_launches_per_generation(layers, n_cn, steps,
+                                                    levels)
+        metrics = {}
+        A.reset_launch_counts()
+        trainer.run(1, lambda step, m: metrics.update(m))
+        counts = launch_counts(A)
+        _check_launches(counts, step_want, "step on the reader's batch")
+        _add(total, counts)
+        if not (math.isfinite(metrics["loss"])
+                and math.isfinite(metrics["grad_norm"])
+                and metrics["grad_norm"] > 0):
+            raise AssertionError(f"step on the reader's batch: {metrics}")
+        row.update(loss=metrics["loss"], grad_norm=metrics["grad_norm"],
+                   step_s=metrics["step_time_s"],
+                   step_data_s=metrics["data_time_s"])
+        pipe = BEVControlNetPipeline(cfg, models, trainer.schedule,
+                                     device=trainer.device)
+        batch = collate_fn([val[0]], cfg, trainer.tokenizer, is_train=False,
+                           rng=np.random.default_rng(SEED))
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        A.reset_launch_counts()
+        imgs = pipe(batch, generator=gen)
+        torch.cuda.synchronize()
+        row["generation_s"] = time.perf_counter() - t0
+        counts = launch_counts(A)
+        _check_launches(counts, gen_want, "generation on the reader's batch")
+        _add(total, counts)
+        if tuple(imgs.shape) != (1, N_CAM, h, w, 3) or not bool(
+                torch.isfinite(imgs).all()) or float(imgs.min()) < 0 \
+                or float(imgs.max()) > 1:
+            raise AssertionError(f"generation {tuple(imgs.shape)}, range "
+                                 f"[{float(imgs.min())}, "
+                                 f"{float(imgs.max())}]")
+        row["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        del trainer, models, pipe, imgs
+        torch.cuda.empty_cache()
+
+        # 5. val_set_gen, fid_score, the metrics' timings, fvd_score
+        vsg = os.path.join(tmp, "vsg")
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            val_set_gen.main(words + [
+                "runner.pipeline_param.num_inference_steps=2",
+                f"log_root={vsg}"])
+        row["val_set_gen_s"] = time.perf_counter() - t0
+        for ln in out.getvalue().splitlines():
+            log(f"#   val_set_gen: {ln}")
+        printed = _printed_launches(out.getvalue())
+        gen2_want = generate_launches_per_generation(layers, n_cn, 2, levels)
+        if len(printed) != len(val):
+            raise AssertionError(f"val_set_gen: {len(printed)} generations")
+        for c in printed:
+            _check_launches(c, gen2_want, "val_set_gen generation")
+            _add(total, c)
+        torch.cuda.empty_cache()
+        os.makedirs(os.path.join(tmp, "pretrained"))
+        torch.save(export_pt_inception(seeded_init_(InceptionV3(), SEED)),
+                   os.path.join(tmp, "pretrained", fid_score.WEIGHTS))
+        torch.save(seeded_init_(InceptionI3d(), SEED).state_dict(),
+                   os.path.join(tmp, "pretrained", "i3d_pretrained_400.pt"))
+        os.chdir(tmp)
+        samples = os.path.join(vsg, "val_set_gen", "samples")
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            fid = fid_score.main(words + [f"fid.rootb={samples}",
+                                          "fid.require_all=true"])
+        row["fid_score_s"] = time.perf_counter() - t0
+        log(f"#   fid_score: {out.getvalue().strip()}")
+        pairs = len(val) * N_CAM
+        if not math.isfinite(fid) or f"({pairs} real vs {pairs} generated" \
+                not in out.getvalue():
+            raise AssertionError(f"fid_score: {fid}, {out.getvalue()}")
+        row["fid"] = fid
+        reals, _ = fid_score.pair_real_generated(
+            val, list(cfg.dataset.view_order), str(cfg.dataset.dataset_root),
+            samples, require_all=True)
+        transform = functools.partial(
+            fid_score.train_matching_transform,
+            resize_ratio=float(cfg.dataset.augment2d.resize[0][0]),
+            target_hw=(h, w))
+        acts = {}
+        for device in (dev, "cpu"):
+            extract, size, label = fid_score.build_extractor(device=device)
+            acts[device] = fid_score.activations_for_paths(
+                reals, extract, size, transform=transform)
+            if device == dev:
+                x = np.random.default_rng(SEED).random(
+                    (INCEPTION_BATCH, *size, 3)).astype(np.float32)
+                row["inception_images_per_s"] = INCEPTION_BATCH * 1e3 \
+                    / cuda_ms(lambda: extract(x), TIMED_METRIC_CALLS)
+        err = float(np.abs(acts[dev] - acts["cpu"]).max())
+        row["inception_card_vs_cpu"] = err
+        row["inception_max_abs"] = float(np.abs(acts["cpu"]).max())
+        if label != "inception_pool3" or not err <= INCEPTION_TOL * \
+                row["inception_max_abs"]:
+            raise AssertionError(f"Inception ({label}) on the card off the "
+                                 f"CPU by {err}")
+        from dualdiff_tpu_torch.metrics.fvd import build_i3d_extractor
+
+        extract, _ = build_i3d_extractor(os.path.join(
+            "pretrained", "i3d_pretrained_400.pt"), device=dev)
+        clips = torch.rand(I3D_BATCH, I3D_FRAMES, 224, 224, 3,
+                           generator=torch.Generator().manual_seed(SEED)
+                           ) * 2 - 1
+        row["i3d_clips_per_s"] = I3D_BATCH * 1e3 / cuda_ms(
+            lambda: extract(clips), TIMED_METRIC_CALLS)
+        for d, shift in (("fvd_real", 0.2), ("fvd_gen", 0.3)):
+            os.makedirs(d)
+            rng = np.random.default_rng(SEED + int(10 * shift))
+            for i in range(FVD_CLIPS):
+                np.savez(os.path.join(d, f"c{i}.npz"), frames=(
+                    (rng.random((I3D_FRAMES, 224, 224, 3)) * 0.5 + shift)
+                    * 255).astype(np.uint8))
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            fvd = fvd_score.main(["--real", "fvd_real", "--gen", "fvd_gen",
+                                  "--device", dev])
+        row["fvd_score_s"] = time.perf_counter() - t0
+        log(f"#   fvd_score: {out.getvalue().strip()}")
+        if not math.isfinite(fvd) or "FVD[i3d_logits]" not in out.getvalue():
+            raise AssertionError(f"fvd_score: {fvd}, {out.getvalue()}")
+        row["fvd"] = fvd
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    row["launches_per_step"] = step_want
+    row["launches_per_generation"] = gen_want
+    total = {**dict.fromkeys(list(REPLACES) + list(SM90_ROUTES), 0), **total}
+    row["launches_run"] = total
+    row["phase_s"] = time.perf_counter() - t_phase
+    log(json.dumps(row))
+    log(f"nuscenes batch build s at num_workers 0 / 2: "
+        f"{row['batch_build_s_workers_0']:.4f} / "
+        f"{row['batch_build_s_workers_2']:.4f}; step {row['step_s']:.3f} s, "
+        f"generation {row['generation_s']:.3f} s; FID {fid:.4f}, FVD "
+        f"{fvd:.4f}; Inception {row['inception_images_per_s']:.1f} "
+        f"images/s, I3D {row['i3d_clips_per_s']:.2f} clips/s")
+    return total, step_want
+
+
 # the path each kernel serves, whose launches the kernels line reports
 KERNEL_PATH = {"packed_attention_fwd": "generate",
                "packed_attention_nbr_fwd": "generate",
@@ -3329,7 +3793,7 @@ def main() -> int:
         if "--profile" in args else None
     t_start = time.perf_counter()
     smi = phase_device()
-    log(f"# packages: {json.dumps(package_probe())}")
+    log(f"# packages: {json.dumps({**package_probe(), **toolchain_probe()})}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -3384,6 +3848,11 @@ def main() -> int:
     paths["tools"] = ("tools phase: 4 micro-steps at k = 2 in the train "
                       "tool, 2 resumed, 4 generations at 2 steps", tools, {})
     per_step["tools micro-step"] = (tools_step, {})
+    nusc, nusc_step = timed("nuscenes", phase_nuscenes)
+    paths["nuscenes"] = ("nuscenes phase: a step and a UniPC-20 generation "
+                         "on the reader's batches, val_set_gen's 2 "
+                         "generations at 2 steps", nusc, {})
+    per_step["nuscenes"] = (nusc_step, {})
     log(f"# all phases: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line(results, paths, per_step)))
     print(smi)

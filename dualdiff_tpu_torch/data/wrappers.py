@@ -2,9 +2,8 @@
 
 Port of ``dualdiff_tpu/data/wrappers.py`` (numpy and the standard library).
 ``build_dataset`` builds ``SyntheticNuScenes`` (seed + 1 off the train
-split) and, with ``use_video``, groups it into clips (``ClipDataset``).
-The nuScenes reader is not ported yet (ROADMAP Queue 1 #6): its dataset
-type is refused by name.
+split) or the nuScenes reader (``data/nuscenes.py``) from ``cfg.dataset``
+and, with ``use_video``, groups it into clips (``ClipDataset``).
 """
 
 from __future__ import annotations
@@ -56,10 +55,13 @@ class FolderSetWrapper:
             return pickle.load(f)
 
 
-def build_dataset(cfg, split: str = "train"):
+def build_dataset(cfg, split: str = "train", load_images: bool = True,
+                  load_bev: bool = True):
     """The dataset ``cfg.dataset`` names for ``split``; with ``use_video``
-    grouped into clips of ``video.num_frames`` frames."""
-    ds = _build_frames(cfg, split)
+    grouped into clips of ``video.num_frames`` frames.  ``load_images`` and
+    ``load_bev`` reach the nuScenes reader (the FID tool's pairing reads
+    neither)."""
+    ds = _build_frames(cfg, split, load_images, load_bev)
     if cfg.get("use_video"):
         from .video import ClipDataset
 
@@ -67,7 +69,8 @@ def build_dataset(cfg, split: str = "train"):
     return ds
 
 
-def _build_frames(cfg, split: str):
+def _build_frames(cfg, split: str, load_images: bool = True,
+                  load_bev: bool = True):
     d = cfg.dataset
     kind = str(d.dataset_type)
     if kind == "SyntheticNuScenes":
@@ -78,7 +81,33 @@ def _build_frames(cfg, split: str):
             image_size=tuple(d.image_size),
             seed=int(cfg.seed) + (0 if split == "train" else 1),
         )
-    raise NotImplementedError(
-        f"dataset_type {kind!r}: the nuScenes reader (data/nuscenes.py) is "
-        f"not ported yet (ROADMAP Queue 1 #6); the port builds "
-        f"'SyntheticNuScenes' (dataset=Nuscenes_synthetic)")
+    from .collate import branch_specs_from_cfg
+    from .nuscenes import NuScenesDataset
+
+    # a config whose branches never condition on bev_map may run without a
+    # mask cache (warn-once zeros); bev_map-conditioned training must not
+    missing_bev = d.get("missing_bev") or (
+        "error" if any(s.cond_kind == "bev_map"
+                       for s in branch_specs_from_cfg(cfg)) else "zeros")
+    split_cfg = d.data[split]
+    cache = d.dataset_cache_file
+    cache_file = cache[0 if split == "train" else 1] \
+        if isinstance(cache, list) else cache
+    return NuScenesDataset(
+        ann_file=str(split_cfg.ann_file),
+        dataset_root=str(d.dataset_root),
+        object_classes=list(d.object_classes),
+        image_size=tuple(d.image_size),
+        resize_ratio=float(d.augment2d.resize[0][0]),
+        view_order=list(d.view_order),
+        cache_file=cache_file,
+        occ_proj_root=d.get("occ_proj_root"),
+        occ3d_root=d.get("occ3d_root"),
+        map_vec_root=d.get("map_vec_root"),
+        visibility_threshold=int(d.visibility_threshold),
+        load_images=load_images,
+        missing_bev=str(missing_bev),
+        load_bev=load_bev,
+        point_cloud_range=d.get("point_cloud_range"),
+        aux_data=list(d.get("aux_data") or []),
+    )

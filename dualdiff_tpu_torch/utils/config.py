@@ -9,9 +9,17 @@ a test keeps the two equal) and reads it with the standard library.
 ``+exp-hd=...``, ``+exp-drive-wm=...``) picks the shipped JSON through
 ``EXP_CONFIGS``; ``runner=debug`` lays ``configs/runner_debug.json`` (the
 keys of ``configs/runner/debug.yaml``) over the runner;
-``dataset=Nuscenes_synthetic`` is what every JSON holds already; dotted
-``a.b=value`` overrides as ``load_config``.  The JSONs are composed, so an
-override does not re-run the YAML's interpolations: ``load_config``
+``dataset=Nuscenes_synthetic`` is what every JSON holds already, and
+``dataset=Nuscenes``, ``Nuscenes_cache`` and ``Nuscenes_map_cache_box``
+swap in the nuScenes reader's groups (``group``:
+``configs/dataset_Nuscenes.json`` and what each group's YAML sets over
+it, the overlay's own dataset keys kept); ``fid=default`` /
+``fid=data_gen`` set the FID group and ``--config-name test_fid`` lays the
+FID preset (``configs/test_fid.json``) over the config; dotted
+``a.b=value`` overrides as ``load_config``, which makes the nodes they
+name (the reader's roots ``dataset.occ_proj_root``, ``occ3d_root``,
+``map_vec_root``, ``missing_bev``, and ``fid.rootb``, which no YAML
+sets).  The JSONs are composed, so an override does not re-run the YAML's interpolations: ``load_config``
 re-derives the interpolated keys (``LINKS``) from their sources after the
 overrides.  The JSONs carry the operating point each was composed at
 (``runner.pipeline_param.bbox_max_length=80``; the clip configs also
@@ -32,7 +40,8 @@ __all__ = ["ConfigNode", "load_config", "FLAGSHIP", "HD_256X704",
            "OCC_BG_CAMTEMB", "OCC_BG_CAMTEMB_FUSION", "OCC_BG_ADAPTER",
            "OCC_BG_TONE", "OCC_FG", "OCC_FG_40PTS", "OCC3D",
            "DRIVE_WM_192X384", "VARIANTS", "EXP_CONFIGS", "LINKS",
-           "apply_overrides", "compose", "save_config"]
+           "GROUPS", "PRESETS", "apply_overrides", "compose", "group",
+           "save_config"]
 
 CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)),
                           "configs")
@@ -103,11 +112,24 @@ EXP_CONFIGS = {
     "+exp=occ_bg_fusionp": FUSIONP, "+exp=video_16f": VIDEO_16F,
     "+exp=rgd_stage2": RGD_STAGE2, **VARIANTS,
 }
-# group swaps compose takes: runner=debug is an overlay of the runner (the
-# keys of configs/runner/debug.yaml), dataset=Nuscenes_synthetic what every
-# shipped config holds
-GROUPS = {("runner", "debug"): "runner_debug",
-          ("dataset", "Nuscenes_synthetic"): None}
+# group swaps compose takes -> the JSONs each lays, in order, as the YAML
+# group's defaults chain: runner=debug is an overlay of the runner (the keys
+# of configs/runner/debug.yaml); the dataset groups are
+# configs/dataset/Nuscenes.yaml composed (dataset_Nuscenes.json) with what
+# each YAML of the chain sets over it (Nuscenes_map_cache_box sets nothing
+# over Nuscenes_cache); data_gen sets nothing over fid/default.yaml
+_NUSCENES_CACHE = ("dataset_Nuscenes", "dataset_Nuscenes_cache")
+GROUPS = {("runner", "debug"): ("runner_debug",),
+          ("dataset", "Nuscenes"): ("dataset_Nuscenes",),
+          ("dataset", "Nuscenes_synthetic"): ("dataset_Nuscenes",
+                                              "dataset_Nuscenes_synthetic"),
+          ("dataset", "Nuscenes_cache"): _NUSCENES_CACHE,
+          ("dataset", "Nuscenes_map_cache_box"): _NUSCENES_CACHE,
+          ("fid", "default"): ("fid_default",),
+          ("fid", "data_gen"): ("fid_default",)}
+# --config-name presets compose takes -> the JSON of the keys each lays
+# over the config (configs/test_fid.yaml: the fid group and its log root)
+PRESETS = {"test_fid": "test_fid"}
 # the YAML interpolations, target <- source: (target, source, format)
 LINKS = (
     ("model.unet.neighboring_view_pair", "dataset.neighboring_view_pair",
@@ -171,9 +193,13 @@ def _get(cfg, dotted: str):
 
 
 def _set(cfg, dotted: str, value) -> None:
+    """Set ``dotted``, making each missing (or non-dict) parent a node, as
+    the JAX loader's ``set_path`` does."""
     *parents, leaf = dotted.split(".")
     node = cfg
     for p in parents:
+        if not isinstance(node.get(p), dict):
+            node[p] = ConfigNode()
         node = node[p]
     node[leaf] = value
 
@@ -214,20 +240,77 @@ def apply_overrides(cfg: ConfigNode, overrides: Iterable[str]) -> None:
             _set(cfg, target, _derive(_get(cfg, source), fmt))
 
 
+def _read(name: str):
+    with open(os.path.join(CONFIG_DIR, name + ".json")) as f:
+        return json.load(f)
+
+
+def group(key: str, value: str) -> dict:
+    """The JSONs of the group swap ``key=value`` (``GROUPS``) laid in
+    order."""
+    out = {}
+    for name in GROUPS[(key, value)]:
+        _merge(out, _read(name))
+    return out
+
+
+def _config_name(argv: List[str]) -> Tuple[str, List[str]]:
+    """Strip ``--config-name NAME`` (``--config-name=NAME``, ``-cn``)
+    from the words.  -> (NAME or None, the other words)."""
+    name, rest, i = None, [], 0
+    while i < len(argv):
+        word = argv[i]
+        if word in ("--config-name", "-cn"):
+            if i + 1 >= len(argv):
+                raise ValueError(f"{word} needs a value")
+            name, i = argv[i + 1], i + 2
+            continue
+        if word.startswith(("--config-name=", "-cn=")):
+            name = word.split("=", 1)[1]
+        else:
+            rest.append(word)
+        i += 1
+    return name, rest
+
+
+def _diff(node: dict, base: dict) -> dict:
+    """The keys of ``node`` that ``base`` lacks or holds otherwise,
+    recursively: what an overlay laid over ``base``."""
+    out = {}
+    for k, v in node.items():
+        if isinstance(v, dict) and isinstance(base.get(k), dict):
+            sub = _diff(v, base[k])
+            if sub:
+                out[k] = sub
+        elif k not in base or base[k] != v:
+            out[k] = v
+    return out
+
+
 def compose(argv: Iterable[str]) -> Tuple[ConfigNode, List[str]]:
     """-> (the config of a CLI's words, the words).  ``+exp=...`` words
     pick the shipped JSON (``EXP_CONFIGS``; the flagship's when none is
     given; ``+exp=dual_branch_augloss_fusion`` with an ``+exp-hd=...`` the
-    HD one); ``runner=debug`` lays the debug runner over the config's
-    (before the dotted overrides, as the JAX loader applies group swaps
-    first); ``dataset=Nuscenes_synthetic`` changes nothing.  Any other
-    group swap or overlay, and ``--config-name``, raise ``ValueError``."""
+    HD one); ``--config-name test_fid`` lays its preset (``PRESETS``);
+    group swaps (``GROUPS``) apply before the dotted overrides, as the JAX
+    loader applies them first: ``runner=debug`` over the config's runner,
+    a dataset group in place of the config's dataset with the overlay's own
+    dataset keys (what the config holds beyond ``Nuscenes_synthetic``'s;
+    no shipped overlay sets a key to that group's own value, and a test
+    holds every overlay with every dataset group against the JAX loader)
+    laid back over it, a fid group in place of ``fid``.  Any other group
+    swap, overlay or ``--config-name`` raises ``ValueError``."""
     argv = list(argv)
+    preset, words = _config_name(argv)
+    if preset is not None and preset not in PRESETS:
+        raise ValueError(f"--config-name {preset}: the port composes from "
+                         f"its shipped JSON configs and takes the presets "
+                         f"{sorted(PRESETS)}")
     overlays, groups, dotted = [], [], []
-    for word in argv:
+    for word in words:
         if word.startswith("-"):
-            raise ValueError(f"{word!r}: the port composes from its shipped "
-                             f"JSON configs and takes no --config-name")
+            raise ValueError(f"{word!r}: the port takes no option but "
+                             f"--config-name")
         if "=" not in word:
             raise ValueError(f"bad override (need key=value): {word}")
         key, value = word.split("=", 1)
@@ -236,7 +319,7 @@ def compose(argv: Iterable[str]) -> Tuple[ConfigNode, List[str]]:
         elif "." not in key and (key, value) in GROUPS:
             groups.append((key, value))
         elif "." not in key and key in ("runner", "dataset", "model",
-                                        "accelerator"):
+                                        "accelerator", "fid"):
             raise ValueError(
                 f"{word!r}: the port takes the group swaps "
                 f"{sorted(f'{k}={v}' for k, v in GROUPS)} and the "
@@ -252,11 +335,18 @@ def compose(argv: Iterable[str]) -> Tuple[ConfigNode, List[str]]:
                          f"{sorted(EXP_CONFIGS)} (an +exp-hd=... may follow "
                          f"+exp=dual_branch_augloss_fusion)")
     cfg = load_config(EXP_CONFIGS[overlays[0]] if overlays else FLAGSHIP)
+    if preset is not None:
+        _merge(cfg, _read(PRESETS[preset]))
     for key, value in groups:
-        if GROUPS[(key, value)] is not None:
-            with open(os.path.join(CONFIG_DIR,
-                                   GROUPS[(key, value)] + ".json")) as f:
-                _merge(cfg[key], json.load(f))
+        swap = group(key, value)
+        if key == "runner":
+            _merge(cfg[key], swap)
+        elif key == "dataset":
+            _merge(swap, _diff(cfg[key], group("dataset",
+                                               "Nuscenes_synthetic")))
+            cfg[key] = swap
+        else:
+            cfg[key] = swap
     apply_overrides(cfg, dotted)
     return cfg, argv
 

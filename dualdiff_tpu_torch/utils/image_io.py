@@ -11,10 +11,12 @@ The JAX package's tools write through PIL, which the port does not assume.
   tables, byte stuffing.  The DCT is a float DCT, where libjpeg's default
   is its integer one, so the coefficients can differ by one step at a
   rounding edge.  ``jpeg_size`` reads the frame header.
-* ``resize_bicubic``: PIL's ``BICUBIC`` resampling of 8-bit images as
-  PIL computes it: the separable kernel with a = -0.5 (widened by the
-  downscale factor, renormalised at the borders), its taps in PIL's 22-bit
-  fixed point, the width first, each pass rounded to uint8 and clipped.
+* ``resize_bicubic`` / ``resize_bilinear``: PIL's ``BICUBIC`` /
+  ``BILINEAR`` resampling of 8-bit images as PIL computes it: the
+  separable kernel (bicubic with a = -0.5, support 2; the triangle,
+  support 1) widened by the downscale factor and renormalised at the
+  borders, its taps in PIL's 22-bit fixed point, the width first, each
+  pass rounded to uint8 and clipped.
 * ``pad``: black borders, as PIL's paste onto a new black image.
 
 Images are channels-last ``(H, W, 3)`` uint8 numpy arrays.
@@ -29,7 +31,7 @@ from typing import Sequence, Tuple
 import numpy as np
 
 __all__ = ["write_png", "read_png", "write_jpeg", "jpeg_size",
-           "resize_bicubic", "pad", "to_uint8"]
+           "resize_bicubic", "resize_bilinear", "pad", "to_uint8"]
 
 
 def to_uint8(img: np.ndarray) -> np.ndarray:
@@ -358,14 +360,20 @@ def _bicubic(x: np.ndarray, a: float = -0.5) -> np.ndarray:
                     np.where(x < 2, (((x - 5) * x + 8) * x - 4) * a, 0.0))
 
 
-def _coefficients(in_size: int, out_size: int):
-    """PIL's ``precompute_coeffs`` for the bicubic filter (support 2,
-    widened by the downscale factor) and ``normalize_coeffs_8bpc``: ->
-    (first input index (out,), taps (out, k) int64 in 2^-22 units, zero
-    past each window)."""
+def _bilinear(x: np.ndarray) -> np.ndarray:
+    x = np.abs(x)
+    return np.where(x < 1, 1.0 - x, 0.0)
+
+
+def _coefficients(in_size: int, out_size: int, kernel=_bicubic,
+                  support: float = 2.0):
+    """PIL's ``precompute_coeffs`` for ``kernel`` (its support widened by
+    the downscale factor) and ``normalize_coeffs_8bpc``: -> (first input
+    index (out,), taps (out, k) int64 in 2^-22 units, zero past each
+    window)."""
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = 2.0 * filterscale
+    support = support * filterscale
     ksize = int(np.ceil(support)) * 2 + 1
     center = (np.arange(out_size) + 0.5) * scale
     # C's (int) cast truncates toward zero
@@ -373,8 +381,8 @@ def _coefficients(in_size: int, out_size: int):
     xmax = np.minimum(np.trunc(center + support + 0.5),
                       in_size).astype(np.int64) - xmin
     t = np.arange(ksize)
-    w = _bicubic((t[None] + xmin[:, None] - center[:, None] + 0.5)
-                 / filterscale)
+    w = kernel((t[None] + xmin[:, None] - center[:, None] + 0.5)
+               / filterscale)
     w = np.where(t[None] < xmax[:, None], w, 0.0)
     total = w.sum(axis=1, keepdims=True)
     w = np.where(total != 0, w / np.where(total != 0, total, 1), w)
@@ -384,11 +392,12 @@ def _coefficients(in_size: int, out_size: int):
     return xmin, k
 
 
-def _resample_axis(x: np.ndarray, axis: int, out_size: int) -> np.ndarray:
+def _resample_axis(x: np.ndarray, axis: int, out_size: int,
+                   kernel=_bicubic, support: float = 2.0) -> np.ndarray:
     """One separable pass of PIL's 8-bit resampling along ``axis`` of a
     uint8 array: the sum from half a unit, shifted down, clipped."""
     x = np.moveaxis(x, axis, -1).astype(np.int64)
-    xmin, k = _coefficients(x.shape[-1], out_size)
+    xmin, k = _coefficients(x.shape[-1], out_size, kernel, support)
     idx = np.minimum(xmin[:, None] + np.arange(k.shape[1])[None],
                      x.shape[-1] - 1)
     acc = np.full(x.shape[:-1] + (out_size,), 1 << (_PRECISION_BITS - 1),
@@ -409,6 +418,18 @@ def resize_bicubic(img: np.ndarray, size: Sequence[int]) -> np.ndarray:
         out = _resample_axis(out, 1, w)
     if out.shape[0] != h:
         out = _resample_axis(out, 0, h)
+    return out
+
+
+def resize_bilinear(img: np.ndarray, size: Sequence[int]) -> np.ndarray:
+    """(H, W, C) uint8 -> (h, w, C) uint8 for ``size = (h, w)``: PIL's
+    ``resize((w, h), BILINEAR)``, the width first, each pass rounded."""
+    h, w = (int(v) for v in size)
+    out = np.asarray(img, np.uint8)
+    if out.shape[1] != w:
+        out = _resample_axis(out, 1, w, _bilinear, 1.0)
+    if out.shape[0] != h:
+        out = _resample_axis(out, 0, h, _bilinear, 1.0)
     return out
 
 

@@ -89,7 +89,7 @@ def test_hd_overlay_after_the_flagship_and_the_links():
 
 
 @pytest.mark.parametrize("words", [
-    ["dataset=Nuscenes"], ["runner=default"], ["model=other"],
+    ["dataset=Nuscenes_other"], ["runner=default"], ["model=other"],
     ["+exp=224x400", "+exp=occ_bg"], ["+exp=unknown"],
     ["+exp-hd=256x704", "+exp=dual_branch_augloss_fusion"],
     ["--config-name", "test_config"]])
@@ -145,8 +145,10 @@ def test_build_dataset_equals_the_jax_one(split, video):
 
 
 def test_build_dataset_refuses_the_nuscenes_reader():
+    """The reader is ported (``tests/test_torch_nuscenes.py``): without its
+    infos pkl on disk it refuses the split."""
     cfg, _ = compose(["dataset.dataset_type=NuScenesDataset"])
-    with pytest.raises(NotImplementedError, match="Queue 1 #6"):
+    with pytest.raises(FileNotFoundError, match="nuscenes_infos_train.pkl"):
         build_dataset(cfg, "train")
 
 
