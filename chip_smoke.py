@@ -167,6 +167,20 @@ Phases, in order; any failure exits non-zero:
             Inception images/s and I3D clips/s, ``tools.fvd_score``.
             Alone: ``python3 -c "import chip_smoke as s; s.phase_device();
             s.phase_build(); s.phase_nuscenes()"``.
+22. explore the explore tools at full SD v1.5 width (``phase_explore``):
+            the flagship with ``--config-name explore_config`` at 224x400,
+            bf16, seeded random weights, the first synthetic sample;
+            ``tools.explore_attn``'s and ``tools.explore_unet``'s ``run``
+            in this process under ``models.layers.capture``: every map and
+            the nine block features finite, every probability row summing
+            to 1 within ``EXPLORE_ROW_TOL``, the PNGs and
+            ``block_features.npz`` written; then the capture-off ControlNet
+            + UNet forward again, its launches on the sm90 kernels
+            (``check_sm90_launches``, the camera ring among them) and equal
+            to those before the tools, its output within 2^-7 max|x| of the
+            one before; seconds and peak GiB on a ``# explore`` line.
+            Alone: ``python3 -c "import chip_smoke as s; s.phase_device();
+            s.phase_build(); s.phase_explore()"``.
 
 An early line lists which of ``OPTIONAL_PACKAGES`` (PIL, cv2, PyYAML,
 h5py, tensorboardX, orbax) import on the card, and whether ``g++``,
@@ -3276,6 +3290,12 @@ TIMED_METRIC_CALLS = 5  # Inception and I3D calls timed (cuda_ms)
 # words laid over phase nuscenes' (a CPU rehearsal adds tiny_models=true,
 # device=cpu and a small image size)
 NUSC_ARGS: list = []
+# phase explore: the explore tools' words (the explore preset on the
+# flagship, synthetic data) and the tolerance of a probability row's sum
+EXPLORE_ARGS = ["--config-name", "explore_config",
+                "+exp=dual_branch_augloss_fusion",
+                "dataset=Nuscenes_synthetic"]
+EXPLORE_ROW_TOL = 1e-3
 
 
 def toolchain_probe() -> dict:
@@ -3721,6 +3741,103 @@ KERNEL_PATH = {"packed_attention_fwd": "generate",
                "flash_attention_bwd_dkv": "fusionp_train"}
 
 
+def phase_explore():
+    """The explore tools on the card (see the module docstring, phase 22).
+    -> the launches of the capture-off forward after the tools."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from dualdiff_tpu_torch.data.wrappers import build_dataset
+    from dualdiff_tpu_torch.ops import attention as A
+    from dualdiff_tpu_torch.runner.explore import Probe
+    from dualdiff_tpu_torch.runner.factory import (build_models,
+                                                   randomize_weights)
+    from dualdiff_tpu_torch.runner.trainer import MultiviewTrainer
+    from dualdiff_tpu_torch.tools import explore_attn, explore_unet
+    from dualdiff_tpu_torch.utils.config import compose
+
+    t0 = time.perf_counter()
+    cfg, _ = compose(EXPLORE_ARGS)
+    tiny = bool(cfg.get("tiny_models", False))  # a CPU rehearsal's
+    dev = "cpu" if tiny else "cuda"
+    models = build_models(cfg, tiny=tiny, device=dev)
+    for m in (models["unet"], models["vae"], models["text_encoder"],
+              *models["controlnets"]):
+        randomize_weights(m, SEED)
+    trainer = MultiviewTrainer(cfg, build_dataset(cfg, "val"), device=dev,
+                               models=models)
+    probe = Probe(trainer, int(cfg.explore_t))
+
+    def forward():
+        """The capture-off ControlNets + UNet forward and its launches."""
+        A.reset_launch_counts()
+        out = probe.unet(*probe.residuals(), captured=False)
+        torch.cuda.synchronize()
+        return out, launch_counts(A)
+
+    before, counts_before = forward()
+    torch.cuda.reset_peak_memory_stats()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_explore_")
+    try:
+        t1 = time.perf_counter()
+        maps = explore_attn.run(probe, os.path.join(tmp, "attn_maps"))
+        feats = explore_unet.run(probe, os.path.join(tmp, "unet_features"))
+        torch.cuda.synchronize()
+        tools_s = time.perf_counter() - t1
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        pngs = sorted(os.listdir(os.path.join(tmp, "attn_maps")))
+        written = sorted(os.listdir(os.path.join(tmp, "unet_features")))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    n_probs, worst_row = 0, 0.0
+    for net, store in maps.items():
+        for key, v in store.items():
+            if not key.endswith("/attn_probs"):
+                continue
+            if v.dtype != torch.float32 or not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"{net} {key}: {v.dtype}, not finite "
+                                     f"float32 probabilities")
+            worst_row = max(worst_row,
+                            float((v.sum(-1) - 1).abs().max()))
+            n_probs += 1
+    if worst_row > EXPLORE_ROW_TOL:
+        raise AssertionError(f"a probability row sums to 1 +- {worst_row}")
+    blocks = [f"down_block_{i}_out" for i in range(4)] + ["mid_block_out"] \
+        + [f"up_block_{i}_out" for i in range(4)]
+    if sorted(feats) != sorted(blocks) or not all(
+            np.isfinite(f).all() for f in feats.values()):
+        raise AssertionError(f"block features {sorted(feats)}: not the "
+                             f"nine, or not finite")
+    n_views = probe.N
+    if "block_features.npz" not in written or len(written) != \
+            9 * n_views + 1 or not pngs:
+        raise AssertionError(f"explore files: {len(pngs)} maps, "
+                             f"{len(written)} block files")
+    after, counts = forward()
+    check_sm90_launches(counts)
+    if counts != counts_before or not counts.get("packed_attention_nbr_fwd"):
+        raise AssertionError(f"capture-off launches {counts} (before the "
+                             f"tools {counts_before})")
+    diff = float((after.float() - before.float()).abs().max())
+    tol = 2 ** -7 * float(before.float().abs().max())
+    if not diff <= tol:
+        raise AssertionError(f"capture-off output moved by {diff} > {tol}")
+    row = {"phase": "explore", "config": " ".join(EXPLORE_ARGS),
+           "seconds": time.perf_counter() - t0, "tools_s": tools_s,
+           "peak_gib": peak, "attn_probs": n_probs, "maps_png": len(pngs),
+           "worst_row_sum_err": worst_row,
+           "block_shapes": {k: list(v.shape) for k, v in feats.items()},
+           "capture_off_max_diff": diff,
+           "capture_off_launches": _wrappers(counts)}
+    log(f"# explore: {row['seconds']:.1f} s, peak {peak:.2f} GiB")
+    log(json.dumps(row))
+    del maps, feats, probe, trainer, models
+    torch.cuda.empty_cache()
+    return counts
+
+
 def kernels_line(results, paths, per_step):
     """One entry per kernel: its main-path shape's times and the launches
     of the path it serves (``KERNEL_PATH``), with their unit, and its
@@ -3853,6 +3970,9 @@ def main() -> int:
                          "on the reader's batches, val_set_gen's 2 "
                          "generations at 2 steps", nusc, {})
     per_step["nuscenes"] = (nusc_step, {})
+    paths["explore"] = ("explore phase: the capture-off ControlNets + UNet "
+                        "forward after the explore tools",
+                        timed("explore", phase_explore), {})
     log(f"# all phases: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line(results, paths, per_step)))
     print(smi)

@@ -9,11 +9,17 @@ emits, so ``runner/weights.py`` output loads with ``strict=True``.
   cast their input to it, as flax's ``Dense``/``Conv`` with ``dtype`` do.
 * Heads default to 8 with head_dim = channels // 8 (diffusers SD v1.5:
   ``attention_head_dim=8`` is the head count).
+* ``capture(model)`` is the explore mode (the JAX package's
+  ``apply(..., mutable=["intermediates"])``): inside it every
+  ``Attention`` of ``model`` takes the explicit float32 softmax and records
+  its probabilities, attn4 leaves the camera-ring kernel for the stacked
+  neighbour form, and the UNet records its block outputs.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import contextlib
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -29,7 +35,8 @@ __all__ = ["Linear", "Conv2d", "zero_module", "TimestepEmbedding",
            "ResnetBlock2D", "Downsample2D", "Upsample2D", "Attention",
            "GEGLUFeedForward", "GatedConnector", "BasicTransformerBlock",
            "Transformer2DModel", "get_timestep_embedding", "is_camera_ring",
-           "remat_call", "ATTN4_TYPES", "CONNECTOR_TYPES"]
+           "remat_call", "capture", "jax_path", "ATTN4_TYPES",
+           "CONNECTOR_TYPES"]
 
 # attn4 forms and connector types of the JAX package's BasicTransformerBlock
 ATTN4_TYPES = ("add", "concat", "self")
@@ -114,6 +121,49 @@ class Upsample2D(nn.Module):
         return self.conv(F.interpolate(x, size=size, mode="nearest-exact"))
 
 
+def jax_path(name: str) -> str:
+    """A submodule's ``named_modules`` name -> its path in the JAX
+    package's trees: ``down_blocks.0.attentions.1`` ->
+    ``down_blocks_0/attentions_1`` (a list index joins its list's
+    name)."""
+    out = []
+    for part in name.split(".") if name else []:
+        if part.isdigit() and out:
+            out[-1] += f"_{part}"
+        else:
+            out.append(part)
+    return "/".join(out)
+
+
+@contextlib.contextmanager
+def capture(model: nn.Module) -> Iterator[Dict[str, torch.Tensor]]:
+    """Explore mode on ``model`` for the block: yields the dict its
+    forwards record into, keyed as the JAX package's flattened
+    ``intermediates`` collection (``jax_path`` of the module, then the
+    ``sow`` name): every ``Attention``'s ``.../attn_probs``, float32
+    (B', H, Lq, Lk), and a UNet's ``down_block_<i>_out``,
+    ``mid_block_out`` and ``up_block_<i>_out`` in its NCHW layout.
+    Outside the block the modules run as before: the same kernels, the
+    same launches."""
+    store: Dict[str, torch.Tensor] = {}
+    subs = [(name, m) for name, m in model.named_modules()
+            if hasattr(m, "_capture")]
+    for name, m in subs:
+        m._capture = (store, jax_path(name))
+    try:
+        yield store
+    finally:
+        for _, m in subs:
+            m._capture = None
+
+
+def record(module: nn.Module, name: str, value: torch.Tensor) -> None:
+    """Into the dict of ``capture``, under the module's path and
+    ``name``."""
+    store, path = module._capture
+    store[f"{path}/{name}" if path else name] = value
+
+
 class Attention(nn.Module):
     """Multi-head attention with separate q / kv dims (diffusers
     ``Attention``), channel-packed.
@@ -136,12 +186,19 @@ class Attention(nn.Module):
     box K/V is added to the text attention's output before ``to_out`` (the
     JAX package's ``box_scale``, 1.0 in every config).  Padded boxes are
     null-feature tokens and take part in every softmax, as in the JAX
-    package."""
+    package.
+
+    Under ``capture`` a call that is not the camera ring computes its
+    text (or self) attention as the JAX explore path does
+    (``layers.py:177-187``): float32 logits scaled by ``head_dim**-0.5``,
+    softmax, recorded as ``attn_probs`` (B', H, Lq, Lk), and
+    ``probs.to(v.dtype) @ v``."""
 
     def __init__(self, query_dim: int, heads: int = 8,
                  kv_dim: Optional[int] = None, lora_rank: int = 0,
                  box_adapter: bool = False):
         super().__init__()
+        self._capture = None
         self.heads = heads
         self.lora_rank = lora_rank
         kv_dim = kv_dim or query_dim
@@ -191,11 +248,26 @@ class Attention(nn.Module):
         v = self._proj("to_v", self.to_v, kv)
         if ring_views:
             out = attention_packed_neighbors(q, k, v, self.heads, ring_views)
+        elif self._capture is not None:
+            out = self._explore(q, k, v)
         else:
             out = attention_packed(q, k, v, self.heads)
         if adapter:
             out = out + self._box_attention(q, box_tok, cls_tok)
         return self._proj("to_out_0", self.to_out[0], out)
+
+    def _explore(self, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor) -> torch.Tensor:
+        """The capture path's attention, recording its probabilities."""
+        b, lq, c = q.shape
+        d = c // self.heads
+        split = lambda t: t.reshape(t.shape[0], t.shape[1], self.heads, d)
+        logits = torch.einsum("bqhd,bkhd->bhqk", split(q).float(),
+                              split(k).float()) * (d ** -0.5)
+        probs = torch.softmax(logits, dim=-1)
+        record(self, "attn_probs", probs)
+        return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype),
+                            split(v)).reshape(b, lq, c)
 
     def _box_attention(self, q: torch.Tensor, box_tok: torch.Tensor,
                        cls_tok: torch.Tensor) -> torch.Tensor:
@@ -272,10 +344,11 @@ class BasicTransformerBlock(nn.Module):
 
     * ``add``: each view attends to its two neighbours
       (``neighboring_view_pair``) and the two outputs are summed.  On the
-      camera ring that is the ring kernel (``attention_packed_neighbors``);
-      over other pairs the left and right neighbours' tokens are gathered
-      and one attention runs the stacked ``[q; q]`` over ``[kv_left;
-      kv_right]``, its halves summed;
+      camera ring, outside ``capture``, that is the ring kernel
+      (``attention_packed_neighbors``); over other pairs, and on the ring
+      under ``capture`` (the JAX explore path), the left and right
+      neighbours' tokens are gathered and one attention runs the stacked
+      ``[q; q]`` over ``[kv_left; kv_right]``, its halves summed;
     * ``concat``: each view attends to ``[kv_left | kv_right]`` (2L keys);
     * ``self``: one attention over all ``n_cam * L`` tokens of a sample.
 
@@ -362,8 +435,8 @@ class BasicTransformerBlock(nn.Module):
             return self.attn4(norm_h.reshape(b, n_cam * l, c)).reshape(
                 bn, l, c)
         pairs = self.neighboring_view_pair
-        if self.neighboring_attn_type == "add" and is_camera_ring(pairs,
-                                                                  n_cam):
+        if self.neighboring_attn_type == "add" and self.attn4._capture is \
+                None and is_camera_ring(pairs, n_cam):
             return self.attn4(norm_h, ring_views=n_cam)
         h = norm_h.reshape(b, n_cam, l, c)
         take = lambda side: h[:, [pairs[i][side] for i in range(n_cam)]] \

@@ -10,7 +10,9 @@ spatial tokens is rematerialised in the backward
 (``enable_unet_checkpointing``).  NCHW; the
 leading batch dim folds (batch, camera), or (clip, frame, camera) for the
 video UNet (DualDiff+: ST-Attn and temporal attention in every transformer
-block).
+block).  Under ``layers.capture`` it records each block's output, as the
+JAX UNet's ``sow`` calls: ``down_block_<i>_out`` (before the ControlNet
+residuals), ``mid_block_out`` (after its residual) and ``up_block_<i>_out``.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from torch import nn
 
 from .layers import (Conv2d, Downsample2D, ResnetBlock2D, TimestepEmbedding,
                      Transformer2DModel, Upsample2D, get_timestep_embedding,
-                     remat_call)
+                     record, remat_call)
 from .norms import GroupNorm
 
 __all__ = ["UNet2DConditionMultiview", "CrossAttnDownBlock2D", "DownBlock2D",
@@ -172,6 +174,7 @@ class UNet2DConditionMultiview(nn.Module):
         ``lora_rank``: LoRA adapters on every block's attn1 and attn2 (RGD
         stage 2)."""
         super().__init__()
+        self._capture = None
         self.num_frames = num_frames
         self.remat = remat
         self.remat_min_tokens = remat_min_tokens
@@ -233,26 +236,33 @@ class UNet2DConditionMultiview(nn.Module):
         run = lambda block, *a: remat_call(self.remat, self.remat_min_tokens,
                                            block, *a)
         res_stack = [x]
-        for block in self.down_blocks:
+        sow = self._capture is not None
+        for i, block in enumerate(self.down_blocks):
             if isinstance(block, CrossAttnDownBlock2D):
                 x, res = run(block, x, temb, encoder_hidden_states, n_cam)
             else:
                 x, res = run(block, x, temb)
             res_stack += res
+            if sow:
+                record(self, f"down_block_{i}_out", x)
         if down_block_additional_residuals is not None:
             res_stack = [r + a.to(r.dtype) for r, a in
                          zip(res_stack, down_block_additional_residuals)]
         x = run(self.mid_block, x, temb, encoder_hidden_states, n_cam)
         if mid_block_additional_residual is not None:
             x = x + mid_block_additional_residual.to(x.dtype)
+        if sow:
+            record(self, "mid_block_out", x)
 
         n_lay = len(self.up_blocks[0].resnets)
-        for block in self.up_blocks:
+        for i, block in enumerate(self.up_blocks):
             skips = res_stack[-n_lay:][::-1]
             del res_stack[-n_lay:]
             target: Optional[Tuple[int, int]] = (
                 tuple(res_stack[-1].shape[2:]) if res_stack else None)
             x = run(block, x, skips, temb, encoder_hidden_states, n_cam,
                     target)
+            if sow:
+                record(self, f"up_block_{i}_out", x)
         x = F.silu(self.conv_norm_out(x)).to(self.conv_out.weight.dtype)
         return self.conv_out(x)

@@ -91,6 +91,7 @@ from .conds import compute_branch_conds, prepare_batch, to_device
 from .factory import build_models
 from .train_state import build_optimizer, init_box_adapter_from_base, \
     partition_params, trainable_predicate
+from .weights import EXPORT_FILE, export_name, save_model_dir
 
 __all__ = ["sample_uncond_switch", "make_draws", "make_precompute_cond",
            "batch_rows", "make_loss_fn", "train_step", "set_category_tokens",
@@ -98,8 +99,6 @@ __all__ = ["sample_uncond_switch", "make_draws", "make_precompute_cond",
 
 # the file of a checkpoint directory
 CHECKPOINT_FILE = "trainer_state.pt"
-# the weights file of each exported model directory (diffusers' name)
-EXPORT_FILE = "diffusion_pytorch_model.bin"
 
 log = logging.getLogger(__name__)
 
@@ -677,9 +676,8 @@ class MultiviewTrainer:
                 for i, cn in enumerate(self.models["controlnets"])]
         for root, module in nets + [("unet", self.models["unet"])]:
             out[root] = {
-                name.replace("to_out_0_lora_", "to_out.0_lora_"):
-                master.get(f"{root}/{name}", t).detach().to(
-                    "cpu", torch.float32, copy=True)
+                export_name(name): master.get(f"{root}/{name}", t).detach()
+                .to("cpu", torch.float32, copy=True)
                 for name, t in module.state_dict().items()}
         return out
 
@@ -697,12 +695,9 @@ class MultiviewTrainer:
         dirs = {f"controlnet_{i}": cdirs[i]
                 for i in range(len(self.models["controlnets"]))}
         dirs["unet"] = str(self.cfg.model.unet_dir)
-        nbytes = 0
-        for key, sd in self.export_state_dicts().items():
-            path = os.path.join(root, dirs[key], EXPORT_FILE)
-            os.makedirs(os.path.dirname(path), exist_ok=True)
-            torch.save(sd, path)
-            nbytes += os.path.getsize(path)
+        paths = save_model_dir({dirs[key]: sd for key, sd
+                                in self.export_state_dicts().items()}, root)
+        nbytes = sum(os.path.getsize(p) for p in paths.values())
         log.info("exported %s (%d bytes, %.3f s)", root, nbytes,
                  time.perf_counter() - t0)
         return root

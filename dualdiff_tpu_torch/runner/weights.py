@@ -34,6 +34,12 @@ diffusers dumps (the original SD v1.5 VAE on the hub) and the CLIP
 package) and ``.bin`` / ``.pt`` files; ``load_pretrained`` loads one state
 dict into a module by the JAX ``merge_imported``'s rules, and
 ``load_pretrained_dir`` a diffusers-layout directory into a model set.
+
+The port's own weights directory (``save_model_dir``, what the trainer's
+``export_model`` and ``tools/import_weights.py`` write and
+``tools/export_weights.py`` emits): ``<component>/EXPORT_FILE``, a
+``torch.save`` of float32 CPU tensors in the JAX exporter's names
+(``export_name``), which ``load_pretrained_dir`` reads.
 """
 
 from __future__ import annotations
@@ -49,7 +55,11 @@ import torch
 
 __all__ = ["from_jax", "NOT_PORTED", "MULTIVIEW_MODULES", "LEGACY_VAE_NAMES",
            "from_diffusers", "read_checkpoint", "load_pretrained",
-           "load_pretrained_dir"]
+           "load_pretrained_dir", "weights_file", "export_name",
+           "save_model_dir", "EXPORT_FILE"]
+
+# the weights file of each exported model directory (diffusers' name)
+EXPORT_FILE = "diffusion_pytorch_model.bin"
 
 _LISTY = (
     "resnets", "attentions", "transformer_blocks", "down_blocks", "up_blocks",
@@ -223,7 +233,7 @@ def load_pretrained(module: torch.nn.Module,
     return sorted(k for k in own if k not in src)
 
 
-def _weights_file(sub: str) -> Optional[str]:
+def weights_file(sub: str) -> Optional[str]:
     """The first ``*.safetensors``, else ``*.bin``, else ``*.pt`` file of
     directory ``sub`` (``tools/import_weights.py::_find_weights``)."""
     for pattern in ("*.safetensors", "*.bin", "*.pt"):
@@ -251,7 +261,7 @@ def load_pretrained_dir(models: Dict, src: str) -> Dict[str, Optional[Dict]]:
              for i, cn in enumerate(models["controlnets"])]
     report = {}
     for name, module, kind, subdirs in jobs:
-        path = next(filter(None, (_weights_file(os.path.join(src, d))
+        path = next(filter(None, (weights_file(os.path.join(src, d))
                                   for d in subdirs)), None)
         if path is None:
             report[name] = None
@@ -261,3 +271,24 @@ def load_pretrained_dir(models: Dict, src: str) -> Dict[str, Optional[Dict]]:
         report[name] = {"file": path, "missing": missing,
                         "src_keys": len(sd)}
     return report
+
+
+def export_name(name: str) -> str:
+    """A port state-dict name -> the JAX exporter's (the one rename of
+    the module docstring: ``to_out_0_lora_*`` -> ``to_out.0_lora_*``)."""
+    return name.replace("to_out_0_lora_", "to_out.0_lora_")
+
+
+def save_model_dir(state_dicts: Mapping[str, Mapping[str, torch.Tensor]],
+                   root: str) -> Dict[str, str]:
+    """``{component: state dict}`` -> ``<root>/<component>/EXPORT_FILE``
+    each: float32 CPU tensors under ``export_name``s.  -> {component:
+    path}."""
+    paths = {}
+    for name, sd in state_dicts.items():
+        path = os.path.join(root, name, EXPORT_FILE)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        torch.save({export_name(k): v.detach().to("cpu", torch.float32)
+                    for k, v in sd.items()}, path)
+        paths[name] = path
+    return paths

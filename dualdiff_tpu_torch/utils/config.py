@@ -15,7 +15,8 @@ swap in the nuScenes reader's groups (``group``:
 ``configs/dataset_Nuscenes.json`` and what each group's YAML sets over
 it, the overlay's own dataset keys kept); ``fid=default`` /
 ``fid=data_gen`` set the FID group and ``--config-name test_fid`` lays the
-FID preset (``configs/test_fid.json``) over the config; dotted
+FID preset (``configs/test_fid.json``) over the config, as
+``--config-name explore_config`` and ``test_config`` lay theirs; dotted
 ``a.b=value`` overrides as ``load_config``, which makes the nodes they
 name (the reader's roots ``dataset.occ_proj_root``, ``occ3d_root``,
 ``map_vec_root``, ``missing_bev``, and ``fid.rootb``, which no YAML
@@ -128,8 +129,14 @@ GROUPS = {("runner", "debug"): ("runner_debug",),
           ("fid", "default"): ("fid_default",),
           ("fid", "data_gen"): ("fid_default",)}
 # --config-name presets compose takes -> the JSON of the keys each lays
-# over the config (configs/test_fid.yaml: the fid group and its log root)
-PRESETS = {"test_fid": "test_fid"}
+# over the config (configs/test_fid.yaml: the fid group and its log root;
+# explore_config.yaml: the explore tools' explore_t / explore_out, batch 1
+# and no box augmentation; test_config.yaml: the evaluation run's keys).
+# The JAX loader lays a preset before the overlay, which no shipped overlay
+# sets to another value, and a group swap replaces the preset's node of
+# that group, so compose drops those nodes of the preset
+PRESETS = {"test_fid": "test_fid", "explore_config": "explore_config",
+           "test_config": "test_config"}
 # the YAML interpolations, target <- source: (target, source, format)
 LINKS = (
     ("model.unet.neighboring_view_pair", "dataset.neighboring_view_pair",
@@ -291,7 +298,9 @@ def compose(argv: Iterable[str]) -> Tuple[ConfigNode, List[str]]:
     """-> (the config of a CLI's words, the words).  ``+exp=...`` words
     pick the shipped JSON (``EXP_CONFIGS``; the flagship's when none is
     given; ``+exp=dual_branch_augloss_fusion`` with an ``+exp-hd=...`` the
-    HD one); ``--config-name test_fid`` lays its preset (``PRESETS``);
+    HD one); ``--config-name test_fid`` (``explore_config``,
+    ``test_config``) lays its preset (``PRESETS``) but the nodes the
+    words' group swaps replace;
     group swaps (``GROUPS``) apply before the dotted overrides, as the JAX
     loader applies them first: ``runner=debug`` over the config's runner,
     a dataset group in place of the config's dataset with the overlay's own
@@ -336,7 +345,9 @@ def compose(argv: Iterable[str]) -> Tuple[ConfigNode, List[str]]:
                          f"+exp=dual_branch_augloss_fusion)")
     cfg = load_config(EXP_CONFIGS[overlays[0]] if overlays else FLAGSHIP)
     if preset is not None:
-        _merge(cfg, _read(PRESETS[preset]))
+        swapped = {key for key, _ in groups}
+        _merge(cfg, {k: v for k, v in _read(PRESETS[preset]).items()
+                     if k not in swapped})
     for key, value in groups:
         swap = group(key, value)
         if key == "runner":

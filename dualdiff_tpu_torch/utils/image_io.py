@@ -1,10 +1,11 @@
 """Image files and resampling without PIL: PNG and baseline JPEG writers,
-PIL's bicubic resize and pad.
+PIL's bicubic, bilinear and nearest resizes, and pad.
 
 The JAX package's tools write through PIL, which the port does not assume.
 
-* ``write_png``: 8-bit RGB, zlib, every row filter 0; ``read_png`` reads
-  such files back (filter 0 only).
+* ``write_png``: 8-bit RGB, or grey for an (H, W) array (PIL's mode
+  ``L``), zlib, every row filter 0; ``read_png`` reads such files back
+  (filter 0 only).
 * ``write_jpeg``: baseline JFIF as PIL writes by default: quality 75 (the
   IJG tables scaled as libjpeg scales them), 4:2:0 chroma (libjpeg's 2x2
   box average with its alternating rounding bias), the Annex K Huffman
@@ -17,6 +18,8 @@ The JAX package's tools write through PIL, which the port does not assume.
   support 1) widened by the downscale factor and renormalised at the
   borders, its taps in PIL's 22-bit fixed point, the width first, each
   pass rounded to uint8 and clipped.
+* ``resize_nearest``: PIL's ``NEAREST``: output pixel ``x`` takes source
+  pixel ``floor((x + 0.5) * in / out)``.
 * ``pad``: black borders, as PIL's paste onto a new black image.
 
 Images are channels-last ``(H, W, 3)`` uint8 numpy arrays.
@@ -31,7 +34,8 @@ from typing import Sequence, Tuple
 import numpy as np
 
 __all__ = ["write_png", "read_png", "write_jpeg", "jpeg_size",
-           "resize_bicubic", "resize_bilinear", "pad", "to_uint8"]
+           "resize_bicubic", "resize_bilinear", "resize_nearest", "pad",
+           "to_uint8"]
 
 
 def to_uint8(img: np.ndarray) -> np.ndarray:
@@ -48,15 +52,21 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
 
 
 def write_png(path: str, img: np.ndarray) -> None:
-    """(H, W, 3) uint8 -> an 8-bit RGB PNG."""
+    """(H, W, 3) uint8 -> an 8-bit RGB PNG; (H, W) uint8 -> an 8-bit grey
+    one."""
     img = np.ascontiguousarray(img, np.uint8)
+    grey = img.ndim == 2
+    if grey:
+        img = img[..., None]
     h, w, c = img.shape
-    if c != 3:
-        raise ValueError(f"write_png takes (H, W, 3) RGB, got {img.shape}")
+    if c != 1 + 2 * (not grey):
+        raise ValueError(f"write_png takes (H, W, 3) RGB or (H, W) grey, "
+                         f"got {img.shape}")
     rows = np.concatenate([np.zeros((h, 1), np.uint8),
-                           img.reshape(h, w * 3)], axis=1)
+                           img.reshape(h, w * c)], axis=1)
     data = (b"\x89PNG\r\n\x1a\n"
-            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8,
+                                          0 if grey else 2, 0, 0, 0))
             + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
             + _chunk(b"IEND", b""))
     with open(path, "wb") as f:
@@ -64,8 +74,8 @@ def write_png(path: str, img: np.ndarray) -> None:
 
 
 def read_png(path: str) -> np.ndarray:
-    """An 8-bit RGB PNG whose rows all use filter 0 (``write_png``'s) ->
-    (H, W, 3) uint8."""
+    """An 8-bit RGB or grey PNG whose rows all use filter 0
+    (``write_png``'s) -> (H, W, 3) or (H, W) uint8."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != b"\x89PNG\r\n\x1a\n":
@@ -80,14 +90,16 @@ def read_png(path: str) -> np.ndarray:
             idat.append(body)
         pos += 12 + n
     w, h, depth, color = hdr[:4]
-    if (depth, color) != (8, 2):
+    if depth != 8 or color not in (0, 2):
         raise ValueError(f"{path}: bit depth {depth}, colour type {color}; "
-                         f"read_png takes 8-bit RGB")
+                         f"read_png takes 8-bit RGB or grey")
+    c = 3 if color == 2 else 1
     rows = np.frombuffer(zlib.decompress(b"".join(idat)),
-                         np.uint8).reshape(h, 1 + 3 * w)
+                         np.uint8).reshape(h, 1 + c * w)
     if rows[:, 0].any():
         raise ValueError(f"{path}: rows with a filter other than 0")
-    return rows[:, 1:].reshape(h, w, 3).copy()
+    out = rows[:, 1:].reshape(h, w, c)
+    return (out if c == 3 else out[..., 0]).copy()
 
 
 # ------------------------------------------------------------------ JPEG --
@@ -431,6 +443,16 @@ def resize_bilinear(img: np.ndarray, size: Sequence[int]) -> np.ndarray:
     if out.shape[0] != h:
         out = _resample_axis(out, 0, h, _bilinear, 1.0)
     return out
+
+
+def resize_nearest(img: np.ndarray, size: Sequence[int]) -> np.ndarray:
+    """(H, W, ...) -> (h, w, ...) for ``size = (h, w)``: PIL's
+    ``resize((w, h), NEAREST)``."""
+    h, w = (int(v) for v in size)
+    img = np.asarray(img)
+    rows = ((np.arange(h) + 0.5) * img.shape[0] / h).astype(np.int64)
+    cols = ((np.arange(w) + 0.5) * img.shape[1] / w).astype(np.int64)
+    return img[rows][:, cols]
 
 
 def pad(img: np.ndarray, back_pad: Sequence[int]) -> np.ndarray:

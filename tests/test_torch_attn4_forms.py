@@ -74,7 +74,7 @@ def _params(connector):
     """Seeded params of the JAX UNet with this connector.  The attn4 form
     does not change the param tree (attn4 is one ``Attention`` in every
     form), so the forms with one connector share it."""
-    jm = jax_build(tp.jax_config(tp.TINY_OVERRIDES + [
+    jm = jax_build(tp.jax_config(tp.TINY_OVERRIDES + tp.NO_REMAT + [
         f"model.unet.zero_module_type={connector}"]), tiny=True)["unet"]
     x, ts, kv = _inputs()
     shapes = jax.eval_shape(lambda: jm.init(

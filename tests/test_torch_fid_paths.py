@@ -13,6 +13,7 @@ import numpy as np
 
 from tests.test_torch_metrics import (_close, _jax_tool, _scores_equal,
                                       weights)  # noqa: F401 (fixture)
+from tests.torch_parity import one_blas_thread  # noqa: F401 (autouse)
 
 
 def test_fid_score_paths_mode_equals_the_jax_tool(weights, capsys):

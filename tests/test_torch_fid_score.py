@@ -19,6 +19,7 @@ import pytest
 from tests.test_torch_metrics import (CAMS, _close, _jax_tool,
                                       _scores_equal,
                                       weights)  # noqa: F401 (fixture)
+from tests.torch_parity import one_blas_thread  # noqa: F401 (autouse)
 
 
 def test_fid_score_config_mode_equals_the_jax_tool(weights, capsys):

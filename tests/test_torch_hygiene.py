@@ -19,8 +19,11 @@ OPTIONAL = ("PIL", "cv2", "yaml", "h5py", "tensorboardX", "orbax",
 LAZY = {os.path.join("data", "collate.py"): {"PIL"},
         os.path.join("data", "bev_raster.py"): {"cv2"},
         os.path.join("data", "nuscenes.py"): {"PIL", "h5py"}}
-# the nuscenes-devkit's map expansion, for the reader's live raster
-DEVKIT = {os.path.join("data", "nuscenes.py"): {"nuscenes"}}
+# the nuscenes-devkit's map expansion, for the reader's live raster, and
+# the devkit (with h5py for the cache) of the offline prep tools
+DEVKIT = {os.path.join("data", "nuscenes.py"): {"nuscenes"},
+          os.path.join("tools", "create_data.py"): {"nuscenes"},
+          os.path.join("tools", "prepare_map_aux.py"): {"h5py", "nuscenes"}}
 
 
 def _port_files():

@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from tests import torch_parity as tp
+from tests.torch_parity import one_blas_thread  # noqa: F401 (autouse)
 from dualdiff_tpu_torch.metrics import fid as port_fid
 from dualdiff_tpu_torch.metrics.fid_import import (
     PT_INCEPTION_CONV_MODULES, export_pt_inception, import_pt_inception,

@@ -153,14 +153,11 @@ def _branch_inputs(tiny):
     jmodels, params = tiny["jmodels"], tiny["params"]
     jt = JT.prepare_batch(tiny["batch"])
     pt = PC.prepare_batch(tiny["batch"], "cpu")
-    te = jmodels["text_encoder"]
-    text = te.apply({"params": params["text_encoder"]}, jt["input_ids"])[0]
-    uncond = te.apply({"params": params["text_encoder"]},
-                      jt["uncond_ids"])[0]
+    text, uncond = tp.jax_text(tiny, jt)
     h, w = tiny["jcfg"].dataset.image_size
     conds = JT.compute_branch_conds(jmodels, jt, (h // 8, w // 8),
                                     (896, 1600))
-    return jt, pt, np.asarray(text), np.asarray(uncond), conds
+    return jt, pt, text, uncond, conds
 
 
 @pytest.mark.parametrize("branch", [0, 1])

@@ -329,4 +329,4 @@ def test_test_fid_preset_composes_as_the_jax_loader():
                              "dataset=Nuscenes_synthetic", "fid.rootb=/gen",
                              "dataset.occ3d_root=/o"] + BAKED)
     with pytest.raises(ValueError, match="presets"):
-        compose(["--config-name", "test_config"])
+        compose(["--config-name", "no_such_preset"])

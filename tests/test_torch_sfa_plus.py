@@ -116,10 +116,7 @@ def test_controlnet_precompute_and_encode(tiny, flash_at_512):
     jmodels, params = tiny["jmodels"], tiny["params"]
     jt = JT.prepare_batch(tiny["batch"])
     pt = PC.prepare_batch(tiny["batch"], "cpu")
-    te = jmodels["text_encoder"]
-    text, uncond = (np.asarray(te.apply({"params": params["text_encoder"]},
-                                        jt[k])[0])
-                    for k in ("input_ids", "uncond_ids"))
+    text, uncond = tp.jax_text(tiny, jt)
     jm, = jmodels["controlnets"]
     pm, = tiny["pmodels"]["controlnets"]
     lat = _rng(40).normal(size=(1, 6, 32, 16, 4)).astype(np.float32)

@@ -92,7 +92,7 @@ def test_hd_overlay_after_the_flagship_and_the_links():
     ["dataset=Nuscenes_other"], ["runner=default"], ["model=other"],
     ["+exp=224x400", "+exp=occ_bg"], ["+exp=unknown"],
     ["+exp-hd=256x704", "+exp=dual_branch_augloss_fusion"],
-    ["--config-name", "test_config"]])
+    ["--config-name", "no_such_preset"]])
 def test_compose_refuses_what_it_does_not_take(words):
     with pytest.raises(ValueError):
         compose(words)

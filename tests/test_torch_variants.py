@@ -164,12 +164,10 @@ def test_controlnet_precompute_and_encode(which):
     tiny = tp.tiny_setup(exp=exp, extra=extra)
     jm, = tiny["jmodels"]["controlnets"]
     pm, = tiny["pmodels"]["controlnets"]
-    params, te = tiny["params"], tiny["jmodels"]["text_encoder"]
+    params = tiny["params"]
     jt = JT.prepare_batch(tiny["batch"])
     pt = PC.prepare_batch(tiny["batch"], "cpu")
-    text, uncond = (np.asarray(te.apply({"params": params["text_encoder"]},
-                                        jt[k])[0])
-                    for k in ("input_ids", "uncond_ids"))
+    text, uncond = tp.jax_text(tiny, jt)
     jcond, = JT.compute_branch_conds(tiny["jmodels"], jt, (32, 16),
                                      (896, 1600))
     pcond, = PC.compute_branch_conds(tiny["pmodels"], pt, (32, 16),

@@ -17,6 +17,7 @@ import functools
 import os
 
 import numpy as np
+import pytest
 import torch
 
 CONFIG_DIR = os.path.join(os.path.dirname(__file__), "..", "configs")
@@ -50,8 +51,29 @@ VARIANTS_TRAIN = ("use_box_adapter=true",
                   "model.controlnet.use_cam_in_temb=true",
                   "use_tone_guidance=true")
 
+# the abstract inits that only give the seeded weights their shapes trace
+# the models without remat: it would lift every block for nothing, and it
+# changes no parameter's path, shape or order
+NO_REMAT = ["runner.enable_unet_checkpointing=false",
+            "runner.enable_controlnet_checkpointing=false"]
+
 # the port's test modules run 6 to a machine under xdist
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True)
+def one_blas_thread():
+    """numpy's and scipy's BLAS on one thread for the test (an autouse
+    fixture of the modules that import it): scipy's 2048 x 2048 ``sqrtm``
+    is one thread of work, and its BLAS pool's idle threads spin on the
+    cores the other xdist workers share."""
+    try:
+        from threadpoolctl import threadpool_limits
+    except ImportError:
+        yield
+        return
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
 
 
 def exp_overrides(overlay):
@@ -121,13 +143,18 @@ def load_port(module: torch.nn.Module, params, kind: str) -> torch.nn.Module:
     return module
 
 
-@functools.lru_cache(maxsize=2)
 def tiny_setup(fusionp=False, exp=None, extra=()):
     """Tiny JAX and port model sets with equal weights, the seed-0 synthetic
     batch of 1 sample at 256x128, and the tokenizer; the flagship's, with
     ``fusionp`` the single-branch ``occ_bg_fusionp`` set, or with ``exp``
     that shipped exp overlay's (``"+exp=224x400"``), each under the
-    overrides ``extra`` (a tuple) too."""
+    overrides ``extra`` (a tuple) too.  Built once a process for each set,
+    however the arguments are spelled."""
+    return _tiny_setup(bool(fusionp), exp, tuple(extra))
+
+
+@functools.lru_cache(maxsize=8)
+def _tiny_setup(fusionp, exp, extra):
     from dualdiff_tpu.data.collate import collate_fn
     from dualdiff_tpu.data.synthetic import SyntheticNuScenes
     from dualdiff_tpu.data.tokenizer import HashTokenizer
@@ -146,10 +173,12 @@ def tiny_setup(fusionp=False, exp=None, extra=()):
                        rng=np.random.default_rng(0))
     jmodels = build_models(jcfg, tiny=True)
     tensors = prepare_batch(batch)
+    shape_cfg = jax_config(TINY_OVERRIDES + list(extra) + NO_REMAT,
+                           fusionp=fusionp, exp=exp)
     shapes = init_full_params(
-        jcfg, jmodels, tensors, (h // 8, w // 8),
-        tuple(jcfg.model.get("ors_frame_hw", (896, 1600))), tok,
-        abstract=True)
+        shape_cfg, build_models(shape_cfg, tiny=True), tensors,
+        (h // 8, w // 8), tuple(jcfg.model.get("ors_frame_hw", (896, 1600))),
+        tok, abstract=True)
     # cam2token reads raw intrinsics (fx ~ 1266): an unscaled random kernel
     # makes the camera token ~400, the cross-attention softmax one-hot, and
     # float rounding alone then flips its winner on either side
@@ -160,6 +189,18 @@ def tiny_setup(fusionp=False, exp=None, extra=()):
     return {"jcfg": jcfg, "pcfg": pcfg, "jmodels": jmodels,
             "params": params, "pmodels": pmodels, "batch": batch,
             "tokenizer": tok}
+
+
+def jax_text(setup, jt, keys=("input_ids", "uncond_ids")):
+    """The JAX text encoder's hidden states (numpy) of each of ``keys`` of
+    the prepared JAX batch ``jt``, from one jitted function: a one-shot
+    reference that the op-by-op dispatch makes slower than its compile."""
+    import jax
+
+    te = setup["jmodels"]["text_encoder"]
+    fn = jax.jit(lambda p, ids: te.apply({"params": p}, ids)[0])
+    return [np.asarray(fn(setup["params"]["text_encoder"], jt[k]))
+            for k in keys]
 
 
 def _load_port_models(pmodels, params):
@@ -180,8 +221,8 @@ def tiny_video_unet_params(video=True):
 
     from dualdiff_tpu.runner.factory import build_models
 
-    unet = build_models(jax_config(TINY_VIDEO_OVERRIDES, video=video),
-                        tiny=True)["unet"]
+    unet = build_models(jax_config(TINY_VIDEO_OVERRIDES + NO_REMAT,
+                                   video=video), tiny=True)["unet"]
     rows = 2 * 6  # one clip: 2 frames x 6 views
     shapes = jax.eval_shape(lambda: unet.init(
         jax.random.PRNGKey(0), jnp.zeros((rows, 32, 16, 4)),
