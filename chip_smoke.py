@@ -181,6 +181,40 @@ Phases, in order; any failure exits non-zero:
             one before; seconds and peak GiB on a ``# explore`` line.
             Alone: ``python3 -c "import chip_smoke as s; s.phase_device();
             s.phase_build(); s.phase_explore()"``.
+23. ddp     data parallelism over processes (``phase_ddp``): two ranks
+            (``chip_smoke.py --ddp-rank DIR``, spawned with the launcher's
+            variables) on the one card over gloo (``init_from_env``: NCCL
+            refuses two ranks on one device), after what earlier phases
+            left on the card is freed.  Each rank: phase 7's tiny flagship
+            at 256x128 on its row of a global batch of 2, the gradients
+            averaged; its row of the flagship's UniPC-20 generation at
+            224x400 (global B = 2, full width, seeded weights, bf16) and of
+            the tiny set's at 256x128, launches derived; then the flagship's training step at full
+            width on the global batch of 2 (one row a rank), a warm-up
+            and a timed step, launches per step equal to
+            ``train_launches_per_step`` on the sm90 kernels, and the
+            averaged gradients and the updated trainables (the optimizer's
+            float32 masters) bit for bit equal to rank 0's
+            (``differs_from_rank0``).  The parent holds the averaged
+            256x128 gradient to one process's float32 B = 2 gradient on
+            the CPU under phase 7's gate (loss ``LOSS_REL_TOL``, every leaf
+            ``LEAF_TOL``; the full-width gradients are not held to it, see
+            ``train_reference_readings``), and the generated rows within
+            ``GEN_MEAN_TOL`` (mean) of one process's with the same weights
+            and noise (``ddp_generation_readings``): at 224x400 of its
+            generation of the row alone (its B = 2 rows differ from its
+            B = 1 rows by more than the gate: cuDNN's convolutions and
+            cuBLAS's GEMMs give a row other bits in another batch,
+            ``tests/torch_batch_probe.py``), at phase 5's tiny 256x128 of
+            its B = 2 generation, UniPC-20 both; at 224x400 every
+            attention kernel call of one B = 2 step, run again on each
+            half of its batch, bit-equal to the whole call
+            (``halved_calls``); a one-rank ``nccl``
+            group from the environment (``--nccl-probe``) does one
+            ``all_reduce``.  Prints s/step beside phase 6's, all-reduce
+            seconds and bytes per step and the peak per rank.  Alone:
+            ``python3 -c "import chip_smoke as s; s.phase_device();
+            s.phase_build(); s.phase_ddp()"``.
 
 An early line lists which of ``OPTIONAL_PACKAGES`` (PIL, cv2, PyYAML,
 h5py, tensorboardX, orbax) import on the card, and whether ``g++``,
@@ -221,12 +255,15 @@ H100_BYTES_PER_S = 3.35e12
 # exponentials per clock of one SM (MUFU: 4 per SM sub-partition) on 132 SMs
 H100_SMS, EXP_PER_CLOCK = 132, 16
 SEED = 0
-TIMED_GENERATIONS = 3
-TIMED_TRAIN_STEPS = 5
-TIMED_CLIPS = 2
-TIMED_VIDEO_TRAIN_STEPS = 3
-TIMED_HD_GENERATIONS = 2
-TIMED_HD_TRAIN_STEPS = 3
+# timed calls after each warm-up, kept few so that the whole run, phase
+# ddp included, stays well inside its time limit (no check depends on
+# their number)
+TIMED_GENERATIONS = 1
+TIMED_TRAIN_STEPS = 1
+TIMED_CLIPS = 1
+TIMED_VIDEO_TRAIN_STEPS = 1
+TIMED_HD_GENERATIONS = 1
+TIMED_HD_TRAIN_STEPS = 1
 # Training reference (phase 7), bf16 card against float32 CPU; readings on
 # an H100 80GB HBM3 at 700 W.  Loss: 3.75e-4 relative apart; the limit is
 # about 5x that.  Gradients, per trainable leaf (``leaf_grad_errors``): the
@@ -274,9 +311,9 @@ CACHE_LOSS_RTOL = 2e-4
 # generation (B x 6, UniPC-20, CFG 2) and training step (B_TRAIN x 6):
 # config name -> (timed generations, timed steps); the configs live in
 # dualdiff_tpu_torch.utils.config
-VARIANTS = {"baseline_224x400": (2, 2), "occ_bg_adapter_224x400": (1, 2),
-            "occ_bg_camtemb_fusion_224x400": (1, 2),
-            "occ_bg_tone_224x400": (0, 2)}
+VARIANTS = {"baseline_224x400": (1, 1), "occ_bg_adapter_224x400": (1, 1),
+            "occ_bg_camtemb_fusion_224x400": (1, 1),
+            "occ_bg_tone_224x400": (0, 1)}
 # phase variants_reference's training set: occ_bg with the box adapter, the
 # camera token in the time embedding and tone guidance all on
 VARIANTS_TRAIN = ["use_box_adapter=true",
@@ -323,7 +360,7 @@ OPTION_ATTN4 = {
     "attn4_gated": (["model.unet.zero_module_type=gated"], False),
     "attn4_none": (["model.unet.zero_module_type=none"], False),
 }
-TIMED_OPTION_STEPS = 2
+TIMED_OPTION_STEPS = 1
 # the TPU kernel each CUDA kernel replaces, and its source here
 REPLACES = {
     "packed_attention_fwd": "dualdiff_tpu/ops/attention.py:468",      # _fwd_kernel_t
@@ -375,6 +412,9 @@ SM90_NBR = "sm90_attention_nbr_fwd"
 # ops.attention.sm90_in_scope (rows 4-5 and 9-10: _bwd_dq_kernel_t,
 # _bwd_dkv_kernel_t, _bwd_dq_kernel, _bwd_dkv_kernel).
 SM90_DQ, SM90_DKV = "sm90_attention_bwd_dq", "sm90_attention_bwd_dkv"
+# what every training gate's step must launch
+TRAIN_GATE_KERNELS = ("packed_attention_lse_fwd", "packed_attention_bwd_dq",
+                      "packed_attention_bwd_dkv", SM90_LSE, SM90_DQ, SM90_DKV)
 SM90_BWD_SOURCE = "dualdiff_tpu_torch/csrc/attention_sm90_bwd.cu"
 # each sm90 kernel: the wrappers whose in-scope calls it takes, its source
 SM90_ROUTES = {
@@ -778,15 +818,20 @@ def timed(name, fn, *a, **kw):
     return out
 
 
+def card() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
               file=sys.stderr)
         sys.exit(2)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = card()
     log(f"# device: {torch.cuda.get_device_name(0)}; "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     return smi
@@ -1472,7 +1517,7 @@ def forward_kernel_rows(A, g, kern, label, b, lq, lk, c, heads, n_cam,
 
 
 def _flagship(device, tiny=False, extra=(), weights_from=None,
-              video=False, name=None, loader=False):
+              video=False, name=None, loader=False, mesh=None):
     """(cfg, collated batch, pipeline) with seeded random weights, or the
     weights of the models in ``weights_from``; the flagship config, or
     ``name``.  With ``loader`` the UNet's, VAE's and CLIP's weights come
@@ -1521,7 +1566,8 @@ def _flagship(device, tiny=False, extra=(), weights_from=None,
     if loader:
         log(json.dumps({"phase": f"{_tag(cfg)} checkpoint loader",
                         **load_sd15_shaped(cfg, models, SEED + 1)}))
-    return cfg, batch, BEVControlNetPipeline(cfg, models, device=device)
+    return cfg, batch, BEVControlNetPipeline(cfg, models, device=device,
+                                             mesh=mesh)
 
 
 def _tag(cfg) -> str:
@@ -2074,6 +2120,8 @@ def phase_train(profile_dir, name=None, timed_steps=TIMED_TRAIN_STEPS,
     if tag:
         log(f"{tag} s/step: {s}")
         log(f"{tag} train images/s: {B_TRAIN * N_CAM / s}")
+    elif name is None and not extra:  # phase ddp's yardstick
+        KEPT["train_s_per_step"] = s
     if frozen_changed:
         raise AssertionError(f"frozen parameters changed: "
                              f"{frozen_changed[:5]}")
@@ -2136,6 +2184,112 @@ def leaf_grad_errors(want: dict, got: dict) -> dict:
     return out
 
 
+def gate_reading(device: str, fp32: bool = False, video: bool = False,
+                 fusionp: bool = False, variants: bool = False,
+                 batch: int = 1, mesh=None):
+    """One tiny loss + backward of the gate's set (see
+    ``train_reference_readings``) on ``device``, in float32 with ``fp32``,
+    else in the config's bf16: seeded weights drawn on the CPU in float32,
+    ``batch`` samples (clip 0 with ``video``) and the draws of
+    ``torch.Generator`` seed ``SEED`` for them.  Under ``mesh`` this rank's
+    rows of the batch and the draws, the gradients averaged over the ranks
+    (``average_gradients``) and the loss their mean.  -> (loss,
+    ``_trainable_grads``, launches)."""
+    import numpy as np
+
+    from dualdiff_tpu_torch.data.collate import collate_fn
+    from dualdiff_tpu_torch.data.tokenizer import HashTokenizer
+    from dualdiff_tpu_torch.data.video import (SyntheticNuScenesVideo,
+                                               collate_video)
+    from dualdiff_tpu_torch.diffusion.schedule import DiffusionSchedule
+    from dualdiff_tpu_torch.ops import attention as A
+    from dualdiff_tpu_torch.parallel import mesh as M
+    from dualdiff_tpu_torch.runner.conds import prepare_batch, to_device
+    from dualdiff_tpu_torch.runner.factory import (build_models,
+                                                   randomize_weights)
+    from dualdiff_tpu_torch.runner.rewards import make_rgd_reward
+    from dualdiff_tpu_torch.runner.train_state import (named_roots,
+                                                       partition_params,
+                                                       trainable_predicate)
+    from dualdiff_tpu_torch.runner.trainer import make_draws, make_loss_fn
+    from dualdiff_tpu_torch.utils.config import (FLAGSHIP, FUSIONP, OCC_BG,
+                                                 RGD_STAGE2, load_config)
+
+    name = RGD_STAGE2 if video else FUSIONP if fusionp else \
+        OCC_BG if variants else FLAGSHIP
+    extra = ["dataset.image_size=[256, 128]"]
+    if variants:
+        extra += VARIANTS_TRAIN
+    frames = TRAIN_FRAMES if video else 1
+    if video:
+        extra.append(f"video.num_frames={frames}")
+    if fp32:
+        extra.append("runner.mixed_precision=fp32")
+    cfg = load_config(name, extra)
+    models = build_models(cfg, tiny=True, device="cpu")
+    for _, m in named_roots(models):
+        randomize_weights(m, SEED)
+    with torch.no_grad():  # see phase_reference
+        for cn in models["controlnets"]:
+            cn.cam2token.weight.mul_(0.01)
+            if fusionp:  # see SFA_COND_SCALE
+                conv = cn.controlnet_cond_embedding.conv_out
+                conv.weight.mul_(SFA_COND_SCALE)
+                conv.bias.mul_(SFA_COND_SCALE)
+        for n, p in models["unet"].named_parameters():
+            if "lora_b" in n:
+                p.mul_(LORA_B_SCALE)
+    for _, m in named_roots(models):
+        m.to(device, models["dtype"])
+    trainable, _ = partition_params(models, trainable_predicate(
+        str(cfg.model.unet.trainable_state)))
+    h, w = cfg.dataset.image_size
+    rng = np.random.default_rng(SEED)
+    if video:
+        clips = SyntheticNuScenesVideo(num_clips=2, num_frames=frames,
+                                       image_size=(h, w))
+        collated = collate_video([clips[0]], cfg, HashTokenizer(), rng=rng)
+    else:
+        ds = _train_batch(cfg, batch)
+        collated = collate_fn([ds[i] for i in range(batch)], cfg,
+                              HashTokenizer(), rng=rng)
+    host = prepare_batch(collated, "cpu")
+    draws = make_draws(torch.Generator().manual_seed(SEED), cfg,
+                       batch * frames, N_CAM, (h // 8, w // 8), 1000,
+                       frames=frames)
+    if mesh is not None:
+        host, draws = M.shard_batch(host, mesh), M.shard_batch(draws, mesh)
+    draws = {k: None if v is None else v.to(device) for k, v in draws.items()}
+    reward = dict(reward_fn=make_rgd_reward(cfg), reward_weight=float(
+        cfg.video.rgd.reward_weight)) if video else {}
+    cap, flash_min = A.T_SCORE_CAP, A.FLASH_MIN_LEN
+    if video:
+        A.T_SCORE_CAP = 2 ** 18
+    if fusionp:
+        A.FLASH_MIN_LEN = 512
+    try:
+        A.reset_launch_counts()
+        loss, _ = make_loss_fn(models, cfg, DiffusionSchedule.create(),
+                               (h // 8, w // 8),
+                               tuple(cfg.model.get("ors_frame_hw")),
+                               frames=frames, **reward)(
+            to_device(host, device), draws)
+        loss.backward()
+    finally:
+        A.T_SCORE_CAP, A.FLASH_MIN_LEN = cap, flash_min
+    launches = launch_counts(A)
+    grads = _trainable_grads(models)
+    loss = loss.detach()
+    if mesh is not None:  # a leaf no gradient reached on any rank: None
+        averaged = M.average_gradients({
+            k: torch.zeros(trainable[k].shape) if g is None else g
+            for k, g in grads.items()})
+        grads = {k: None if g is None and not averaged[k].any()
+                 else averaged[k] for k, g in grads.items()}
+        loss = M.all_mean(loss)
+    return float(loss), grads, launches
+
+
 def train_reference_readings(device: str = "cuda", video: bool = False,
                              fusionp: bool = False,
                              variants: bool = False) -> dict:
@@ -2159,100 +2313,21 @@ def train_reference_readings(device: str = "cuda", video: bool = False,
     prints the readings).  ``variants``: the tiny ``occ_bg`` set with
     ``VARIANTS_TRAIN`` (the box adapter, the camera token in the time
     embedding, tone guidance's decode under grad)."""
-    import numpy as np
-
-    from dualdiff_tpu_torch.data.collate import collate_fn
-    from dualdiff_tpu_torch.data.tokenizer import HashTokenizer
-    from dualdiff_tpu_torch.data.video import (SyntheticNuScenesVideo,
-                                               collate_video)
-    from dualdiff_tpu_torch.diffusion.schedule import DiffusionSchedule
-    from dualdiff_tpu_torch.ops import attention as A
-    from dualdiff_tpu_torch.runner.conds import prepare_batch
-    from dualdiff_tpu_torch.runner.factory import (build_models,
-                                                   randomize_weights)
-    from dualdiff_tpu_torch.runner.rewards import make_rgd_reward
-    from dualdiff_tpu_torch.runner.train_state import (named_roots,
-                                                       partition_params,
-                                                       trainable_predicate)
-    from dualdiff_tpu_torch.runner.trainer import make_draws, make_loss_fn
-    from dualdiff_tpu_torch.utils.config import (FLAGSHIP, FUSIONP, OCC_BG,
-                                                 RGD_STAGE2, load_config)
-
-    name = RGD_STAGE2 if video else FUSIONP if fusionp else \
-        OCC_BG if variants else FLAGSHIP
-    extra = ["dataset.image_size=[256, 128]"]
-    if variants:
-        extra += VARIANTS_TRAIN
-    frames = TRAIN_FRAMES if video else 1
-    if video:
-        extra.append(f"video.num_frames={frames}")
-    cap, flash_min = A.T_SCORE_CAP, A.FLASH_MIN_LEN
-    if video:
-        A.T_SCORE_CAP = 2 ** 18
-    if fusionp:
-        A.FLASH_MIN_LEN = 512
-    results = []  # (loss, grads by leaf, launches): CPU, then the device
-    cpu_models = None
-    try:
-        for dev, cfg in (("cpu", load_config(
-                name, extra + ["runner.mixed_precision=fp32"])),
-                (device, load_config(name, extra))):
-            models = build_models(cfg, tiny=True, device=dev)
-            for root, m in named_roots(models):
-                if cpu_models is None:
-                    randomize_weights(m, SEED)
-                else:
-                    m.load_state_dict(dict(named_roots(cpu_models))[root]
-                                      .state_dict(), strict=True)
-                m.to(dev, models["dtype"])
-            if cpu_models is None:
-                with torch.no_grad():  # see phase_reference
-                    for cn in models["controlnets"]:
-                        cn.cam2token.weight.mul_(0.01)
-                        if fusionp:  # see SFA_COND_SCALE
-                            conv = cn.controlnet_cond_embedding.conv_out
-                            conv.weight.mul_(SFA_COND_SCALE)
-                            conv.bias.mul_(SFA_COND_SCALE)
-                    for n, p in models["unet"].named_parameters():
-                        if "lora_b" in n:
-                            p.mul_(LORA_B_SCALE)
-                cpu_models = models
-            partition_params(models, trainable_predicate(
-                str(cfg.model.unet.trainable_state)))
-            h, w = cfg.dataset.image_size
-            rng = np.random.default_rng(SEED)
-            if video:
-                clips = SyntheticNuScenesVideo(num_clips=2, num_frames=frames,
-                                               image_size=(h, w))
-                collated = collate_video([clips[0]], cfg, HashTokenizer(),
-                                         rng=rng)
-            else:
-                collated = collate_fn([_train_batch(cfg, 1)[0]], cfg,
-                                      HashTokenizer(), rng=rng)
-            batch = prepare_batch(collated, dev)
-            draws = make_draws(torch.Generator().manual_seed(SEED), cfg,
-                               frames, N_CAM, (h // 8, w // 8), 1000,
-                               frames=frames)
-            draws = {k: None if v is None else v.to(dev)
-                     for k, v in draws.items()}
-            reward = dict(reward_fn=make_rgd_reward(cfg), reward_weight=float(
-                cfg.video.rgd.reward_weight)) if video else {}
-            A.reset_launch_counts()
-            loss, _ = make_loss_fn(models, cfg, DiffusionSchedule.create(),
-                                   (h // 8, w // 8),
-                                   tuple(cfg.model.get("ors_frame_hw")),
-                                   frames=frames, **reward)(batch, draws)
-            loss.backward()
-            results.append((loss.detach().item(), _trainable_grads(models),
-                            launch_counts(A)))
-    finally:
-        A.T_SCORE_CAP, A.FLASH_MIN_LEN = cap, flash_min
-    (loss_cpu, g_cpu, _), (loss_gpu, g_gpu, launches) = results
-    errs = leaf_grad_errors(g_cpu, g_gpu)
-    worst = sorted(errs.items(), key=lambda kv: -kv[1])
+    kinds = dict(video=video, fusionp=fusionp, variants=variants)
     phase = "video_train_reference" if video else \
         "fusionp_train_reference" if fusionp else \
         "variants_train_reference" if variants else "train_reference"
+    return gate_row(phase, gate_reading("cpu", fp32=True, **kinds),
+                    gate_reading(device, **kinds))
+
+
+def gate_row(phase: str, cpu, dev) -> dict:
+    """The gate's row (``_reference_gate`` reads it) of two
+    ``gate_reading`` results: float32 on the CPU and bf16 on the
+    device."""
+    (loss_cpu, g_cpu, _), (loss_gpu, g_gpu, launches) = cpu, dev
+    errs = leaf_grad_errors(g_cpu, g_gpu)
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])
     return {"phase": phase,
             "loss_cpu_f32": loss_cpu, "loss_gpu_bf16": loss_gpu,
             "loss_rel_err": abs(loss_gpu - loss_cpu) / abs(loss_cpu),
@@ -2291,9 +2366,7 @@ def phase_train_reference():
     (``leaf_grad_errors``): a limit that one attention call's dq or dk/dv
     spoiled exceeds while the sound run stays under it (see the limits'
     readings at the top)."""
-    _reference_gate(train_reference_readings(), (
-        "packed_attention_lse_fwd", "packed_attention_bwd_dq",
-        "packed_attention_bwd_dkv", SM90_LSE, SM90_DQ, SM90_DKV))
+    _reference_gate(train_reference_readings(), TRAIN_GATE_KERNELS)
 
 
 def phase_fusionp(profile_dir):
@@ -3296,6 +3369,18 @@ EXPLORE_ARGS = ["--config-name", "explore_config",
                 "+exp=dual_branch_augloss_fusion",
                 "dataset=Nuscenes_synthetic"]
 EXPLORE_ROW_TOL = 1e-3
+# phase ddp: two ranks on the one card over gloo, one row each of a global
+# batch of DDP_B; the generation gate (phase 5's) on each row
+DDP_RANKS = DDP_B = 2
+DDP_TIMEOUT = 900
+GEN_MEAN_TOL = 1e-2
+# (label, tiny, config overrides) of the generations phase ddp holds
+DDP_GENERATIONS = (("224x400", False, ()),
+                   ("tiny_256x128", True, ("dataset.image_size=[256, 128]",
+                                           "runner.pipeline_param."
+                                           "num_inference_steps=20")))
+# what one phase leaves for a later one in the same process
+KEPT = {}
 
 
 def toolchain_probe() -> dict:
@@ -3838,6 +3923,439 @@ def phase_explore():
     return counts
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _rank_env(rank: int, world: int, port: int) -> dict:
+    """The launcher's variables for rank ``rank`` of ``world`` on this
+    host."""
+    return dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
+                LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                MASTER_ADDR="localhost", MASTER_PORT=str(port))
+
+
+def differs_from_rank0(tensors: dict) -> list:
+    """The names of ``tensors`` whose bytes differ from rank 0's tensor of
+    that name (none on rank 0): each tensor's SHA-256 on the host, rank
+    0's digests broadcast (``broadcast_object``)."""
+    import hashlib
+
+    from dualdiff_tpu_torch.parallel import mesh as M
+
+    mine = {k: hashlib.sha256(t.detach().contiguous().reshape(-1)
+                              .view(torch.uint8).cpu().numpy()).hexdigest()
+            for k, t in tensors.items()}
+    rank0 = M.broadcast_object(mine)
+    return [k for k, d in mine.items() if rank0.get(k) != d]
+
+
+def ddp_rank(out_dir: str) -> int:
+    """One rank of phase ``ddp`` (``chip_smoke.py --ddp-rank DIR``, with
+    the launcher's variables set): the 256x128 gate's averaged gradient,
+    this rank's row of the flagship generation, and one warm-up and one
+    timed flagship step on the global batch, with the checks that need
+    the ranks together.  Writes ``DIR/rank<r>.pt``."""
+    from dualdiff_tpu_torch.ops import attention as A
+    from dualdiff_tpu_torch.parallel import mesh as M
+    from dualdiff_tpu_torch.runner import trainer as T
+    from dualdiff_tpu_torch.runner.factory import (build_models,
+                                                   randomize_weights)
+    from dualdiff_tpu_torch.utils.config import FLAGSHIP, load_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    backend = M.init_from_env()
+    mesh = M.create_mesh()
+    dev = M.rank_device()
+    torch.cuda.set_device(dev)
+    out = {"rank": mesh.rank, "world": mesh.world, "backend": backend,
+           "device": str(dev)}
+
+    # the 256x128 gate: this rank's row, the gradients averaged
+    loss, grads, launches = gate_reading("cuda", batch=DDP_B, mesh=mesh)
+    check_sm90_launches(launches)
+    out["gate"] = (loss, grads if mesh.rank == 0 else None, launches)
+    del grads
+
+    # this rank's row of the generation: the flagship at full width, and
+    # the tiny set at phase 5's 256x128
+    out["rows"] = list(range(DDP_B))[mesh.rows(DDP_B)]
+    out["images"], out["generation_s"] = {}, {}
+    for size, tiny, extra in DDP_GENERATIONS:
+        cfg, batch, pipe = _flagship("cuda", tiny=tiny, extra=extra,
+                                     mesh=mesh)
+        unet = pipe.models["unet"]
+        h, w = cfg.dataset.image_size
+        expect = generate_launches_per_generation(
+            len(unet.down_blocks[0].resnets),
+            len(pipe.models["controlnets"]),
+            int(cfg.runner.pipeline_param.num_inference_steps),
+            model_levels(unet, (h // 8, w // 8)), attn4=attn4_form(unet))
+        A.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        images = pipe(batch, generator=torch.Generator(device=dev)
+                      .manual_seed(SEED))
+        torch.cuda.synchronize()
+        out["generation_s"][size] = time.perf_counter() - t0
+        counts = launch_counts(A)
+        if _wrappers(counts) != expect:
+            raise AssertionError(f"rank {mesh.rank} {size} generation "
+                                 f"launches {counts} != {expect}")
+        check_sm90_launches(counts)
+        if not tiny:
+            out["generation_launches"] = counts
+        out["images"][size] = images.cpu()
+        del pipe, images, unet
+        torch.cuda.empty_cache()
+
+    # the flagship step on the global batch: a warm-up step and a timed one
+    cfg = load_config(FLAGSHIP, [f"runner.train_batch_size={DDP_B}",
+                                 "runner.lr_warmup_steps=0"])
+    models = build_models(cfg, device=dev)
+    for m in (models["unet"], models["vae"], models["text_encoder"],
+              *models["controlnets"]):
+        randomize_weights(m, SEED)
+    trainer = T.MultiviewTrainer(cfg, _train_batch(cfg, 2 * DDP_B),
+                                 device=dev, models=models)
+    if trainer.mesh != mesh:
+        raise AssertionError(f"trainer mesh {trainer.mesh} != {mesh}")
+    layers = len(models["unet"].down_blocks[0].resnets)
+    derive = functools.partial(
+        train_launches_per_step, layers, len(models["controlnets"]),
+        bool(cfg.runner.enable_unet_checkpointing)
+        and bool(cfg.runner.enable_controlnet_checkpointing),
+        model_levels(models["unet"], (h // 8, w // 8)),
+        attn4=attn4_form(models["unet"]))
+    expect, template = derive(), derive(template_only=True)
+    opt, seen, steps = trainer.optimizer, {}, []
+    step, average = opt.step, T.average_gradients
+    reduce = {"seconds": 0.0, "bytes": 0}
+
+    def recording(g=None):
+        seen["grads"] = g
+        return step(g)
+
+    def timed_average(grads):
+        """The trainer's all-reduce, timed between synchronisations."""
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = average(grads)
+        torch.cuda.synchronize(dev)
+        reduce["seconds"] += time.perf_counter() - t0
+        reduce["bytes"] += sum(v.numel() * v.element_size()
+                               for v in out.values())
+        return out
+
+    def on_metrics(i, m):
+        counts = launch_counts(A)
+        if _wrappers(counts) != expect:
+            raise AssertionError(f"rank {mesh.rank} step launches {counts} "
+                                 f"!= {expect}")
+        check_sm90_launches(counts, template)
+        steps.append(dict(m, step=i, launches=counts,
+                          all_reduce=dict(reduce)))
+        A.reset_launch_counts()
+        reduce.update(seconds=0.0, bytes=0)
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    opt.step = recording
+    T.average_gradients = timed_average
+    A.reset_launch_counts()
+    trainer.run(2, on_metrics)
+    if len(steps) != 2 or not all(
+            math.isfinite(m["loss"]) and m["grad_norm"] > 0 for m in steps):
+        raise AssertionError(f"rank {mesh.rank} steps {steps}")
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    out["steps"] = [{k: v for k, v in m.items() if k != "launches"}
+                    for m in steps]
+    out["launches_per_step"] = steps[-1]["launches"]
+    out["trainable_tensors"] = len(opt.master)
+    grads = {f"grad/{k}": v for k, v in seen["grads"].items()}
+    state = {f"master/{k}": v for k, v in opt.master.items()}
+    t0 = time.perf_counter()
+    out["differ_from_rank0"] = differs_from_rank0({**grads, **state})
+    out["compare_s"] = time.perf_counter() - t0
+    out["compared_tensors"] = len(grads) + len(state)
+    out["rank_s"] = time.perf_counter() - t_start
+    torch.save(out, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
+    del trainer, models, grads, state, seen
+    M.barrier()
+    M.destroy()
+    return 0
+
+
+def nccl_probe() -> int:
+    """``chip_smoke.py --nccl-probe`` with a one-rank launcher's variables:
+    ``init_from_env`` on a card of its own (``nccl``) and one
+    ``all_reduce`` (``all_mean``); prints a JSON line."""
+    from dualdiff_tpu_torch.parallel import mesh as M
+
+    t0 = time.perf_counter()
+    backend = M.init_from_env()
+    dev = M.rank_device()
+    x = torch.arange(4, device=dev, dtype=torch.float32)
+    y = M.all_mean(x)
+    ok = bool(torch.equal(y, x))
+    M.destroy()
+    print(json.dumps({"backend": backend, "device": str(dev),
+                      "all_reduce_ok": ok,
+                      "seconds": time.perf_counter() - t0}))
+    return 0 if ok and backend == "nccl" else 1
+
+
+# the inference wrappers a generation calls
+GEN_WRAPPERS = ("packed_attention_fwd", "packed_attention_nbr_fwd",
+                "packed_attention_capped_fwd", "flash_attention_fwd")
+
+
+def split_equal(run, args, out):
+    """(whether ``run`` on each half of the first dimension of the tensor
+    arguments, concatenated, is bit-equal to ``out``, the largest
+    difference), or None when the call cannot be halved."""
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    outs = out if isinstance(out, tuple) else (out,)
+    n = tensors[0].shape[0] if tensors else 0
+    if n < 2 or n % 2 or any(t.shape[0] != n for t in tensors) or \
+            any(not isinstance(o, torch.Tensor) or o.shape[0] != n
+                for o in outs):
+        return None
+    parts = []
+    for half in (slice(0, n // 2), slice(n // 2, n)):
+        got = run(*[a[half] if isinstance(a, torch.Tensor) else a
+                    for a in args])
+        parts.append(got if isinstance(got, tuple) else (got,))
+    diff = 0.0
+    for i, o in enumerate(outs):
+        cat = torch.cat([p[i] for p in parts])
+        diff = max(diff, float((cat.float() - o.float()).abs().max()))
+    return diff == 0.0, diff
+
+
+def halved_calls(pipe, batch, lat, modules: bool = False) -> dict:
+    """One denoising step of ``batch`` from ``lat`` in which every call of
+    the ``GEN_WRAPPERS`` (with ``modules``, of every leaf module of the
+    networks too) is run again on each half of its first dimension
+    (``split_equal``).  -> {wrapper or module type: {calls, halved,
+    batch_dependent (halves not bit-equal to the whole), max_abs_diff}}."""
+    import collections
+
+    from dualdiff_tpu_torch.ops import attention as A
+    from dualdiff_tpu_torch.runner.train_state import named_roots
+
+    seen = collections.defaultdict(lambda: {"calls": 0, "halved": 0,
+                                            "batch_dependent": 0,
+                                            "max_abs_diff": 0.0})
+
+    def note(kind, res):
+        row = seen[kind]
+        row["calls"] += 1
+        if res is not None:
+            row["halved"] += 1
+            row["batch_dependent"] += not res[0]
+            row["max_abs_diff"] = max(row["max_abs_diff"], res[1])
+
+    def hook(module, args, kwargs, out):
+        if any(isinstance(v, torch.Tensor) for v in kwargs.values()):
+            return note(type(module).__name__, None)
+        with torch.no_grad():
+            note(type(module).__name__, split_equal(
+                lambda *a: module.forward(*a, **kwargs), args, out))
+
+    handles = []
+    if modules:
+        for _, root in named_roots(pipe.models):
+            for m in root.modules():
+                if not any(True for _ in m.children()):
+                    handles.append(m.register_forward_hook(
+                        hook, with_kwargs=True))
+
+    def wrap(name, fn):
+        @functools.wraps(fn)
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            note(name, split_equal(lambda *a: fn(*a, **kw), args, out))
+            return out
+        return call
+
+    saved = {n: getattr(A, n) for n in GEN_WRAPPERS}
+    for n, fn in saved.items():
+        setattr(A, n, wrap(n, fn))
+    try:
+        pipe(batch, latents=lat, num_inference_steps=1)
+    finally:
+        for n, fn in saved.items():
+            setattr(A, n, fn)
+        for h in handles:
+            h.remove()
+    return dict(seen)
+
+
+def ddp_generation_readings(res) -> dict:
+    """The ranks' generated rows (``res``: the ranks' results) against one
+    process on the card, the same weights, batch and initial noise (the
+    global draw of ``torch.Generator`` seed ``SEED``): at full width each
+    row against one process's generation of that row alone (B = 1: the
+    ranks' batch per row; bf16 sums there depend on the batch, so the
+    one-process B = 2 rows differ from its B = 1 rows, read here as
+    ``one_process_b2_vs_b1``, mean), and at 256x128 against one process's
+    B = 2 generation.  -> mean (``*_mean_err``) and max absolute errors
+    per row, and at full width ``halved_kernel_calls`` (``halved_calls``
+    of one step at B = 2: the attention kernels' share of the batch's
+    rows)."""
+    from dualdiff_tpu_torch.parallel import mesh as M
+    from dualdiff_tpu_torch.runner.conds import prepare_batch, to_device
+
+    out = {}
+    for size, tiny, extra in DDP_GENERATIONS:
+        cfg, batch, pipe = _flagship("cuda", tiny=tiny, extra=extra)
+        h, w = cfg.dataset.image_size
+        dev = pipe.device
+        lat = torch.randn((DDP_B, 1, h // 8, w // 8, 4), device=dev,
+                          generator=torch.Generator(device=dev)
+                          .manual_seed(SEED))
+        whole = pipe(batch, latents=lat).cpu()
+        if tiny:
+            want = whole
+        else:
+            t = prepare_batch(batch, "cpu")
+            want = torch.cat([pipe(to_device(M.shard_batch(
+                t, M.Mesh(world=DDP_B, rank=r, data=DDP_B)), dev),
+                latents=lat[r:r + 1]).cpu() for r in range(DDP_B)])
+            out["one_process_b2_vs_b1"] = [
+                float((whole[r] - want[r]).abs().mean()) for r in range(DDP_B)]
+            out["halved_kernel_calls"] = halved_calls(pipe, batch, lat)
+        errs = [(r["images"][size] - want[r["rows"]]).abs() for r in res]
+        out[f"{size}_vs_{'b2' if tiny else 'b1'}_mean_err"] = [
+            float(e.mean()) for e in errs]
+        out[f"{size}_max_err"] = [float(e.max()) for e in errs]
+        del pipe
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_ddp():
+    """Data parallelism over processes on the card (see the module
+    docstring, phase 23).  -> (the rank-0 launches of one generation row,
+    of one step)."""
+    import gc
+    import shutil
+    import tempfile
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    left = torch.cuda.memory_allocated() / 2 ** 30
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ddp_")
+    me = os.path.abspath(__file__)
+    root = os.path.dirname(me)
+    port = _free_port()
+
+    def spawn(args, env):
+        return subprocess.Popen([sys.executable, me, *args], cwd=root,
+                                env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+
+    procs = []
+    try:
+        ranks = [spawn(["--ddp-rank", tmp], _rank_env(r, DDP_RANKS, port))
+                 for r in range(DDP_RANKS)]
+        nccl = spawn(["--nccl-probe"], _rank_env(0, 1, _free_port()))
+        procs = ranks + [nccl]
+        # meanwhile, on the host: the one-process float32 gradient
+        cpu = gate_reading("cpu", fp32=True, batch=DDP_B)
+        outs = [p.communicate(timeout=DDP_TIMEOUT)[0] for p in ranks]
+        nccl_out = nccl.communicate(timeout=DDP_TIMEOUT)[0]
+        for r, (p, o) in enumerate(zip(ranks, outs)):
+            if p.returncode != 0:
+                raise AssertionError(f"ddp rank {r} failed:\n{o[-6000:]}")
+        if nccl.returncode != 0:
+            raise AssertionError(f"nccl probe failed:\n{nccl_out[-4000:]}")
+        res = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                          weights_only=False) for r in range(DDP_RANKS)]
+    finally:
+        for p in procs:  # a failed phase leaves no rank waiting on another
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    probe = json.loads(nccl_out.strip().splitlines()[-1])
+
+    # the ranks: gloo on the one card, bit for bit after the step
+    if [(r["rank"], r["world"], r["backend"]) for r in res] != \
+            [(i, DDP_RANKS, "gloo") for i in range(DDP_RANKS)]:
+        raise AssertionError(f"ranks {[r['backend'] for r in res]}")
+    for r in res:
+        if r["differ_from_rank0"]:
+            raise AssertionError(f"rank {r['rank']}: "
+                                 f"{len(r['differ_from_rank0'])} tensors "
+                                 f"differ from rank 0's: "
+                                 f"{r['differ_from_rank0'][:5]}")
+    losses = [[m["loss"] for m in r["steps"]] for r in res]
+    if any(x != losses[0] for x in losses):
+        raise AssertionError(f"the ranks' losses differ: {losses}")
+    # the 256x128 gate: the ranks' averaged gradient against one process
+    gate = gate_row("ddp train_reference", cpu, res[0]["gate"])
+    _reference_gate(gate, TRAIN_GATE_KERNELS)
+    for r in res[1:]:
+        if not all(r["gate"][2][k] > 0 for k in TRAIN_GATE_KERNELS):
+            raise AssertionError(f"rank {r['rank']} gate launches "
+                                 f"{r['gate'][2]}")
+    # the generation: each rank's rows against one process's
+    rows = [r["rows"] for r in res]
+    if sorted(sum(rows, [])) != list(range(DDP_B)):
+        raise AssertionError(f"generation rows {rows}")
+    gen = ddp_generation_readings(res)
+    log(json.dumps({"phase": "ddp generation", **gen}))
+    worst = max(max(v) for k, v in gen.items() if k.endswith("_mean_err"))
+    if not worst <= GEN_MEAN_TOL:
+        raise AssertionError(f"generated rows off one process's: {gen}")
+    halved = gen["halved_kernel_calls"]
+    if not all(halved.get(k, {}).get("calls") for k in (
+            "packed_attention_fwd", "packed_attention_nbr_fwd")) or any(
+            v["batch_dependent"] or v["halved"] != v["calls"]
+            for v in halved.values()):
+        raise AssertionError(f"an attention kernel's rows depend on the "
+                             f"batch at full width: {halved}")
+    if not probe["all_reduce_ok"] or probe["backend"] != "nccl":
+        raise AssertionError(f"nccl probe {probe}")
+    timed_steps = [r["steps"][-1] for r in res]
+    smi = card()
+    row = {"phase": "ddp", "card": smi, "ranks": DDP_RANKS, "backend": "gloo",
+           "batch_global": DDP_B, "left_on_card_gib": left,
+           "s_per_step": [m["step_time_s"] for m in timed_steps],
+           "s_per_step_warmup": [r["steps"][0]["step_time_s"] for r in res],
+           "s_per_step_phase6": KEPT.get("train_s_per_step"),
+           "all_reduce_s_per_step": [m["all_reduce"]["seconds"]
+                                     for m in timed_steps],
+           "all_reduce_bytes_per_step": [m["all_reduce"]["bytes"]
+                                         for m in timed_steps],
+           "peak_gib_per_rank": [r["peak_gib"] for r in res],
+           "generation_s_per_rank": [r["generation_s"] for r in res],
+           "generation": gen,
+           "gate_worst_leaf": next(iter(gate["worst_leaf_rel_err"].items())),
+           "trainable_tensors":
+           res[0]["trainable_tensors"],
+           "tensors_bit_identical": res[0]["compared_tensors"],
+           "compare_s": res[0]["compare_s"],
+           "loss": losses[0], "launches_per_step": res[0]["launches_per_step"],
+           "nccl_probe": probe, "rank_s": [r["rank_s"] for r in res],
+           "seconds": time.perf_counter() - t0}
+    log(f"# ddp ({smi}): {DDP_RANKS} ranks, s/step {row['s_per_step']} "
+        f"(phase 6: {row['s_per_step_phase6']}), all-reduce "
+        f"{row['all_reduce_s_per_step']} s and "
+        f"{row['all_reduce_bytes_per_step'][0]} bytes per step, peak "
+        f"{row['peak_gib_per_rank']} GiB per rank")
+    log(json.dumps(row))
+    return res[0]["generation_launches"], res[0]["launches_per_step"]
+
+
 def kernels_line(results, paths, per_step):
     """One entry per kernel: its main-path shape's times and the launches
     of the path it serves (``KERNEL_PATH``), with their unit, and its
@@ -3906,6 +4424,10 @@ def kernels_line(results, paths, per_step):
 
 def main() -> int:
     args = sys.argv[1:]
+    if "--ddp-rank" in args:
+        return ddp_rank(args[args.index("--ddp-rank") + 1])
+    if "--nccl-probe" in args:
+        return nccl_probe()
     profile_dir = args[args.index("--profile") + 1] \
         if "--profile" in args else None
     t_start = time.perf_counter()
@@ -3973,6 +4495,11 @@ def main() -> int:
     paths["explore"] = ("explore phase: the capture-off ControlNets + UNet "
                         "forward after the explore tools",
                         timed("explore", phase_explore), {})
+    gen_row, ddp_step = timed("ddp", phase_ddp)
+    paths["ddp"] = ("ddp phase, rank 0 of 2: its row of a UniPC-20 "
+                    "generation and one step", {
+                        k: gen_row[k] + ddp_step[k] for k in gen_row}, {})
+    per_step["ddp rank"] = (ddp_step, {})
     log(f"# all phases: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line(results, paths, per_step)))
     print(smi)

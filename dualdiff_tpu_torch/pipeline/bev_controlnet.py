@@ -43,6 +43,14 @@ the JAX pipeline:
 
 Images are channels-last, ``(B, N, H, W, 3)``; for a clip batch B counts
 frames (``collate_video`` flattens clips frame-outer).
+
+Under a ``mesh`` (``parallel/mesh.py``, more than one rank; the sharded
+generation of the JAX package's multi-process run) every batch-sized input
+of a call is the global batch, which every rank holds: the initial latents
+and the given views' noise are drawn for the global batch from the same
+generator state, and each rank denoises and returns its own rows
+(``mesh.rows``).  The tools make no such split: the JAX ``val_set_gen``
+has none.
 """
 
 from __future__ import annotations
@@ -54,7 +62,8 @@ import torch
 from .. import resolve_device
 from ..diffusion.samplers import ddim_sample, unipc_sample
 from ..diffusion.schedule import DiffusionSchedule
-from ..runner.conds import compute_branch_conds, prepare_batch
+from ..parallel.mesh import Mesh, shard_batch
+from ..runner.conds import compute_branch_conds, prepare_batch, to_device
 
 __all__ = ["BEVControlNetPipeline", "SCHEDULERS", "OVERRIDES"]
 
@@ -72,11 +81,14 @@ def _scheduler(name) -> str:
 
 class BEVControlNetPipeline:
     def __init__(self, cfg, models: Dict,
-                 schedule: Optional[DiffusionSchedule] = None, device=None):
+                 schedule: Optional[DiffusionSchedule] = None, device=None,
+                 mesh: Optional[Mesh] = None):
         """``models``: the ``runner.factory.build_models`` dict with weights
         loaded; the modules are moved to ``device`` and cast to
-        ``models["dtype"]`` in place."""
+        ``models["dtype"]`` in place.  ``mesh``: see the module
+        docstring."""
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None and mesh.world > 1 else None
         self.cfg = cfg
         self.models = models
         dtype = models["dtype"]
@@ -135,13 +147,27 @@ class BEVControlNetPipeline:
         4) and ``conditional_mask`` (B, N): given-view pinning; the noise of
         the pinned views at timestep ``t`` is ``pin_noise[t]`` when given,
         else a draw from ``generator`` each step.  ``overrides``: any of
-        ``OVERRIDES``.  -> images (B, N, H, W, 3) in [0, 1], float32."""
+        ``OVERRIDES``.  -> images (B, N, H, W, 3) in [0, 1], float32; under
+        a mesh, this rank's rows of the global batch B."""
         models, cfg = self.models, self.cfg
         pp = cfg.runner.pipeline_param
         unet, controlnets = models["unet"], models["controlnets"]
         vae, text_encoder = models["vae"], models["text_encoder"]
-        t = prepare_batch(batch, self.device) if "branches" in batch \
-            else batch
+        mesh = self.mesh
+        t = batch
+        if "branches" in batch:
+            t = prepare_batch(batch, self.device if mesh is None else "cpu")
+        # the global batch's size and this rank's rows of it, for the draws
+        B_all = int(t["camera_param"].shape[0])
+        own = slice(None)
+        if mesh is not None:
+            own = mesh.rows(B_all)
+            t = to_device(shard_batch(t, mesh), self.device)
+            latents, conditional_latents, conditional_mask = (
+                None if a is None else a[own]
+                for a in (latents, conditional_latents, conditional_mask))
+            if pin_noise is not None:
+                pin_noise = {k: v[own] for k, v in pin_noise.items()}
         cam = t["camera_param"]
         B, N = cam.shape[:2]
         lh, lw = self.latent_hw
@@ -260,8 +286,8 @@ class BEVControlNetPipeline:
         state0 = {"residuals": None}
 
         if latents is None:
-            latents = torch.randn((B, 1, lh, lw, 4), generator=generator,
-                                  device=self.device)
+            latents = torch.randn((B_all, 1, lh, lw, 4), generator=generator,
+                                  device=self.device)[own]
         lat0 = latents.to(self.device, torch.float32).expand(
             B, N, lh, lw, 4).contiguous()
         if conditional_latents is not None and conditional_mask is not None:
@@ -274,8 +300,8 @@ class BEVControlNetPipeline:
                 """The model input with the given views pinned to their
                 latents noised to ``step_t``."""
                 noise = pin_noise[step_t] if pin_noise is not None else \
-                    torch.randn(gt.shape, generator=generator,
-                                device=self.device)
+                    torch.randn((B_all, *gt.shape[1:]), generator=generator,
+                                device=self.device)[own]
                 gt_t = self.schedule.add_noise(gt, noise.to(gt.device),
                                                torch.full((B,), step_t,
                                                           device=self.device))

@@ -63,6 +63,21 @@ draws.  ``export_model`` writes float32 diffusers-named state dicts
 (``<model.controlnet_dir[i]>/`` and ``<model.unet_dir>/``
 ``diffusion_pytorch_model.bin``) that ``runner/weights.py``'s
 ``load_pretrained_dir`` reads back.
+
+Data parallelism (``parallel/mesh.py``; the JAX trainer's ``mesh``):
+under a process group the trainer takes its mesh from
+``cfg.accelerator.mesh``.  ``runner.train_batch_size`` is the global
+batch, which must divide by ``data``.  Every rank builds the same global
+host batch and draws ``make_draws`` for the global batch from the same
+generator state, and keeps its rows (``shard_batch``), so the ranks
+together compute what one process computes on the whole batch, as the JAX
+step does with one replicated key.  Every loss term is a plain mean, so
+the mean of the ranks' equal shards is the global loss: the gradients are
+averaged between the backward and the optimizer's clip
+(``average_gradients``), whose global norm is then the norm of the mean,
+and the metrics are ``all_mean``'d.  The conditioning cache holds this
+rank's rows.  Checkpoints and the export are written by rank 0 behind a
+barrier; every rank loads.
 """
 
 from __future__ import annotations
@@ -87,6 +102,8 @@ from ..diffusion.schedule import DiffusionSchedule
 from ..ops.fgm import fgm_heatmap
 from ..ops.mscn import mscn_luminance
 from ..ops.ors import occupancy_ray_sample
+from ..parallel.mesh import Mesh, all_mean, average_gradients, barrier, \
+    create_mesh, group_up, is_main, shard_batch
 from .conds import compute_branch_conds, prepare_batch, to_device
 from .factory import build_models
 from .train_state import build_optimizer, init_box_adapter_from_base, \
@@ -322,13 +339,21 @@ def make_loss_fn(models: Dict, cfg, schedule: DiffusionSchedule,
     return loss_fn
 
 
-def train_step(loss_fn, optimizer, batch: Dict, draws: Draws) -> Dict:
+def train_step(loss_fn, optimizer, batch: Dict, draws: Draws,
+               mesh: Optional[Mesh] = None) -> Dict:
     """One step: loss, gradients of the trainables, optimizer update.
-    -> metrics (device tensors), with ``grad_norm`` of the raw gradients."""
+    With a ``mesh`` of more than one rank, ``batch`` and ``draws`` are this
+    rank's rows, the gradients are averaged over the ranks before the
+    update and the metrics are their means.  -> metrics (device tensors),
+    with ``grad_norm`` of the raw (averaged) gradients."""
     optimizer.zero_grad()
     loss, metrics = loss_fn(batch, draws)
     loss.backward()
-    metrics["grad_norm"] = optimizer.step()
+    grads = None
+    if mesh is not None and mesh.world > 1:
+        grads = average_gradients(optimizer.grads())
+        metrics = all_mean(metrics)
+    metrics["grad_norm"] = optimizer.step(grads)
     return metrics
 
 
@@ -362,16 +387,29 @@ class MultiviewTrainer:
     ``on_metrics(step, metrics)`` gets ``loss``, ``mse``, ``aug_loss``,
     ``tone``, ``grad_norm``, ``step_time_s`` (host clock from batch
     assembly to the metrics on the host, which synchronises the device) and
-    ``data_time_s`` (the batch assembly part of it)."""
+    ``data_time_s`` (the batch assembly part of it).
+
+    ``mesh`` (``parallel.mesh.create_mesh``): the data axis; by default
+    ``cfg.accelerator.mesh`` when a process group is up, else none (see
+    the module docstring)."""
 
     frames = 1  # frames per clip; VideoTrainer sets video.num_frames
 
     def __init__(self, cfg, train_set, device=None,
-                 models: Optional[Dict] = None):
+                 models: Optional[Dict] = None, mesh: Optional[Mesh] = None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.train_set = train_set
         r = cfg.runner
+        if mesh is None and group_up():
+            m = (cfg.get("accelerator") or {}).get("mesh") or {}
+            mesh = create_mesh(data=int(m.get("data", -1)),
+                               view=int(m.get("view", 1)))
+        self.mesh = mesh if mesh is not None and mesh.world > 1 else None
+        if self.mesh and int(r.train_batch_size) % self.mesh.data:
+            raise ValueError(
+                f"runner.train_batch_size={int(r.train_batch_size)} does "
+                f"not divide over data={self.mesh.data}")
         # the conditioning cache: {key: {name: CPU tensor}}, keys from
         # _cond_keys; it stops filling at runner.cond_cache_max_mb
         self.cache_cond = bool(r.get("cache_conditioning", False))
@@ -541,19 +579,31 @@ class MultiviewTrainer:
         rng = np.random.default_rng([int(self.cfg.seed), epoch, i])
         items = [self.train_set[j] for j in idxs]
         if not self.cache_cond:
-            return prepare_batch(self._collate_items(items, rng), self.device)
+            batch = prepare_batch(self._collate_items(items, rng), "cpu")
+            if self.mesh is not None:
+                batch = shard_batch(batch, self.mesh)
+            return to_device(batch, self.device)
         items, flips = self._augment_items(items, rng)
         batch = prepare_batch(
             self._collate_items(items, rng, pre_augmented=True), "cpu")
-        return to_device(self._attach_cond(self._cond_keys(idxs, flips),
-                                           batch), self.device)
+        keys = self._cond_keys(idxs, flips)
+        if self.mesh is not None:  # this rank's rows, and their entries
+            batch = shard_batch(batch, self.mesh)
+            keys = keys[self.mesh.rows(len(keys))]
+        return to_device(self._attach_cond(keys, batch), self.device)
 
     def train_step(self, batch: Dict) -> Dict[str, float]:
+        """One step on ``batch`` (this rank's rows under a mesh), with the
+        draws of the global batch."""
         B, N = batch_rows(batch)
-        draws = make_draws(self.generator, self.cfg, B, N, self.latent_hw,
-                           self.schedule.num_train_timesteps, self.device,
-                           frames=self.frames)
-        metrics = train_step(self.loss_fn, self.optimizer, batch, draws)
+        data = self.mesh.data if self.mesh else 1
+        draws = make_draws(self.generator, self.cfg, B * data, N,
+                           self.latent_hw, self.schedule.num_train_timesteps,
+                           self.device, frames=self.frames)
+        if self.mesh is not None:
+            draws = shard_batch(draws, self.mesh)
+        metrics = train_step(self.loss_fn, self.optimizer, batch, draws,
+                             self.mesh)
         self.step += 1
         return {k: float(v) for k, v in metrics.items()}
 
@@ -611,18 +661,23 @@ class MultiviewTrainer:
     def save_checkpoint(self) -> str:
         """Write this step's checkpoint (``CHECKPOINT_FILE`` under
         ``checkpoint_dir()``, replaced whole: written beside it, then
-        renamed), logging its bytes and seconds.  -> its directory."""
+        renamed), logging its bytes and seconds; under a process group
+        rank 0 writes it (the ranks' states are equal) and every rank
+        waits for it.  -> its directory."""
         t0 = time.perf_counter()
         path = self.checkpoint_dir()
-        os.makedirs(path, exist_ok=True)
-        state = {"optimizer": self.optimizer.state_dict(), "step": self.step,
-                 "generator": self.generator.get_state()}
-        dst = os.path.join(path, CHECKPOINT_FILE)
-        torch.save(state, dst + ".tmp")
-        os.replace(dst + ".tmp", dst)
+        if is_main():
+            os.makedirs(path, exist_ok=True)
+            state = {"optimizer": self.optimizer.state_dict(),
+                     "step": self.step,
+                     "generator": self.generator.get_state()}
+            dst = os.path.join(path, CHECKPOINT_FILE)
+            torch.save(state, dst + ".tmp")
+            os.replace(dst + ".tmp", dst)
+            log.info("saved checkpoint %s (%d bytes, %.3f s)", path,
+                     os.path.getsize(dst), time.perf_counter() - t0)
+        barrier()
         self.saved_step = self.step
-        log.info("saved checkpoint %s (%d bytes, %.3f s)", path,
-                 os.path.getsize(dst), time.perf_counter() - t0)
         return path
 
     def latest_checkpoint(self) -> Optional[str]:
@@ -686,9 +741,13 @@ class MultiviewTrainer:
         ``<root>/<model.controlnet_dir[i]>/``, the UNet into
         ``<root>/<model.unet_dir>/``, each an ``EXPORT_FILE`` of
         ``export_state_dicts()``, logging the bytes and seconds.  ``root``:
-        ``log_root`` by default.  -> ``root``."""
+        ``log_root`` by default.  Under a process group rank 0 writes and
+        every rank waits for it.  -> ``root``."""
         t0 = time.perf_counter()
         root = root or (self.cfg.get("log_root") or "./dualdiff-tpu-log")
+        if not is_main():
+            barrier()
+            return root
         cdirs = self.cfg.model.controlnet_dir
         if not isinstance(cdirs, list):
             cdirs = [cdirs]
@@ -700,4 +759,5 @@ class MultiviewTrainer:
         nbytes = sum(os.path.getsize(p) for p in paths.values())
         log.info("exported %s (%d bytes, %.3f s)", root, nbytes,
                  time.perf_counter() - t0)
+        barrier()
         return root

@@ -19,6 +19,11 @@ checkpoint holds only the LoRA trainables' optimizer state, and its export
 carries the adapters under the JAX exporter's names
 (``to_out.0_lora_*``).
 
+Data parallelism is the image trainer's: ``runner.train_batch_size``
+counts clips and must divide by ``data``, so each rank's rows are whole
+clips (rows are clip-major), and each rank's draws are its clips' rows of
+the global draws (one timestep per clip).
+
 Flip augmentation is clip-consistent: one draw per clip, applied to every
 frame.  The conditioning cache keys each row by (clip, frame, flipped);
 stage 2 keeps the pixels in a cached batch for the reward.
@@ -43,11 +48,12 @@ class VideoTrainer(MultiviewTrainer):
     ``video.rgd.enable``).  Stage 2's metrics add ``reward``."""
 
     def __init__(self, cfg, train_set, device=None,
-                 models: Optional[Dict] = None):
+                 models: Optional[Dict] = None, mesh=None):
         if not cfg.get("use_video"):
             raise ValueError("VideoTrainer needs use_video=true")
         self.frames = int(cfg.video.num_frames)
-        super().__init__(cfg, train_set, device=device, models=models)
+        super().__init__(cfg, train_set, device=device, models=models,
+                         mesh=mesh)
 
     def _make_loss_fn(self):
         rgd = self.cfg.video.rgd

@@ -13,8 +13,13 @@ transformers names (``dualdiff_tpu_torch/runner/weights.py``).
   package and by ``torch.save``; ``load_pretrained_dir`` on a
   diffusers-layout directory.
 * A shape mismatch and an unexpected key raise.
+* The trainer's export (the flagship's tiny weights, both ControlNets):
+  names and values equal the JAX exporter's (``export_params``) for the
+  same weights, exactly (float32 both sides), and the export loads back
+  through ``load_pretrained_dir`` bit for bit.
 """
 
+import copy
 import os
 
 import numpy as np
@@ -23,10 +28,12 @@ import torch
 
 from tests import torch_parity as tp
 from dualdiff_tpu.runner.weight_import import export_params
+from dualdiff_tpu_torch.data.synthetic import SyntheticNuScenes
 from dualdiff_tpu_torch.runner.factory import build_models
 from dualdiff_tpu_torch.runner.sd15_keys import (sd15_clip_keys,
                                                  sd15_unet_keys,
                                                  sd15_vae_keys)
+from dualdiff_tpu_torch.runner.trainer import MultiviewTrainer
 from dualdiff_tpu_torch.runner.weights import (LEGACY_VAE_NAMES,
                                                MULTIVIEW_MODULES,
                                                from_diffusers,
@@ -234,3 +241,41 @@ def test_load_pretrained_dir_reads_the_diffusers_layout(tiny, tmp_path):
         assert all(torch.equal(got[k], want[k]) for k in want), key
     assert all(torch.equal(v, cn1[k]) for k, v in
                fresh["controlnets"][1].state_dict().items())
+
+
+def test_export_equals_the_jax_exporter_and_loads_back(tmp_path):
+    """The flagship's tiny weights (both ControlNets): ``export_state_dicts``
+    equals ``export_params`` of the same JAX params name for name and value;
+    ``export_model`` writes ``controlnet_bg_1``, ``controlnet_bg_2`` and
+    ``unet``, which ``load_pretrained_dir`` loads into a fresh model set
+    with no unknown key, every tensor equal."""
+    tiny = tp.tiny_setup()
+    cfg = tp.port_config(tp.TINY_OVERRIDES + [f"log_root={tmp_path}"])
+    h, w = cfg.dataset.image_size
+    ds = SyntheticNuScenes(num_samples=1, image_size=(h, w), seed=0)
+    trainer = MultiviewTrainer(cfg, ds, device="cpu",
+                               models=copy.deepcopy(tiny["pmodels"]))
+    got = trainer.export_state_dicts()
+    assert set(got) == {"unet", "controlnet_0", "controlnet_1"}
+    for key, sd in got.items():
+        want = export_params(tiny["params"][key],
+                             "unet" if key == "unet" else "controlnet")
+        assert set(sd) == set(want), key
+        for name, v in sd.items():
+            assert v.dtype == torch.float32
+            np.testing.assert_array_equal(v.numpy(), want[name],
+                                          err_msg=name)
+    root = trainer.export_model()
+    fresh = build_models(cfg, tiny=True, device="cpu")
+    report = load_pretrained_dir(fresh, root)
+    assert report["controlnet_0"]["file"].endswith(
+        "controlnet_bg_1/diffusion_pytorch_model.bin")
+    assert report["controlnet_1"]["file"].endswith(
+        "controlnet_bg_2/diffusion_pytorch_model.bin")
+    for key in ("unet", "controlnet_0", "controlnet_1"):
+        assert report[key]["missing"] == []
+    nets = {"unet": fresh["unet"], "controlnet_0": fresh["controlnets"][0],
+            "controlnet_1": fresh["controlnets"][1]}
+    for key, module in nets.items():
+        for name, v in module.state_dict().items():
+            assert torch.equal(v, got[key][name]), (key, name)

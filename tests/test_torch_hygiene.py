@@ -54,6 +54,35 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             assert top not in FORBIDDEN, f"{path} imports {mod}"
 
 
+def test_torch_distributed_is_imported_only_under_parallel():
+    """The process group and its collectives live in ``parallel/mesh.py``:
+    the trainer, the pipeline and the train tool reach them through it,
+    and ``parallel/`` is among the files the JAX rule above walks."""
+    pkg = os.path.join(ROOT, "dualdiff_tpu_torch")
+    files = list(_port_files())
+    mesh = os.path.join(pkg, "parallel", "mesh.py")
+    assert mesh in files
+    users = set()
+    for path in files:
+        text = open(path).read()
+        mods = set(_imports(path))
+        dist = {m for m in mods if m.startswith("torch.distributed")}
+        tree = ast.parse(text, path)
+        dist |= {f"torch.{a.name}" for n in ast.walk(tree)
+                 if isinstance(n, ast.ImportFrom) and n.module == "torch"
+                 for a in n.names if a.name == "distributed"}
+        under = os.path.relpath(path, pkg).startswith("parallel" + os.sep)
+        assert not dist or under, f"{path} imports {sorted(dist)}"
+        if "parallel.mesh" in mods or any(
+                isinstance(n, ast.ImportFrom) and n.level and
+                (n.module or "").endswith("parallel.mesh")
+                for n in ast.walk(tree)):
+            users.add(os.path.relpath(path, pkg))
+    assert {os.path.join("runner", "trainer.py"),
+            os.path.join("pipeline", "bev_controlnet.py"),
+            os.path.join("tools", "train.py")} <= users, users
+
+
 def test_port_imports_no_optional_package():
     """PIL, cv2, PyYAML, h5py, tensorboardX, orbax, safetensors and
     transformers: in no module of the port, the entry points and tools

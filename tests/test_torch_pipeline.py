@@ -6,11 +6,14 @@ through its kernel wrappers' plain versions), the flagship dual-branch
 config in float32, 3 UniPC steps, CFG 2.  The port takes JAX's initial
 latents, computed from the key exactly as the JAX pipeline does.  Tolerance
 2e-4 absolute on images in [0, 1]: float32 on both sides (measured 4e-6).
+The ControlNet cache with sequential CFG raises the JAX pipeline's
+``ValueError`` in both.
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from tests import torch_parity as tp
@@ -75,3 +78,15 @@ def test_sequential_cfg_and_vae_slicing_equal_the_batched_path():
             batch, latents=lat))
     assert out[0].shape == (2, 6, h, w, 3)
     torch.testing.assert_close(out[1], out[0], rtol=0, atol=0)
+
+
+def test_the_cache_with_sequential_cfg_raises_as_in_jax():
+    s = tp.tiny_setup()
+    extra = ["runner.pipeline_param.cn_cache_interval=2",
+             "runner.pipeline_param.sequential_cfg=true"]
+    with pytest.raises(ValueError, match="sequential_cfg=false"):
+        JaxPipeline(tp.jax_config(tp.TINY_OVERRIDES + extra), s["jmodels"],
+                    s["params"], JSchedule.create())
+    with pytest.raises(ValueError, match="sequential_cfg=false"):
+        BEVControlNetPipeline(tp.port_config(tp.TINY_OVERRIDES + extra),
+                              s["pmodels"], device="cpu")

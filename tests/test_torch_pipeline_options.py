@@ -16,8 +16,9 @@ noise from its key (as ``test_torch_pipeline.py``).  Two JAX pipeline calls:
 Tolerance 2e-4 absolute on images in [0, 1], ``test_torch_pipeline.py``'s:
 float32 on both sides.  The other tests hold the port to the JAX pipeline's
 rules without a JAX call: the ControlNets run ``ceil(steps / k)`` times a
-generation, on images and on clips; the cache with sequential CFG raises
-the JAX pipeline's ``ValueError``; an overridden call without
+generation, on images and on clips (the cache with sequential CFG raises
+the JAX pipeline's ``ValueError``: ``test_torch_pipeline.py``); an
+overridden call without
 ``conditioning_scale`` runs at 1.0; pinning moves the unpinned views too.
 """
 
@@ -92,18 +93,6 @@ def test_pinned_views_with_overrides_match_jax():
         conditional_latents=tp.t(gt), conditional_mask=tp.t(mask),
         pin_noise=pin_noise, **overrides)
     tp.assert_close(got, want, 0, ATOL)
-
-
-def test_the_cache_with_sequential_cfg_raises_as_in_jax():
-    s = tp.tiny_setup()
-    extra = ["runner.pipeline_param.cn_cache_interval=2",
-             "runner.pipeline_param.sequential_cfg=true"]
-    with pytest.raises(ValueError, match="sequential_cfg=false"):
-        JaxPipeline(tp.jax_config(tp.TINY_OVERRIDES + extra), s["jmodels"],
-                    s["params"], JSchedule.create())
-    with pytest.raises(ValueError, match="sequential_cfg=false"):
-        BEVControlNetPipeline(tp.port_config(tp.TINY_OVERRIDES + extra),
-                              s["pmodels"], device="cpu")
 
 
 def _counting(monkeypatch, models):

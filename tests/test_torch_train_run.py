@@ -15,13 +15,10 @@ validation.
   moment by an ulp (2.4e-4 at 0.044) and the parameters by 1e-4.
 * Resume, prefetch and validation: bit for bit on the CPU (same code, same
   draws, same order of operations).
-* Export: names and values equal the JAX exporter's (``export_params``) for
-  the same weights, exactly (float32 both sides), and the export loads back
-  through ``load_pretrained_dir`` bit for bit.
 
 The trainers are tiny (``tiny_models=true`` at 32x48, ``+exp=224x400``:
-one ControlNet) except where the flagship's two ControlNets are the point
-(export).
+one ControlNet).  The trainer's export against the JAX exporter is in
+``test_torch_checkpoint.py``.
 """
 
 import contextlib
@@ -37,7 +34,6 @@ import torch
 
 from tests import torch_parity as tp
 from dualdiff_tpu.runner.train_state import build_optimizer as jax_optimizer
-from dualdiff_tpu.runner.weight_import import export_params
 from dualdiff_tpu_torch.data.synthetic import SyntheticNuScenes
 from dualdiff_tpu_torch.data.video import SyntheticNuScenesVideo
 from dualdiff_tpu_torch.runner.factory import build_models, randomize_weights
@@ -267,44 +263,6 @@ def test_a_step_after_a_validation_equals_one_without(tmp_path):
         trainer.run(2)
         states.append(_state(trainer))
     _assert_same(*states)
-
-
-def test_export_equals_the_jax_exporter_and_loads_back(tmp_path):
-    """The flagship's tiny weights (both ControlNets): ``export_state_dicts``
-    equals ``export_params`` of the same JAX params name for name and value;
-    ``export_model`` writes ``controlnet_bg_1``, ``controlnet_bg_2`` and
-    ``unet``, which ``load_pretrained_dir`` loads into a fresh model set
-    with no unknown key, every tensor equal."""
-    tiny = tp.tiny_setup()
-    cfg = tp.port_config(tp.TINY_OVERRIDES + [f"log_root={tmp_path}"])
-    h, w = cfg.dataset.image_size
-    ds = SyntheticNuScenes(num_samples=1, image_size=(h, w), seed=0)
-    trainer = MultiviewTrainer(cfg, ds, device="cpu",
-                               models=copy.deepcopy(tiny["pmodels"]))
-    got = trainer.export_state_dicts()
-    assert set(got) == {"unet", "controlnet_0", "controlnet_1"}
-    for key, sd in got.items():
-        want = export_params(tiny["params"][key],
-                             "unet" if key == "unet" else "controlnet")
-        assert set(sd) == set(want), key
-        for name, v in sd.items():
-            assert v.dtype == torch.float32
-            np.testing.assert_array_equal(v.numpy(), want[name],
-                                          err_msg=name)
-    root = trainer.export_model()
-    fresh = build_models(cfg, tiny=True, device="cpu")
-    report = load_pretrained_dir(fresh, root)
-    assert report["controlnet_0"]["file"].endswith(
-        "controlnet_bg_1/diffusion_pytorch_model.bin")
-    assert report["controlnet_1"]["file"].endswith(
-        "controlnet_bg_2/diffusion_pytorch_model.bin")
-    for key in ("unet", "controlnet_0", "controlnet_1"):
-        assert report[key]["missing"] == []
-    nets = {"unet": fresh["unet"], "controlnet_0": fresh["controlnets"][0],
-            "controlnet_1": fresh["controlnets"][1]}
-    for key, module in nets.items():
-        for name, v in module.state_dict().items():
-            assert torch.equal(v, got[key][name]), (key, name)
 
 
 def test_stage2_lora_checkpoint_resume_and_export(tmp_path):

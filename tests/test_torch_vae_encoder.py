@@ -1,5 +1,6 @@
 """The port's VAE encoder (``encode_moments``, ``encode``, ``encode_mode``)
-against the JAX package's, with the tiny weights of ``tiny_setup``.
+and decoder against the JAX package's, with the tiny weights of
+``tiny_setup``.
 
 The image is 64 x 36 so that the stride-2 downsamplers see odd sizes
 (36 -> 18 -> 9 -> 4): a symmetric pad would shift every later pixel, the
@@ -8,6 +9,8 @@ posterior noise is JAX's own draw, handed to the port.  Tolerance 1e-4
 absolute on values of magnitude ~1: both sides float32, only the order of
 the convolution sums differs.
 """
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -63,3 +66,17 @@ def test_encode_scales_the_noise_by_the_posterior_std():
     torch.testing.assert_close(z0, pvae.encode_mode(x), rtol=0, atol=0)
     torch.testing.assert_close(z1, (mean + std) * pvae.scaling_factor,
                                rtol=0, atol=0)
+
+
+def test_vae_decode():
+    tiny = tp.tiny_setup()
+    jm, pm = tiny["jmodels"]["vae"], tiny["pmodels"]["vae"]
+    z = np.random.default_rng(70).normal(size=(2, 32, 16, 4)).astype(
+        np.float32)
+    want = jax.jit(lambda p, z: jm.apply({"params": p}, z, method=jm.decode))(
+        tiny["params"]["vae"], z)
+    with torch.no_grad():
+        got = pm.decode(tp.nhwc_to_nchw(z))
+    tp.assert_close(got, np.transpose(np.asarray(want), (0, 3, 1, 2)), 1e-4,
+                    1e-4)
+    assert math.isfinite(float(got.abs().max()))

@@ -38,6 +38,13 @@ would run ``attention_sm90_bwd.cu``) and on ``mha_einsum`` (``einsum``:
 and batch) the same three ways, and with cuBLAS's reduced-precision bf16
 reductions off (``no_rpr``); for ``fusionp`` the gate lowers
 ``FLASH_MIN_LEN`` itself, so ``einsum`` moves only the packed calls there.
+
+    python -m tests.torch_bf16_grads time cuda
+
+times the element-staged split-layout kernels (d % 8 != 0, the
+templates' route) at the tiny SFA+ stage-2 training shape and at phase
+3's d = 20 shape: one JSON line of graph ms, to compare a change of those
+templates with its parent in one call.
 """
 
 from __future__ import annotations
@@ -299,9 +306,44 @@ def gate(dev: str, which: str) -> None:
         C.load_config = load
 
 
+# (label, rows, lq, lk, heads, head_dim): the tiny occ_bg_fusionp's SFA+
+# stage 2 under grad at 224x400, and phase 3's d = 20 split-layout case
+SPLIT_SHAPES = (("SFA+ stage 2, tiny, d=4", 6, 1400, 1400, 8, 4),
+                ("d=20, ragged", 3, 777, 1111, 8, 20))
+
+
+def time_split(dev: str) -> None:
+    """Graph ms (``chip_smoke.graph_ms``) of the four split-layout
+    wrappers at ``SPLIT_SHAPES`` on seeded bf16 inputs, with the card's
+    name and power limit."""
+    from dualdiff_tpu_torch.ops import attention as A
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    out = {"device": chip_smoke.phase_device()}
+    for label, b, lq, lk, h, d in SPLIT_SHAPES:
+        q, do = (torch.randn(b, lq, h, d, generator=g, device=dev)
+                 .bfloat16() for _ in range(2))
+        k, v = (torch.randn(b, lk, h, d, generator=g, device=dev).bfloat16()
+                for _ in range(2))
+        o, lse = A.flash_attention_lse_fwd(q, k, v)
+        delta = A.flash_attention_delta(o, do)
+        out[label] = {
+            "fwd": chip_smoke.graph_ms(lambda: A.flash_attention_fwd(q, k,
+                                                                     v)),
+            "lse_fwd": chip_smoke.graph_ms(
+                lambda: A.flash_attention_lse_fwd(q, k, v)),
+            "bwd_dq": chip_smoke.graph_ms(
+                lambda: A.flash_attention_bwd_dq(q, k, v, do, lse, delta)),
+            "bwd_dkv": chip_smoke.graph_ms(
+                lambda: A.flash_attention_bwd_dkv(q, k, v, do, lse, delta))}
+    print(json.dumps(out), flush=True)
+
+
 if __name__ == "__main__":
     args = sys.argv[1:] or ["flagship"]
-    if args[0] == "save":
+    if args[0] == "time":
+        time_split(args[1])
+    elif args[0] == "save":
         for w in args[1:] or ["flagship", "fusionp"]:
             save(w)
     elif args[0] in ("port", "gate"):
