@@ -212,9 +212,35 @@ Phases, in order; any failure exits non-zero:
             (``halved_calls``); a one-rank ``nccl``
             group from the environment (``--nccl-probe``) does one
             ``all_reduce``.  Prints s/step beside phase 6's, all-reduce
-            seconds and bytes per step and the peak per rank.  Alone:
-            ``python3 -c "import chip_smoke as s; s.phase_device();
-            s.phase_build(); s.phase_ddp()"``.
+            seconds and bytes per step and the peak per rank.  Then the
+            splits (``ddp_split_rank``, in the same rank processes): on
+            the ``(data=1, view=2)`` mesh, 3 of the 6 cameras a rank,
+            row 2 on the rank's views at 224x400 (``split_ring_row``:
+            within phase 3's tolerance of its plain version and bit-equal
+            to the matching rows of the whole ring's call, sm90 and
+            template, timed in CUDA graphs beside its bound and the
+            stacked SDPA yardstick; an entry of the kernels line), the
+            rank's cameras of the flagship's UniPC-20 generation of row 0
+            alone (launches derived; no further (mean) from one process's
+            row than one process's own B = 2 rows are from its B = 1 rows,
+            as every call there has half the rows; every attention kernel
+            call of one step of it, run again on each half of its cameras
+            as a rank runs it, bit-equal to the whole call:
+            ``halved_calls(views=True)``; and on the ranks, every ring
+            call of one step, with its gathered K/V, bit-equal to the
+            rank's rows of the whole ring run on q gathered from both:
+            ``ring_calls_on_rank``), and phase 7's 256x128 gate on B = 2;
+            on the ``(data=2)`` mesh
+            one clip of ``SPLIT_FRAMES`` frames, 2 a rank (the frame
+            split): the gate on the tiny RGD clip (stage 2, the temporal
+            reward across the ranks), and the full-width stage-1 step
+            (``clip_step_reading``: s/step, the peak per rank, the
+            gathered bytes and seconds per step, launches derived).  The
+            parent holds both gates to one process's float32 gradients
+            and, with the ranks gone, runs one process's full-width step
+            of the whole clip for its peak (``ddp_split_readings``).
+            Alone: ``python3 -c "import chip_smoke as s;
+            s.phase_device(); s.phase_build(); s.phase_ddp()"``.
 
 An early line lists which of ``OPTIONAL_PACKAGES`` (PIL, cv2, PyYAML,
 h5py, tensorboardX, orbax) import on the card, and whether ``g++``,
@@ -1111,18 +1137,21 @@ def library_row(call, scores=None) -> dict:
             "library_ms_by_backend": times}
 
 
-def stacked_sdpa_call(q, k, v, heads: int, n_cam: int):
+def stacked_sdpa_call(q, k, v, heads: int, n_cam: int,
+                      n_local: int = None, view0: int = 0):
     """The camera ring as the JAX package's training formulation computes
     it with library calls (``_nbr_stacked``): the left and right views' K/V
     gathered and stacked on the batch axis with ``torch.cat``, one
     ``scaled_dot_product_attention`` over the 2B stacked rows, the two
-    halves summed; q/k/v (B*N, L, C) packed in, (B*N, L, C) out.  A
-    yardstick of two calls beside the ring kernel: the port never calls
-    it."""
+    halves summed; q/k/v (B*N, L, C) packed in, (B*N, L, C) out (under a
+    view split q and the output hold the ``n_local`` views ``view0 ..`` of
+    each sample, k and v all N).  A yardstick of two calls beside the ring
+    kernel: the port never calls it."""
     bn, l, c = q.shape
-    b, d = bn // n_cam, c // heads
-    idx = lambda off: torch.tensor([(n + off) % n_cam for n in range(n_cam)],
-                                   device=q.device)
+    b, d = k.shape[0] // n_cam, c // heads
+    n_local = n_cam if n_local is None else n_local
+    idx = lambda off: torch.tensor([(view0 + n + off) % n_cam
+                                    for n in range(n_local)], device=q.device)
     left, right = idx(-1), idx(1)
     take = lambda t, i: t.view(b, n_cam, l, c).index_select(1, i).reshape(
         bn, l, c)
@@ -2186,13 +2215,15 @@ def leaf_grad_errors(want: dict, got: dict) -> dict:
 
 def gate_reading(device: str, fp32: bool = False, video: bool = False,
                  fusionp: bool = False, variants: bool = False,
-                 batch: int = 1, mesh=None):
+                 batch: int = 1, mesh=None, frames: int = TRAIN_FRAMES):
     """One tiny loss + backward of the gate's set (see
     ``train_reference_readings``) on ``device``, in float32 with ``fp32``,
     else in the config's bf16: seeded weights drawn on the CPU in float32,
-    ``batch`` samples (clip 0 with ``video``) and the draws of
-    ``torch.Generator`` seed ``SEED`` for them.  Under ``mesh`` this rank's
-    rows of the batch and the draws, the gradients averaged over the ranks
+    ``batch`` samples (clip 0 of ``frames`` frames with ``video``) and the
+    draws of ``torch.Generator`` seed ``SEED`` for them.  Under ``mesh``
+    this rank's rows and cameras of the batch and the draws (a clip's
+    frames split where the data ranks outnumber the clips; the loss takes
+    the mesh's ``Split``), the gradients averaged over the ranks
     (``average_gradients``) and the loss their mean.  -> (loss,
     ``_trainable_grads``, launches)."""
     import numpy as np
@@ -2211,7 +2242,8 @@ def gate_reading(device: str, fp32: bool = False, video: bool = False,
     from dualdiff_tpu_torch.runner.train_state import (named_roots,
                                                        partition_params,
                                                        trainable_predicate)
-    from dualdiff_tpu_torch.runner.trainer import make_draws, make_loss_fn
+    from dualdiff_tpu_torch.runner.trainer import (make_draws, make_loss_fn,
+                                                   shard_draws)
     from dualdiff_tpu_torch.utils.config import (FLAGSHIP, FUSIONP, OCC_BG,
                                                  RGD_STAGE2, load_config)
 
@@ -2220,7 +2252,7 @@ def gate_reading(device: str, fp32: bool = False, video: bool = False,
     extra = ["dataset.image_size=[256, 128]"]
     if variants:
         extra += VARIANTS_TRAIN
-    frames = TRAIN_FRAMES if video else 1
+    frames = frames if video else 1
     if video:
         extra.append(f"video.num_frames={frames}")
     if fp32:
@@ -2257,8 +2289,11 @@ def gate_reading(device: str, fp32: bool = False, video: bool = False,
     draws = make_draws(torch.Generator().manual_seed(SEED), cfg,
                        batch * frames, N_CAM, (h // 8, w // 8), 1000,
                        frames=frames)
+    split = None
     if mesh is not None:
-        host, draws = M.shard_batch(host, mesh), M.shard_batch(draws, mesh)
+        host = M.shard_batch(host, mesh, N_CAM)
+        draws = shard_draws(draws, mesh, N_CAM)
+        split = mesh.split(N_CAM, batch * frames // mesh.data, frames)
     draws = {k: None if v is None else v.to(device) for k, v in draws.items()}
     reward = dict(reward_fn=make_rgd_reward(cfg), reward_weight=float(
         cfg.video.rgd.reward_weight)) if video else {}
@@ -2272,7 +2307,7 @@ def gate_reading(device: str, fp32: bool = False, video: bool = False,
         loss, _ = make_loss_fn(models, cfg, DiffusionSchedule.create(),
                                (h // 8, w // 8),
                                tuple(cfg.model.get("ors_frame_hw")),
-                               frames=frames, **reward)(
+                               frames=frames, split=split, **reward)(
             to_device(host, device), draws)
         loss.backward()
     finally:
@@ -2281,11 +2316,12 @@ def gate_reading(device: str, fp32: bool = False, video: bool = False,
     grads = _trainable_grads(models)
     loss = loss.detach()
     if mesh is not None:  # a leaf no gradient reached on any rank: None
+        # on the device: NCCL reduces no host tensor
         averaged = M.average_gradients({
-            k: torch.zeros(trainable[k].shape) if g is None else g
-            for k, g in grads.items()})
+            k: torch.zeros(trainable[k].shape, device=device) if g is None
+            else g.to(device) for k, g in grads.items()})
         grads = {k: None if g is None and not averaged[k].any()
-                 else averaged[k] for k, g in grads.items()}
+                 else averaged[k].cpu() for k, g in grads.items()}
         loss = M.all_mean(loss)
     return float(loss), grads, launches
 
@@ -3379,6 +3415,9 @@ DDP_GENERATIONS = (("224x400", False, ()),
                    ("tiny_256x128", True, ("dataset.image_size=[256, 128]",
                                            "runner.pipeline_param."
                                            "num_inference_steps=20")))
+# phase ddp's splits: the (1, 2) mesh, 3 of the 6 cameras a rank, and one
+# clip of SPLIT_FRAMES frames over the 2 data ranks, 2 frames a rank
+SPLIT_FRAMES = 4
 # what one phase leaves for a later one in the same process
 KEPT = {}
 
@@ -3954,12 +3993,311 @@ def differs_from_rank0(tensors: dict) -> list:
     return [k for k, d in mine.items() if rank0.get(k) != d]
 
 
+def split_ring_row(A, view0: int, n_local: int, b: int = 2) -> dict:
+    """Row 2 under a view split at the main path's 1400-token level (d =
+    40) on ``b`` samples, a B = 1 generation's CFG pair: q holds the
+    ``n_local`` views ``view0 ..`` of each sample, k and v all 6
+    (``packed_attention_nbr_fwd(..., n_local=, view0=)``).  The sm90
+    kernel (the path's route) and the template instance, each against the
+    plain version within phase 3's tolerance and bit for bit against the
+    matching rows of the same kernel's whole-ring call; times from CUDA
+    graphs, the bound of the split call's own bytes (q, the neighbour
+    views' K/V and the output, once each) and FLOPs, and the two-call
+    yardstick (``stacked_sdpa_call`` on the rank's views).  Raises when a
+    check fails."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + view0)
+    q, k, v = (torch.randn(b * N_CAM, L, C, generator=g, device="cuda")
+               .bfloat16() for _ in range(3))
+    mine = lambda t: t.view(b, N_CAM, L, C)[:, view0:view0 + n_local] \
+        .reshape(b * n_local, L, C).contiguous()
+    ql = mine(q)
+    ring = functools.partial(A.packed_attention_nbr_fwd, ql, k, v, HEADS,
+                             N_CAM, n_local=n_local, view0=view0)
+    variants = {"sm90": ring,
+                "template": functools.partial(ring, route="template")}
+    whole = {"sm90": mine(A.packed_attention_nbr_fwd(q, k, v, HEADS, N_CAM)),
+             "template": mine(A.packed_attention_nbr_fwd(
+                 q, k, v, HEADS, N_CAM, route="template"))}
+    plain = lambda: A.attention_packed_neighbors_plain(
+        ql, k, v, HEADS, N_CAM, n_local=n_local, view0=view0)
+    want = plain()
+    tol = 2.0 ** -7 * want.float().abs().max().item() + 1e-3
+    errs, bit = {}, {}
+    for name, run in variants.items():
+        got = run()
+        torch.cuda.synchronize()
+        errs[name] = _max_err(got, want)
+        bit[name] = bool(torch.equal(got, whole[name]))
+        del got
+    times = {name: graph_ms(run) for name, run in variants.items()}
+    by_backend = sdpa_ms(stacked_sdpa_call(ql, k, v, HEADS, N_CAM, n_local,
+                                           view0),
+                         (2 * b * n_local, HEADS, L, L))
+    sdpa_name, stacked = fastest(by_backend)
+    read = len({(view0 + i + o) % N_CAM for i in range(n_local)
+                for o in (-1, 1)})  # neighbour views a sample
+    nbytes = 2 * (2 * ql.numel() + 2 * b * read * L * C)
+    bound_ms, bound_by = bound(nbytes, 8 * b * n_local * L * L * C)
+    row = {"kernel": SM90_NBR, "wrapper": "packed_attention_nbr_fwd",
+           "replaces": REPLACES["packed_attention_nbr_fwd"],
+           "case": f"attn4 ring, view split: views {view0}.."
+                   f"{view0 + n_local - 1} of {N_CAM}",
+           "shape": {"b": b, "n_local": n_local, "view0": view0, "lq": L,
+                     "lk": L, "c": C, "heads": HEADS, "head_dim": C // HEADS,
+                     "n_cam": N_CAM, "kv_views_read": read},
+           "max_abs_err": errs["sm90"], "tol": tol,
+           "max_abs_err_by_variant": errs,
+           "bit_equal_to_whole_ring_rows": bit,
+           "kernel_ms": times["sm90"], "kernel_ms_by_variant": times,
+           "plain_ms": cuda_ms(plain, 3), "library_ms": None,
+           "stacked_sdpa_ms": stacked,
+           "stacked_sdpa": f"_nbr_stacked gather + SDPA ({sdpa_name}) + "
+                           f"sum of the halves, on the rank's views",
+           "stacked_sdpa_ms_by_backend": by_backend,
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    log(json.dumps(row))
+    for name, err in errs.items():
+        if not (err <= tol and math.isfinite(err)):
+            raise AssertionError(f"split ring {name} disagrees with its "
+                                 f"plain version: {err} > {tol}")
+    if not all(bit.values()):
+        raise AssertionError(f"split ring rows differ from the whole "
+                             f"ring's: {bit}")
+    del q, k, v, ql, whole, want
+    torch.cuda.empty_cache()
+    return row
+
+
+def clip_step_reading(dev, mesh=None, frames: int = SPLIT_FRAMES,
+                      name: str = None) -> dict:
+    """Stage 1 (``video_16f``; ``name``: another video config, as
+    ``rgd_stage2``) at full width on one clip of ``frames`` frames (seeded
+    weights, bf16, remat, AdamW): a warm-up step and a timed one.  Under
+    ``mesh`` (2 data ranks) each rank holds ``frames / 2`` frames of the
+    clip (the frame split).  -> s per step, the memory allocated before
+    the timed step (``base_gib``: weights, optimizer state, what the
+    process held before) and its peak, launches held to
+    ``video_train_launches_per_step`` on the sm90 kernels, and per step
+    the ``gather`` calls, bytes received and host seconds."""
+    from dualdiff_tpu_torch.data.video import SyntheticNuScenesVideo
+    from dualdiff_tpu_torch.ops import attention as A
+    from dualdiff_tpu_torch.parallel.collectives import STATS
+    from dualdiff_tpu_torch.runner.factory import (build_models,
+                                                   randomize_weights)
+    from dualdiff_tpu_torch.runner.train_state import named_roots
+    from dualdiff_tpu_torch.runner.trainer import batch_rows
+    from dualdiff_tpu_torch.runner.video_trainer import VideoTrainer
+    from dualdiff_tpu_torch.utils.config import VIDEO_16F, load_config
+
+    cfg = load_config(name or VIDEO_16F, [f"video.num_frames={frames}",
+                                          "runner.train_batch_size=1"])
+    h, w = cfg.dataset.image_size
+    models = build_models(cfg, device=dev)
+    for _, m in named_roots(models):
+        randomize_weights(m, SEED)
+    clips = SyntheticNuScenesVideo(num_clips=1, num_frames=frames,
+                                   image_size=(h, w))
+    trainer = VideoTrainer(cfg, clips, device=dev, models=models, mesh=mesh)
+    split = trainer.split
+    if (mesh is None) != (split is None) or (
+            split is not None and split.frame_ranks != mesh.data):
+        raise AssertionError(f"clip split {split} on {mesh}")
+    batch = trainer._build_batch((0, 0, [0]))
+    expect = video_train_launches_per_step(
+        len(models["unet"].down_blocks[0].resnets), len(models["controlnets"]),
+        bool(cfg.runner.enable_unet_checkpointing)
+        and bool(cfg.runner.enable_controlnet_checkpointing),
+        bool(cfg.video.rgd.enable), (h // 8) * (w // 8))
+    steps = []
+    for i in range(2):
+        A.reset_launch_counts()
+        STATS.reset()
+        torch.cuda.synchronize(dev)
+        if i:
+            base = torch.cuda.memory_allocated(dev) / 2 ** 30
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        m = trainer.train_step(batch)
+        torch.cuda.synchronize(dev)
+        dt = time.perf_counter() - t0
+        counts = launch_counts(A)
+        if _wrappers(counts) != expect:
+            raise AssertionError(f"clip step launches {counts} != {expect}")
+        check_sm90_launches(counts)
+        if not (math.isfinite(m["loss"]) and m["grad_norm"] > 0):
+            raise AssertionError(f"clip step {i}: {m}")
+        steps.append({"s": dt, "loss": m["loss"], "grad_norm": m["grad_norm"],
+                      "gather_calls": STATS.calls,
+                      "gather_bytes": STATS.bytes,
+                      "gather_s": STATS.seconds})
+    out = {"frames_here": batch_rows(batch)[0], "views": N_CAM,
+           "s_per_step": steps[1]["s"], "warmup_s": steps[0]["s"],
+           "base_gib": base,
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+           "launches_per_step": counts, "steps": steps}
+    del trainer, models, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+CLIP_PEAK_STEPS = (("video_16f", 2), ("video_16f", 4), ("video_16f", 8),
+                   ("video_16f", 16), ("rgd_stage2", 2), ("rgd_stage2", 4),
+                   ("rgd_stage2", 16))
+
+
+def clip_peaks() -> int:
+    """``chip_smoke.py --clip-peaks``: how a video training step's memory
+    grows with the clip's frames, one process on the card, a one-off read
+    outside the smoke's phases.  Builds the libraries, times row 2 under a
+    view split alone on the card (``split_ring_row`` on views 0..2 and
+    3..5), then runs ``clip_step_reading`` for each of
+    ``CLIP_PEAK_STEPS`` (stage 1 ``video_16f`` and stage 2 ``rgd_stage2``
+    at a number of frames), one after the other, each reading's models
+    freed before the next, and prints a JSON line per reading: the memory
+    allocated before the timed step (``base_gib``) and its peak, or the
+    out-of-memory error."""
+    import gc
+
+    from dualdiff_tpu_torch.ops import attention as A
+    from dualdiff_tpu_torch.utils.config import RGD_STAGE2, VIDEO_16F
+
+    configs = {"video_16f": VIDEO_16F, "rgd_stage2": RGD_STAGE2}
+    phase_device()
+    phase_build()
+    log(card())
+    for view0 in (0, N_CAM // 2):
+        split_ring_row(A, view0, N_CAM // 2)
+    dev = torch.device("cuda")
+    for name, frames in CLIP_PEAK_STEPS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated() / 2 ** 30
+        try:
+            r = clip_step_reading(dev, frames=frames, name=configs[name])
+            r = {k: r[k] for k in ("frames_here", "s_per_step", "warmup_s",
+                                   "base_gib", "peak_gib")}
+        except torch.OutOfMemoryError as e:
+            r = {"oom": str(e)[:300]}
+        log(json.dumps({"config": name, "frames": frames,
+                        "allocated_before_gib": before, **r}))
+    return 0
+
+
+def ring_calls_on_rank(pipe, batch, lat, views) -> dict:
+    """One denoising step of this rank's cameras of ``batch`` (``views``:
+    the ``(1, 2)`` mesh) in which every call of row 2
+    (``packed_attention_nbr_fwd``: q on the rank's views, K/V gathered) is
+    held to the whole ring: q gathered over the view group, the whole ring
+    run on it and the same K/V, and the rows of this rank's cameras there,
+    bit for bit.  Both ranks make the same calls in the same order, so
+    their gathers meet; a wrong ``view0`` or a gather out of rank order
+    gives other rows.  -> {calls, equal, max_abs_diff, view0 (those
+    passed)}."""
+    from dualdiff_tpu_torch.ops import attention as A
+    from dualdiff_tpu_torch.parallel.collectives import gather
+
+    cams = views.cams(N_CAM)
+    seen = {"calls": 0, "equal": 0, "max_abs_diff": 0.0, "view0": set()}
+    fn = A.packed_attention_nbr_fwd
+
+    @functools.wraps(fn)  # its own launch count: these launches are checks
+    def call(q, k, v, heads, n_cam, scale=None, **kw):
+        out = fn(q, k, v, heads, n_cam, scale, **kw)
+        n = cams.stop - cams.start
+        rows = lambda t, m: t.view(-1, m, *t.shape[1:])
+        whole = fn(gather(rows(q, n), views.view_group, 1).reshape(k.shape),
+                   k, v, heads, n_cam, scale)
+        mine = rows(whole, n_cam)[:, cams.start:cams.stop].reshape(q.shape)
+        seen["calls"] += 1
+        seen["equal"] += torch.equal(out, mine)
+        seen["max_abs_diff"] = max(seen["max_abs_diff"], _max_err(out, mine))
+        seen["view0"].add(kw.get("view0", 0))
+        return out
+
+    A.packed_attention_nbr_fwd = call
+    try:
+        pipe(batch, latents=lat, num_inference_steps=1)
+    finally:
+        A.packed_attention_nbr_fwd = fn
+    return dict(seen, view0=sorted(seen["view0"]))
+
+
+def ddp_split_rank(mesh, dev) -> dict:
+    """Phase ddp's splits on one rank (see the module docstring): row 2 on
+    this rank's views of the ``(1, 2)`` mesh (``split_ring_row``); its 3
+    cameras of the flagship's UniPC-20 generation of row 0 alone (B = 1,
+    the noise of the global draw), launches derived; the 256x128 gate's
+    gradient on the ``(1, 2)`` mesh (B = 2) and on the frame split (one
+    tiny RGD clip of ``SPLIT_FRAMES`` frames, 2 a rank); the full-width
+    frame-split stage-1 step (``clip_step_reading``).  After the timed
+    generation, one step of it with every ring call held to the whole
+    ring (``ring_calls_on_rank``)."""
+    from dualdiff_tpu_torch.ops import attention as A
+    from dualdiff_tpu_torch.parallel import mesh as M
+    from dualdiff_tpu_torch.parallel.collectives import STATS
+    from dualdiff_tpu_torch.runner.conds import prepare_batch
+
+    views = M.create_mesh(data=1, view=mesh.world)
+    cams = views.cams(N_CAM)
+    out = {"view_cams": [cams.start, cams.stop]}
+    for turn in range(mesh.world):  # one rank at a time on the card
+        if turn == mesh.rank:
+            out["ring_row"] = split_ring_row(A, cams.start,
+                                             cams.stop - cams.start)
+        M.barrier()
+
+    cfg, batch, pipe = _flagship("cuda", mesh=views)
+    h, w = cfg.dataset.image_size
+    unet = pipe.models["unet"]
+    lat = torch.randn((DDP_B, 1, h // 8, w // 8, 4), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(SEED))
+    row0 = M.shard_batch(prepare_batch(batch, "cpu"),
+                         M.Mesh(world=DDP_B, rank=0, data=DDP_B))
+    expect = generate_launches_per_generation(
+        len(unet.down_blocks[0].resnets), len(pipe.models["controlnets"]),
+        int(cfg.runner.pipeline_param.num_inference_steps),
+        model_levels(unet, (h // 8, w // 8)), attn4=attn4_form(unet))
+    A.reset_launch_counts()
+    STATS.reset()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    images = pipe(row0, latents=lat[:1])
+    torch.cuda.synchronize(dev)
+    out["view_generation_s"] = time.perf_counter() - t0
+    counts = launch_counts(A)
+    if _wrappers(counts) != expect:
+        raise AssertionError(f"rank {mesh.rank} view-split generation "
+                             f"launches {counts} != {expect}")
+    check_sm90_launches(counts)
+    out.update(view_generation_launches=counts,
+               view_gather={"calls": STATS.calls, "bytes": STATS.bytes,
+                            "seconds": STATS.seconds},
+               view_images=images.cpu(),
+               view_ring_calls=ring_calls_on_rank(pipe, row0, lat[:1],
+                                                  views))
+    del pipe, images, unet
+    torch.cuda.empty_cache()
+
+    for key, kw, grid in (("view_gate", {"batch": DDP_B}, views),
+                          ("frame_gate", {"video": True,
+                                          "frames": SPLIT_FRAMES}, mesh)):
+        loss, grads, launches = gate_reading("cuda", mesh=grid, **kw)
+        check_sm90_launches(launches)
+        out[key] = (loss, grads if mesh.rank == 0 else None, launches)
+        del grads
+    out["frame_step"] = clip_step_reading(dev, mesh)
+    return out
+
+
 def ddp_rank(out_dir: str) -> int:
     """One rank of phase ``ddp`` (``chip_smoke.py --ddp-rank DIR``, with
     the launcher's variables set): the 256x128 gate's averaged gradient,
     this rank's row of the flagship generation, and one warm-up and one
     timed flagship step on the global batch, with the checks that need
-    the ranks together.  Writes ``DIR/rank<r>.pt``."""
+    the ranks together; then the splits (``ddp_split_rank``).  Writes
+    ``DIR/rank<r>.pt``."""
+    import gc
+
     from dualdiff_tpu_torch.ops import attention as A
     from dualdiff_tpu_torch.parallel import mesh as M
     from dualdiff_tpu_torch.runner import trainer as T
@@ -4068,7 +4406,10 @@ def ddp_rank(out_dir: str) -> int:
     opt.step = recording
     T.average_gradients = timed_average
     A.reset_launch_counts()
-    trainer.run(2, on_metrics)
+    try:
+        trainer.run(2, on_metrics)
+    finally:
+        T.average_gradients = average
     if len(steps) != 2 or not all(
             math.isfinite(m["loss"]) and m["grad_norm"] > 0 for m in steps):
         raise AssertionError(f"rank {mesh.rank} steps {steps}")
@@ -4083,9 +4424,12 @@ def ddp_rank(out_dir: str) -> int:
     out["differ_from_rank0"] = differs_from_rank0({**grads, **state})
     out["compare_s"] = time.perf_counter() - t0
     out["compared_tensors"] = len(grads) + len(state)
+    del trainer, models, grads, state, seen, opt, step, recording
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["split"] = ddp_split_rank(mesh, dev)
     out["rank_s"] = time.perf_counter() - t_start
     torch.save(out, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
-    del trainer, models, grads, state, seen
     M.barrier()
     M.destroy()
     return 0
@@ -4138,12 +4482,39 @@ def split_equal(run, args, out):
     return diff == 0.0, diff
 
 
-def halved_calls(pipe, batch, lat, modules: bool = False) -> dict:
+def view_split_equal(run, args, out, ring: bool):
+    """(whether ``run`` on each half of the cameras of its rows (rows fold
+    (sample, camera), ``N_CAM`` a sample; the ring's q on a rank's views
+    with ``n_local`` / ``view0`` and the whole K/V) is bit-equal to the
+    matching rows of ``out``, the largest difference), or None when the
+    call's rows are not whole samples of ``N_CAM`` cameras."""
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    n = tensors[0].shape[0] if tensors else 0
+    if not n or n % N_CAM or not isinstance(out, torch.Tensor) or \
+            any(t.shape[0] != n for t in tensors):
+        return None
+    half = N_CAM // 2
+    same, diff = True, 0.0
+    for v0 in (0, half):
+        sel = lambda t: t.view(n // N_CAM, N_CAM, *t.shape[1:])[
+            :, v0:v0 + half].reshape(-1, *t.shape[1:])
+        got = run(sel(args[0]), *args[1:], n_local=half, view0=v0) if ring \
+            else run(*[sel(a) if isinstance(a, torch.Tensor) else a
+                       for a in args])
+        same = same and torch.equal(got, sel(out))
+        diff = max(diff, _max_err(got, sel(out)))
+    return same, diff
+
+
+def halved_calls(pipe, batch, lat, modules: bool = False,
+                 views: bool = False) -> dict:
     """One denoising step of ``batch`` from ``lat`` in which every call of
     the ``GEN_WRAPPERS`` (with ``modules``, of every leaf module of the
     networks too) is run again on each half of its first dimension
-    (``split_equal``).  -> {wrapper or module type: {calls, halved,
-    batch_dependent (halves not bit-equal to the whole), max_abs_diff}}."""
+    (``split_equal``), or with ``views`` on each half of its cameras as a
+    rank of the ``(1, 2)`` mesh runs it (``view_split_equal``).  ->
+    {wrapper or module type: {calls, halved, batch_dependent (halves not
+    bit-equal to the whole), max_abs_diff}}."""
     import collections
 
     from dualdiff_tpu_torch.ops import attention as A
@@ -4180,7 +4551,10 @@ def halved_calls(pipe, batch, lat, modules: bool = False) -> dict:
         @functools.wraps(fn)
         def call(*args, **kw):
             out = fn(*args, **kw)
-            note(name, split_equal(lambda *a: fn(*a, **kw), args, out))
+            run = lambda *a, **k: fn(*a, **{**kw, **k})
+            note(name, view_split_equal(
+                run, args, out, name == "packed_attention_nbr_fwd")
+                if views else split_equal(run, args, out))
             return out
         return call
 
@@ -4208,7 +4582,13 @@ def ddp_generation_readings(res) -> dict:
     B = 2 generation.  -> mean (``*_mean_err``) and max absolute errors
     per row, and at full width ``halved_kernel_calls`` (``halved_calls``
     of one step at B = 2: the attention kernels' share of the batch's
-    rows)."""
+    rows).  The ``(1, 2)`` mesh's cameras of row 0 against the same
+    one-process row (``view_split_vs_b1_mean``, ``view_split_max``; every
+    call there has half the rows, and cuBLAS and cuDNN give a row other
+    bits in another row count, so this reads what a batch change reads,
+    ``one_process_b2_vs_b1``), and ``view_split_kernel_calls``: every
+    attention kernel call of one step of row 0 run again as each rank runs
+    it, on its 3 cameras (``halved_calls(..., views=True)``)."""
     from dualdiff_tpu_torch.parallel import mesh as M
     from dualdiff_tpu_torch.runner.conds import prepare_batch, to_device
 
@@ -4231,6 +4611,14 @@ def ddp_generation_readings(res) -> dict:
             out["one_process_b2_vs_b1"] = [
                 float((whole[r] - want[r]).abs().mean()) for r in range(DDP_B)]
             out["halved_kernel_calls"] = halved_calls(pipe, batch, lat)
+            row0 = to_device(M.shard_batch(t, M.Mesh(
+                world=DDP_B, rank=0, data=DDP_B)), dev)
+            out["view_split_kernel_calls"] = halved_calls(
+                pipe, row0, lat[:1], views=True)
+            errs = [(r["split"]["view_images"][0] - want[0][slice(
+                *r["split"]["view_cams"])]).abs() for r in res]
+            out["view_split_vs_b1_mean"] = [float(e.mean()) for e in errs]
+            out["view_split_max"] = [float(e.max()) for e in errs]
         errs = [(r["images"][size] - want[r["rows"]]).abs() for r in res]
         out[f"{size}_vs_{'b2' if tiny else 'b1'}_mean_err"] = [
             float(e.mean()) for e in errs]
@@ -4240,10 +4628,17 @@ def ddp_generation_readings(res) -> dict:
     return out
 
 
+VIDEO_GATE_KERNELS = ("packed_attention_capped_lse_fwd",
+                      "packed_attention_lse_fwd", "packed_attention_bwd_dq",
+                      "packed_attention_bwd_dkv", SM90_LSE, SM90_DQ, SM90_DKV)
+
+
 def phase_ddp():
     """Data parallelism over processes on the card (see the module
     docstring, phase 23).  -> (the rank-0 launches of one generation row,
-    of one step)."""
+    of one step, and the splits': {"ring_rows": ``split_ring_row`` of
+    each rank, "view_generation": rank 0's launches of its cameras of a
+    generation, "frame_step": rank 0's launches of its frames' step})."""
     import gc
     import shutil
     import tempfile
@@ -4268,8 +4663,10 @@ def phase_ddp():
                  for r in range(DDP_RANKS)]
         nccl = spawn(["--nccl-probe"], _rank_env(0, 1, _free_port()))
         procs = ranks + [nccl]
-        # meanwhile, on the host: the one-process float32 gradient
+        # meanwhile, on the host: the one-process float32 gradients
         cpu = gate_reading("cpu", fp32=True, batch=DDP_B)
+        cpu_clip = gate_reading("cpu", fp32=True, video=True,
+                                frames=SPLIT_FRAMES)
         outs = [p.communicate(timeout=DDP_TIMEOUT)[0] for p in ranks]
         nccl_out = nccl.communicate(timeout=DDP_TIMEOUT)[0]
         for r, (p, o) in enumerate(zip(ranks, outs)):
@@ -4316,13 +4713,23 @@ def phase_ddp():
     worst = max(max(v) for k, v in gen.items() if k.endswith("_mean_err"))
     if not worst <= GEN_MEAN_TOL:
         raise AssertionError(f"generated rows off one process's: {gen}")
-    halved = gen["halved_kernel_calls"]
-    if not all(halved.get(k, {}).get("calls") for k in (
-            "packed_attention_fwd", "packed_attention_nbr_fwd")) or any(
-            v["batch_dependent"] or v["halved"] != v["calls"]
-            for v in halved.values()):
-        raise AssertionError(f"an attention kernel's rows depend on the "
-                             f"batch at full width: {halved}")
+    # the view split's rows: no further from one process's than its own
+    # B = 2 rows are from its B = 1 rows (the same cause, another row
+    # count in every GEMM and convolution), whose kernel calls are
+    # bit-equal below
+    if not max(gen["view_split_vs_b1_mean"]) <= max(
+            GEN_MEAN_TOL, *gen["one_process_b2_vs_b1"]):
+        raise AssertionError(f"view-split rows off one process's: {gen}")
+    for key in ("halved_kernel_calls", "view_split_kernel_calls"):
+        halved = gen[key]
+        if not all(halved.get(k, {}).get("calls") for k in (
+                "packed_attention_fwd", "packed_attention_nbr_fwd")) or any(
+                v["batch_dependent"] or v["halved"] != v["calls"]
+                for v in halved.values()):
+            raise AssertionError(f"an attention kernel's rows depend on the "
+                                 f"batch or the cameras at full width "
+                                 f"({key}): {halved}")
+    splits = ddp_split_readings(res, cpu, cpu_clip)
     if not probe["all_reduce_ok"] or probe["backend"] != "nccl":
         raise AssertionError(f"nccl probe {probe}")
     timed_steps = [r["steps"][-1] for r in res]
@@ -4346,14 +4753,109 @@ def phase_ddp():
            "compare_s": res[0]["compare_s"],
            "loss": losses[0], "launches_per_step": res[0]["launches_per_step"],
            "nccl_probe": probe, "rank_s": [r["rank_s"] for r in res],
-           "seconds": time.perf_counter() - t0}
+           "splits": splits, "seconds": time.perf_counter() - t0}
     log(f"# ddp ({smi}): {DDP_RANKS} ranks, s/step {row['s_per_step']} "
         f"(phase 6: {row['s_per_step_phase6']}), all-reduce "
         f"{row['all_reduce_s_per_step']} s and "
         f"{row['all_reduce_bytes_per_step'][0]} bytes per step, peak "
         f"{row['peak_gib_per_rank']} GiB per rank")
+    log(f"# ddp splits ({smi}): view split s/generation "
+        f"{splits['view_generation_s_per_rank']}, frame split s/step "
+        f"{splits['frame_split']['s_per_step']} (one process "
+        f"{splits['one_process_clip']['s_per_step']}), peak "
+        f"{splits['frame_split']['peak_gib_per_rank']} GiB per rank "
+        f"(one process {splits['one_process_clip']['peak_gib']})")
     log(json.dumps(row))
-    return res[0]["generation_launches"], res[0]["launches_per_step"]
+    sp = res[0]["split"]
+    return res[0]["generation_launches"], res[0]["launches_per_step"], {
+        "ring_rows": [r["split"]["ring_row"] for r in res],
+        "view_generation": sp["view_generation_launches"],
+        "frame_step": sp["frame_step"]["launches_per_step"]}
+
+
+def ddp_split_readings(res, cpu, cpu_clip) -> dict:
+    """The parent's checks of the ranks' splits (``ddp_split_rank``): the
+    cameras each rank of the ``(1, 2)`` mesh held; both split steps'
+    averaged 256x128 gradients against one process's float32 gradient on
+    the CPU under phase 7's gate (``cpu``: B = 2 of the tiny flagship;
+    ``cpu_clip``: the tiny RGD clip of ``SPLIT_FRAMES`` frames); the
+    frame-split step's launches equal on both ranks; then, with the ranks
+    gone, one process's full-width step of the whole clip
+    (``clip_step_reading``: its peak, the linear extrapolation's test).
+    -> the readings."""
+    split = [r["split"] for r in res]
+    if [sp["view_cams"] for sp in split] != [[0, 3], [3, 6]]:
+        raise AssertionError(f"view-split cameras "
+                             f"{[sp['view_cams'] for sp in split]}")
+    for sp in split:
+        ring = sp["view_ring_calls"]
+        if not ring["calls"] or ring["equal"] != ring["calls"] or \
+                ring["view0"] != [sp["view_cams"][0]]:
+            raise AssertionError(f"a rank's ring calls are not the whole "
+                                 f"ring's rows of its cameras: {ring}")
+    gates = {}
+    for key, ref, kernels in (("view_gate", cpu, TRAIN_GATE_KERNELS),
+                              ("frame_gate", cpu_clip, VIDEO_GATE_KERNELS)):
+        gate = gate_row(f"ddp {key} train_reference", ref, split[0][key])
+        _reference_gate(gate, kernels)
+        for sp in split[1:]:
+            if not all(sp[key][2][k] > 0 for k in kernels):
+                raise AssertionError(f"{key} launches {sp[key][2]}")
+        gates[key] = {"worst_leaf": next(iter(
+            gate["worst_leaf_rel_err"].items())),
+            "loss_rel_err": gate["loss_rel_err"]}
+    steps = [sp["frame_step"] for sp in split]
+    if steps[0]["launches_per_step"] != steps[1]["launches_per_step"] or \
+            [st["frames_here"] for st in steps] != [SPLIT_FRAMES // 2] * 2:
+        raise AssertionError(f"frame-split steps {steps}")
+    torch.cuda.empty_cache()
+    one = clip_step_reading(torch.device("cuda"))
+    return {
+        "view_generation_s_per_rank": [sp["view_generation_s"]
+                                       for sp in split],
+        "view_gather_per_generation": [sp["view_gather"] for sp in split],
+        "view_ring_calls": [sp["view_ring_calls"] for sp in split],
+        "gates": gates,
+        "frame_split": {
+            "frames": SPLIT_FRAMES, "frames_per_rank": SPLIT_FRAMES // 2,
+            "s_per_step": [st["s_per_step"] for st in steps],
+            "warmup_s": [st["warmup_s"] for st in steps],
+            "peak_gib_per_rank": [st["peak_gib"] for st in steps],
+            "base_gib_per_rank": [st["base_gib"] for st in steps],
+            "gather_per_step": [{k: st["steps"][1][k] for k in (
+                "gather_calls", "gather_bytes", "gather_s")}
+                for st in steps],
+            "loss": [st["steps"][1]["loss"] for st in steps],
+            "launches_per_step": steps[0]["launches_per_step"]},
+        "one_process_clip": {k: one[k] for k in (
+            "s_per_step", "warmup_s", "base_gib", "peak_gib",
+            "frames_here")}}
+
+
+def split_ring_entry(rows, paths) -> dict:
+    """The kernels line's entry of row 2 under a view split
+    (``split_ring_row`` on each rank's views): the sm90 ring kernel with
+    ``n_local`` / ``view0``, its launches those of rank 0's cameras of a
+    generation (path ``ddp view split``)."""
+    main = rows[0]
+    _, counts, _ = paths["ddp view split"]
+    return {
+        "name": f"{SM90_NBR}:packed_attention_nbr_fwd (view split)",
+        "route": "cuda", "source": SM90_ROUTES[SM90_NBR][1],
+        "replaces": REPLACES["packed_attention_nbr_fwd"],
+        "launches": counts[SM90_NBR],
+        "launches_per": paths["ddp view split"][0],
+        "launches_by_path": {u: c.get(SM90_NBR, 0)
+                             for u, c, _ in paths.values()},
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": None, "shape": main["shape"],
+        "ms_by_variant": main["kernel_ms_by_variant"],
+        "stacked_sdpa_ms": main["stacked_sdpa_ms"],
+        "stacked_sdpa": main["stacked_sdpa"],
+        "bit_equal_to_whole_ring_rows": [r["bit_equal_to_whole_ring_rows"]
+                                         for r in rows]}
 
 
 def kernels_line(results, paths, per_step):
@@ -4428,6 +4930,8 @@ def main() -> int:
         return ddp_rank(args[args.index("--ddp-rank") + 1])
     if "--nccl-probe" in args:
         return nccl_probe()
+    if "--clip-peaks" in args:
+        return clip_peaks()
     profile_dir = args[args.index("--profile") + 1] \
         if "--profile" in args else None
     t_start = time.perf_counter()
@@ -4495,13 +4999,19 @@ def main() -> int:
     paths["explore"] = ("explore phase: the capture-off ControlNets + UNet "
                         "forward after the explore tools",
                         timed("explore", phase_explore), {})
-    gen_row, ddp_step = timed("ddp", phase_ddp)
+    gen_row, ddp_step, splits = timed("ddp", phase_ddp)
     paths["ddp"] = ("ddp phase, rank 0 of 2: its row of a UniPC-20 "
                     "generation and one step", {
                         k: gen_row[k] + ddp_step[k] for k in gen_row}, {})
     per_step["ddp rank"] = (ddp_step, {})
+    paths["ddp view split"] = (
+        "ddp phase, rank 0 of the (1, 2) mesh: its 3 cameras of a UniPC-20 "
+        "generation of one sample", splits["view_generation"], {})
+    per_step["ddp frame split rank"] = (splits["frame_step"], {})
     log(f"# all phases: {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps(kernels_line(results, paths, per_step)))
+    line = kernels_line(results, paths, per_step)
+    line["kernels"].append(split_ring_entry(splits["ring_rows"], paths))
+    print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

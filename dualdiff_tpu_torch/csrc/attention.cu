@@ -99,7 +99,9 @@ namespace {
 
 using namespace dd;
 
-// DP: head_dim padded to a multiple of 16.  NBR: camera-ring variant.
+// DP: head_dim padded to a multiple of 16.  NBR: camera-ring variant: q
+// row r is global view view0 + r % n_local of sample r / n_local, over that
+// sample's K/V rows (n_cam views a sample) of views -1 and +1 mod n_cam.
 // LSE: also write lse (B*H, Lq) float32 (not with NBR).  WARPS: warps per
 // block, a multiple of 4; the block owns 16 * WARPS queries.  VEC: stage
 // and store with 16- and 4-byte accesses (d % 8 == 0, aligned rows); else
@@ -109,7 +111,7 @@ __global__ void __launch_bounds__(32 * WARPS)
     attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ out,
                      float* __restrict__ lse, int lq, int lk, int ld, int d,
-                     int n_cam, float scale_log2) {
+                     int n_cam, int n_local, int view0, float scale_log2) {
   constexpr int S = DP + 8;   // shared row stride: ldmatrix conflict-free
   constexpr int KT = DP / 16;  // MMA depth steps of q.k
   constexpr int NT = DP / 8;   // 8-column tiles of the output
@@ -150,7 +152,7 @@ __global__ void __launch_bounds__(32 * WARPS)
   for (int pass = 0; pass < (NBR ? 2 : 1); ++pass) {
     int kv_row = row;
     if (NBR) {
-      const int b = row / n_cam, n = row - b * n_cam;
+      const int b = row / n_local, n = view0 + row - b * n_local;
       kv_row = b * n_cam + (pass == 0 ? (n + n_cam - 1) % n_cam
                                       : (n + 1) % n_cam);
     }
@@ -297,7 +299,8 @@ __global__ void __launch_bounds__(32 * WARPS)
 template <int DP, bool NBR, bool LSE, int WARPS, bool VEC>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float* lse, int batch, int lq, int lk, int heads, int d,
-                   int n_cam, float scale, cudaStream_t stream) {
+                   int n_cam, int n_local, int view0, float scale,
+                   cudaStream_t stream) {
   constexpr int BQ = 16 * WARPS;
   constexpr int THREADS = 32 * WARPS;
   const size_t smem = (size_t)(BQ + 4 * kBlockK) * (DP + 8) * sizeof(bf16) +
@@ -310,19 +313,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, lq, lk,
-      heads * d, d, n_cam, scale * kLog2e);
+      heads * d, d, n_cam, n_local, view0, scale * kLog2e);
   return cudaGetLastError();
 }
 
 template <bool NBR, bool LSE, int WARPS = kWarps, bool VEC = true>
 int dispatch(const void* q, const void* k, const void* v, void* out,
              float* lse, int batch, int lq, int lk, int heads, int d,
-             int n_cam, float scale, void* stream) {
+             int n_cam, int n_local, int view0, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d <= 0 || (VEC && d % 8) || d > 160) return (int)cudaErrorInvalidValue;
 #define DD_CALL(P)                                                         \
   (int)launch<P, NBR, LSE, WARPS, VEC>(q, k, v, out, lse, batch, lq, lk, \
-                                       heads, d, n_cam, scale, s)
+                                       heads, d, n_cam, n_local, view0,  \
+                                       scale, s)
   DD_DISPATCH_DP(d, DD_CALL)
 #undef DD_CALL
   return (int)cudaErrorInvalidValue;
@@ -335,17 +339,25 @@ extern "C" int dd_packed_attention_fwd(const void* q, const void* k,
                                        int lq, int lk, int heads, int head_dim,
                                        float scale, void* stream) {
   return dispatch<false, false>(q, k, v, out, nullptr, batch, lq, lk, heads,
-                                head_dim, 1, scale, stream);
+                                head_dim, 1, 1, 0, scale, stream);
 }
 
+// The camera ring: q, out (batch = B * n_local, l, H*d), k, v (B * n_cam,
+// l, H*d); q row b n_local + i is global view n = view0 + i of sample b,
+// over that sample's K/V views n - 1 and n + 1 (mod n_cam).  n_local ==
+// n_cam, view0 == 0: the whole ring.
 extern "C" int dd_packed_attention_nbr_fwd(const void* q, const void* k,
                                            const void* v, void* out,
                                            int batch, int l, int heads,
                                            int head_dim, int n_cam,
+                                           int n_local, int view0,
                                            float scale, void* stream) {
-  if (n_cam < 1 || batch % n_cam) return (int)cudaErrorInvalidValue;
+  if (n_local < 1 || n_local > n_cam || batch % n_local || view0 < 0 ||
+      view0 + n_local > n_cam)
+    return (int)cudaErrorInvalidValue;
   return dispatch<true, false>(q, k, v, out, nullptr, batch, l, l, heads,
-                               head_dim, n_cam, scale, stream);
+                               head_dim, n_cam, n_local, view0, scale,
+                               stream);
 }
 
 extern "C" int dd_packed_attention_lse_fwd(const void* q, const void* k,
@@ -354,7 +366,7 @@ extern "C" int dd_packed_attention_lse_fwd(const void* q, const void* k,
                                            int lk, int heads, int head_dim,
                                            float scale, void* stream) {
   return dispatch<false, true>(q, k, v, out, static_cast<float*>(lse), batch,
-                               lq, lk, heads, head_dim, 1, scale, stream);
+                               lq, lk, heads, head_dim, 1, 1, 0, scale, stream);
 }
 
 // warps: 4 (64 queries per block) or 8 (128 queries per block, half the
@@ -367,10 +379,10 @@ extern "C" int dd_packed_attention_capped_fwd(const void* q, const void* k,
                                               void* stream) {
   if (warps == 8)
     return dispatch<false, false, 8>(q, k, v, out, nullptr, batch, lq, lk,
-                                     heads, head_dim, 1, scale, stream);
+                                     heads, head_dim, 1, 1, 0, scale, stream);
   if (warps == 4)
     return dispatch<false, false, 4>(q, k, v, out, nullptr, batch, lq, lk,
-                                     heads, head_dim, 1, scale, stream);
+                                     heads, head_dim, 1, 1, 0, scale, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -382,10 +394,10 @@ extern "C" int dd_packed_attention_capped_lse_fwd(
   float* l = static_cast<float*>(lse);
   if (warps == 8)
     return dispatch<false, true, 8>(q, k, v, out, l, batch, lq, lk, heads,
-                                    head_dim, 1, scale, stream);
+                                    head_dim, 1, 1, 0, scale, stream);
   if (warps == 4)
     return dispatch<false, true, 4>(q, k, v, out, l, batch, lq, lk, heads,
-                                    head_dim, 1, scale, stream);
+                                    head_dim, 1, 1, 0, scale, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -398,9 +410,9 @@ extern "C" int dd_flash_attention_fwd(const void* q, const void* k,
                                       float scale, void* stream) {
   if (dd::vec_ok(head_dim, q, k, v, out))
     return dispatch<false, false>(q, k, v, out, nullptr, batch, lq, lk,
-                                  heads, head_dim, 1, scale, stream);
+                                  heads, head_dim, 1, 1, 0, scale, stream);
   return dispatch<false, false, dd::kWarps, false>(
-      q, k, v, out, nullptr, batch, lq, lk, heads, head_dim, 1, scale,
+      q, k, v, out, nullptr, batch, lq, lk, heads, head_dim, 1, 1, 0, scale,
       stream);
 }
 
@@ -413,7 +425,7 @@ extern "C" int dd_flash_attention_lse_fwd(const void* q, const void* k,
   float* l = static_cast<float*>(lse);
   if (dd::vec_ok(head_dim, q, k, v, out))
     return dispatch<false, true>(q, k, v, out, l, batch, lq, lk, heads,
-                                 head_dim, 1, scale, stream);
+                                 head_dim, 1, 1, 0, scale, stream);
   return dispatch<false, true, dd::kWarps, false>(
-      q, k, v, out, l, batch, lq, lk, heads, head_dim, 1, scale, stream);
+      q, k, v, out, l, batch, lq, lk, heads, head_dim, 1, 1, 0, scale, stream);
 }

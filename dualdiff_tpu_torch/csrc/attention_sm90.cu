@@ -238,8 +238,11 @@ __device__ __forceinline__ void issue_pv(float (&o)[32],
 // grid covers them all).  KSTEPS = ceil(d / 16); at 5 (d = 72, 80) every
 // tile also has its second box (maps tq2, tk2, tv2, unread below 5).
 // LSE: also write lse (B*H, Lq) float32 (unread and may be null without
-// it).  NBR: the camera ring over n_cam views a batch (lq == lk; n_cam
-// unread without it).
+// it).  NBR: the camera ring over n_cam views a batch (lq == lk; n_cam,
+// n_local and view0 unread without it): q row r is global view view0 +
+// r % n_local of sample r / n_local, and K/V (n_cam views a sample, their
+// own maps' batch) are read at that sample's rows of views -1 and +1 mod
+// n_cam of it; n_local == n_cam, view0 == 0 is the whole ring.
 template <int KSTEPS, bool LSE, bool NBR>
 __global__ void __launch_bounds__(kThreads, 1)
     sm90_attention_kernel(__grid_constant__ const CUtensorMap tq,
@@ -250,7 +253,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                           __grid_constant__ const CUtensorMap tv2,
                           bf16* __restrict__ out, float* __restrict__ lse,
                           int batch, int lq, int lk, int heads, int d,
-                          int n_cam, float scale_log2) {
+                          int n_cam, int n_local, int view0,
+                          float scale_log2) {
   static_assert(!(NBR && LSE), "the ring kernel writes no lse");
   constexpr bool kWide = KSTEPS == 5;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -309,7 +313,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           // the ring: tiles of the left view (n - 1), then the right (n + 1)
           int kv_row = row, t = u;
           if (NBR) {
-            const int b = row / n_cam, n = row - b * n_cam;
+            const int b = row / n_local, n = view0 + row - b * n_local;
             const bool right = u >= n_tiles;
             kv_row = b * n_cam + (n + (right ? 1 : n_cam - 1)) % n_cam;
             if (right) t -= n_tiles;
@@ -568,16 +572,21 @@ int prepare(int device) {
 }
 
 // The three entries' shared checks, tensor maps and launch.  NBR: lq ==
-// lk, batch rows of n_cam views each.
+// lk, q batch rows of n_local views each (global views view0 .. view0 +
+// n_local - 1 of n_cam), K/V batch / n_local samples of n_cam views.
 template <bool LSE, bool NBR>
 int launch(const void* q, const void* k, const void* v, void* out,
            float* lse, int batch, int lq, int lk, int heads, int head_dim,
-           int n_cam, float scale, void* stream) {
+           int n_cam, int n_local, int view0, float scale, void* stream) {
   if (head_dim <= 0 || head_dim > 80 || !dd::vec_ok(head_dim, q, k, v, out) ||
       batch <= 0 || lq <= 0 || lk <= 0 || heads <= 0 || batch > 65535 ||
       heads > 65535 || (LSE && lse == nullptr) ||
-      (NBR && (n_cam < 1 || batch % n_cam || lq != lk)))
+      (NBR && (n_local < 1 || n_local > n_cam || batch % n_local ||
+               view0 < 0 || view0 + n_local > n_cam || lq != lk ||
+               (long long)batch / n_local * n_cam > 65535)))
     return (int)cudaErrorInvalidValue;
+  // K/V rows: the q rows' samples, all n_cam views each (the ring's)
+  const int batch_kv = NBR ? batch / n_local * n_cam : batch;
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return (int)err;
@@ -587,14 +596,14 @@ int launch(const void* q, const void* k, const void* v, void* out,
   // the second boxes' maps; below d = 65 the kernel reads none of them
   CUtensorMap tq, tk, tv, tq2, tk2, tv2;
   if (!make_map(&tq, q, batch, lq, heads, head_dim, kQ) ||
-      !make_map(&tk, k, batch, lk, heads, head_dim, kKeys) ||
-      !make_map(&tv, v, batch, lk, heads, head_dim, kKeys))
+      !make_map(&tk, k, batch_kv, lk, heads, head_dim, kKeys) ||
+      !make_map(&tv, v, batch_kv, lk, heads, head_dim, kKeys))
     return (int)cudaErrorInvalidValue;
   if (!wide) {
     tq2 = tq, tk2 = tk, tv2 = tv;
   } else if (!make_map(&tq2, q, batch, lq, heads, head_dim, kQ, 16) ||
-             !make_map(&tk2, k, batch, lk, heads, head_dim, kKeys, 16) ||
-             !make_map(&tv2, v, batch, lk, heads, head_dim, kKeys, 16)) {
+             !make_map(&tk2, k, batch_kv, lk, heads, head_dim, kKeys, 16) ||
+             !make_map(&tv2, v, batch_kv, lk, heads, head_dim, kKeys, 16)) {
     return (int)cudaErrorInvalidValue;
   }
   const long long items = (long long)((lq + kQ - 1) / kQ) * heads * batch;
@@ -610,7 +619,7 @@ int launch(const void* q, const void* k, const void* v, void* out,
   const int smem = wide ? smem_bytes<5>() : smem_bytes<4>();
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       tq, tk, tv, tq2, tk2, tv2, static_cast<bf16*>(out), lse, batch, lq, lk,
-      heads, head_dim, n_cam, scale * dd::kLog2e);
+      heads, head_dim, n_cam, n_local, view0, scale * dd::kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -624,7 +633,7 @@ extern "C" int dd_sm90_attention_fwd(const void* q, const void* k,
                                      int lq, int lk, int heads, int head_dim,
                                      float scale, void* stream) {
   return launch<false, false>(q, k, v, out, nullptr, batch, lq, lk, heads,
-                              head_dim, 1, scale, stream);
+                              head_dim, 1, 1, 0, scale, stream);
 }
 
 // The same, also writing lse (B*H, Lq) contiguous float32: the training
@@ -635,18 +644,21 @@ extern "C" int dd_sm90_attention_lse_fwd(const void* q, const void* k,
                                          int head_dim, float scale,
                                          void* stream) {
   return launch<true, false>(q, k, v, out, static_cast<float*>(lse), batch,
-                             lq, lk, heads, head_dim, 1, scale, stream);
+                             lq, lk, heads, head_dim, 1, 1, 0, scale, stream);
 }
 
 // The camera ring, the arguments and checks of dd_packed_attention_nbr_fwd:
-// q, k, v, out (batch = B * n_cam, l, H*d), view n of each batch over views
-// n - 1 and n + 1 (mod n_cam), K/V read in place.  Returns a cudaError_t.
+// q, out (batch = B * n_local, l, H*d), k, v (B * n_cam, l, H*d); q row
+// b n_local + i is global view n = view0 + i of sample b, over that
+// sample's K/V views n - 1 and n + 1 (mod n_cam), K/V read in place.
+// n_local == n_cam, view0 == 0: every view of each sample (the whole
+// ring, one process's call).  Returns a cudaError_t.
 extern "C" int dd_sm90_attention_nbr_fwd(const void* q, const void* k,
                                          const void* v, void* out, int batch,
                                          int l, int heads, int head_dim,
-                                         int n_cam, float scale,
-                                         void* stream) {
-  if (n_cam < 1 || batch % n_cam) return (int)cudaErrorInvalidValue;
+                                         int n_cam, int n_local, int view0,
+                                         float scale, void* stream) {
+  if (n_local < 1 || batch % n_local) return (int)cudaErrorInvalidValue;
   return launch<false, true>(q, k, v, out, nullptr, batch, l, l, heads,
-                             head_dim, n_cam, scale, stream);
+                             head_dim, n_cam, n_local, view0, scale, stream);
 }

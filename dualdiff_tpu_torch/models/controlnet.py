@@ -140,7 +140,8 @@ class BEVControlNet(nn.Module):
                 conditioning_scale: float = 1.0, guess_mode: bool = False,
                 precomputed: Optional[Dict[str, torch.Tensor]] = None,
                 precompute_only: bool = False,
-                latent_hw: Optional[Tuple[int, int]] = None):
+                latent_hw: Optional[Tuple[int, int]] = None,
+                view0: int = 0):
         """sample (B, N, 4, h, w) noisy latents; timesteps (B,) or (B, N);
         camera_param (B, N, 3, 7); encoder_hidden_states (B, L, D) or
         (B, N, L, D); controlnet_cond: BEV map (B, 200, 200, 8), occ
@@ -152,7 +153,9 @@ class BEVControlNet(nn.Module):
         the BEV-map embedder's output size where ``sample`` is None (a
         precompute).  With ``precomputed`` only ``encoder_hidden_states``'
         length is read (the box adapter's split); without the adapter it
-        may be None."""
+        may be None.  ``view0``: under a view split, the global index of
+        this rank's first camera (its ``N`` cameras' slice of the
+        panorama)."""
         B, N = camera_param.shape[:2]
         if precomputed is not None:
             n_ctx = None if encoder_hidden_states is None \
@@ -205,11 +208,11 @@ class BEVControlNet(nn.Module):
                                 .to(states.dtype)], dim=1)
 
         if self.cond_embedder == "occ_image":
-            cond = self.controlnet_cond_embedding(controlnet_cond)
+            cond = self.controlnet_cond_embedding(controlnet_cond, view0, N)
         elif self.cond_embedder == "bev_map":
             cond = self.controlnet_cond_embedding(
                 controlnet_cond, latent_hw if sample is None
-                else tuple(sample.shape[-2:]))
+                else tuple(sample.shape[-2:]), N)
         else:  # raw ORS rays: the ray-depth axis is the channel axis
             cond = controlnet_cond.reshape(
                 B * N, *controlnet_cond.shape[-3:]).permute(0, 3, 1, 2)

@@ -120,7 +120,10 @@ class BEVMapConditionEmbedder(nn.Module):
             Conv2d(chs[-1], conditioning_embedding_channels, 3, padding=1))
 
     def forward(self, cond: torch.Tensor,
-                target_hw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+                target_hw: Optional[Tuple[int, int]] = None,
+                n: Optional[int] = None) -> torch.Tensor:
+        """``n``: the cameras to repeat the feature for (a rank's under a
+        view split; ``n_cam`` by default)."""
         x = F.silu(self.conv_in(cond.permute(0, 3, 1, 2)))
         for conv in self.blocks:
             if conv.padding == (0, 0):  # flax's ((2, 2), (1, 1))
@@ -131,12 +134,13 @@ class BEVMapConditionEmbedder(nn.Module):
             x = F.interpolate(x.float(), size=tuple(target_hw),
                               mode="bilinear", align_corners=False,
                               antialias=True).to(x.dtype)
-        return x.repeat_interleave(self.n_cam, dim=0)
+        return x.repeat_interleave(self.n_cam if n is None else n, dim=0)
 
 
 class OccImageConditionEmbedder(nn.Module):
     """6-view occupancy-projection panorama (B, H, 6W, 3) ->
-    (B*6, 320, H/8, W/8)."""
+    (B*6, 320, H/8, W/8); under a view split, a rank's ``n`` views from
+    ``view0`` -> (B*n, 320, H/8, W/8)."""
 
     def __init__(self, conditioning_embedding_channels: int = 320,
                  block_out_channels: Sequence[int] = (16, 32, 96, 256),
@@ -153,11 +157,14 @@ class OccImageConditionEmbedder(nn.Module):
         self.conv_out = zero_module(
             Conv2d(chs[-1], conditioning_embedding_channels, 3, padding=1))
 
-    def forward(self, cond: torch.Tensor) -> torch.Tensor:
+    def forward(self, cond: torch.Tensor, view0: int = 0,
+                n: Optional[int] = None) -> torch.Tensor:
         b, h, w6, c = cond.shape
         w = w6 // self.n_cam
-        x = cond.reshape(b, h, self.n_cam, w, c).permute(0, 2, 4, 1, 3)
-        x = F.silu(self.conv_in(x.reshape(b * self.n_cam, c, h, w)))
+        n = self.n_cam if n is None else n
+        x = cond.reshape(b, h, self.n_cam, w, c)[:, :, view0:view0 + n]
+        x = F.silu(self.conv_in(x.permute(0, 2, 4, 1, 3).reshape(
+            b * n, c, h, w)))
         for conv in self.blocks:
             x = F.silu(conv(x))
         return self.conv_out(x)

@@ -29,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.attention import (attention_packed, attention_packed_neighbors,
                              multi_head_attention)
 from ..ops.fourier import timestep_embedding
+from ..parallel.collectives import Split, as_split, gather
 from .norms import GroupNorm, LayerNorm
 
 __all__ = ["Linear", "Conv2d", "zero_module", "TimestepEmbedding",
@@ -228,12 +229,16 @@ class Attention(nn.Module):
 
     def forward(self, hidden_states: torch.Tensor,
                 encoder_hidden_states: Optional[torch.Tensor] = None,
-                ring_views: int = 0, num_box_tokens: int = 0) -> torch.Tensor:
+                ring_views: int = 0, num_box_tokens: int = 0,
+                ring_view0: int = 0) -> torch.Tensor:
         """``ring_views=N``: attn4 camera-ring mode.  The leading dim folds
         (batch, view); each view attends to its left and right neighbors
         with neighbor selection inside the kernel, so K/V projections run
-        once per view.  ``num_box_tokens``: the box adapter's split (see
-        the class)."""
+        once per view.  Under a view split ``hidden_states`` holds a rank's
+        views ``ring_view0 ..`` of each sample and
+        ``encoder_hidden_states`` all N views (gathered), whose K/V the
+        ring reads.  ``num_box_tokens``: the box adapter's split (see the
+        class)."""
         kv = hidden_states if encoder_hidden_states is None \
             else encoder_hidden_states
         adapter = self.box_adapter and num_box_tokens > 0 \
@@ -247,7 +252,8 @@ class Attention(nn.Module):
         k = self._proj("to_k", self.to_k, kv)
         v = self._proj("to_v", self.to_v, kv)
         if ring_views:
-            out = attention_packed_neighbors(q, k, v, self.heads, ring_views)
+            out = attention_packed_neighbors(q, k, v, self.heads, ring_views,
+                                             view0=ring_view0)
         elif self._capture is not None:
             out = self._explore(q, k, v)
         else:
@@ -411,36 +417,49 @@ class BasicTransformerBlock(nn.Module):
 
     def forward(self, hidden_states: torch.Tensor,
                 encoder_hidden_states: torch.Tensor,
-                n_cam: int = 1, num_box_tokens: int = 0) -> torch.Tensor:
+                n_cam=1, num_box_tokens: int = 0) -> torch.Tensor:
+        """``n_cam``: the cameras of a sample, or this rank's ``Split``
+        under a mesh (``parallel/collectives.py``): its rows are then its
+        cameras of its samples, and attn4, ST-Attn and the temporal
+        attention gather the rows they read from the ranks that hold
+        them."""
+        split = as_split(n_cam)
         h = hidden_states
         norm_h = self.norm1(h)
-        kv = self._st_attn_kv(norm_h, n_cam) if self.st_attn else None
+        kv = self._st_attn_kv(norm_h, split) if self.st_attn else None
         h = h + self.attn1(norm_h, kv)
         h = h + self.attn2(self.norm2(h), encoder_hidden_states,
                            num_box_tokens=num_box_tokens)
         if self.multiview:
-            out = self._multiview_attn(self.norm4(h), n_cam)
+            out = self._multiview_attn(self.norm4(h), split)
             h = h + (out if self.connector is None else self.connector(out))
         if self.temporal:
             h = h + self.temporal_connector(
-                self._temporal_attn(self.norm_temporal(h), n_cam))
+                self._temporal_attn(self.norm_temporal(h), split))
         return h + self.ff(self.norm3(h))
 
     def _multiview_attn(self, norm_h: torch.Tensor,
-                        n_cam: int) -> torch.Tensor:
-        """attn4 on (B*n_cam, L, C) tokens, by ``neighboring_attn_type``."""
+                        split: Split) -> torch.Tensor:
+        """attn4 on (B*n, L, C) tokens, by ``neighboring_attn_type``, ``n``
+        the cameras here.  K/V read every view of each sample: under a
+        view split the other ranks' views come from a ``gather`` over the
+        view group (the normed states; each rank projects K/V of every
+        view), and every camera index (``neighboring_view_pair``, the
+        ring) is global."""
+        n, n_all, view0 = split.n_local, split.n_cam, split.view0
         bn, l, c = norm_h.shape
-        b = bn // n_cam
+        b = bn // n
+        full = gather(norm_h.reshape(b, n, l, c), split.view_group, 1)
         if self.neighboring_attn_type == "self":
-            return self.attn4(norm_h.reshape(b, n_cam * l, c)).reshape(
-                bn, l, c)
+            return self.attn4(norm_h.reshape(b, n * l, c),
+                              full.reshape(b, n_all * l, c)).reshape(bn, l, c)
         pairs = self.neighboring_view_pair
         if self.neighboring_attn_type == "add" and self.attn4._capture is \
-                None and is_camera_ring(pairs, n_cam):
-            return self.attn4(norm_h, ring_views=n_cam)
-        h = norm_h.reshape(b, n_cam, l, c)
-        take = lambda side: h[:, [pairs[i][side] for i in range(n_cam)]] \
-            .reshape(bn, l, c)
+                None and is_camera_ring(pairs, n_all):
+            return self.attn4(norm_h, full.reshape(b * n_all, l, c),
+                              ring_views=n_all, ring_view0=view0)
+        take = lambda side: full[:, [pairs[view0 + i][side]
+                                     for i in range(n)]].reshape(bn, l, c)
         kv_left, kv_right = take(0), take(1)
         if self.neighboring_attn_type == "add":
             out2 = self.attn4(torch.cat([norm_h, norm_h]),
@@ -448,26 +467,56 @@ class BasicTransformerBlock(nn.Module):
             return out2[:bn] + out2[bn:]
         return self.attn4(norm_h, torch.cat([kv_left, kv_right], dim=1))
 
-    def _st_attn_kv(self, norm_h: torch.Tensor, n_cam: int) -> torch.Tensor:
+    def _frames(self, norm_h: torch.Tensor, split: Split):
+        """-> (this rank's frames (rows, n, L, C), every frame of the clips
+        they belong to (total, n, L, C): under a frame split gathered from
+        the frame group, the index of this rank's first frame there)."""
+        x = norm_h.reshape(-1, split.n_local, *norm_h.shape[1:])
+        j0, _ = split.clip_rows(x.shape[0], self.num_frames)
+        return x, gather(x, split.frame_group, 0), j0
+
+    def _st_attn_kv(self, norm_h: torch.Tensor, split: Split) -> torch.Tensor:
         """(B', L, C) -> (B', 2L, C): per row, the first frame's tokens then
-        the previous frame's, of the same view."""
+        the previous frame's, of the same view, read from the clip's
+        frames (``_frames``: under a frame split the first local frame's
+        previous frame lives on the rank to the left)."""
         bfn, l, c = norm_h.shape
         f = self.num_frames
-        x = norm_h.reshape(bfn // (f * n_cam), f, n_cam, l, c)
-        first = x[:, :1].expand_as(x)
-        prev = torch.cat([x[:, :1], x[:, :-1]], dim=1)
-        return torch.cat([first, prev], dim=3).reshape(bfn, 2 * l, c)
+        x, full, j0 = self._frames(norm_h, split)
+        rows = range(j0, j0 + x.shape[0])
+        first = full[[j - j % f for j in rows]]
+        prev = full[[j - (j % f > 0) for j in rows]]
+        return torch.cat([first, prev], dim=2).reshape(bfn, 2 * l, c)
 
     def _temporal_attn(self, norm_h: torch.Tensor,
-                       n_cam: int) -> torch.Tensor:
-        """Self-attention over the frame axis, per (clip, view, token)."""
+                       split: Split) -> torch.Tensor:
+        """Self-attention over the frame axis, per (clip, view, token).
+        The whole clips here run as one call; under a frame split a part
+        of a clip at either end of this rank's frames runs its queries
+        over all the clip's frames, gathered from the frame group."""
         bfn, l, c = norm_h.shape
         f = self.num_frames
-        b = bfn // (f * n_cam)
-        x = norm_h.reshape(b, f, n_cam, l, c).permute(0, 2, 3, 1, 4)
-        out = self.attn_temporal(x.reshape(-1, f, c))
-        out = out.reshape(b, n_cam, l, f, c).permute(0, 3, 1, 2, 4)
-        return out.reshape(bfn, l, c)
+        x, full, j0 = self._frames(norm_h, split)
+        n, end = x.shape[1], j0 + x.shape[0]
+        a = min(end, -(-j0 // f) * f)  # the whole clips here: [a, e)
+        e = max(a, end - end % f)
+        per_view = lambda t: t.permute(1, 2, 0, 3).reshape(n * l, -1, c)
+
+        def part(s, t):  # frames [s, t) of one clip
+            o = self.attn_temporal(per_view(x[s - j0:t - j0]),
+                                   per_view(full[s - s % f:s - s % f + f]))
+            return o.reshape(n, l, t - s, c).permute(2, 0, 1, 3)
+
+        outs = [part(j0, a)] if j0 < a else []
+        if a < e:
+            k = (e - a) // f
+            t = x[a - j0:e - j0].reshape(k, f, n, l, c).permute(0, 2, 3, 1, 4)
+            o = self.attn_temporal(t.reshape(-1, f, c))
+            outs.append(o.reshape(k, n, l, f, c).permute(0, 3, 1, 2, 4)
+                        .reshape(k * f, n, l, c))
+        if e < end:
+            outs.append(part(e, end))
+        return torch.cat(outs).reshape(bfn, l, c)
 
 
 class Transformer2DModel(nn.Module):
@@ -493,7 +542,7 @@ class Transformer2DModel(nn.Module):
         self.proj_out = Conv2d(channels, channels, 1)
 
     def forward(self, x: torch.Tensor, encoder_hidden_states: torch.Tensor,
-                n_cam: int = 1, num_box_tokens: int = 0) -> torch.Tensor:
+                n_cam=1, num_box_tokens: int = 0) -> torch.Tensor:
         b, c, h, w = x.shape
         hs = self.proj_in(self.norm(x))
         hs = hs.permute(0, 2, 3, 1).reshape(b, h * w, c)

@@ -66,7 +66,7 @@ class CrossAttnDownBlock2D(nn.Module):
         self.downsamplers = (nn.ModuleList([Downsample2D(out_channels)])
                              if add_downsample else None)
 
-    def forward(self, x, temb, encoder_hidden_states, n_cam: int = 1,
+    def forward(self, x, temb, encoder_hidden_states, n_cam=1,
                 num_box_tokens: int = 0):
         res = []
         for resnet, attn in zip(self.resnets, self.attentions):
@@ -111,7 +111,7 @@ class UNetMidBlock2DCrossAttn(nn.Module):
                                lora_rank=lora_rank, box_adapter=box_adapter,
                                **attn4)])
 
-    def forward(self, x, temb, encoder_hidden_states, n_cam: int = 1,
+    def forward(self, x, temb, encoder_hidden_states, n_cam=1,
                 num_box_tokens: int = 0):
         x = self.resnets[0](x, temb)
         x = self.attentions[0](x, encoder_hidden_states, n_cam,
@@ -143,7 +143,7 @@ class UpBlock(nn.Module):
                            if add_upsample else None)
 
     def forward(self, x, skips, temb, encoder_hidden_states=None,
-                n_cam: int = 1, upsample_target=None):
+                n_cam=1, upsample_target=None):
         for i, skip in enumerate(skips):
             x = self.resnets[i](torch.cat([x, skip], dim=1), temb)
             if self.attentions is not None:
@@ -227,9 +227,11 @@ class UNet2DConditionMultiview(nn.Module):
                 down_block_additional_residuals: Optional[
                     List[torch.Tensor]] = None,
                 mid_block_additional_residual: Optional[torch.Tensor] = None,
-                n_cam: int = 6) -> torch.Tensor:
+                n_cam=6) -> torch.Tensor:
         """sample (B', 4, h, w), timesteps (B',), encoder_hidden_states
-        (B', L, D) -> eps (B', 4, h, w) in the compute dtype."""
+        (B', L, D) -> eps (B', 4, h, w) in the compute dtype.  ``n_cam``:
+        the cameras of a sample, or this rank's ``Split`` under a mesh
+        (``BasicTransformerBlock``)."""
         chs = self.block_out_channels
         temb = self.time_embedding(get_timestep_embedding(timesteps, chs[0]))
         x = self.conv_in(sample)

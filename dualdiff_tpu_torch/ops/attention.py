@@ -288,23 +288,34 @@ def attention_packed_capped_lse_plain(q, k, v, heads: int,
     return attention_packed_lse_plain(q, k, v, heads, scale)
 
 
-def _ring(n_cam: int, offset: int):
-    return [(i + offset) % n_cam for i in range(n_cam)]
+def _ring(n_cam: int, offset: int, n_local: Optional[int] = None,
+          view0: int = 0):
+    """The global views at ``offset`` on the camera ring of the ``n_local``
+    views ``view0 ..`` (all ``n_cam`` by default)."""
+    n_local = n_cam if n_local is None else n_local
+    return [(view0 + i + offset) % n_cam for i in range(n_local)]
+
+
+def _ring_take(t, n_cam: int, idx, rows: int):
+    """Rows ``idx`` (global views) of each sample of ``t`` (B*n_cam, L, C)
+    -> (rows, L, C)."""
+    return t.reshape(-1, n_cam, *t.shape[1:])[:, idx].reshape(
+        rows, *t.shape[1:])
 
 
 def attention_packed_neighbors_plain(q, k, v, heads: int, n_cam: int,
-                                     scale: Optional[float] = None):
+                                     scale: Optional[float] = None,
+                                     n_local: Optional[int] = None,
+                                     view0: int = 0):
     """Plain version of ``packed_attention_nbr_fwd``: for view n,
     attn(q_n, K/V of view n-1) + attn(q_n, K/V of view n+1) on the camera
-    ring, each with its own softmax, summed in float32, rounded once."""
-    bn, l, c = q.shape
-    b = bn // n_cam
-    scale = _default_scale(scale, c // heads)
-
-    def take(t, idx):
-        return t.reshape(b, n_cam, l, c)[:, idx].reshape(bn, l, c)
-
-    left, right = _ring(n_cam, -1), _ring(n_cam, 1)
+    ring, each with its own softmax, summed in float32, rounded once.
+    ``n_local`` / ``view0``: q holds views ``view0 .. view0 + n_local - 1``
+    of each sample (all ``n_cam`` by default), k and v all ``n_cam``."""
+    bn = q.shape[0]
+    scale = _default_scale(scale, q.shape[2] // heads)
+    left, right = (_ring(n_cam, off, n_local, view0) for off in (-1, 1))
+    take = lambda t, idx: _ring_take(t, n_cam, idx, bn)
     out = (_attention_f32(q, take(k, left), take(v, left), heads, scale)
            + _attention_f32(q, take(k, right), take(v, right), heads, scale))
     return out.to(q.dtype)
@@ -447,12 +458,14 @@ def _check_cuda_bf16(q, k, v, dims: int, layout: str) -> None:
         raise ValueError("q, k and v lie on different devices")
 
 
-def _check_kernel_args(q, k, v, heads):
+def _check_kernel_args(q, k, v, heads, same_batch: bool = True):
+    """``same_batch=False``: k and v may hold other rows than q (the
+    camera ring's, checked by ``_check_ring_args``)."""
     _check_cuda_bf16(q, k, v, 3, "(B, L, C)")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned")
-    if k.shape != v.shape or k.shape[0] != q.shape[0] \
+    if k.shape != v.shape or (same_batch and k.shape[0] != q.shape[0]) \
             or k.shape[2] != q.shape[2]:
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not match")
@@ -523,22 +536,32 @@ def _use_sm90(route: str, d: int, aligned: bool) -> bool:
     return route == "auto" and sm90_in_scope(d, aligned)
 
 
-def _sm90_args(q, k, v, heads, scale):
+def _sm90_args(q, k, v, heads, scale, same_batch: bool = True):
     """(head_dim, scale) of a call the sm90 kernels take; raises on one
     outside ``sm90_in_scope``."""
-    d = _check_kernel_args(q, k, v, heads)
+    d = _check_kernel_args(q, k, v, heads, same_batch)
     if not sm90_in_scope(d, True):
         raise ValueError(f"head_dim {d}: the sm90 kernel takes multiples "
                          f"of 8 up to {SM90_MAX_HEAD_DIM}")
     return d, _default_scale(scale, d)
 
 
-def _check_ring_args(q, k, n_cam):
-    if q.shape != k.shape:
-        raise ValueError("neighbor attention needs q, k, v of one shape")
-    if n_cam < 1 or q.shape[0] % n_cam:
-        raise ValueError(f"batch {q.shape[0]} is not a multiple of "
+def _check_ring_args(q, k, v, n_cam, n_local, view0):
+    """q (B*n_local, L, C), k and v (B*n_cam, L, C), views ``view0 ..
+    view0 + n_local - 1`` of ``n_cam``; -> n_local."""
+    n_local = n_cam if n_local is None else int(n_local)
+    if n_cam < 1 or k.shape[0] % n_cam:
+        raise ValueError(f"batch {k.shape[0]} is not a multiple of "
                          f"n_cam={n_cam}")
+    if not 0 < n_local <= n_cam or not 0 <= view0 <= n_cam - n_local:
+        raise ValueError(f"views {view0}..{view0 + n_local - 1} are not a "
+                         f"run of n_cam={n_cam}")
+    if k.shape != v.shape or q.shape[1:] != k.shape[1:] or \
+            q.shape[0] != k.shape[0] // n_cam * n_local:
+        raise ValueError(f"neighbor attention needs q (B*{n_local}, L, C) "
+                         f"and k, v (B*{n_cam}, L, C): q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    return n_local
 
 
 def sm90_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -598,11 +621,17 @@ def sm90_attention_lse_fwd(q: torch.Tensor, k: torch.Tensor,
 
 def sm90_attention_nbr_fwd(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, heads: int, n_cam: int,
-                           scale: Optional[float] = None) -> torch.Tensor:
+                           scale: Optional[float] = None,
+                           n_local: Optional[int] = None,
+                           view0: int = 0) -> torch.Tensor:
     """Camera-ring attention on Hopper, q/k/v (B*n_cam, L, C) ->
     (B*n_cam, L, C), head_dim a multiple of 8 up to ``SM90_MAX_HEAD_DIM``:
     view n attends to views n-1 and n+1 (mod n_cam), two softmaxes, the
-    halves summed in float32 and rounded once.
+    halves summed in float32 and rounded once.  ``n_local`` / ``view0``
+    (a rank's cameras under a view split): q and the output hold views
+    ``view0 .. view0 + n_local - 1`` of each sample, (B*n_local, L, C),
+    and k, v all ``n_cam``; each q row reads its sample's neighbour rows of
+    k and v, so the output is those rows of the whole ring's.
 
     CUDA kernel ``sm90_attention_nbr_fwd`` (``csrc/attention_sm90.cu``, the
     kernel of ``sm90_attention_fwd`` with its ring flag: both neighbours in
@@ -611,15 +640,17 @@ def sm90_attention_nbr_fwd(q: torch.Tensor, k: torch.Tensor,
     ``packed_attention_nbr_fwd`` routes those here.  CPU tensors take
     ``attention_packed_neighbors_plain``."""
     if q.device.type == "cpu":
-        return attention_packed_neighbors_plain(q, k, v, heads, n_cam, scale)
+        return attention_packed_neighbors_plain(q, k, v, heads, n_cam, scale,
+                                                n_local, view0)
     _refuse_grad(q, k, v)
-    d, scale = _sm90_args(q, k, v, heads, scale)
-    _check_ring_args(q, k, n_cam)
+    d, scale = _sm90_args(q, k, v, heads, scale, same_batch=False)
+    n_local = _check_ring_args(q, k, v, n_cam, n_local, view0)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = library("attention_sm90").dd_sm90_attention_nbr_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            q.shape[0], q.shape[1], heads, d, n_cam, scale, _stream(q))
+            q.shape[0], q.shape[1], heads, d, n_cam, n_local, view0, scale,
+            _stream(q))
     _raise_on(err, "sm90_attention_nbr_fwd")
     sm90_attention_nbr_fwd.launches += 1
     return out
@@ -716,9 +747,12 @@ def packed_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def packed_attention_nbr_fwd(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, heads: int, n_cam: int,
                              scale: Optional[float] = None, *,
+                             n_local: Optional[int] = None, view0: int = 0,
                              route: str = "auto") -> torch.Tensor:
     """Camera-ring neighbor attention (attn4 'add'), q/k/v (B*N, L, C) ->
-    (B*N, L, C): view n attends to views n-1 and n+1 (mod N).
+    (B*N, L, C): view n attends to views n-1 and n+1 (mod N).  Under a
+    view split q and the output hold a rank's ``n_local`` views ``view0
+    ..`` of each sample, k and v all N (``sm90_attention_nbr_fwd``).
 
     CUDA kernel ``sm90_attention_nbr_fwd`` for calls in ``sm90_in_scope``
     (``route="template"``: not), else ``packed_attention_nbr_fwd``
@@ -729,12 +763,14 @@ def packed_attention_nbr_fwd(q: torch.Tensor, k: torch.Tensor,
     tensors take ``attention_packed_neighbors_plain``."""
     _record("packed_attention_nbr_fwd", 8, q, q.shape[1])
     if q.device.type == "cpu":
-        return attention_packed_neighbors_plain(q, k, v, heads, n_cam, scale)
+        return attention_packed_neighbors_plain(q, k, v, heads, n_cam, scale,
+                                                n_local, view0)
     _refuse_grad(q, k, v)
-    d = _check_kernel_args(q, k, v, heads)
-    _check_ring_args(q, k, n_cam)
+    d = _check_kernel_args(q, k, v, heads, same_batch=False)
+    n_local = _check_ring_args(q, k, v, n_cam, n_local, view0)
     if _use_sm90(route, d, True):
-        out = sm90_attention_nbr_fwd(q, k, v, heads, n_cam, scale)
+        out = sm90_attention_nbr_fwd(q, k, v, heads, n_cam, scale, n_local,
+                                     view0)
         packed_attention_nbr_fwd.launches += 1
         return out
     scale = _default_scale(scale, d)
@@ -742,7 +778,8 @@ def packed_attention_nbr_fwd(q: torch.Tensor, k: torch.Tensor,
     with torch.cuda.device(q.device):
         err = library("attention").dd_packed_attention_nbr_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            q.shape[0], q.shape[1], heads, d, n_cam, scale, _stream(q))
+            q.shape[0], q.shape[1], heads, d, n_cam, n_local, view0, scale,
+            _stream(q))
     _raise_on(err, "packed_attention_nbr_fwd")
     packed_attention_nbr_fwd.launches += 1
     return out
@@ -1233,32 +1270,35 @@ def attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attention_packed_neighbors(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, heads: int, n_cam: int,
-                               scale: Optional[float] = None):
+                               scale: Optional[float] = None,
+                               view0: int = 0):
     """Ring-neighbor multiview attention (attn4 'add'): q/k/v are the
     per-view projections (B*n_cam, L, C); returns, for each view, the sum
-    over its left and right camera neighbors of attention(q, kv[nbr])."""
+    over its left and right camera neighbors of attention(q, kv[nbr]).
+    Under a view split q holds a rank's views ``view0 ..`` of each sample,
+    (B*n_local, L, C), and k, v all ``n_cam`` of them (gathered)."""
     d = q.shape[-1] // heads
     scale = _default_scale(scale, d)
     if not _takes_kernel(q.shape[1], d):
         return _nbr_stacked(q, k, v, n_cam, lambda *t: _einsum_packed(
-            *t, scale, heads))
+            *t, scale, heads), view0)
     if _differentiated(q, k, v):
         return _nbr_stacked(q, k, v, n_cam, lambda *t: PackedAttention.apply(
-            *t, heads, scale))
-    return packed_attention_nbr_fwd(q, k, v, heads, n_cam, scale)
+            *t, heads, scale), view0)
+    return packed_attention_nbr_fwd(q, k, v, heads, n_cam, scale,
+                                    n_local=q.shape[0] * n_cam // k.shape[0],
+                                    view0=view0)
 
 
-def _nbr_stacked(q, k, v, n_cam: int, call):
+def _nbr_stacked(q, k, v, n_cam: int, call, view0: int = 0):
     """The JAX package's ``_nbr_stacked``: stack [left; right] neighbours'
     K/V on the batch dim, one ``call(q2, k2, v2)``, sum the halves.  Under
-    autograd the gather's backward sums dK/dV back onto each view."""
-    bn, lq, c = q.shape
-    b = bn // n_cam
-
-    def take(t, idx):
-        return t.reshape(b, n_cam, lq, c)[:, idx].reshape(bn, lq, c)
-
-    left, right = _ring(n_cam, -1), _ring(n_cam, 1)
+    autograd the gather's backward sums dK/dV back onto each view.  q may
+    hold a rank's views ``view0 ..`` of each sample (k, v all ``n_cam``)."""
+    bn = q.shape[0]
+    n_local = bn * n_cam // k.shape[0]
+    left, right = (_ring(n_cam, off, n_local, view0) for off in (-1, 1))
+    take = lambda t, idx: _ring_take(t, n_cam, idx, bn)
     out2 = call(torch.cat([q, q]), torch.cat([take(k, left), take(k, right)]),
                 torch.cat([take(v, left), take(v, right)]))
     return out2[:bn] + out2[bn:]

@@ -41,9 +41,10 @@ _SIGNATURES = {
         # q, k, v, o, batch, lq, lk, heads, head_dim, scale, stream
         "dd_packed_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                     _P],
-        # q, k, v, o, batch (B*N), l, heads, head_dim, n_cam, scale, stream
+        # q, k, v, o, batch (B*n_local), l, heads, head_dim, n_cam,
+        # n_local, view0, scale, stream
         "dd_packed_attention_nbr_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                        _F, _P],
+                                        _I, _I, _F, _P],
         # q, k, v, o, lse, batch, lq, lk, heads, head_dim, scale, stream
         "dd_packed_attention_lse_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                         _I, _F, _P],
@@ -85,8 +86,8 @@ _SIGNATURES = {
         "dd_sm90_attention_lse_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                       _F, _P],
         # the arguments of dd_packed_attention_nbr_fwd
-        "dd_sm90_attention_nbr_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                                      _P],
+        "dd_sm90_attention_nbr_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                      _I, _F, _P],
     },
     "attention_sm90_bwd": {
         # the arguments of dd_packed_attention_bwd_dq / _dkv

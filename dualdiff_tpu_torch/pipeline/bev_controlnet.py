@@ -49,8 +49,12 @@ generation of the JAX package's multi-process run) every batch-sized input
 of a call is the global batch, which every rank holds: the initial latents
 and the given views' noise are drawn for the global batch from the same
 generator state, and each rank denoises and returns its own rows
-(``mesh.rows``).  The tools make no such split: the JAX ``val_set_gen``
-has none.
+(``mesh.rows``) and, with ``view > 1``, its own cameras of them
+(``mesh.cams``; the given views, their masks and their noise are sliced
+the same way), as the JAX output stays partitioned over ``(data, view)``.
+attn4 then gathers the other cameras of its rows over the view group
+(``Mesh.split``).  A clip batch must give each rank whole clips.  The
+tools make no such split: the JAX ``val_set_gen`` has none.
 """
 
 from __future__ import annotations
@@ -148,7 +152,7 @@ class BEVControlNetPipeline:
         the pinned views at timestep ``t`` is ``pin_noise[t]`` when given,
         else a draw from ``generator`` each step.  ``overrides``: any of
         ``OVERRIDES``.  -> images (B, N, H, W, 3) in [0, 1], float32; under
-        a mesh, this rank's rows of the global batch B."""
+        a mesh, this rank's rows (and cameras) of the global batch B."""
         models, cfg = self.models, self.cfg
         pp = cfg.runner.pipeline_param
         unet, controlnets = models["unet"], models["controlnets"]
@@ -157,17 +161,21 @@ class BEVControlNetPipeline:
         t = batch
         if "branches" in batch:
             t = prepare_batch(batch, self.device if mesh is None else "cpu")
-        # the global batch's size and this rank's rows of it, for the draws
-        B_all = int(t["camera_param"].shape[0])
-        own = slice(None)
+        # the global batch's size and this rank's rows (and cameras) of it,
+        # for the draws
+        B_all, N_all = (int(x) for x in t["camera_param"].shape[:2])
+        own = views = slice(None)
         if mesh is not None:
             own = mesh.rows(B_all)
-            t = to_device(shard_batch(t, mesh), self.device)
-            latents, conditional_latents, conditional_mask = (
-                None if a is None else a[own]
-                for a in (latents, conditional_latents, conditional_mask))
+            views = (own, mesh.cams(N_all))
+            t = to_device(shard_batch(t, mesh, N_all), self.device)
+            if latents is not None:  # one noise a sample, or one a camera
+                latents = latents[own if latents.shape[1] == 1 else views]
+            conditional_latents, conditional_mask = (
+                None if a is None else a[views]
+                for a in (conditional_latents, conditional_mask))
             if pin_noise is not None:
-                pin_noise = {k: v[own] for k, v in pin_noise.items()}
+                pin_noise = {k: v[views] for k, v in pin_noise.items()}
         cam = t["camera_param"]
         B, N = cam.shape[:2]
         lh, lw = self.latent_hw
@@ -185,6 +193,9 @@ class BEVControlNetPipeline:
         if video and B % unet.num_frames:
             raise ValueError(f"{B} frames are not whole clips of "
                              f"{unet.num_frames}")
+        split = None if mesh is None else mesh.split(N_all, B,
+                                                     unet.num_frames)
+        view0 = 0 if split is None else split.view0
         if video:
             def cfg2(u, c):  # contiguous [uncond; cond] half-blocks
                 return torch.cat([u, c])
@@ -219,7 +230,7 @@ class BEVControlNetPipeline:
                           bboxes_3d=boxes2,
                           encoder_hidden_states_uncond=uncond,
                           uncond_switch=switch, precompute_only=True,
-                          latent_hw=self.latent_hw))
+                          latent_hw=self.latent_hw, view0=view0))
         cam2 = cfg2(cam, cam)
 
         def run_cns(xb, step_t, cam_b, pre_b):
@@ -246,7 +257,8 @@ class BEVControlNetPipeline:
             tb = torch.full((nb * N,), step_t, device=self.device)
             eps = unet(xb.reshape(nb * N, 4, lh, lw), tb, kv,
                        down_block_additional_residuals=downs,
-                       mid_block_additional_residual=mid, n_cam=N)
+                       mid_block_additional_residual=mid,
+                       n_cam=N if split is None else split)
             return eps.float().reshape(nb, N, 4, lh, lw)
 
         # x: (B, N, h, w, 4) float32; the networks take per-view NCHW.
@@ -300,8 +312,9 @@ class BEVControlNetPipeline:
                 """The model input with the given views pinned to their
                 latents noised to ``step_t``."""
                 noise = pin_noise[step_t] if pin_noise is not None else \
-                    torch.randn((B_all, *gt.shape[1:]), generator=generator,
-                                device=self.device)[own]
+                    torch.randn((B_all, N_all, *gt.shape[2:]),
+                                generator=generator,
+                                device=self.device)[views]
                 gt_t = self.schedule.add_noise(gt, noise.to(gt.device),
                                                torch.full((B,), step_t,
                                                           device=self.device))

@@ -16,18 +16,23 @@ fold into the batch dim frame-outer, camera-inner.
   rasterised at 1/8 of the image size and upsampled nearest by 8.
 * ``temporal_consistency_reward``: negative MSE between the predicted and
   the ground-truth frame-to-frame differences, one score per clip repeated
-  over its images.
+  over its images.  Under a mesh ``Split`` the clip's other frames are
+  gathered from the frame group (``gather_runs``: the differences cross
+  the ranks' boundary, and a prefix of each clip leaves the ranks runs of
+  different lengths) and its other cameras' partial sums added over the
+  view group (``all_sum``), so every rank of a clip reads the same score.
 * ``make_rgd_reward(cfg)``: the combination ``video.rgd`` selects.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..ops.fgm import fgm_heatmap
+from ..parallel.collectives import Split, all_sum, as_split, gather_runs
 
 __all__ = ["mse_proxy_reward", "fgm_foreground_reward",
            "temporal_consistency_reward", "make_rgd_reward"]
@@ -61,20 +66,33 @@ def fgm_foreground_reward(pred: torch.Tensor, gt: torch.Tensor, batch: Dict,
 
 
 def temporal_consistency_reward(pred: torch.Tensor, gt: torch.Tensor,
-                                frames: int, n_cam: int) -> torch.Tensor:
+                                frames: int, n_cam: int,
+                                split: Optional[Split] = None
+                                ) -> torch.Tensor:
     """Motion-fidelity reward: negative MSE between the predicted and the
     ground-truth frame differences of each clip, repeated over the clip's
-    ``frames * n_cam`` images, (B*N,)."""
-    clips = pred.shape[0] // (frames * n_cam)
-    shape = (clips, frames, n_cam, *pred.shape[1:])
-    dp = torch.diff(pred.float().reshape(shape), dim=1)
-    dg = torch.diff(gt.float().reshape(shape), dim=1)
-    score = -((dp - dg) ** 2).mean(dim=(1, 2, 3, 4, 5))
-    return score.repeat_interleave(frames * n_cam)
+    ``frames * n_cam`` images, (B*N,).  ``split``: ``pred`` and ``gt``
+    hold this rank's ``n_cam`` cameras of a run of frames, whose length
+    may differ between the ranks of the frame group (see the module
+    docstring)."""
+    split = split or as_split(n_cam)
+    rows, img = pred.shape[0] // n_cam, pred.shape[1:]
+    both = torch.stack([pred.float(), gt.float()], dim=1)
+    full, j0 = gather_runs(both.reshape(rows, n_cam, 2, *img),
+                           split.frame_group)
+    if full.shape[0] % frames:
+        raise ValueError(f"{full.shape[0]} frames are not whole clips of "
+                         f"{frames}")
+    d = torch.diff(full.reshape(-1, frames, *full.shape[1:]), dim=1)
+    part = all_sum(((d[:, :, :, 0] - d[:, :, :, 1]) ** 2).sum(
+        dim=(1, 2, 3, 4, 5)), split.view_group)
+    score = -part / ((frames - 1) * split.n_cam * img.numel())
+    return score[[(j0 + i) // frames for i in range(rows)]] \
+        .repeat_interleave(n_cam)
 
 
 def make_rgd_reward(cfg):
-    """reward(pred, gt, batch) -> (B*N,): ``video.rgd.reward``
+    """reward(pred, gt, batch, split=None) -> (B*N,): ``video.rgd.reward``
     (``fgm_foreground``, or ``mse_proxy``, which a batch without FGM inputs
     also takes) plus ``video.rgd.temporal_weight`` times the temporal term
     over ``video.rgd.reward_frames`` (else ``video.num_frames``) frames per
@@ -85,7 +103,7 @@ def make_rgd_reward(cfg):
     t_weight = float(rgd.get("temporal_weight", 0.5))
     frames = int(rgd.get("reward_frames") or cfg.video.num_frames)
 
-    def reward(pred, gt, batch):
+    def reward(pred, gt, batch, split: Optional[Split] = None):
         if name == "fgm_foreground" and "fgm_bboxes" in batch:
             r = fgm_foreground_reward(pred, gt, batch, fg_boost=fg_boost)
         else:
@@ -93,7 +111,7 @@ def make_rgd_reward(cfg):
         if t_weight > 0 and frames > 1:
             n_cam = batch["camera_param"].shape[1]
             r = r + t_weight * temporal_consistency_reward(pred, gt, frames,
-                                                           n_cam)
+                                                           n_cam, split)
         return r
 
     return reward

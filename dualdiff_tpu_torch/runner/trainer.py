@@ -64,15 +64,21 @@ draws.  ``export_model`` writes float32 diffusers-named state dicts
 ``diffusion_pytorch_model.bin``) that ``runner/weights.py``'s
 ``load_pretrained_dir`` reads back.
 
-Data parallelism (``parallel/mesh.py``; the JAX trainer's ``mesh``):
-under a process group the trainer takes its mesh from
+Parallelism (``parallel/mesh.py``; the JAX trainer's ``mesh``): under a
+process group the trainer takes its ``(data, view)`` mesh from
 ``cfg.accelerator.mesh``.  ``runner.train_batch_size`` is the global
-batch, which must divide by ``data``.  Every rank builds the same global
-host batch and draws ``make_draws`` for the global batch from the same
-generator state, and keeps its rows (``shard_batch``), so the ranks
-together compute what one process computes on the whole batch, as the JAX
-step does with one replicated key.  Every loss term is a plain mean, so
-the mean of the ranks' equal shards is the global loss: the gradients are
+batch; its rows (samples, or clips x frames) must divide by ``data``, and
+the cameras by ``view``.  Every rank builds the same global host batch and
+draws ``make_draws`` for the global batch from the same generator state,
+and keeps its rows and cameras (``shard_batch``, ``shard_draws``: the CFG
+switch still ranks a sample's cameras together), so the ranks together
+compute what one process computes on the whole batch, as the JAX step
+does with one replicated key.  Where a rank holds part of a sample's
+cameras or of a clip's frames, the models get its ``Split``
+(``Mesh.split``) and gather what attn4, ST-Attn, the temporal attention
+and the temporal reward read from the ranks that hold it
+(``parallel/collectives.py``).  Every loss term is a plain mean, so the
+mean of the ranks' equal shards is the global loss: the gradients are
 averaged between the backward and the optimizer's clip
 (``average_gradients``), whose global norm is then the norm of the mean,
 and the metrics are ``all_mean``'d.  The conditioning cache holds this
@@ -102,15 +108,17 @@ from ..diffusion.schedule import DiffusionSchedule
 from ..ops.fgm import fgm_heatmap
 from ..ops.mscn import mscn_luminance
 from ..ops.ors import occupancy_ray_sample
+from ..parallel.collectives import Split, as_split
 from ..parallel.mesh import Mesh, all_mean, average_gradients, barrier, \
-    create_mesh, group_up, is_main, shard_batch
+    config_mesh, group_up, is_main, shard_batch
 from .conds import compute_branch_conds, prepare_batch, to_device
 from .factory import build_models
 from .train_state import build_optimizer, init_box_adapter_from_base, \
     partition_params, trainable_predicate
 from .weights import EXPORT_FILE, export_name, save_model_dir
 
-__all__ = ["sample_uncond_switch", "make_draws", "make_precompute_cond",
+__all__ = ["sample_uncond_switch", "make_draws", "shard_draws",
+           "make_precompute_cond",
            "batch_rows", "make_loss_fn", "train_step", "set_category_tokens",
            "MultiviewTrainer", "CHECKPOINT_FILE", "EXPORT_FILE"]
 
@@ -170,6 +178,16 @@ def make_draws(generator: torch.Generator, cfg, B: int, N: int,
     return draws
 
 
+def shard_draws(draws: Draws, mesh: Mesh, n_cam: int) -> Draws:
+    """This rank's rows and cameras of ``make_draws``' global draws (the
+    ``shard_batch`` rule, ``vae_noise``'s (B*N) rows read as (B, N))."""
+    vn = draws["vae_noise"]
+    out = shard_batch(dict(draws, vae_noise=vn.reshape(
+        -1, n_cam, *vn.shape[1:])), mesh, n_cam)
+    out["vae_noise"] = out["vae_noise"].flatten(0, 1)
+    return out
+
+
 def make_precompute_cond(models: Dict, latent_hw: Tuple[int, int],
                          image_hw: Tuple[int, int]
                          ) -> Callable[[Dict], Dict[str, torch.Tensor]]:
@@ -211,7 +229,8 @@ def batch_rows(batch: Dict) -> Tuple[int, int]:
 def make_loss_fn(models: Dict, cfg, schedule: DiffusionSchedule,
                  latent_hw: Tuple[int, int], occ_image_hw: Tuple[int, int],
                  frames: int = 1, reward_fn=None, reward_weight: float = 0.0,
-                 reward_frames: int = 0, cached_cond: bool = False
+                 reward_frames: int = 0, cached_cond: bool = False,
+                 split: Optional[Split] = None
                  ) -> Callable[[Dict, Draws], Tuple[torch.Tensor, Dict]]:
     """loss_fn(batch, draws) -> (loss, metrics): ``mse`` of the noise
     prediction plus, with ``use_aug_loss``, the FGM heatmap-weighted
@@ -231,8 +250,17 @@ def make_loss_fn(models: Dict, cfg, schedule: DiffusionSchedule,
     prediction x0 of the first ``reward_frames`` frames of each clip (all
     when 0), decoded by the VAE under grad, gives ``reward =
     mean(reward_fn(images, ground truth, batch))`` (NCHW images), and the
-    loss is ``mse + aug_loss - reward_weight * reward``."""
+    loss is ``mse + aug_loss - reward_weight * reward``.
+
+    ``split`` (``Mesh.split``): the batch holds this rank's cameras of its
+    samples or its frames of part of a clip; the UNet, the ControlNets'
+    condition embedders and the reward (as ``reward_fn(..., split=)``)
+    take it.  Under a frame split with ``reward_frames`` the ranks hold
+    different counts of the prefix frames (some none); the reward's mean
+    stays the one over every rank's images."""
     unet, controlnets = models["unet"], models["controlnets"]
+    view0 = split.view0 if split is not None else 0
+    reward_kw = {} if split is None else {"split": split}
     vae, text_encoder = models["vae"], models["text_encoder"]
     same_noise = bool(cfg.model.train_with_same_noise)
     use_aug_loss = bool(cfg.use_aug_loss)
@@ -279,7 +307,7 @@ def make_loss_fn(models: Dict, cfg, schedule: DiffusionSchedule,
             d, m, k = cn(noisy, timesteps, batch["camera_param"], text,
                          conds[i], bboxes_3d=batch.get(f"boxes_{i}"),
                          encoder_hidden_states_uncond=uncond,
-                         uncond_switch=draws["uncond_switch"])
+                         uncond_switch=draws["uncond_switch"], view0=view0)
             if downs is None:
                 downs, mid, kv = d, m, k
             else:  # dual-branch residual sum
@@ -290,7 +318,8 @@ def make_loss_fn(models: Dict, cfg, schedule: DiffusionSchedule,
             t_flat = t_flat.repeat_interleave(N)
         eps = unet(noisy.reshape(B * N, *noisy.shape[2:]), t_flat, kv,
                    down_block_additional_residuals=downs,
-                   mid_block_additional_residual=mid, n_cam=N)
+                   mid_block_additional_residual=mid,
+                   n_cam=N if split is None else split)
         eps = eps.float().reshape(B, N, *noisy.shape[2:])
 
         sq = (eps - schedule.training_target(latents, noise, timesteps)) ** 2
@@ -318,23 +347,27 @@ def make_loss_fn(models: Dict, cfg, schedule: DiffusionSchedule,
 
     def _reward(noisy, eps, timesteps, px, batch):
         x0 = schedule.pred_x0_from_eps(noisy, eps, timesteps)
-        rbatch = batch
+        B, N = x0.shape[:2]
+        keep, share = list(range(B)), B
         if reward_frames and 1 < frames and reward_frames < frames:
             # rows are frame-outer per clip: a prefix of each clip keeps
-            # the frames the temporal term differentiates in order
-            def take(t):
-                return (t.reshape(-1, frames, *t.shape[1:])[:, :reward_frames]
-                        .reshape(-1, *t.shape[1:]))
-
-            x0, px = take(x0), take(px)
-            rbatch = dict(batch)
-            for key in ("fgm_bboxes", "fgm_masks", "fgm_lidar2image"):
-                if key in rbatch:
-                    rbatch[key] = take(rbatch[key])
-        n = x0.shape[0] * x0.shape[1]
-        images = decode(x0)
-        gt = px.reshape(n, *px.shape[2:]).permute(0, 3, 1, 2)
-        return reward_fn(images, gt, rbatch).mean()
+            # the frames the temporal term differentiates in order.  Under
+            # a frame split the ranks keep runs of different lengths, and
+            # each rank's sum is over its mean share of the frame group's
+            # kept frames, so the ranks' mean is the mean over all of them
+            j0, _ = (split or as_split(N)).clip_rows(B, frames)
+            keep = [i for i in range(B) if (j0 + i) % frames < reward_frames]
+            share = B * reward_frames / frames
+        rbatch = batch if len(keep) == B else dict(batch, **{
+            key: batch[key][keep] for key in (
+                "fgm_bboxes", "fgm_masks", "fgm_lidar2image") if key in batch})
+        # a rank with no kept frame decodes nothing; its empty slice of x0
+        # keeps it in the graph, so that its reward's collectives meet the
+        # other ranks' in the backward
+        images = decode(x0[keep]) if keep else \
+            x0.flatten()[:0].reshape(0, 3, *px.shape[2:4])
+        gt = px[keep].flatten(0, 1).permute(0, 3, 1, 2)
+        return reward_fn(images, gt, rbatch, **reward_kw).sum() / (share * N)
 
     return loss_fn
 
@@ -389,9 +422,11 @@ class MultiviewTrainer:
     assembly to the metrics on the host, which synchronises the device) and
     ``data_time_s`` (the batch assembly part of it).
 
-    ``mesh`` (``parallel.mesh.create_mesh``): the data axis; by default
-    ``cfg.accelerator.mesh`` when a process group is up, else none (see
-    the module docstring)."""
+    ``mesh`` (``parallel.mesh.create_mesh``): the ``(data, view)`` mesh;
+    by default ``cfg.accelerator.mesh`` when a process group is up, else
+    none (see the module docstring).  ``split``: this rank's ``Split``
+    of the models' calls (None without a mesh, or when each rank holds
+    whole samples and whole clips)."""
 
     frames = 1  # frames per clip; VideoTrainer sets video.num_frames
 
@@ -402,14 +437,25 @@ class MultiviewTrainer:
         self.train_set = train_set
         r = cfg.runner
         if mesh is None and group_up():
-            m = (cfg.get("accelerator") or {}).get("mesh") or {}
-            mesh = create_mesh(data=int(m.get("data", -1)),
-                               view=int(m.get("view", 1)))
+            mesh = config_mesh(cfg)
         self.mesh = mesh if mesh is not None and mesh.world > 1 else None
-        if self.mesh and int(r.train_batch_size) % self.mesh.data:
+        self.n_cam = len(cfg.dataset.neighboring_view_pair)
+        rows = int(r.train_batch_size) * self.frames
+        if self.mesh and rows % self.mesh.data:
             raise ValueError(
-                f"runner.train_batch_size={int(r.train_batch_size)} does "
-                f"not divide over data={self.mesh.data}")
+                f"runner.train_batch_size={int(r.train_batch_size)} "
+                f"({rows} rows of {self.frames} frames a sample) does not "
+                f"divide over data={self.mesh.data}")
+        # the frame groups are formed here, by every rank at once
+        self.split = None if self.mesh is None else self.mesh.split(
+            self.n_cam, rows // self.mesh.data, self.frames)
+        if self.split is not None:
+            sp = self.split
+            log.info("rank %d: cameras %d..%d of %d; %d frames of clips of "
+                     "%d, with %d rank(s) holding the rest of them",
+                     self.mesh.rank, sp.view0, sp.view0 + sp.n_local - 1,
+                     sp.n_cam, rows // self.mesh.data, self.frames,
+                     sp.frame_ranks - 1)
         # the conditioning cache: {key: {name: CPU tensor}}, keys from
         # _cond_keys; it stops filling at runner.cond_cache_max_mb
         self.cache_cond = bool(r.get("cache_conditioning", False))
@@ -474,7 +520,7 @@ class MultiviewTrainer:
     def _make_loss_fn(self):
         return make_loss_fn(self.models, self.cfg, self.schedule,
                             self.latent_hw, self.image_hw,
-                            cached_cond=self.cache_cond)
+                            cached_cond=self.cache_cond, split=self.split)
 
     def _flip_ratio(self) -> float:
         return float((self.cfg.dataset.get("augment3d") or {})
@@ -581,27 +627,28 @@ class MultiviewTrainer:
         if not self.cache_cond:
             batch = prepare_batch(self._collate_items(items, rng), "cpu")
             if self.mesh is not None:
-                batch = shard_batch(batch, self.mesh)
+                batch = shard_batch(batch, self.mesh, self.n_cam)
             return to_device(batch, self.device)
         items, flips = self._augment_items(items, rng)
         batch = prepare_batch(
             self._collate_items(items, rng, pre_augmented=True), "cpu")
         keys = self._cond_keys(idxs, flips)
         if self.mesh is not None:  # this rank's rows, and their entries
-            batch = shard_batch(batch, self.mesh)
+            batch = shard_batch(batch, self.mesh, self.n_cam)
             keys = keys[self.mesh.rows(len(keys))]
         return to_device(self._attach_cond(keys, batch), self.device)
 
     def train_step(self, batch: Dict) -> Dict[str, float]:
-        """One step on ``batch`` (this rank's rows under a mesh), with the
-        draws of the global batch."""
+        """One step on ``batch`` (this rank's rows and cameras under a
+        mesh), with the draws of the global batch."""
         B, N = batch_rows(batch)
-        data = self.mesh.data if self.mesh else 1
-        draws = make_draws(self.generator, self.cfg, B * data, N,
+        data, view = (self.mesh.data, self.mesh.view) if self.mesh \
+            else (1, 1)
+        draws = make_draws(self.generator, self.cfg, B * data, N * view,
                            self.latent_hw, self.schedule.num_train_timesteps,
                            self.device, frames=self.frames)
         if self.mesh is not None:
-            draws = shard_batch(draws, self.mesh)
+            draws = shard_draws(draws, self.mesh, N * view)
         metrics = train_step(self.loss_fn, self.optimizer, batch, draws,
                              self.mesh)
         self.step += 1

@@ -19,10 +19,14 @@ checkpoint holds only the LoRA trainables' optimizer state, and its export
 carries the adapters under the JAX exporter's names
 (``to_out.0_lora_*``).
 
-Data parallelism is the image trainer's: ``runner.train_batch_size``
-counts clips and must divide by ``data``, so each rank's rows are whole
-clips (rows are clip-major), and each rank's draws are its clips' rows of
-the global draws (one timestep per clip).
+Parallelism is the image trainer's: ``runner.train_batch_size`` counts
+clips, and the frame-flattened rows (clips x frames, clip-major) divide
+over ``data`` as the JAX rule splits them: a rank holds whole clips, or a
+run of one clip's frames when the clips are fewer than the data ranks
+(the frame split: ``Mesh.split`` forms the frame groups, and ST-Attn,
+the temporal attention and the temporal reward gather the clip's other
+frames from them).  Each rank's draws are its rows of the global draws
+(one timestep per clip).
 
 Flip augmentation is clip-consistent: one draw per clip, applied to every
 frame.  The conditioning cache keys each row by (clip, frame, flipped);
@@ -64,7 +68,8 @@ class VideoTrainer(MultiviewTrainer):
                       reward_frames=int(rgd.get("reward_frames") or 0))
         return make_loss_fn(self.models, self.cfg, self.schedule,
                             self.latent_hw, self.image_hw, frames=self.frames,
-                            cached_cond=self.cache_cond, **kw)
+                            cached_cond=self.cache_cond, split=self.split,
+                            **kw)
 
     def _collate_items(self, items, rng, pre_augmented: bool = False) -> Dict:
         if not pre_augmented:

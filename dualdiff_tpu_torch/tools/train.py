@@ -31,7 +31,11 @@ launcher's process group (``parallel.mesh.init_from_env``, over gloo when
 the config's ``device`` is the CPU), runs on
 ``cuda:LOCAL_RANK`` (the shared card when the ranks share one; the CPU
 with ``device=cpu``) and leaves the group at exit.
-``runner.train_batch_size`` is the global batch.  Rank 0 writes the
+``runner.train_batch_size`` is the global batch.  ``accelerator.mesh.view``
+(``data`` x ``view`` ranks) also splits each sample's cameras over
+``view`` ranks, and a clip's frames split over the data ranks where the
+clips are fewer (``accelerator.mesh.view=2`` over 2 ranks: each rank
+generates and trains 3 of the 6 cameras).  Rank 0 writes the
 config, ``metrics.jsonl``, the checkpoints, the export and the
 validations, and logs to ``train.log``; rank ``r`` > 0 logs to
 ``train_rank<r>.log``.
@@ -47,7 +51,7 @@ import time
 
 from ..data.wrappers import build_dataset
 from ..ops.attention import reset_launch_counts, take_launch_counts
-from ..parallel.mesh import barrier, broadcast_object, create_mesh, \
+from ..parallel.mesh import barrier, broadcast_object, config_mesh, \
     destroy, init_from_env, rank_device
 from ..runner.validator import RunWriter, Validator
 from ..utils.common import load_module
@@ -67,7 +71,7 @@ def main(argv=None):
 
 
 def _main(cfg, overrides, backend):
-    mesh = create_mesh()
+    mesh = config_mesh(cfg)
     if not cfg.log_root:  # rank 0's clock names the run
         cfg["log_root"] = broadcast_object(os.path.join(
             str(cfg.log_root_prefix),

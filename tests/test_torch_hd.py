@@ -83,17 +83,19 @@ def test_tiny_hd_levels_reach_the_kernels_over_the_cap():
 
 
 def test_tiny_hd_pipeline_matches_jax(monkeypatch):
-    """2 UniPC steps, CFG 2, one sample at 256x704 on ``tiny_setup``'s
-    weights and JAX's initial noise; the wrappers the routing calls are
-    the ones ``chip_smoke.py`` derives per level: 10 capped (the top
-    level's attn1 in 3 UNet and 2 ControlNet blocks, 2 steps), 30 whole-K
-    (the top level's attn2 and the second level's attn1 and attn2), 12
-    rings (3 UNet blocks at each of the two levels)."""
+    """1 UniPC step, CFG 2, one sample at 256x704 on ``tiny_setup``'s
+    weights and JAX's initial noise (the sampler's later steps are
+    ``tests/test_torch_sampler.py``'s and the 256x128 pipelines'; each step
+    here costs both sides about 23 s of CPU); the wrappers the routing
+    calls are the ones ``chip_smoke.py`` derives per level: 5 capped (the
+    top level's attn1 in 3 UNet and 2 ControlNet blocks), 15 whole-K (the
+    top level's attn2 and the second level's attn1 and attn2), 6 rings (3
+    UNet blocks at each of the two levels)."""
     tiny = tp.tiny_setup()
     jcfg = tp.jax_config(tp.TINY_OVERRIDES + HD +
-                         ["runner.pipeline_param.num_inference_steps=2"])
+                         ["runner.pipeline_param.num_inference_steps=1"])
     pcfg = tp.port_config(tp.TINY_OVERRIDES + HD +
-                          ["runner.pipeline_param.num_inference_steps=2"])
+                          ["runner.pipeline_param.num_inference_steps=1"])
     h, w = jcfg.dataset.image_size
     ds = SyntheticNuScenes(num_samples=2, image_size=(h, w), seed=0)
     batch = collate_fn([ds[0]], jcfg, tiny["tokenizer"], is_train=False,
@@ -112,11 +114,11 @@ def test_tiny_hd_pipeline_matches_jax(monkeypatch):
     assert got.shape == (1, 6, h, w, 3)
     tp.assert_close(got, want, 0, 2e-4)
     expect = chip_smoke.generate_launches_per_generation(
-        layers=1, n_controlnets=2, steps=2, levels=_levels((h // 8, w // 8)))
+        layers=1, n_controlnets=2, steps=1, levels=_levels((h // 8, w // 8)))
     assert calls == expect
     assert (expect["packed_attention_capped_fwd"],
             expect["packed_attention_fwd"],
-            expect["packed_attention_nbr_fwd"]) == (10, 30, 12)
+            expect["packed_attention_nbr_fwd"]) == (5, 15, 6)
 
 
 def _count_without_math(mp, calls):

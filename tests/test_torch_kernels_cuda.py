@@ -935,6 +935,46 @@ def test_sm90_ring_with_very_negative_logits(cuda, d):
     _check(got, want)
 
 
+@pytest.mark.parametrize("route", ["auto", "template"])
+@pytest.mark.parametrize("n_local, view0, l, c, heads", [
+    (3, 0, 1400, 320, 8), (3, 3, 1400, 320, 8),  # the (1, 2) mesh's ranks
+    (2, 4, 333, 320, 4),                          # d = 80, ragged
+    (1, 5, 257, 64, 8),                           # d = 8, one view
+])
+def test_split_ring_is_the_whole_rings_rows(cuda, route, n_local, view0, l,
+                                            c, heads):
+    """Row 2 under a view split: q holds ``n_local`` views from ``view0``
+    of each sample, k and v all 6.  Both routes launch once, agree with
+    the plain version within phase 3's tolerance and equal the matching
+    rows of the same route's whole-ring call bit for bit."""
+    b, n_cam = 2, 6
+    q, k, v = _ring_inputs(b, n_cam, l, c, cuda, seed=120 + view0)
+    mine = lambda t: t.view(b, n_cam, l, c)[:, view0:view0 + n_local] \
+        .reshape(b * n_local, l, c).contiguous()
+    whole = A.packed_attention_nbr_fwd(q, k, v, heads, n_cam, route=route)
+    A.reset_launch_counts()
+    got = A.packed_attention_nbr_fwd(mine(q), k, v, heads, n_cam, route=route,
+                                     n_local=n_local, view0=view0)
+    torch.cuda.synchronize()
+    assert A.packed_attention_nbr_fwd.launches == 1
+    assert A.sm90_attention_nbr_fwd.launches == (route == "auto")
+    assert torch.equal(got, mine(whole))
+    _check(got, A.attention_packed_neighbors_plain(
+        mine(q), k, v, heads, n_cam, n_local=n_local, view0=view0))
+
+
+def test_split_ring_refuses_a_run_outside_the_ring(cuda):
+    """Views past the last camera, or k/v rows that are not whole samples
+    of the q rows' views, are refused before any launch."""
+    q, k, v = _ring_inputs(2, 6, 300, 320, cuda, seed=130)
+    A.reset_launch_counts()
+    with pytest.raises(ValueError, match="not a run"):
+        A.packed_attention_nbr_fwd(q[:6], k, v, 8, 6, n_local=3, view0=4)
+    with pytest.raises(ValueError, match="neighbor attention needs"):
+        A.packed_attention_nbr_fwd(q[:5], k, v, 8, 6, n_local=3, view0=0)
+    assert A.packed_attention_nbr_fwd.launches == 0
+
+
 def test_sm90_ring_repeats_bit_for_bit(cuda):
     q, k, v = _ring_inputs(4, 6, 1400, 320, cuda, seed=111)
     first = A.sm90_attention_nbr_fwd(q, k, v, 8, 6)

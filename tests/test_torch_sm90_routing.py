@@ -604,6 +604,35 @@ def test_ring_wrappers_take_the_plain_version_on_the_cpu(fn, route):
     assert A.sm90_attention_nbr_fwd.launches == 0
 
 
+@pytest.mark.parametrize("n_local, view0", [(3, 0), (3, 3), (2, 0),
+                                             (2, 2), (2, 4)])
+def test_split_ring_plain_is_the_full_rings_rows(n_local, view0):
+    """A rank's views under a view split: the plain ring with ``n_local``
+    / ``view0`` (q holding views ``view0 ..`` of each sample, k and v all
+    6), and both wrappers on the CPU, equal the matching rows of the full
+    plain ring bit for bit; so does the stacked form within float32
+    rounding, and a run that is not inside the ring is refused."""
+    b, n_cam, l, c = 2, 6, 9, 32
+    q, k, v = _ring_qkv(b, n_cam, l, c)
+    full = A.attention_packed_neighbors_plain(q, k, v, 4, n_cam)
+    rows = lambda t: t.reshape(b, n_cam, l, c)[:, view0:view0 + n_local] \
+        .reshape(b * n_local, l, c)
+    ql, want = rows(q), rows(full)
+    A.reset_launch_counts()
+    for got in (A.attention_packed_neighbors_plain(
+                    ql, k, v, 4, n_cam, n_local=n_local, view0=view0),
+                A.packed_attention_nbr_fwd(ql, k, v, 4, n_cam,
+                                           n_local=n_local, view0=view0),
+                A.sm90_attention_nbr_fwd(ql, k, v, 4, n_cam,
+                                         n_local=n_local, view0=view0)):
+        assert torch.equal(got, want)
+    stacked = A.attention_packed_neighbors(ql, k, v, 4, n_cam, view0=view0)
+    assert float((stacked - want).abs().max()) <= 1e-6
+    assert A.packed_attention_nbr_fwd.launches == 0
+    with pytest.raises(ValueError, match="not a run"):
+        A._check_ring_args(ql, k, v, n_cam, n_local, n_cam - n_local + 1)
+
+
 def test_ring_wrapper_refuses_a_bad_route(monkeypatch):
     """Past the device checks (taken out here: no card), a route other
     than "auto" or "template" is refused before any launch."""
